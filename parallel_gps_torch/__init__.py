@@ -1,0 +1,30 @@
+"""parallel-gps-torch: the PyTorch / CUDA port of parallel-gps-tpu.
+
+State-space Gaussian-process regression for stationary kernels: the kernel is
+compiled to a linear-Gaussian state-space model and solved by a parallel
+(associative-scan) Kalman filter and smoother.  On a CUDA device the four
+scan passes of the dt-engine run as hand-written CUDA kernels
+(``kalman/dt.py``, ``csrc/``); on the CPU the same functions run their plain
+PyTorch versions.
+
+The JAX package ``parallel_gps_tpu`` is the reference this package is tested
+against; module names follow it where that helps find the counterpart.
+"""
+# ``models`` first: it loads ``models.params`` before the kernels that use it.
+from parallel_gps_torch import models  # isort: skip
+from parallel_gps_torch import config, kalman, kernels, ops
+from parallel_gps_torch.models import StateSpaceGP
+from parallel_gps_torch.types import LGSSMTL, ContinuousDiscreteModel
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "config",
+    "kalman",
+    "kernels",
+    "models",
+    "ops",
+    "StateSpaceGP",
+    "LGSSMTL",
+    "ContinuousDiscreteModel",
+]

@@ -1,0 +1,404 @@
+// Element algebra of the dt-engine scans, as CUDA device code.
+//
+// Counterpart of the row-list algebra in parallel_gps_tpu/kalman/pallas_scan.py
+// (_build_filtering_rows :309, _filt_combine_rows :225, _build_smoothing_rows
+// :356, _smooth_combine_rows :290, the closed-form _inv :160) and of the
+// in-register F/Q rebuild in kalman/pallas_dt.py (_build_fq_pure :104) for the
+// exponential-polynomial transition family of kernels/matern.py.
+//
+// Everything is templated on the scalar type S and the state dimension D
+// (1..3), with every loop fully unrolled, so an element lives in registers:
+// a filtering element is 3D²+2D values (33 at D=3), a smoothing element 2D²+D.
+// Matrices are row-major arrays of D*D values.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pgt {
+
+__device__ __forceinline__ float dexp(float x) { return expf(x); }
+__device__ __forceinline__ double dexp(double x) { return exp(x); }
+__device__ __forceinline__ float dexpm1(float x) { return expm1f(x); }
+__device__ __forceinline__ double dexpm1(double x) { return expm1(x); }
+__device__ __forceinline__ float dlog(float x) { return logf(x); }
+__device__ __forceinline__ double dlog(double x) { return log(x); }
+
+// Coefficients of the exponential-polynomial family: [λ | N₁ | … | N_deg],
+// degree ≤ D−1 (the Matérn kernels have degree D−1).
+template <int D>
+struct Exppoly {
+  static constexpr int kMaxCoef = 1 + (D - 1) * D * D;
+};
+
+// Filtering element (A, b, C, J, η); packed component order A, b, C, J, η.
+template <typename S, int D>
+struct Filt {
+  S A[D * D];
+  S b[D];
+  S C[D * D];
+  S J[D * D];
+  S eta[D];
+};
+
+// Smoothing element (E, g, L); packed component order E, g, L.
+template <typename S, int D>
+struct Smooth {
+  S E[D * D];
+  S g[D];
+  S L[D * D];
+};
+
+// ---------------------------------------------------------------------------
+// Small-matrix helpers
+// ---------------------------------------------------------------------------
+
+template <typename S, int D>
+__device__ __forceinline__ void mm(const S* a, const S* b, S* out) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = a[i * D] * b[j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += a[i * D + k] * b[k * D + j];
+      out[i * D + j] = s;
+    }
+}
+
+template <typename S, int D>
+__device__ __forceinline__ void mv(const S* a, const S* v, S* out) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    S s = a[i * D] * v[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) s += a[i * D + k] * v[k];
+    out[i] = s;
+  }
+}
+
+// out = a · btᵀ + add for a product that is symmetric in exact arithmetic:
+// only the upper triangle is computed and mirrored (pallas_scan._mm_symout).
+template <typename S, int D>
+__device__ __forceinline__ void mm_symout(const S* a, const S* bt, const S* add, S* out) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      S s = a[i * D] * bt[j * D];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += a[i * D + k] * bt[j * D + k];
+      s += add[i * D + j];
+      out[i * D + j] = s;
+      out[j * D + i] = s;
+    }
+}
+
+// Closed-form (adjugate) inverse, D ≤ 3.
+template <typename S, int D>
+__device__ __forceinline__ void inv(const S* M, S* out) {
+  if constexpr (D == 1) {
+    out[0] = S(1) / M[0];
+  } else if constexpr (D == 2) {
+    const S a = M[0], b = M[1], c = M[2], e = M[3];
+    const S r = S(1) / (a * e - b * c);
+    out[0] = e * r;
+    out[1] = -b * r;
+    out[2] = -c * r;
+    out[3] = a * r;
+  } else {
+    static_assert(D == 3, "closed-form inverse for D <= 3 only");
+    const S a = M[0], b = M[1], c = M[2];
+    const S e = M[3], f = M[4], g = M[5];
+    const S h = M[6], i = M[7], j = M[8];
+    const S A00 = f * j - g * i, A01 = c * i - b * j, A02 = b * g - c * f;
+    const S A10 = g * h - e * j, A11 = a * j - c * h, A12 = c * e - a * g;
+    const S A20 = e * i - f * h, A21 = b * h - a * i, A22 = a * f - b * e;
+    const S r = S(1) / (a * A00 + b * A10 + c * A20);
+    out[0] = A00 * r; out[1] = A01 * r; out[2] = A02 * r;
+    out[3] = A10 * r; out[4] = A11 * r; out[5] = A12 * r;
+    out[6] = A20 * r; out[7] = A21 * r; out[8] = A22 * r;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Transition and noise from dt (pallas_dt._build_fq_pure, matern.py:85-101)
+// ---------------------------------------------------------------------------
+
+// F = I + Am1 and Q = −(M + Mᵀ + M·Am1ᵀ), M = Am1·P0, with
+// Am1 = expm1(−λdt)·I + e^{−λdt} Σ_p dt^p/p! N_p.
+template <typename S, int D>
+__device__ __forceinline__ void build_fq(const S* c, int degree, const S* P0, S dt, S* F, S* Q) {
+  S Am1[D * D];
+  const S lam = c[0];
+  const S em1 = dexpm1(-lam * dt);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) Am1[i * D + j] = (i == j) ? em1 : S(0);
+  if (degree > 0) {
+    S term = dexp(-lam * dt) * dt;
+#pragma unroll
+    for (int p = 1; p <= D - 1; ++p) {
+      if (p <= degree) {
+        const int off = 1 + (p - 1) * D * D;
+#pragma unroll
+        for (int q = 0; q < D * D; ++q) Am1[q] = Am1[q] + term * c[off + q];
+        if (p < degree) term = term * dt * (S(1) / S(p + 1));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) F[i * D + j] = (i == j) ? S(1) + Am1[i * D + j] : Am1[i * D + j];
+  S M[D * D];
+  mm<S, D>(Am1, P0, M);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      S s = M[i * D + j] + M[j * D + i];
+#pragma unroll
+      for (int k = 0; k < D; ++k) s += M[i * D + k] * Am1[j * D + k];
+      Q[i * D + j] = -s;
+      Q[j * D + i] = -s;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Filtering elements (pallas_scan._build_filtering_rows, _filt_combine_rows)
+// ---------------------------------------------------------------------------
+
+// Element of step t from its F, Q and observation.  mask is 1 for an observed
+// step and 0 for a missing one (then K = 0: A=F, C=Q, b=η=J=0).  is_first
+// marks global t = 0, which updates against (m0 = 0, P0).
+template <typename S, int D>
+__device__ __forceinline__ void build_filtering(const S* F, const S* Q, S y, S mask, const S* h, S r,
+                                                const S* P0, bool is_first, Filt<S, D>& e) {
+  S HQ[D], HF[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    S sq = h[0] * Q[j], sf = h[0] * F[j];
+#pragma unroll
+    for (int k = 1; k < D; ++k) {
+      sq += h[k] * Q[k * D + j];
+      sf += h[k] * F[k * D + j];
+    }
+    HQ[j] = sq;
+    HF[j] = sf;
+  }
+  S s = h[0] * HQ[0];
+#pragma unroll
+  for (int j = 1; j < D; ++j) s += h[j] * HQ[j];
+  const S Sinv_m = mask / (s + r);
+  const S Sy = Sinv_m * y;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    const S K = HQ[a] * Sinv_m;
+    e.b[a] = K * y;
+    e.eta[a] = HF[a] * Sy;
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      e.A[a * D + c] = F[a * D + c] - K * HF[c];
+      e.C[a * D + c] = Q[a * D + c] - K * HQ[c];
+      e.J[a * D + c] = HF[a] * HF[c] * Sinv_m;
+    }
+  }
+  if (is_first) {
+    S P0h[D];
+    mv<S, D>(P0, h, P0h);
+    S s1 = h[0] * P0h[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) s1 += h[k] * P0h[k];
+    const S S1 = s1 + r;
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      const S K1 = P0h[a] / S1;
+      e.b[a] = mask * (K1 * y);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        e.A[a * D + c] = S(0);
+        e.C[a * D + c] = P0[a * D + c] - mask * (K1 * P0h[c]);
+      }
+    }
+  }
+}
+
+// e1 ∘ e2 with e1 the earlier element.  C1 and J2 are symmetric, so
+// I + J2 C1 = (I + C1 J2)ᵀ and its inverse is Vᵀ: one inverse per combine.
+template <typename S, int D>
+__device__ __forceinline__ Filt<S, D> filt_combine(const Filt<S, D>& e1, const Filt<S, D>& e2) {
+  Filt<S, D> o;
+  S M[D * D], V[D * D], U[D * D], T1[D * D], W[D * D];
+  mm<S, D>(e1.C, e2.J, M);
+#pragma unroll
+  for (int i = 0; i < D; ++i) M[i * D + i] += S(1);
+  inv<S, D>(M, V);
+  mm<S, D>(e2.A, V, U);
+  mm<S, D>(U, e1.A, o.A);
+  S v1[D], v2[D];
+  mv<S, D>(e1.C, e2.eta, v1);
+#pragma unroll
+  for (int i = 0; i < D; ++i) v1[i] += e1.b[i];
+  mv<S, D>(U, v1, v2);
+#pragma unroll
+  for (int i = 0; i < D; ++i) o.b[i] = v2[i] + e2.b[i];
+  mm<S, D>(U, e1.C, T1);
+  mm_symout<S, D>(T1, e2.A, e2.C, o.C);
+  // W = A1ᵀ Vᵀ: W[i][j] = Σ_k A1[k][i] V[j][k].
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = e1.A[i] * V[j * D];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += e1.A[k * D + i] * V[j * D + k];
+      W[i * D + j] = s;
+    }
+  mv<S, D>(e2.J, e1.b, v1);
+#pragma unroll
+  for (int i = 0; i < D; ++i) v1[i] = e2.eta[i] - v1[i];
+  mv<S, D>(W, v1, v2);
+#pragma unroll
+  for (int i = 0; i < D; ++i) o.eta[i] = v2[i] + e1.eta[i];
+  mm<S, D>(W, e2.J, T1);
+  // J = (W J2) A1 + J1, symmetric: bt = A1ᵀ.
+  S A1t[D * D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) A1t[i * D + j] = e1.A[j * D + i];
+  mm_symout<S, D>(T1, A1t, e1.J, o.J);
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// Smoothing elements (pallas_scan._build_smoothing_rows, _smooth_combine_rows)
+// ---------------------------------------------------------------------------
+
+// Element of step t < T−1 from the next step's Fn, Qn and the filtered
+// moments (m, P) at t.
+template <typename S, int D>
+__device__ __forceinline__ void build_smoothing(const S* Fn, const S* Qn, const S* m, const S* P, Smooth<S, D>& e) {
+  S FP[D * D], Pp[D * D], Pinv[D * D], T1[D * D];
+  mm<S, D>(Fn, P, FP);
+  mm_symout<S, D>(FP, Fn, Qn, Pp);
+  inv<S, D>(Pp, Pinv);
+  mm<S, D>(Pinv, FP, T1);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) e.E[i * D + j] = T1[j * D + i];
+  S EF[D * D], v[D];
+  mm<S, D>(e.E, Fn, EF);
+  mv<S, D>(EF, m, v);
+#pragma unroll
+  for (int a = 0; a < D; ++a) e.g[a] = m[a] - v[a];
+  // L = P − E Pp Eᵀ, symmetric: PpE[c][k1] = Σ_k2 Pp[k1][k2] E[c][k2].
+  S PpE[D * D];
+#pragma unroll
+  for (int c = 0; c < D; ++c)
+#pragma unroll
+    for (int k1 = 0; k1 < D; ++k1) {
+      S s = Pp[k1 * D] * e.E[c * D];
+#pragma unroll
+      for (int k2 = 1; k2 < D; ++k2) s += Pp[k1 * D + k2] * e.E[c * D + k2];
+      PpE[c * D + k1] = s;
+    }
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int c = a; c < D; ++c) {
+      S s = e.E[a * D] * PpE[c * D];
+#pragma unroll
+      for (int k1 = 1; k1 < D; ++k1) s += e.E[a * D + k1] * PpE[c * D + k1];
+      const S v2 = P[a * D + c] - s;
+      e.L[a * D + c] = v2;
+      e.L[c * D + a] = v2;
+    }
+}
+
+// The global-last element: (E = 0, g = m, L = P).
+template <typename S, int D>
+__device__ __forceinline__ void build_smoothing_last(const S* m, const S* P, Smooth<S, D>& e) {
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) {
+    e.E[q] = S(0);
+    e.L[q] = P[q];
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a) e.g[a] = m[a];
+}
+
+// e1 ∘ e2 with e1 the LATER (suffix) element and e2 the current one.
+template <typename S, int D>
+__device__ __forceinline__ Smooth<S, D> smooth_combine(const Smooth<S, D>& e1, const Smooth<S, D>& e2) {
+  Smooth<S, D> o;
+  mm<S, D>(e2.E, e1.E, o.E);
+  S v[D];
+  mv<S, D>(e2.E, e1.g, v);
+#pragma unroll
+  for (int i = 0; i < D; ++i) o.g[i] = v[i] + e2.g[i];
+  S T1[D * D];
+  mm<S, D>(e2.E, e1.L, T1);
+  mm_symout<S, D>(T1, e2.E, e2.L, o.L);
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// Packed (n, stride) component planes
+// ---------------------------------------------------------------------------
+
+template <typename S, int D>
+__device__ __forceinline__ void load_filt(const S* X, long long stride, long long i, Filt<S, D>& e) {
+  int k = 0;
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) e.A[q] = X[(k++) * stride + i];
+#pragma unroll
+  for (int q = 0; q < D; ++q) e.b[q] = X[(k++) * stride + i];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) e.C[q] = X[(k++) * stride + i];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) e.J[q] = X[(k++) * stride + i];
+#pragma unroll
+  for (int q = 0; q < D; ++q) e.eta[q] = X[(k++) * stride + i];
+}
+
+template <typename S, int D>
+__device__ __forceinline__ void store_filt(S* X, long long stride, long long i, const Filt<S, D>& e) {
+  int k = 0;
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) X[(k++) * stride + i] = e.A[q];
+#pragma unroll
+  for (int q = 0; q < D; ++q) X[(k++) * stride + i] = e.b[q];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) X[(k++) * stride + i] = e.C[q];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) X[(k++) * stride + i] = e.J[q];
+#pragma unroll
+  for (int q = 0; q < D; ++q) X[(k++) * stride + i] = e.eta[q];
+}
+
+template <typename S, int D>
+__device__ __forceinline__ void load_smooth(const S* X, long long stride, long long i, Smooth<S, D>& e) {
+  int k = 0;
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) e.E[q] = X[(k++) * stride + i];
+#pragma unroll
+  for (int q = 0; q < D; ++q) e.g[q] = X[(k++) * stride + i];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) e.L[q] = X[(k++) * stride + i];
+}
+
+template <typename S, int D>
+__device__ __forceinline__ void store_smooth(S* X, long long stride, long long i, const Smooth<S, D>& e) {
+  int k = 0;
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) X[(k++) * stride + i] = e.E[q];
+#pragma unroll
+  for (int q = 0; q < D; ++q) X[(k++) * stride + i] = e.g[q];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) X[(k++) * stride + i] = e.L[q];
+}
+
+}  // namespace pgt

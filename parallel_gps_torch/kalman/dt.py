@@ -1,0 +1,433 @@
+"""Fused-discretization ("dt-engine") filter and smoother
+(counterpart: parallel_gps_tpu/kalman/pallas_dt.py).
+
+For kernels whose transitions have an elementwise closed form (the Matérn
+family, ``SDEKernel.transition_coeffs``), the per-step transition and noise
+planes never exist: each step rebuilds, from its dt and the coefficients,
+
+    Am1 = expm(dt·F) − I,   F = I + Am1,
+    Q   = −(M + Mᵀ + M·Am1ᵀ),  M = Am1·P∞,
+
+the cancellation-free discretization of ops/disc.py.  The JAX ``build``
+closure becomes a family id plus the flat ``coeffs`` tensor
+(kernels/matern.py).
+
+The filter and the smoother are each a two-pass chunked scan over chunks of
+``CHUNK`` consecutive steps: pass 1 folds each chunk to its total, an
+exclusive prefix over the (n, n_chunks) totals runs in plain PyTorch on the
+totals' device, and pass 2 re-folds each chunk seeded with its prefix and
+writes the moments (the filter's pass 2 also streams the log-likelihood).
+Each pass is a wrapper that dispatches on the device of its tensors:
+
+  - CUDA, d ≤ 3, float32 or float64: the hand-written kernel of
+    ``csrc/dt_scan.cu``, one thread per chunk; anything else on CUDA raises;
+  - CPU: the plain PyTorch version of the same pass (``*_plain``).
+
+On the CPU, ``strip_filter_dt``/``strip_smoother_dt`` run the plain
+time-last engine directly (``strip_filter_dt_plain``,
+``strip_smoother_dt_plain``: build_planes_tl + pkf_from_tl/pks_from_tl).
+
+``LAUNCHES`` counts kernel launches by kernel name.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch import Tensor
+
+from parallel_gps_torch.kalman.timelast import (
+    FilteringElementTL,
+    SmoothingElementTL,
+    _filtering_elements_from_planes,
+    _loglik_from_planes,
+    _map,
+    _smoothing_elements_from_planes,
+    exclusive_shift,
+    filtering_identity_tl,
+    filtering_operator_tl,
+    kogge_stone_scan_tl,
+    pkf_from_tl,
+    pks_from_tl,
+    smoothing_identity_tl,
+    smoothing_operator_tl,
+)
+from parallel_gps_torch.kernels.matern import EXPPOLY, build_transitions_m1
+from parallel_gps_torch.ops.linalg import symmetrize
+from parallel_gps_torch.types import LGSSMTL
+
+LAUNCHES = {"dt_filter_scan": 0, "dt_filter_apply": 0, "dt_smoother_scan": 0, "dt_smoother_apply": 0}
+
+# Steps folded sequentially by one CUDA thread.
+CHUNK = 64
+MAX_KERNEL_D = 3
+
+
+def filt_rows(d: int) -> int:
+    """Components of a filtering element: A (d²), b (d), C (d²), J (d²), η (d)."""
+    return 3 * d * d + 2 * d
+
+
+def smooth_rows(d: int) -> int:
+    """Components of a smoothing element: E (d²), g (d), L (d²)."""
+    return 2 * d * d + d
+
+
+def n_chunks(T: int) -> int:
+    return -(-T // CHUNK)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------
+# Plain building blocks
+# --------------------------------------------------------------------------
+
+
+def _dts_from_ts(ts: Tensor, t0=0.0) -> Tensor:
+    ts = ts.reshape(-1)
+    return torch.diff(ts, prepend=torch.full((1,), float(t0), dtype=ts.dtype, device=ts.device))
+
+
+def build_planes_tl(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor):
+    """Time-last (Fs, Qs, P0) planes rebuilt from the transition
+    coefficients — the same algebra as ops/disc.py::discretize_tl."""
+    d = P0.shape[0]
+    Am1 = build_transitions_m1(family, coeffs, dts, d)
+    P0s = symmetrize(P0)
+    T = dts.shape[0]
+    Fs = Am1 + torch.eye(d, dtype=Am1.dtype, device=Am1.device)[:, :, None].expand(d, d, T)
+    AP = (Am1[:, :, None, :] * P0s[None, :, :, None]).sum(1)
+    APAt = (AP[:, :, None, :] * Am1[None].transpose(1, 2)).sum(1)
+    Q = -(AP + AP.transpose(0, 1) + APAt)
+    Qs = 0.5 * (Q + Q.transpose(0, 1))
+    return Fs, Qs, P0s
+
+
+def _unpack_filt(X: Tensor, d: int) -> FilteringElementTL:
+    d2 = d * d
+    m = X.shape[-1]
+    return FilteringElementTL(
+        X[:d2].reshape(d, d, m), X[d2 : d2 + d], X[d2 + d : 2 * d2 + d].reshape(d, d, m),
+        X[2 * d2 + d : 3 * d2 + d].reshape(d, d, m), X[3 * d2 + d :],
+    )
+
+
+def _unpack_smooth(X: Tensor, d: int) -> SmoothingElementTL:
+    d2 = d * d
+    m = X.shape[-1]
+    return SmoothingElementTL(X[:d2].reshape(d, d, m), X[d2 : d2 + d], X[d2 + d :].reshape(d, d, m))
+
+
+def _pack(elem, m: int) -> Tensor:
+    """Element leaves with trailing axis m → packed (n, m) component rows."""
+    return torch.cat([x.reshape(-1, m) for x in elem]).contiguous()
+
+
+def _chunk_scan(elems, identity, operator, reverse: bool):
+    """Inclusive scan inside each CHUNK-step chunk: leaves (..., T) →
+    (..., n_chunks, CHUNK), the ragged last chunk padded at its end with
+    identity elements (exact no-ops in either direction)."""
+    T = elems[0].shape[-1]
+    nc = n_chunks(T)
+    pad = nc * CHUNK - T
+
+    def blocked(x, ident):
+        if pad:
+            fill = ident.reshape(ident.shape + (1,)).to(x.dtype).expand(x.shape[:-1] + (pad,))
+            x = torch.cat([x, fill], -1)
+        return x.reshape(x.shape[:-1] + (nc, CHUNK))
+
+    return kogge_stone_scan_tl(operator, _map(blocked, elems, identity), identity, reverse)
+
+
+def _seed_chunks(operator, prefix, local, T: int):
+    """Fold each chunk's exclusive prefix into its scanned steps; → (..., T)."""
+    out = operator(_map(lambda p, x: p[..., None].expand_as(x), prefix, local), local)
+    return _map(lambda x: x.reshape(x.shape[:-2] + (-1,))[..., :T], out)
+
+
+def exclusive_chunk_prefixes(totals: Tensor, d: int, reverse: bool) -> Tensor:
+    """Exclusive prefixes (suffixes, for ``reverse``) of the packed
+    (n, n_chunks) chunk totals, by the plain Kogge–Stone scan on the
+    totals' device (counterpart: pallas_scan.py::_strip_exclusive_prefixes)."""
+    if reverse:
+        elems, op, ident = _unpack_smooth(totals, d), smoothing_operator_tl, smoothing_identity_tl
+    else:
+        elems, op, ident = _unpack_filt(totals, d), filtering_operator_tl, filtering_identity_tl
+    identity = ident(d, totals.dtype, totals.device)
+    scanned = kogge_stone_scan_tl(op, elems, identity, reverse)
+    return _pack(_map(lambda x, i: exclusive_shift(x, i, reverse), scanned, identity), totals.shape[-1])
+
+
+# --------------------------------------------------------------------------
+# Plain versions of the four passes
+# --------------------------------------------------------------------------
+
+
+def _filter_elements(family, coeffs, P0, H, R, dts, y):
+    Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
+    e = _filtering_elements_from_planes(P0s, Fs, Qs, H, R.reshape(1, 1), y)
+    return e, (P0s, Fs, Qs)
+
+
+def dt_filter_scan_plain(family, coeffs, P0, H, R, dts, y) -> Tensor:
+    """Filter chunk totals, packed (3d²+2d, n_chunks)."""
+    e, _ = _filter_elements(family, coeffs, P0, H, R, dts, y)
+    ident = filtering_identity_tl(P0.shape[0], P0.dtype, P0.device)
+    local = _chunk_scan(e, ident, filtering_operator_tl, reverse=False)
+    return _pack(_map(lambda x: x[..., -1], local), n_chunks(dts.shape[0]))
+
+
+def dt_filter_apply_plain(family, coeffs, P0, H, R, dts, y, prefix):
+    """Filtered (b (d, T), C (d, d, T), ell) from the chunks' exclusive prefixes."""
+    d, T = P0.shape[0], dts.shape[0]
+    e, (P0s, Fs, Qs) = _filter_elements(family, coeffs, P0, H, R, dts, y)
+    ident = filtering_identity_tl(d, P0.dtype, P0.device)
+    local = _chunk_scan(e, ident, filtering_operator_tl, reverse=False)
+    out = _seed_chunks(filtering_operator_tl, _unpack_filt(prefix, d), local, T)
+    return out.b, out.C, _loglik_from_planes(P0s, Fs, Qs, H, R.reshape(1, 1), out.b, out.C, y)
+
+
+def _smoother_elements(family, coeffs, P0, dts, b_tl, C_tl):
+    Fs, Qs, _ = build_planes_tl(family, coeffs, P0, dts)
+    return _smoothing_elements_from_planes(Fs, Qs, b_tl, C_tl)
+
+
+def dt_smoother_scan_plain(family, coeffs, P0, dts, b_tl, C_tl) -> Tensor:
+    """Smoother chunk (suffix) totals, packed (2d²+d, n_chunks)."""
+    e = _smoother_elements(family, coeffs, P0, dts, b_tl, C_tl)
+    ident = smoothing_identity_tl(P0.shape[0], P0.dtype, P0.device)
+    local = _chunk_scan(e, ident, smoothing_operator_tl, reverse=True)
+    return _pack(_map(lambda x: x[..., 0], local), n_chunks(dts.shape[0]))
+
+
+def dt_smoother_apply_plain(family, coeffs, P0, dts, b_tl, C_tl, prefix):
+    """Smoothed (g (d, T), L (d, d, T)) from the chunks' exclusive suffixes."""
+    d, T = P0.shape[0], dts.shape[0]
+    e = _smoother_elements(family, coeffs, P0, dts, b_tl, C_tl)
+    ident = smoothing_identity_tl(d, P0.dtype, P0.device)
+    local = _chunk_scan(e, ident, smoothing_operator_tl, reverse=True)
+    out = _seed_chunks(smoothing_operator_tl, _unpack_smooth(prefix, d), local, T)
+    return out.g, out.L
+
+
+def strip_filter_dt_plain(family, coeffs, P0, H, R, dts, observations):
+    """Plain filter: (b_tl (d, T), C_tl (d, d, T), ell)."""
+    Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
+    return pkf_from_tl(LGSSMTL(P0s, Fs, Qs, H, R.reshape(1, 1)), observations, True)
+
+
+def strip_smoother_dt_plain(family, coeffs, P0, dts, b_tl, C_tl):
+    """Plain smoother: (g_tl (d, T), L_tl (d, d, T))."""
+    Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
+    return pks_from_tl(LGSSMTL(P0s, Fs, Qs, None, None), b_tl, C_tl)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(f"dt-engine CUDA kernels: {what}")
+
+
+def _check(family, coeffs, P0, dts, tensors):
+    """Validate the inputs of a kernel launch; returns (d, T, degree)."""
+    d = P0.shape[0]
+    dev = dts.device
+    _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
+    _require(family == EXPPOLY, f"unsupported transition family {family!r}")
+    _require(P0.dtype in (torch.float32, torch.float64), f"dtype must be float32 or float64, got {P0.dtype}")
+    _require(1 <= d <= MAX_KERNEL_D, f"state dimension {d} > {MAX_KERNEL_D} (Schur-recursed inverse: ROADMAP A9)")
+    _require(dts.dim() == 1 and dts.shape[0] >= 1, f"dts must be (T,) with T >= 1, got {tuple(dts.shape)}")
+    T = dts.shape[0]
+    n = coeffs.numel()
+    degree = (n - 1) // (d * d)
+    _require(n == 1 + degree * d * d and degree <= d - 1, f"coeffs of length {n} do not fit the d={d} exppoly layout")
+    tensors = {"coeffs": (coeffs, (n,)), "P0": (P0, (d, d)), "dts": (dts, (T,)), **tensors}
+    for name, (x, shape) in tensors.items():
+        _require(x.device == dev, f"{name} is on {x.device}, expected {dev}")
+        _require(x.dtype == P0.dtype, f"{name} has dtype {x.dtype}, expected {P0.dtype}")
+        _require(tuple(x.shape) == shape, f"{name} must have shape {shape}, got {tuple(x.shape)}")
+        _require(x.is_contiguous(), f"{name} must be contiguous")
+    return d, T, degree
+
+
+def _launch(name: str, fn, *args) -> None:
+    from parallel_gps_torch.kalman import _cuda
+
+    with torch.cuda.device(args[-1]):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, Tensor) else a for a in args[:-1]]
+        rc = fn(*ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: {_cuda.error_string(rc)}")
+    LAUNCHES[name] += 1
+
+
+def _filter_scalars(P0, H, R, coeffs) -> Tensor:
+    """[P0 (d²) | h (d) | r | coeffs], the filter kernels' scalar table."""
+    return torch.cat([P0.reshape(-1), H.reshape(-1), R.reshape(-1), coeffs.reshape(-1)]).contiguous()
+
+
+def dt_filter_scan(family, coeffs, P0, H, R, dts, y) -> Tensor:
+    """Filter pass 1: packed chunk totals (3d²+2d, n_chunks).  ``y``: (T,)
+    observations, NaN = missing."""
+    if dts.device.type == "cpu":
+        return dt_filter_scan_plain(family, coeffs, P0, H, R, dts, y)
+    from parallel_gps_torch.kalman import _cuda
+
+    d, T, degree = _check(family, coeffs, P0, dts, {"y": (y, (dts.shape[0],)), "H": (H, (1, P0.shape[0])), "R": (R, (1, 1))})
+    lib = _cuda.load()
+    totals = torch.empty((filt_rows(d), n_chunks(T)), dtype=P0.dtype, device=dts.device)
+    _launch(
+        "dt_filter_scan", lib.pgt_dt_filter_scan, int(P0.dtype == torch.float64), d, degree,
+        _filter_scalars(P0, H, R, coeffs), dts, y, totals, T, CHUNK, dts.device,
+    )
+    return totals
+
+
+def dt_filter_apply(family, coeffs, P0, H, R, dts, y, prefix):
+    """Filter pass 2: (b (d, T), C (d, d, T), ell) from the chunk prefixes."""
+    if dts.device.type == "cpu":
+        return dt_filter_apply_plain(family, coeffs, P0, H, R, dts, y, prefix)
+    from parallel_gps_torch.kalman import _cuda
+
+    d, T = P0.shape[0], dts.shape[0]
+    d, T, degree = _check(
+        family, coeffs, P0, dts,
+        {"y": (y, (T,)), "H": (H, (1, d)), "R": (R, (1, 1)), "prefix": (prefix, (filt_rows(d), n_chunks(T)))},
+    )
+    lib = _cuda.load()
+    dev, dtype = dts.device, P0.dtype
+    b = torch.empty((d, T), dtype=dtype, device=dev)
+    C = torch.empty((d, d, T), dtype=dtype, device=dev)
+    parts = torch.empty((-(-n_chunks(T) // _cuda.THREADS),), dtype=dtype, device=dev)
+    _launch(
+        "dt_filter_apply", lib.pgt_dt_filter_apply, int(dtype == torch.float64), d, degree,
+        _filter_scalars(P0, H, R, coeffs), prefix, dts, y, b, C, parts, T, CHUNK, dev,
+    )
+    # Per-block partials, each summed in a fixed order by the kernel; the
+    # final sum is one deterministic reduction (no atomics).
+    return b, C, parts.sum()
+
+
+def dt_smoother_scan(family, coeffs, P0, dts, b_tl, C_tl) -> Tensor:
+    """Smoother pass 1: packed chunk suffix totals (2d²+d, n_chunks)."""
+    if dts.device.type == "cpu":
+        return dt_smoother_scan_plain(family, coeffs, P0, dts, b_tl, C_tl)
+    from parallel_gps_torch.kalman import _cuda
+
+    d, T = P0.shape[0], dts.shape[0]
+    d, T, degree = _check(family, coeffs, P0, dts, {"b_tl": (b_tl, (d, T)), "C_tl": (C_tl, (d, d, T))})
+    lib = _cuda.load()
+    totals = torch.empty((smooth_rows(d), n_chunks(T)), dtype=P0.dtype, device=dts.device)
+    scal = torch.cat([P0.reshape(-1), coeffs.reshape(-1)]).contiguous()
+    _launch(
+        "dt_smoother_scan", lib.pgt_dt_smoother_scan, int(P0.dtype == torch.float64), d, degree,
+        scal, dts, b_tl, C_tl, totals, T, CHUNK, dts.device,
+    )
+    return totals
+
+
+def dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix):
+    """Smoother pass 2: (g (d, T), L (d, d, T)) from the chunk suffixes."""
+    if dts.device.type == "cpu":
+        return dt_smoother_apply_plain(family, coeffs, P0, dts, b_tl, C_tl, prefix)
+    from parallel_gps_torch.kalman import _cuda
+
+    d, T = P0.shape[0], dts.shape[0]
+    d, T, degree = _check(
+        family, coeffs, P0, dts,
+        {"b_tl": (b_tl, (d, T)), "C_tl": (C_tl, (d, d, T)), "prefix": (prefix, (smooth_rows(d), n_chunks(T)))},
+    )
+    lib = _cuda.load()
+    g = torch.empty((d, T), dtype=P0.dtype, device=dts.device)
+    L = torch.empty((d, d, T), dtype=P0.dtype, device=dts.device)
+    scal = torch.cat([P0.reshape(-1), coeffs.reshape(-1)]).contiguous()
+    _launch(
+        "dt_smoother_apply", lib.pgt_dt_smoother_apply, int(P0.dtype == torch.float64), d, degree,
+        scal, prefix, dts, b_tl, C_tl, g, L, T, CHUNK, dts.device,
+    )
+    return g, L
+
+
+# --------------------------------------------------------------------------
+# Filter and smoother
+# --------------------------------------------------------------------------
+
+
+def strip_filter_dt(family: str, coeffs: Tensor, P0: Tensor, H: Tensor, R: Tensor, dts: Tensor, observations: Tensor):
+    """dt-engine filter; returns (b_tl (d, T), C_tl (d, d, T), ell).
+    ``dts``: the (T,) gaps between observation times (t0-prepended diff)."""
+    if dts.device.type == "cpu":
+        return strip_filter_dt_plain(family, coeffs, P0, H, R, dts, observations)
+    y = observations.reshape(-1).contiguous()
+    R = R.reshape(1, 1)
+    totals = dt_filter_scan(family, coeffs, P0, H, R, dts, y)
+    prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=False)
+    return dt_filter_apply(family, coeffs, P0, H, R, dts, y, prefix)
+
+
+def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl: Tensor, C_tl: Tensor):
+    """dt-engine smoother over filtered moments; returns (g_tl, L_tl)."""
+    if dts.device.type == "cpu":
+        return strip_smoother_dt_plain(family, coeffs, P0, dts, b_tl, C_tl)
+    # The kernels take contiguous planes; the plain filter returns views.
+    b_tl, C_tl = b_tl.contiguous(), C_tl.contiguous()
+    totals = dt_smoother_scan(family, coeffs, P0, dts, b_tl, C_tl)
+    prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=True)
+    return dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix)
+
+
+# --------------------------------------------------------------------------
+# High-level entry points
+# --------------------------------------------------------------------------
+
+
+class _LmlDt(torch.autograd.Function):
+    """LML via the dt-engine filter.  The gradient (the Fisher-identity
+    smoother + fused Fisher-tail kernel of pallas_dt.py:_lml_dt_core_bwd)
+    is not ported yet."""
+
+    @staticmethod
+    def forward(ctx, family, coeffs, P0, H, R, dts, observations):
+        return strip_filter_dt(family, coeffs, P0, H, R, dts, observations)[2]
+
+    @staticmethod
+    def backward(ctx, gbar):
+        raise NotImplementedError(
+            "gradients of lml_dt need the Fisher-tail kernel (_dt_fisher_kernel), ROADMAP B4"
+        )
+
+
+def _model_inputs(kernel, ts):
+    family, coeffs = kernel.transition_coeffs()
+    sde = kernel.get_sde()
+    dts = _dts_from_ts(ts).to(sde.P0.dtype)
+    return family, coeffs, sde, dts
+
+
+def lml_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor) -> Tensor:
+    """Log marginal likelihood via the dt-engine (forward only)."""
+    family, coeffs, sde, dts = _model_inputs(kernel, ts)
+    return _LmlDt.apply(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
+
+
+def pkf_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor):
+    """Filter from (kernel, times) directly; returns (b_tl, C_tl, ell)."""
+    family, coeffs, sde, dts = _model_inputs(kernel, ts)
+    return strip_filter_dt(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
+
+
+def pkfs_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor):
+    """Filter + smoother; returns smoothed (g_tl (d, T), L_tl (d, d, T))."""
+    family, coeffs, sde, dts = _model_inputs(kernel, ts)
+    b_tl, C_tl, _ = strip_filter_dt(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
+    return strip_smoother_dt(family, coeffs, sde.P0, dts, b_tl, C_tl)

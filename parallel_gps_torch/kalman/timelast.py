@@ -1,0 +1,345 @@
+"""Time-last parallel Kalman engine in plain PyTorch
+(counterpart: parallel_gps_tpu/kalman/timelast.py, non-Pallas branches).
+
+Scan elements keep every component time-last — A as (d, d, T), b as (d, T)
+— so each small-matrix operation of the combine is an elementwise
+multiply-add over the time axis: d×d products are unrolled
+broadcast-multiply-reduce, and inverses use closed-form adjugates (d ≤ 3).
+The scan is Kogge–Stone over the last axis, two-level for T ≥ 8192.
+
+This is the plain version the dt-engine kernels are held against
+(kalman/dt.py), and what those entry points run on the CPU.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+
+class FilteringElementTL(NamedTuple):
+    A: Tensor  # (d, d, T)
+    b: Tensor  # (d, T)
+    C: Tensor  # (d, d, T)
+    J: Tensor  # (d, d, T)
+    eta: Tensor  # (d, T)
+
+
+class SmoothingElementTL(NamedTuple):
+    E: Tensor  # (d, d, T)
+    g: Tensor  # (d, T)
+    L: Tensor  # (d, d, T)
+
+
+# --------------------------------------------------------------------------
+# Time-last small-matrix algebra: elementwise over the trailing axes.
+# --------------------------------------------------------------------------
+
+
+def _mm(a: Tensor, b: Tensor) -> Tensor:
+    """(d,d,...) @ (d,d,...): out[i,j] = Σ_k a[i,k]·b[k,j]."""
+    return (a[:, :, None] * b[None, :, :]).sum(1)
+
+
+def _mv(a: Tensor, v: Tensor) -> Tensor:
+    """(d,d,...) @ (d,...) → (d,...)."""
+    return (a * v[None]).sum(1)
+
+
+def _mt(a: Tensor) -> Tensor:
+    return a.transpose(0, 1)
+
+
+def _sym(a: Tensor) -> Tensor:
+    return 0.5 * (a + _mt(a))
+
+
+def _inv(M: Tensor) -> Tensor:
+    """Closed-form adjugate inverse over (d, d, ...) planes, d ≤ 3 (the
+    Schur recursion for larger d comes with the kernels that need it)."""
+    d = M.shape[0]
+    if d == 1:
+        return 1.0 / M
+    if d == 2:
+        a, b = M[0, 0], M[0, 1]
+        c, e = M[1, 0], M[1, 1]
+        det = a * e - b * c
+        return torch.stack([torch.stack([e, -b]), torch.stack([-c, a])]) / det
+    if d == 3:
+        a, b, c = M[0, 0], M[0, 1], M[0, 2]
+        e, f, g = M[1, 0], M[1, 1], M[1, 2]
+        h, i, j = M[2, 0], M[2, 1], M[2, 2]
+        A00 = f * j - g * i
+        A01 = c * i - b * j
+        A02 = b * g - c * f
+        A10 = g * h - e * j
+        A11 = a * j - c * h
+        A12 = c * e - a * g
+        A20 = e * i - f * h
+        A21 = b * h - a * i
+        A22 = a * f - b * e
+        det = a * A00 + b * A10 + c * A20
+        adj = torch.stack(
+            [torch.stack([A00, A01, A02]), torch.stack([A10, A11, A12]), torch.stack([A20, A21, A22])]
+        )
+        return adj / det
+    raise NotImplementedError(f"state dimension {d} > 3 (Schur-recursed inverse: ROADMAP A9)")
+
+
+def _eye_like(d: int, like: Tensor) -> Tensor:
+    shape = (d, d) + (1,) * (like.dim() - 2)
+    return torch.eye(d, dtype=like.dtype, device=like.device).reshape(shape).expand_as(like)
+
+
+# --------------------------------------------------------------------------
+# Elements and operators
+# --------------------------------------------------------------------------
+
+
+def _clean_observations(observations: Tensor, T: int):
+    ys = observations.reshape(T)
+    mask = ~torch.isnan(ys)
+    y = torch.where(mask, ys, torch.zeros_like(ys))
+    return y, mask
+
+
+def _filtering_elements_from_planes(
+    P0: Tensor, A_std: Tensor, Q: Tensor, H: Tensor, R: Tensor, observations: Tensor
+) -> FilteringElementTL:
+    """Filtering elements (A, b, C, J, η) from time-last (d, d, T) planes;
+    NaN observations give the masked element (A=F, C=Q, b=η=J=0) and t=0
+    updates against (m0 = 0, P0)."""
+    T = A_std.shape[-1]
+    h = H[0]
+    r = R[0, 0]
+    y, mask = _clean_observations(observations, T)
+
+    HQ = (h[:, None, None] * Q).sum(0)  # (d, T)
+    S = (h[:, None] * HQ).sum(0) + r
+    Sinv = 1.0 / S
+    K = HQ * Sinv[None]
+    HF = (h[:, None, None] * A_std).sum(0)
+
+    A_ok = A_std - K[:, None, :] * HF[None, :, :]
+    b_ok = K * y[None]
+    C_ok = Q - K[:, None, :] * HQ[None, :, :]
+    eta_ok = HF * (Sinv * y)[None]
+    J_ok = HF[:, None, :] * HF[None, :, :] * Sinv[None, None]
+
+    m2 = mask[None]
+    m3 = mask[None, None]
+    zero = torch.zeros((), dtype=P0.dtype, device=P0.device)
+    A = torch.where(m3, A_ok, A_std)
+    b = torch.where(m2, b_ok, zero)
+    C = torch.where(m3, C_ok, Q)
+    eta = torch.where(m2, eta_ok, zero)
+    J = torch.where(m3, J_ok, zero)
+
+    # First element: filter step against (m0 = 0, P0).
+    P0h = P0 @ h
+    S1 = h @ P0h + r
+    K1 = P0h / S1
+    ok0 = mask[0]
+    b0 = torch.where(ok0, K1 * y[0], zero)
+    C0 = torch.where(ok0, P0 - torch.outer(K1, P0h), P0)
+    HF0 = HF[:, 0]
+    eta0 = torch.where(ok0, HF0 * (y[0] / S[0]), zero)
+    J0 = torch.where(ok0, torch.outer(HF0, HF0) / S[0], zero)
+
+    A = A.clone()
+    A[:, :, 0] = 0.0
+    b = b.clone()
+    b[:, 0] = b0
+    C = C.clone()
+    C[:, :, 0] = C0
+    J = J.clone()
+    J[:, :, 0] = J0
+    eta = eta.clone()
+    eta[:, 0] = eta0
+    return FilteringElementTL(A, b, C, J, eta)
+
+
+def filtering_operator_tl(e1: FilteringElementTL, e2: FilteringElementTL) -> FilteringElementTL:
+    """Associative filtering combine, elementwise over the trailing axes."""
+    A1, b1, C1, J1, eta1 = e1
+    A2, b2, C2, J2, eta2 = e2
+    eye = _eye_like(A1.shape[0], A1)
+    V = _inv(eye + _mm(C1, J2))
+    U = _mm(A2, V)
+    A = _mm(U, A1)
+    b = _mv(U, b1 + _mv(C1, eta2)) + b2
+    C = _mm(_mm(U, C1), _mt(A2)) + C2
+    # Symmetric C1, J2 ⇒ I + J2 C1 = (I + C1 J2)ᵀ: reuse Vᵀ.
+    W = _mm(_mt(A1), _mt(V))
+    eta = _mv(W, eta2 - _mv(J2, b1)) + eta1
+    J = _mm(_mm(W, J2), A1) + J1
+    return FilteringElementTL(A, b, _sym(C), _sym(J), eta)
+
+
+def filtering_identity_tl(d: int, dtype, device=None) -> FilteringElementTL:
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+    return FilteringElementTL(torch.eye(d, dtype=dtype, device=device), z(d), z(d, d), z(d, d), z(d))
+
+
+def _smoothing_elements_from_planes(A_all: Tensor, Q_all: Tensor, m_all: Tensor, P_all: Tensor) -> SmoothingElementTL:
+    """Smoothing elements (E, g, L) from (d, d, T) transition/noise planes
+    and the filtered moments; the last step is (E=0, g=m_T, L=P_T)."""
+    d = A_all.shape[0]
+    A = A_all[:, :, 1:]
+    Q = Q_all[:, :, 1:]
+    m = m_all[:, :-1]
+    P = P_all[:, :, :-1]
+    Pp = _mm(_mm(A, P), _mt(A)) + Q
+    FP = _mm(A, P)
+    E = _mt(_mm(_inv(_sym(Pp)), FP))
+    g = m - _mv(_mm(E, A), m)
+    L = _sym(P - _mm(_mm(E, Pp), _mt(E)))
+    zeros = torch.zeros((d, d, 1), dtype=A_all.dtype, device=A_all.device)
+    return SmoothingElementTL(
+        E=torch.cat([E, zeros], -1),
+        g=torch.cat([g, m_all[:, -1:]], -1),
+        L=torch.cat([L, P_all[:, :, -1:]], -1),
+    )
+
+
+def smoothing_operator_tl(e1: SmoothingElementTL, e2: SmoothingElementTL) -> SmoothingElementTL:
+    E1, g1, L1 = e1
+    E2, g2, L2 = e2
+    return SmoothingElementTL(E=_mm(E2, E1), g=_mv(E2, g1) + g2, L=_mm(_mm(E2, L1), _mt(E2)) + L2)
+
+
+def smoothing_identity_tl(d: int, dtype, device=None) -> SmoothingElementTL:
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+    return SmoothingElementTL(torch.eye(d, dtype=dtype, device=device), z(d), z(d, d))
+
+
+# --------------------------------------------------------------------------
+# Kogge–Stone scan over the last axis
+# --------------------------------------------------------------------------
+
+_BLOCKED_SCAN_MIN_T = 8192
+
+
+def _map(fn, *trees):
+    return type(trees[0])(*(fn(*leaves) for leaves in zip(*trees)))
+
+
+def _bcast_ident(ident: Tensor, x: Tensor) -> Tensor:
+    return ident.reshape(ident.shape + (1,) * (x.dim() - ident.dim())).to(x.dtype).expand_as(x)
+
+
+def kogge_stone_scan_tl(operator, elems, identity, reverse: bool = False):
+    """Inclusive associative scan over the LAST axis of every leaf.
+
+    Small T: Kogge–Stone, ceil(log2 T) rounds of roll + identity mask +
+    combine.  T ≥ 8192: two-level — Kogge–Stone inside blocks of ~√T, a
+    recursive scan of the block totals, and one fold of each block's
+    exclusive prefix.  ``identity`` leaves have no T axis.  ``reverse``
+    accumulates from the right with the later partial on the LEFT of the
+    operator."""
+    T = elems[0].shape[-1]
+    if T >= _BLOCKED_SCAN_MIN_T:
+        return _blocked_scan_tl(operator, elems, identity, reverse)
+    return _kogge_stone_flat_tl(operator, elems, identity, reverse)
+
+
+def _blocked_scan_tl(operator, elems, identity, reverse: bool):
+    T = elems[0].shape[-1]
+    Lb = 1 << max(1, math.ceil(math.log2(math.sqrt(T))))
+    B = -(-T // Lb)
+    Tp = B * Lb
+
+    def pad(x, ident):
+        if Tp == T:
+            return x
+        fill = ident.reshape(ident.shape + (1,)).to(x.dtype).expand(x.shape[:-1] + (Tp - T,))
+        # Forward scans pad at the end, reverse scans at the front.
+        return torch.cat([fill, x], -1) if reverse else torch.cat([x, fill], -1)
+
+    blocked = _map(lambda x, i: pad(x, i).reshape(x.shape[:-1] + (B, Lb)), elems, identity)
+    local = _kogge_stone_flat_tl(operator, blocked, identity, reverse)
+    pick = 0 if reverse else -1
+    totals = _map(lambda x: x[..., pick], local)  # (..., B)
+    scanned = kogge_stone_scan_tl(operator, totals, identity, reverse)
+    prefix = _map(lambda x, i: exclusive_shift(x, i, reverse), scanned, identity)
+    combined = operator(_map(lambda p, x: p[..., None].expand_as(x), prefix, local), local)
+    out = _map(lambda x: x.reshape(x.shape[:-2] + (Tp,)), combined)
+    if Tp != T:
+        out = _map(lambda x: x[..., Tp - T :] if reverse else x[..., :T], out)
+    return out
+
+
+def exclusive_shift(x: Tensor, ident: Tensor, reverse: bool) -> Tensor:
+    """Inclusive → exclusive scan along the last axis: shift by one step,
+    the identity entering at the start (the end, for reverse)."""
+    edge = _bcast_ident(ident, x[..., :1])
+    if reverse:
+        return torch.cat([x[..., 1:], edge], -1)
+    return torch.cat([edge, x[..., :-1]], -1)
+
+
+def _kogge_stone_flat_tl(operator, elems, identity, reverse: bool = False):
+    T = elems[0].shape[-1]
+    n_rounds = max(1, math.ceil(math.log2(T))) if T > 1 else 0
+    idx = torch.arange(T, device=elems[0].device)
+    shift = 1
+    for _ in range(n_rounds):
+        mask = idx < T - shift if reverse else idx >= shift
+
+        def mk(x, ident):
+            rolled = torch.roll(x, -shift if reverse else shift, dims=-1)
+            return torch.where(mask, rolled, _bcast_ident(ident, x))
+
+        elems = operator(_map(mk, elems, identity), elems)
+        shift *= 2
+    return elems
+
+
+# --------------------------------------------------------------------------
+# Entry points
+# --------------------------------------------------------------------------
+
+
+def _loglik_from_planes(P0, A, Q, H, R, b_tl, C_tl, observations) -> Tensor:
+    """Σ_t log p(y_t | y_<t) from the filtered moments (masked steps add 0)."""
+    d = P0.shape[0]
+    T = A.shape[-1]
+    h = H[0]
+    r = R[0, 0]
+    y, mask = _clean_observations(observations, T)
+    zeros = torch.zeros((d, 1), dtype=P0.dtype, device=P0.device)
+    m_prev = torch.cat([zeros, b_tl[:, :-1]], -1)
+    P_prev = torch.cat([P0[:, :, None], C_tl[:, :, :-1]], -1)
+    mp = _mv(A, m_prev)
+    Pp = _mm(_mm(A, P_prev), _mt(A)) + Q
+    mean = (h[:, None] * mp).sum(0)
+    var = (h[:, None] * _mv(Pp, h[:, None].expand(d, T))).sum(0) + r
+    diff = y - mean
+    logprobs = -0.5 * (diff * diff / var + torch.log(var) + math.log(2.0 * math.pi))
+    return torch.where(mask, logprobs, torch.zeros_like(logprobs)).sum()
+
+
+def pkf_from_tl(lgssm_tl, observations: Tensor, return_loglikelihood: bool = False):
+    """Parallel Kalman filter on a time-last LGSSMTL; returns (b_tl, C_tl)
+    or (b_tl, C_tl, ell)."""
+    P0, Fs_tl, Qs_tl, H, R = lgssm_tl
+    e = _filtering_elements_from_planes(P0, Fs_tl, Qs_tl, H, R, observations)
+    final = kogge_stone_scan_tl(
+        filtering_operator_tl, e, filtering_identity_tl(P0.shape[0], P0.dtype, P0.device)
+    )
+    b_tl, C_tl = final.b, final.C
+    if not return_loglikelihood:
+        return b_tl, C_tl
+    return b_tl, C_tl, _loglik_from_planes(P0, Fs_tl, Qs_tl, H, R, b_tl, C_tl, observations)
+
+
+def pks_from_tl(lgssm_tl, b_tl: Tensor, C_tl: Tensor):
+    """Parallel RTS smoother on time-last moments; returns (g_tl, L_tl)."""
+    P0, Fs_tl, Qs_tl, _, _ = lgssm_tl
+    e = _smoothing_elements_from_planes(Fs_tl, Qs_tl, b_tl, C_tl)
+    final = kogge_stone_scan_tl(
+        smoothing_operator_tl, e, smoothing_identity_tl(P0.shape[0], P0.dtype, P0.device), reverse=True
+    )
+    return final.g, final.L

@@ -1,0 +1,4 @@
+from parallel_gps_torch.kernels.base import SDEKernel
+from parallel_gps_torch.kernels.matern import Matern12, Matern32, Matern52
+
+__all__ = ["SDEKernel", "Matern12", "Matern32", "Matern52"]

@@ -1,0 +1,156 @@
+"""Matérn half-integer kernels as LTI SDEs
+(counterpart: parallel_gps_tpu/kernels/matern.py).
+
+For smoothness ν = d − 1/2, λ = √(2d−1)/ℓ, F is the companion matrix with
+ones on the superdiagonal and last row −binom(d,k) λ^{d−k}; L = e_d,
+H = e_1ᵀ and q = (2λ)^{2d−1} σ² ((d−1)!)² / (2d−2)!.  Matern12 and Matern32
+use closed-form stationary covariances; Matern52 balances and solves the
+Lyapunov equation.
+
+Transitions are the exponential-polynomial family (matern.py:69-103):
+
+    expm(dt·F) − I = expm1(−λ dt)·I + e^{−λ dt} Σ_{p=1..deg} dt^p/p! · N_p
+
+with N = F + λI nilpotent (balance-scaled for Matern52) and N_p = Nᵖ.  Its
+coefficients are laid out flat as ``[λ | N₁ (d²) | … | N_deg (d²)]``, degree
+d − 1; the CUDA kernels read the same layout (csrc/dt_elements.cuh).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import Tensor, nn
+
+from parallel_gps_torch import config
+from parallel_gps_torch.kernels.base import SDEKernel
+from parallel_gps_torch.models.params import inv_softplus, softplus
+from parallel_gps_torch.ops.balance import balance_scale, balance_ss
+from parallel_gps_torch.ops.lyapunov import solve_lyap_vec
+from parallel_gps_torch.types import ContinuousDiscreteModel
+
+EXPPOLY = "exppoly"
+
+
+def exppoly_transitions_m1(coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
+    """(d, d, T) ``expm(dt·F) − I`` of the exponential-polynomial family."""
+    degree = (coeffs.numel() - 1) // (d * d)
+    lam = coeffs[0]
+    eye = torch.eye(d, dtype=dts.dtype, device=dts.device)[:, :, None]
+    Am1 = eye * torch.expm1(-lam * dts)
+    if degree:
+        term = torch.exp(-lam * dts) * dts
+        for p in range(1, degree + 1):
+            off = 1 + (p - 1) * d * d
+            Np = coeffs[off : off + d * d].reshape(d, d, 1)
+            Am1 = Am1 + term * Np
+            if p < degree:
+                term = term * dts * (1.0 / (p + 1))
+    return Am1
+
+
+def build_transitions_m1(family: str, coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
+    """Dispatch on the transition family id (only the exponential
+    polynomial exists so far)."""
+    if family != EXPPOLY:
+        raise ValueError(f"unknown transition family {family!r}")
+    return exppoly_transitions_m1(coeffs, dts, d)
+
+
+def matern_sde(variance: Tensor, lengthscales: Tensor, d: int):
+    """(F, L, H, Q) of the order-d Matérn SDE (see module docstring)."""
+    dtype, device = variance.dtype, variance.device
+    lam = math.sqrt(2 * d - 1) / lengthscales
+    last = torch.stack([-math.comb(d, k) * lam ** (d - k) for k in range(d)])
+    shift = torch.diag(torch.ones(d - 1, dtype=dtype, device=device), 1)
+    F = torch.cat([shift[: d - 1], (shift[d - 1] + last)[None]], dim=0)
+    L = torch.zeros((d, 1), dtype=dtype, device=device)
+    L[d - 1, 0] = 1.0
+    H = torch.zeros((1, d), dtype=dtype, device=device)
+    H[0, 0] = 1.0
+    q = (2.0 * lam) ** (2 * d - 1) * variance * math.factorial(d - 1) ** 2 / math.factorial(2 * d - 2)
+    return F, L, H, q.reshape(1, 1)
+
+
+class _Matern(SDEKernel):
+    """Shared storage: softplus-unconstrained variance and lengthscale."""
+
+    order: int
+
+    def __init__(self, variance=1.0, lengthscales=1.0, *, dtype=None, device=None):
+        super().__init__()
+        dtype = dtype or config.default_float()
+
+        def raw(v):
+            u = inv_softplus(torch.as_tensor(v, dtype=torch.float64))
+            return nn.Parameter(u.to(dtype=dtype, device=device))
+
+        self.raw_variance = raw(variance)
+        self.raw_lengthscales = raw(lengthscales)
+
+    @property
+    def variance(self) -> Tensor:
+        return softplus(self.raw_variance)
+
+    @property
+    def lengthscales(self) -> Tensor:
+        return softplus(self.raw_lengthscales)
+
+    @property
+    def state_dim(self) -> int:
+        return self.order
+
+
+class Matern12(_Matern):
+    order = 1
+
+    def get_sde(self) -> ContinuousDiscreteModel:
+        F, L, H, Q = matern_sde(self.variance, self.lengthscales, 1)
+        return ContinuousDiscreteModel(self.variance.reshape(1, 1), F, L, H, Q)
+
+    def transition_coeffs(self):
+        lam = 1.0 / self.lengthscales
+        return EXPPOLY, lam.reshape(1)
+
+
+class Matern32(_Matern):
+    order = 2
+
+    def get_sde(self) -> ContinuousDiscreteModel:
+        F, L, H, Q = matern_sde(self.variance, self.lengthscales, 2)
+        lam = math.sqrt(3) / self.lengthscales
+        var = self.variance
+        Pinf = torch.diag(torch.stack([var, lam**2 * var]))
+        return ContinuousDiscreteModel(Pinf, F, L, H, Q)
+
+    def transition_coeffs(self):
+        lam = math.sqrt(3) / self.lengthscales
+        one = torch.ones_like(lam)
+        N = torch.stack([torch.stack([lam, one]), torch.stack([-lam * lam, -lam])])
+        return EXPPOLY, torch.cat([lam.reshape(1), N.reshape(-1)])
+
+
+class Matern52(_Matern):
+    order = 3
+
+    def __init__(self, variance=1.0, lengthscales=1.0, *, balancing_iter: int = -1, dtype=None, device=None):
+        super().__init__(variance, lengthscales, dtype=dtype, device=device)
+        self.balancing_iter = balancing_iter
+
+    def _n_iter(self) -> int:
+        return self.balancing_iter if self.balancing_iter >= 0 else config.NUMBER_OF_BALANCING_STEPS
+
+    def get_sde(self) -> ContinuousDiscreteModel:
+        F, L, H, Q = matern_sde(self.variance, self.lengthscales, 3)
+        Fb, Lb, Hb, Qb = balance_ss(F, L, H, Q, self._n_iter())
+        Pinf = solve_lyap_vec(Fb, Lb, Qb)
+        return ContinuousDiscreteModel(Pinf, Fb, Lb, Hb, Qb)
+
+    def transition_coeffs(self):
+        F, _, _, _ = matern_sde(self.variance, self.lengthscales, 3)
+        lam = math.sqrt(5) / self.lengthscales
+        N = F + lam * torch.eye(3, dtype=F.dtype, device=F.device)
+        N2 = N @ N
+        dvec = balance_scale(F, self._n_iter())
+        scale = dvec[None, :] / dvec[:, None]  # [i, j] = d_j / d_i
+        return EXPPOLY, torch.cat([lam.reshape(1), (N * scale).reshape(-1), (N2 * scale).reshape(-1)])

@@ -1,0 +1,4 @@
+from parallel_gps_torch.models import params
+from parallel_gps_torch.models.ssgp import StateSpaceGP, merge_sorted
+
+__all__ = ["StateSpaceGP", "merge_sorted", "params"]

@@ -1,0 +1,141 @@
+"""State-space GP regression model (counterpart:
+parallel_gps_tpu/models/ssgp.py).
+
+``StateSpaceGP`` is an ``nn.Module`` holding the sorted training times and
+observations (NaN = missing) as buffers, a kernel module and a
+softplus-unconstrained noise variance.  Both entry points run the
+dt-engine (kalman/dt.py): hand-written CUDA kernels when the model lives on
+a CUDA device, their plain PyTorch versions on the CPU.
+
+Prediction merges the training and (sorted) query times with a
+searchsorted merge, puts NaN observations at the queries, smooths the
+merged series and reads off the H-projections.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import Tensor, nn
+
+from parallel_gps_torch import config
+from parallel_gps_torch.kalman.dt import lml_dt, pkfs_dt
+from parallel_gps_torch.kernels.base import SDEKernel
+from parallel_gps_torch.kernels.matern import Matern12, Matern32, Matern52
+from parallel_gps_torch.models.params import inv_softplus, softplus
+
+KERNELS = {"Matern12": Matern12, "Matern32": Matern32, "Matern52": Matern52}
+
+
+def merge_sorted(a: Tensor, b: Tensor, a_data, b_data):
+    """Stable merge of two sorted 1-D tensors plus parallel payloads.
+
+    Returns (merged_keys, merged_payloads, b_positions).  A b-element goes
+    before a-elements equal to it (left-side searchsorted, as
+    ``jnp.searchsorted``'s default).  Unlike the JAX version, which returns
+    a boolean mask, the positions of the b-elements are returned, so no
+    data-dependent ``nonzero`` is needed."""
+    na, nb = a.shape[0], b.shape[0]
+    b_pos = torch.searchsorted(a, b) + torch.arange(nb, device=a.device)
+    a_pos = torch.arange(na, device=a.device) + torch.searchsorted(b, a, right=True)
+
+    def scatter(u, v):
+        out = torch.empty((na + nb,) + tuple(u.shape[1:]), dtype=u.dtype, device=u.device)
+        out[a_pos] = u
+        out[b_pos] = v
+        return out
+
+    return scatter(a, b), tuple(scatter(u, v) for u, v in zip(a_data, b_data)), b_pos
+
+
+def _as_tensor(x, dtype, device) -> Tensor:
+    """A tensor or array-like (copied, so read-only arrays are fine)."""
+    if not isinstance(x, Tensor):
+        x = torch.tensor(np.asarray(x))
+    return x.to(dtype=dtype, device=device)
+
+
+class StateSpaceGP(nn.Module):
+    def __init__(self, ts: Tensor, ys: Tensor, kernel: SDEKernel, raw_noise_variance: Tensor):
+        """``raw_noise_variance``: softplus⁻¹ of the noise variance (use
+        ``create`` or ``from_numpy`` to build from constrained values)."""
+        super().__init__()
+        self.register_buffer("ts", ts.reshape(-1))
+        self.register_buffer("ys", ys.reshape(-1))
+        self.kernel = kernel
+        self.raw_noise_variance = nn.Parameter(raw_noise_variance)
+
+    @property
+    def noise_variance(self) -> Tensor:
+        return softplus(self.raw_noise_variance)
+
+    @classmethod
+    def create(
+        cls,
+        data,
+        kernel: SDEKernel,
+        noise_variance: float = 1.0,
+        parallel: bool = True,
+        dtype=None,
+        device=None,
+        mesh=None,
+        stable: bool = False,
+    ) -> "StateSpaceGP":
+        """``data`` = (ts, ys): sorted times and observations (arrays or
+        tensors, NaN = missing)."""
+        if not parallel:
+            raise NotImplementedError("parallel=False (the sequential engine) is ROADMAP A3")
+        if mesh is not None:
+            raise NotImplementedError("mesh= (time-sharded engines) is ROADMAP A13")
+        if stable:
+            raise NotImplementedError("stable=True (the square-root engine) is ROADMAP A10")
+        dtype = dtype or config.default_float()
+        ts, ys = (_as_tensor(x, dtype, device) for x in data)
+        kernel = kernel.to(dtype=dtype, device=device)
+        nv = torch.as_tensor(float(noise_variance), dtype=torch.float64)
+        return cls(ts, ys, kernel, inv_softplus(nv).to(dtype=dtype, device=device))
+
+    @classmethod
+    def from_numpy(
+        cls,
+        ts,
+        ys,
+        kernel: str = "Matern52",
+        variance=1.0,
+        lengthscales=1.0,
+        noise_variance=1.0,
+        dtype=None,
+        device=None,
+    ) -> "StateSpaceGP":
+        """Model from numpy arrays of constrained values: the same
+        quantities a JAX ``StateSpaceGP`` holds (``ts``, ``ys``,
+        ``kernel.variance``, ``kernel.lengthscales``, ``noise_variance``),
+        so both packages compute the same thing."""
+        dtype = dtype or config.default_float()
+        k = KERNELS[kernel](float(np.asarray(variance)), float(np.asarray(lengthscales)), dtype=dtype, device=device)
+        return cls.create((ts, ys), k, float(np.asarray(noise_variance)), dtype=dtype, device=device)
+
+    def log_marginal_likelihood(self) -> Tensor:
+        """LML of the data through the dt-engine filter.  Forward only: the
+        gradient needs the Fisher-tail kernel (ROADMAP B4)."""
+        return lml_dt(self.kernel, self.ts, self.noise_variance.reshape(1, 1), self.ys)
+
+    @torch.no_grad()
+    def predict_f(self, Xnew, full_cov: bool = False):
+        """Posterior mean and marginal variance of f at ``Xnew`` (any order,
+        inside or outside the data range), each (M, 1).  ``full_cov`` is
+        accepted and ignored, as in the reference."""
+        del full_cov
+        X = _as_tensor(Xnew, self.ts.dtype, self.ts.device).reshape(-1)
+        m = X.shape[0]
+        if m == 0:
+            empty = torch.zeros((0, 1), dtype=self.ts.dtype, device=self.ts.device)
+            return empty, empty.clone()
+        order = torch.argsort(X)
+        nan_ys = torch.full((m,), float("nan"), dtype=self.ys.dtype, device=self.ys.device)
+        all_ts, (all_ys,), q_idx = merge_sorted(self.ts, X[order], (self.ys,), (nan_ys,))
+        g_tl, L_tl = pkfs_dt(self.kernel, all_ts, self.noise_variance.reshape(1, 1), all_ys)
+        h = self.kernel.get_sde().H[0]
+        mean = h @ g_tl[:, q_idx]  # (M,)
+        var = torch.einsum("i,ijm,j->m", h, L_tl[:, :, q_idx], h)
+        inv_order = torch.argsort(order)
+        return mean[inv_order][:, None], var[inv_order][:, None]
