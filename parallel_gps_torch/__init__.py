@@ -2,17 +2,19 @@
 
 State-space Gaussian-process regression for stationary kernels: the kernel is
 compiled to a linear-Gaussian state-space model and solved by a parallel
-(associative-scan) Kalman filter and smoother.  On a CUDA device the four
-scan passes of the dt-engine run as hand-written CUDA kernels
-(``kalman/dt.py``, ``csrc/``); on the CPU the same functions run their plain
-PyTorch versions.
+(associative-scan) Kalman filter and smoother, and trained on the LML's
+Fisher-identity gradients (``inference``).  On a CUDA device the four scan
+passes of the dt-engine and the Fisher tail of its backward run as
+hand-written CUDA kernels (``kalman/dt.py``, ``csrc/``); on the CPU the same
+functions run their plain PyTorch versions.  Entry points build on the card
+unless the caller passes ``device="cpu"``.
 
 The JAX package ``parallel_gps_tpu`` is the reference this package is tested
 against; module names follow it where that helps find the counterpart.
 """
 # ``models`` first: it loads ``models.params`` before the kernels that use it.
 from parallel_gps_torch import models  # isort: skip
-from parallel_gps_torch import config, kalman, kernels, ops
+from parallel_gps_torch import config, inference, kalman, kernels, ops
 from parallel_gps_torch.models import StateSpaceGP
 from parallel_gps_torch.types import LGSSMTL, ContinuousDiscreteModel
 
@@ -20,6 +22,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "config",
+    "inference",
     "kalman",
     "kernels",
     "models",

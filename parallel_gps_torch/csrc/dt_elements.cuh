@@ -4,7 +4,8 @@
 // (_build_filtering_rows :309, _filt_combine_rows :225, _build_smoothing_rows
 // :356, _smooth_combine_rows :290, the closed-form _inv :160) and of the
 // in-register F/Q rebuild in kalman/pallas_dt.py (_build_fq_pure :104) for the
-// exponential-polynomial transition family of kernels/matern.py.
+// exponential-polynomial transition family of kernels/matern.py, with its
+// chain rule (build_fq_vjp) for the Fisher-tail kernel.
 //
 // Everything is templated on the scalar type S and the state dimension D
 // (1..3), with every loop fully unrolled, so an element lives in registers:
@@ -125,10 +126,10 @@ __device__ __forceinline__ void inv(const S* M, S* out) {
 // ---------------------------------------------------------------------------
 
 // F = I + Am1 and Q = −(M + Mᵀ + M·Am1ᵀ), M = Am1·P0, with
-// Am1 = expm1(−λdt)·I + e^{−λdt} Σ_p dt^p/p! N_p.
+// Am1 = expm1(−λdt)·I + e^{−λdt} Σ_p dt^p/p! N_p.  Also returns Am1 and M,
+// which the chain rule below reads.
 template <typename S, int D>
-__device__ __forceinline__ void build_fq(const S* c, int degree, const S* P0, S dt, S* F, S* Q) {
-  S Am1[D * D];
+__device__ __forceinline__ void build_fq_parts(const S* c, int degree, const S* P0, S dt, S* Am1, S* M, S* F, S* Q) {
   const S lam = c[0];
   const S em1 = dexpm1(-lam * dt);
 #pragma unroll
@@ -151,7 +152,6 @@ __device__ __forceinline__ void build_fq(const S* c, int degree, const S* P0, S 
   for (int i = 0; i < D; ++i)
 #pragma unroll
     for (int j = 0; j < D; ++j) F[i * D + j] = (i == j) ? S(1) + Am1[i * D + j] : Am1[i * D + j];
-  S M[D * D];
   mm<S, D>(Am1, P0, M);
 #pragma unroll
   for (int i = 0; i < D; ++i)
@@ -163,6 +163,92 @@ __device__ __forceinline__ void build_fq(const S* c, int degree, const S* P0, S 
       Q[i * D + j] = -s;
       Q[j * D + i] = -s;
     }
+}
+
+template <typename S, int D>
+__device__ __forceinline__ void build_fq(const S* c, int degree, const S* P0, S dt, S* F, S* Q) {
+  S Am1[D * D], M[D * D];
+  build_fq_parts<S, D>(c, degree, P0, dt, Am1, M, F, Q);
+}
+
+// Chain rule of build_fq_parts, written out by hand (the TPU kernel takes
+// jax.vjp of _build_fq_pure inside its body, pallas_dt.py:927/:979): from the
+// cotangents dF and dQ of one step to d_c (kMaxCoef values, zero beyond the
+// degree), d_P0 (D², for P0 as build_fq reads it: unsymmetrised) and d_dt.
+//
+// Q's upper triangle is written to [i][j] and [j][i] from one value, so its
+// cotangent is G_ij = dQ_ij + dQ_ji (dQ_ii on the diagonal).  With
+// Q_ij = −(M_ij + M_ji + Σ_k M_ik Am1_jk):
+//   dM_ij −= G_ij, dM_ji −= G_ij, dM_ik −= G_ij Am1_jk, dAm1_jk −= G_ij M_ik;
+// through M = Am1·P0: dAm1 += dM·P0ᵀ, dP0 = Am1ᵀ·dM; through F: dAm1 += dF;
+// and through Am1 = em1·I + Σ_p τ_p N_p with em1 = expm1(−λdt),
+// τ_p = e^{−λdt} dt^p/p! (τ_0 = e^{−λdt}):
+//   dN_p = τ_p dAm1,  dτ_p = ⟨dAm1, N_p⟩,  dem1 = tr dAm1,
+//   ∂em1/∂λ = −dt τ_0, ∂em1/∂dt = −λ τ_0,
+//   ∂τ_p/∂λ = −dt τ_p, ∂τ_p/∂dt = τ_{p−1} − λ τ_p.
+template <typename S, int D>
+__device__ __forceinline__ void build_fq_vjp(const S* c, int degree, const S* P0, S dt, const S* Am1, const S* M,
+                                             const S* dF, const S* dQ, S* d_c, S* d_P0, S& d_dt) {
+  S dM[D * D], dA[D * D];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) {
+    dM[q] = S(0);
+    dA[q] = dF[q];
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      const S G = (i == j) ? dQ[i * D + i] : dQ[i * D + j] + dQ[j * D + i];
+      dM[i * D + j] -= G;
+      dM[j * D + i] -= G;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        dM[i * D + k] -= G * Am1[j * D + k];
+        dA[j * D + k] -= G * M[i * D + k];
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S sa = dM[i * D] * P0[j * D];
+      S sp = Am1[i] * dM[j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) {
+        sa += dM[i * D + k] * P0[j * D + k];
+        sp += Am1[k * D + i] * dM[k * D + j];
+      }
+      dA[i * D + j] += sa;
+      d_P0[i * D + j] = sp;
+    }
+  const S lam = c[0];
+  const S e = dexp(-lam * dt);
+  S d_em1 = dA[0];
+#pragma unroll
+  for (int i = 1; i < D; ++i) d_em1 += dA[i * D + i];
+  S d_lam = -dt * e * d_em1;
+  d_dt = -lam * e * d_em1;
+#pragma unroll
+  for (int q = 0; q < Exppoly<D>::kMaxCoef; ++q) d_c[q] = S(0);
+  S tau_prev = e;
+#pragma unroll
+  for (int p = 1; p <= D - 1; ++p) {
+    if (p <= degree) {
+      const S tau = tau_prev * dt * (S(1) / S(p));
+      const int off = 1 + (p - 1) * D * D;
+      S d_tau = S(0);
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) {
+        d_tau += dA[q] * c[off + q];
+        d_c[off + q] = tau * dA[q];
+      }
+      d_lam -= dt * tau * d_tau;
+      d_dt += d_tau * (tau_prev - lam * tau);
+      tau_prev = tau;
+    }
+  }
+  d_c[0] = d_lam;
 }
 
 // ---------------------------------------------------------------------------

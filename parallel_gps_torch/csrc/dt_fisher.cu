@@ -1,0 +1,241 @@
+// The fused Fisher tail of the dt-engine's backward, hand-written for Hopper
+// (sm_90a).  Replaces parallel_gps_tpu/kalman/pallas_dt.py _dt_fisher_kernel
+// (:839, pallas_call :1134).
+//
+// From dt, y and the filtered (b, C) and smoothed (g, L) moments it computes
+// the cancellation-free Fisher cotangents of one LML evaluation
+// (kalman/timelast.py::fisher_grads_from_smoothed),
+//
+//   ∇Q_k = ½ (Pp⁻¹ D Pp⁻¹ + r rᵀ),  r_k = Pp_k⁻¹ δ_k,
+//   ∇F_k = r_k m̂_{k−1}ᵀ + Pp⁻¹ D E_{k−1}ᵀ,  E_{k−1} = P_{k−1} F_kᵀ Pp_k⁻¹,
+//   ∇P0 += F₀ᵀ ∇Q₀ F₀,
+//
+// with Pp_k = F_k P_{k−1} F_kᵀ + Q_k, δ_k = m̂_k − F_k m_{k−1}, D_k = P̂_k − Pp_k,
+// and chains (∇F, ∇Q) back to (coeffs, P0, dt_k) through the in-register
+// build of F and Q (dt_elements.cuh: build_fq_vjp).  The (D, D, T) planes of
+// F, Q and their cotangents never exist.
+//
+// The tail is scan-free: step k needs only step k−1 of b, C and g, which a
+// thread reads directly (at k = 0: m = 0, P = P0 and m̂₋₁ = E₋₁ m̂₀), so there
+// is one thread per step in a grid-stride loop and no state crosses threads.
+// Neighbouring threads read and write neighbouring addresses of every plane:
+// the loads and stores are coalesced.
+//
+// Outputs: d_dt (T,), d_y (T,) and, per block, one row of sums
+// [d_coeffs (kMaxCoef) | d_P0 (D², unsymmetrised) | d_H (D) | d_R].  Each
+// thread sums its steps in registers, each block reduces its threads in a
+// fixed tree in shared memory, and the caller adds the rows with one
+// reduction: no atomics, so two runs give the same bits.
+//
+// Bound on an H100: bytes.  A step reads 2 + 2(D + D²) values and writes 2
+// (104 bytes at D = 3 in float32) for a few hundred flops.
+#include <cuda_runtime.h>
+
+#include "dt_launch.cuh"
+
+namespace pgt {
+
+// Layout of a row of sums.
+template <int D>
+struct FisherSums {
+  static constexpr int kP0 = Exppoly<D>::kMaxCoef;
+  static constexpr int kH = kP0 + D * D;
+  static constexpr int kR = kH + D;
+  static constexpr int kN = kR + 1;
+};
+
+// Step t: adds its share to the sums and returns ∂ℓ/∂dt_t and ∂ℓ/∂y_t.
+template <typename S, int D>
+__device__ __forceinline__ void fisher_step(const FilterScalars<S, D>& p, const S* dt, const S* y, const S* b,
+                                            const S* C, const S* g, const S* L, long long t, long long T, S* acc,
+                                            S& d_dt, S& d_y) {
+  const bool first = (t == 0);
+  const long long tp = first ? 0 : t - 1;
+  const S dtv = dt[t];
+  S Am1[D * D], M[D * D], F[D * D], Q[D * D];
+  build_fq_parts<S, D>(p.c, p.degree, p.P0, dtv, Am1, M, F, Q);
+
+  S m_prev[D], P_prev[D * D], mhat[D], Phat[D * D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    const S v = b[a * T + tp];
+    m_prev[a] = first ? S(0) : v;
+    mhat[a] = g[a * T + t];
+  }
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) {
+    const S v = C[q * T + tp];
+    P_prev[q] = first ? p.P0[q] : v;
+    Phat[q] = L[q * T + t];
+  }
+
+  // Predicted moments and the only inverse: Pp = F P_prev Fᵀ + Q.
+  S FP[D * D], Pp[D * D], Pi[D * D];
+  mm<S, D>(F, P_prev, FP);
+  mm_symout<S, D>(FP, F, Q, Pp);
+  inv<S, D>(Pp, Pi);
+  S mp[D], delta[D], rk[D];
+  mv<S, D>(F, m_prev, mp);
+#pragma unroll
+  for (int a = 0; a < D; ++a) delta[a] = mhat[a] - mp[a];
+  mv<S, D>(Pi, delta, rk);
+
+  S Dk[D * D], PiD[D * D], PiDPi[D * D], dQ[D * D];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) Dk[q] = Phat[q] - Pp[q];
+  mm<S, D>(Pi, Dk, PiD);
+  mm<S, D>(PiD, Pi, PiDPi);
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int c = 0; c < D; ++c) dQ[a * D + c] = S(0.5) * (PiDPi[a * D + c] + rk[a] * rk[c]);
+
+  // E_prev = P_prev Fᵀ Pp⁻¹; at t = 0 it is the pre-initial gain E₋₁.
+  S PFt[D * D], E[D * D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = P_prev[i * D] * F[j * D];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += P_prev[i * D + k] * F[j * D + k];
+      PFt[i * D + j] = s;
+    }
+  mm<S, D>(PFt, Pi, E);
+  S Em[D], mh_prev[D];
+  mv<S, D>(E, mhat, Em);
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    const S v = g[a * T + tp];
+    mh_prev[a] = first ? Em[a] : v;
+  }
+  S dF[D * D];
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      S s = rk[a] * mh_prev[c];
+#pragma unroll
+      for (int k = 0; k < D; ++k) s += PiD[a * D + k] * E[c * D + k];
+      dF[a * D + c] = s;
+    }
+
+  // The first step's closed-form term F₀ᵀ ∇Q₀ F₀ of ∇P0.
+  if (first) {
+    S QF[D * D];
+    mm<S, D>(dQ, F, QF);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        S s = F[i] * QF[j];
+#pragma unroll
+        for (int k = 1; k < D; ++k) s += F[k * D + i] * QF[k * D + j];
+        acc[FisherSums<D>::kP0 + i * D + j] += s;
+      }
+  }
+
+  // (∇F, ∇Q) → (coeffs, P0, dt).
+  S d_c[Exppoly<D>::kMaxCoef], d_P0[D * D];
+  build_fq_vjp<S, D>(p.c, p.degree, p.P0, dtv, Am1, M, dF, dQ, d_c, d_P0, d_dt);
+#pragma unroll
+  for (int q = 0; q < Exppoly<D>::kMaxCoef; ++q) acc[q] += d_c[q];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) acc[FisherSums<D>::kP0 + q] += d_P0[q];
+
+  // Observation terms, at observed steps only (NaN marks a missing one).
+  const S yv = y[t];
+  const bool observed = !(yv != yv);
+  d_y = S(0);
+  if (observed) {
+    S HPhat[D];
+    S Hm = p.h[0] * mhat[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) Hm += p.h[k] * mhat[k];
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      S s = p.h[0] * Phat[c];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += p.h[k] * Phat[k * D + c];
+      HPhat[c] = s;
+    }
+    S HPH = p.h[0] * HPhat[0];
+#pragma unroll
+    for (int c = 1; c < D; ++c) HPH += p.h[c] * HPhat[c];
+    const S resid = yv - Hm;
+    const S rinv = S(1) / p.r;
+    // ∇H = R⁻¹ Σ [(y − Hm̂) m̂ᵀ − H P̂]; the sums are divided by R at the end.
+#pragma unroll
+    for (int a = 0; a < D; ++a) acc[FisherSums<D>::kH + a] += resid * mhat[a] - HPhat[a];
+    // ∇R = ½ Σ [R⁻¹ N R⁻¹ − R⁻¹], N = resid² + H P̂ Hᵀ.
+    acc[FisherSums<D>::kR] += S(0.5) * ((resid * resid + HPH) * rinv * rinv - rinv);
+    d_y = -resid * rinv;
+  }
+}
+
+template <typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+    dt_fisher_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ dt, const S* __restrict__ y,
+                     const S* __restrict__ b, const S* __restrict__ C, const S* __restrict__ g,
+                     const S* __restrict__ L, S* __restrict__ ddt_out, S* __restrict__ dy_out,
+                     S* __restrict__ sums, long long T) {
+  constexpr int kN = FisherSums<D>::kN;
+  __shared__ S red[kThreads];
+  FilterScalars<S, D> p;
+  p.load(scal, degree);
+  S acc[kN];
+#pragma unroll
+  for (int q = 0; q < kN; ++q) acc[q] = S(0);
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x; t < T; t += stride) {
+    S d_dt, d_y;
+    fisher_step<S, D>(p, dt, y, b, C, g, L, t, T, acc, d_dt, d_y);
+    ddt_out[t] = d_dt;
+    dy_out[t] = d_y;
+  }
+  const S rinv = S(1) / p.r;
+#pragma unroll
+  for (int a = 0; a < D; ++a) acc[FisherSums<D>::kH + a] *= rinv;
+#pragma unroll
+  for (int q = 0; q < kN; ++q) {
+    red[threadIdx.x] = acc[q];
+    __syncthreads();
+#pragma unroll
+    for (int s = kThreads / 2; s > 0; s >>= 1) {
+      if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) sums[(long long)blockIdx.x * kN + q] = red[0];
+    __syncthreads();
+  }
+}
+
+}  // namespace pgt
+
+// C interface, bound with ctypes (kalman/_cuda.py), as in dt_scan.cu.
+extern "C" {
+
+// Values in one block's row of sums at state dimension d.
+int pgt_dt_fisher_n_sums(int d) {
+  if (d == 1) return pgt::FisherSums<1>::kN;
+  if (d == 2) return pgt::FisherSums<2>::kN;
+  if (d == 3) return pgt::FisherSums<3>::kN;
+  return pgt::kBadArgs;
+}
+
+// scal: [P0 (d²) | h (d) | r | coeffs]; sums: (n_blocks, pgt_dt_fisher_n_sums(d)).
+int pgt_dt_fisher(int is64, int d, int degree, const void* scal, const void* dt, const void* y, const void* b,
+                  const void* C, const void* g, const void* L, void* ddt, void* dy, void* sums, long long T,
+                  int n_blocks, void* stream) {
+  if (pgt::bad_shape(d, degree, T, 1) || n_blocks < 1) return pgt::kBadArgs;
+  cudaStream_t st = (cudaStream_t)stream;
+#define PGT_LAUNCH(S, DD)                                                                                       \
+  pgt::dt_fisher_kernel<S, DD><<<(unsigned int)n_blocks, pgt::kThreads, 0, st>>>(                               \
+      (const S*)scal, degree, (const S*)dt, (const S*)y, (const S*)b, (const S*)C, (const S*)g, (const S*)L,    \
+      (S*)ddt, (S*)dy, (S*)sums, T)
+  PGT_DISPATCH(is64, d, PGT_LAUNCH);
+#undef PGT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -11,7 +11,8 @@
 //
 // Layouts are time-last, as at the port's public functions: dt, y (T,);
 // b, g (D, T); C, L (D, D, T); totals and prefixes (n, n_chunks).
-// Scalars: filter [P0 (D²) | h (D) | r | coeffs], smoother [P0 | coeffs].
+// Scalars (dt_launch.cuh): filter [P0 (D²) | h (D) | r | coeffs], smoother
+// [P0 | coeffs].
 //
 // What bounds these kernels on an H100, and what the design does about it:
 // the work per step is a dependent chain of small dense algebra (a filtering
@@ -24,49 +25,9 @@
 // work).  Each kernel below notes which of the two bounds it.
 #include <cuda_runtime.h>
 
-#include "dt_elements.cuh"
+#include "dt_launch.cuh"
 
 namespace pgt {
-
-constexpr int kThreads = 128;
-constexpr int kBadArgs = -1;
-
-template <typename S, int D>
-struct FilterScalars {
-  S P0[D * D];
-  S h[D];
-  S r;
-  S c[Exppoly<D>::kMaxCoef];
-  int degree;
-
-  __device__ __forceinline__ void load(const S* scal, int deg) {
-    degree = deg;
-#pragma unroll
-    for (int q = 0; q < D * D; ++q) P0[q] = scal[q];
-#pragma unroll
-    for (int q = 0; q < D; ++q) h[q] = scal[D * D + q];
-    r = scal[D * D + D];
-    const S* cs = scal + D * D + D + 1;
-#pragma unroll
-    for (int q = 0; q < Exppoly<D>::kMaxCoef; ++q) c[q] = (q < 1 + deg * D * D) ? cs[q] : S(0);
-  }
-};
-
-template <typename S, int D>
-struct SmootherScalars {
-  S P0[D * D];
-  S c[Exppoly<D>::kMaxCoef];
-  int degree;
-
-  __device__ __forceinline__ void load(const S* scal, int deg) {
-    degree = deg;
-#pragma unroll
-    for (int q = 0; q < D * D; ++q) P0[q] = scal[q];
-    const S* cs = scal + D * D;
-#pragma unroll
-    for (int q = 0; q < Exppoly<D>::kMaxCoef; ++q) c[q] = (q < 1 + deg * D * D) ? cs[q] : S(0);
-  }
-};
 
 // Filtering element of step t; also returns its F, Q and cleaned observation.
 template <typename S, int D>
@@ -259,35 +220,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-inline bool bad_shape(int d, int degree, long long T, int K) {
-  return d < 1 || d > 3 || degree < 0 || degree > d - 1 || T < 1 || K < 1;
-}
-
-inline unsigned int n_blocks(long long n_chunks) { return (unsigned int)((n_chunks + kThreads - 1) / kThreads); }
-
 }  // namespace pgt
-
-// Runs LAUNCH(S, D) for the scalar type and state dimension asked for.
-#define PGT_DISPATCH(IS64, D, LAUNCH)   \
-  do {                                  \
-    if (IS64) {                         \
-      if ((D) == 1) {                   \
-        LAUNCH(double, 1);              \
-      } else if ((D) == 2) {            \
-        LAUNCH(double, 2);              \
-      } else {                          \
-        LAUNCH(double, 3);              \
-      }                                 \
-    } else {                            \
-      if ((D) == 1) {                   \
-        LAUNCH(float, 1);               \
-      } else if ((D) == 2) {            \
-        LAUNCH(float, 2);               \
-      } else {                          \
-        LAUNCH(float, 3);               \
-      }                                 \
-    }                                   \
-  } while (0)
 
 // C interface, bound with ctypes (kalman/_cuda.py).  Each entry launches one
 // kernel on the given stream, does not synchronise, and returns

@@ -1,6 +1,8 @@
 from parallel_gps_torch.kalman import dt, timelast
 from parallel_gps_torch.kalman.dt import (
     LAUNCHES,
+    dt_fisher,
+    dt_fisher_plain,
     lml_dt,
     pkf_dt,
     pkfs_dt,
@@ -14,6 +16,8 @@ __all__ = [
     "dt",
     "timelast",
     "LAUNCHES",
+    "dt_fisher",
+    "dt_fisher_plain",
     "lml_dt",
     "pkf_dt",
     "pkfs_dt",

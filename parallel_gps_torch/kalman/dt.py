@@ -12,16 +12,22 @@ the cancellation-free discretization of ops/disc.py.  The JAX ``build``
 closure becomes a family id plus the flat ``coeffs`` tensor
 (kernels/matern.py).
 
+``lml_dt`` is differentiable: its backward is the smoother followed by the
+fused Fisher tail ``dt_fisher``, one scan-free pass from the filtered and
+smoothed moments to the cotangents of (coeffs, P0, H, R, dts, y).
+
 The filter and the smoother are each a two-pass chunked scan over chunks of
 ``CHUNK`` consecutive steps: pass 1 folds each chunk to its total, an
 exclusive prefix over the (n, n_chunks) totals runs in plain PyTorch on the
 totals' device, and pass 2 re-folds each chunk seeded with its prefix and
 writes the moments (the filter's pass 2 also streams the log-likelihood).
-Each pass is a wrapper that dispatches on the device of its tensors:
+Each pass, and the Fisher tail, is a wrapper that dispatches on the device
+of its tensors:
 
   - CUDA, d ≤ 3, float32 or float64: the hand-written kernel of
-    ``csrc/dt_scan.cu``, one thread per chunk; anything else on CUDA raises;
-  - CPU: the plain PyTorch version of the same pass (``*_plain``).
+    ``csrc/dt_scan.cu`` (one thread per chunk) or ``csrc/dt_fisher.cu`` (one
+    thread per step); anything else on CUDA raises;
+  - CPU: the plain PyTorch version of the same function (``*_plain``).
 
 On the CPU, ``strip_filter_dt``/``strip_smoother_dt`` run the plain
 time-last engine directly (``strip_filter_dt_plain``,
@@ -35,6 +41,7 @@ import ctypes
 
 import torch
 from torch import Tensor
+from torch.autograd.function import once_differentiable
 
 from parallel_gps_torch.kalman.timelast import (
     FilteringElementTL,
@@ -46,6 +53,7 @@ from parallel_gps_torch.kalman.timelast import (
     exclusive_shift,
     filtering_identity_tl,
     filtering_operator_tl,
+    fisher_grads_from_smoothed,
     kogge_stone_scan_tl,
     pkf_from_tl,
     pks_from_tl,
@@ -56,11 +64,14 @@ from parallel_gps_torch.kernels.matern import EXPPOLY, build_transitions_m1
 from parallel_gps_torch.ops.linalg import symmetrize
 from parallel_gps_torch.types import LGSSMTL
 
-LAUNCHES = {"dt_filter_scan": 0, "dt_filter_apply": 0, "dt_smoother_scan": 0, "dt_smoother_apply": 0}
+LAUNCHES = {"dt_filter_scan": 0, "dt_filter_apply": 0, "dt_smoother_scan": 0, "dt_smoother_apply": 0, "dt_fisher": 0}
 
 # Steps folded sequentially by one CUDA thread.
 CHUNK = 64
 MAX_KERNEL_D = 3
+# Most blocks of the Fisher-tail kernel's grid-stride loop: one row of
+# partial sums per block.
+FISHER_MAX_BLOCKS = 2048
 
 
 def filt_rows(d: int) -> int:
@@ -164,7 +175,7 @@ def exclusive_chunk_prefixes(totals: Tensor, d: int, reverse: bool) -> Tensor:
 
 
 # --------------------------------------------------------------------------
-# Plain versions of the four passes
+# Plain versions of the four passes and of the Fisher tail
 # --------------------------------------------------------------------------
 
 
@@ -213,6 +224,21 @@ def dt_smoother_apply_plain(family, coeffs, P0, dts, b_tl, C_tl, prefix):
     local = _chunk_scan(e, ident, smoothing_operator_tl, reverse=True)
     out = _seed_chunks(smoothing_operator_tl, _unpack_smooth(prefix, d), local, T)
     return out.g, out.L
+
+
+def dt_fisher_plain(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl):
+    """Plain Fisher tail (counterpart: pallas_dt.py:1061-1071): the planes
+    rebuilt under autograd, the elementwise tail on them, and autograd back
+    from the plane cotangents to (coeffs, P0, dts).  Returns what
+    ``dt_fisher`` returns."""
+    with torch.enable_grad():
+        co, p0, dt_ = (x.detach().requires_grad_() for x in (coeffs, P0, dts))
+        planes = build_planes_tl(family, co, p0, dt_)
+    Fs, Qs, P0s = (x.detach() for x in planes)
+    one = torch.ones((), dtype=P0.dtype, device=P0.device)
+    ct, d_y = fisher_grads_from_smoothed(LGSSMTL(P0s, Fs, Qs, H, R), y, b_tl, C_tl, g_tl, L_tl, one)
+    d_co, d_p0, d_dt = torch.autograd.grad(planes, (co, p0, dt_), (ct.Fs, ct.Qs, ct.P0))
+    return d_co, d_p0, ct.H, ct.R, d_dt, d_y
 
 
 def strip_filter_dt_plain(family, coeffs, P0, H, R, dts, observations):
@@ -358,6 +384,48 @@ def dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix):
     return g, L
 
 
+def dt_fisher(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl):
+    """Fused Fisher tail: the cotangents of one LML evaluation from the
+    filtered (b, C) and smoothed (g, L) moments, unscaled by the output
+    cotangent.  Returns (d_coeffs, d_P0 (d, d), d_H (1, d), d_R (1, 1),
+    d_dts (T,), d_y (T,)); ``d_P0`` is the cotangent of a symmetric P0,
+    distributed symmetrically."""
+    if dts.device.type == "cpu":
+        return dt_fisher_plain(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl)
+    from parallel_gps_torch.kalman import _cuda
+
+    d, T = P0.shape[0], dts.shape[0]
+    d, T, degree = _check(
+        family, coeffs, P0, dts,
+        {
+            "y": (y, (T,)), "H": (H, (1, d)), "R": (R, (1, 1)),
+            "b_tl": (b_tl, (d, T)), "C_tl": (C_tl, (d, d, T)), "g_tl": (g_tl, (d, T)), "L_tl": (L_tl, (d, d, T)),
+        },
+    )
+    lib = _cuda.load()
+    dev, dtype = dts.device, P0.dtype
+    n_sums = lib.pgt_dt_fisher_n_sums(d)
+    n_blocks = min(-(-T // _cuda.THREADS), FISHER_MAX_BLOCKS)
+    d_dts = torch.empty((T,), dtype=dtype, device=dev)
+    d_y = torch.empty((T,), dtype=dtype, device=dev)
+    sums = torch.empty((n_blocks, n_sums), dtype=dtype, device=dev)
+    _launch(
+        "dt_fisher", lib.pgt_dt_fisher, int(dtype == torch.float64), d, degree,
+        _filter_scalars(P0, H, R, coeffs), dts, y, b_tl, C_tl, g_tl, L_tl, d_dts, d_y, sums, T, n_blocks, dev,
+    )
+    # One row of sums per block, each reduced in a fixed order by the
+    # kernel; the final sum is one deterministic reduction (no atomics).
+    # Row layout: [d_coeffs, padded to the degree d−1 | d_P0 | d_H | d_R].
+    total = sums.sum(0)
+    d2 = d * d
+    off = n_sums - d2 - d - 1
+    d_P0 = total[off : off + d2].reshape(d, d)
+    return (
+        total[: coeffs.numel()], symmetrize(d_P0), total[off + d2 : off + d2 + d].reshape(1, d),
+        total[-1].reshape(1, 1), d_dts, d_y,
+    )
+
+
 # --------------------------------------------------------------------------
 # Filter and smoother
 # --------------------------------------------------------------------------
@@ -392,19 +460,29 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
 
 
 class _LmlDt(torch.autograd.Function):
-    """LML via the dt-engine filter.  The gradient (the Fisher-identity
-    smoother + fused Fisher-tail kernel of pallas_dt.py:_lml_dt_core_bwd)
-    is not ported yet."""
+    """LML via the dt-engine with Fisher-identity gradients (counterpart:
+    pallas_dt.py:_lml_dt_core).  Forward: the filter.  Backward: the
+    smoother and the fused Fisher tail; the (d, d, T) planes exist in
+    neither.  The stationarity contract the Fisher tail requires
+    (Q_k = P0 − F_k P0 F_kᵀ, kalman/timelast.py) holds by construction."""
 
     @staticmethod
     def forward(ctx, family, coeffs, P0, H, R, dts, observations):
-        return strip_filter_dt(family, coeffs, P0, H, R, dts, observations)[2]
+        y = observations.contiguous()
+        b_tl, C_tl, ell = strip_filter_dt(family, coeffs, P0, H, R, dts, y)
+        ctx.family = family
+        ctx.save_for_backward(coeffs, P0, H, R, dts, y, b_tl, C_tl)
+        return ell
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gbar):
-        raise NotImplementedError(
-            "gradients of lml_dt need the Fisher-tail kernel (_dt_fisher_kernel), ROADMAP B4"
-        )
+        coeffs, P0, H, R, dts, y, b_tl, C_tl = ctx.saved_tensors
+        b_tl, C_tl = b_tl.contiguous(), C_tl.contiguous()
+        g_tl, L_tl = strip_smoother_dt(ctx.family, coeffs, P0, dts, b_tl, C_tl)
+        grads = dt_fisher(ctx.family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl.contiguous(), L_tl.contiguous())
+        g = gbar.to(P0.dtype)
+        return (None, *(g * x if needed else None for x, needed in zip(grads, ctx.needs_input_grad[1:])))
 
 
 def _model_inputs(kernel, ts):
@@ -415,7 +493,8 @@ def _model_inputs(kernel, ts):
 
 
 def lml_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor) -> Tensor:
-    """Log marginal likelihood via the dt-engine (forward only)."""
+    """Log marginal likelihood via the dt-engine, differentiable in the
+    kernel's hyperparameters, R and the observations."""
     family, coeffs, sde, dts = _model_inputs(kernel, ts)
     return _LmlDt.apply(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
 

@@ -9,6 +9,10 @@ The scan is Kogge–Stone over the last axis, two-level for T ≥ 8192.
 
 This is the plain version the dt-engine kernels are held against
 (kalman/dt.py), and what those entry points run on the CPU.
+
+``lml_tl`` is the LML with Fisher-identity gradients: the backward is one
+smoother pass plus the elementwise tail ``fisher_grads_from_smoothed``,
+instead of a replay of the scan tree.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 from torch import Tensor
+
+from parallel_gps_torch.types import LGSSMTL
 
 
 class FilteringElementTL(NamedTuple):
@@ -343,3 +349,123 @@ def pks_from_tl(lgssm_tl, b_tl: Tensor, C_tl: Tensor):
         smoothing_operator_tl, e, smoothing_identity_tl(P0.shape[0], P0.dtype, P0.device), reverse=True
     )
     return final.g, final.L
+
+
+# --------------------------------------------------------------------------
+# LML with Fisher-identity gradients
+#
+# ∇θ log p(y) = E_{x|y}[∇θ log p(x, y)]: the gradient of the LML w.r.t.
+# every leaf of the model is a closed-form function of the smoothed moments,
+# so the backward costs one smoother pass.
+#
+# CONTRACT: the forward value is the filter's likelihood for any input, but
+# the gradient is exact only for stationarity-consistent models — those with
+# Q_k = P0 − F_k P0 F_kᵀ, which ops/disc.py::discretize_tl and
+# kalman/dt.py::build_planes_tl guarantee by construction.  Off that manifold
+# the first-step term differs (the engines update step 0 against P0 directly
+# rather than F_0 P0 F_0ᵀ + Q_0).  Hyperparameter gradients are exact,
+# because discretization maps parameter perturbations onto the manifold's
+# tangent.
+# --------------------------------------------------------------------------
+
+
+def _smoother_gains_tl(Fs_tl: Tensor, Qs_tl: Tensor, b_tl: Tensor, C_tl: Tensor) -> Tensor:
+    """RTS gains E_k = (Pp_{k+1}⁻¹ F_{k+1} P_k)ᵀ for k = 0..T−2, (d, d, T−1):
+    Cov(x_{k+1}, x_k | y) = P̂_{k+1} E_kᵀ."""
+    A = Fs_tl[:, :, 1:]
+    Q = Qs_tl[:, :, 1:]
+    P = C_tl[:, :, :-1]
+    Pp = _sym(_mm(_mm(A, P), _mt(A)) + Q)
+    return _mt(_mm(_inv(Pp), _mm(A, P)))
+
+
+def fisher_grads_from_smoothed(lgssm_tl: LGSSMTL, observations: Tensor, b_tl, C_tl, mhat, Phat, gbar):
+    """Fisher-identity LML cotangents from filtered (b, C) and smoothed
+    (m̂, P̂) time-last moments: the elementwise tail of the backward (every
+    formula is elementwise over T apart from one-step shifts).  Returns
+    (LGSSMTL cotangent, ∂ℓ/∂y), both scaled by ``gbar``."""
+    P0, Fs, Qs, H, R = lgssm_tl
+    d = P0.shape[0]
+    T = Fs.shape[-1]
+    h = H[0]
+    r = R[0, 0]
+    y, mask = _clean_observations(observations, T)
+    maskf = mask.to(P0.dtype)
+
+    # RTS gains E_{k−1} (pair (k−1, k), aligned with transition k;
+    # pre-initial gain E₋₁ from P0).
+    E = _smoother_gains_tl(Fs, Qs, b_tl, C_tl)
+    F0 = Fs[:, :, 0]
+    Q0 = Qs[:, :, 0]
+    Pp0 = F0 @ P0 @ F0.T + Q0
+    Pp0inv = _inv(_sym(Pp0[:, :, None]))[:, :, 0]
+    Em1 = (Pp0inv @ (F0 @ P0)).T  # P0 F0ᵀ Pp0⁻¹
+    E_prev = torch.cat([Em1[:, :, None], E], -1)
+    mham1 = Em1 @ mhat[:, 0]  # m̂₋₁ (mp₀ = 0)
+    mh_prev = torch.cat([mham1[:, None], mhat[:, :-1]], -1)
+
+    # Predicted moments mp_k = F_k m_{k−1}, Pp_k = F_k P_{k−1} F_kᵀ + Q_k.
+    m_prev = torch.cat([torch.zeros((d, 1), dtype=P0.dtype, device=P0.device), b_tl[:, :-1]], -1)
+    P_prev = torch.cat([P0[:, :, None], C_tl[:, :, :-1]], -1)
+    mp = _mv(Fs, m_prev)
+    Pp = _sym(_mm(_mm(Fs, P_prev), _mt(Fs)) + Qs)
+
+    # Cancellation-free Fisher gradients.  The naive forms
+    # ∇Q = ½(Q⁻¹MQ⁻¹ − Q⁻¹), ∇F = Q⁻¹(U − FS') are catastrophically
+    # ill-conditioned at small dt (Q = O(dt·…) nearly singular while the
+    # gradient is O(1)); do not revert to them.  Substituting the RTS
+    # identities
+    #   I − F_k E_{k−1} = Q_k Pp_k⁻¹,  ŵ_k = Q_k Pp_k⁻¹ δ_k,
+    #   Cov(w_k, x_{k−1}|y) = Q_k Pp_k⁻¹ D_k E_{k−1}ᵀ,
+    #   Cov(w_k|y) − Q_k = Q_k Pp_k⁻¹ D_k Pp_k⁻¹ Q_k,
+    # with δ_k = m̂_k − mp_k and D_k = P̂_k − Pp_k, every Q⁻¹ cancels:
+    #   ∇Q_k = ½ (Pp⁻¹ D Pp⁻¹ + r rᵀ),   r_k = Pp_k⁻¹ δ_k
+    #   ∇F_k = r_k m̂_{k−1}ᵀ + Pp⁻¹ D E_{k−1}ᵀ
+    #   ∇P0  = F₀ᵀ (∇Q)₀ F₀
+    # — only the well-conditioned predicted covariance is ever inverted.
+    Ppinv = _inv(Pp)
+    delta = mhat - mp
+    Dk = Phat - Pp
+    rk = _mv(Ppinv, delta)
+    PiD = _mm(Ppinv, Dk)
+    dQ = 0.5 * (_mm(PiD, Ppinv) + rk[:, None, :] * rk[None, :, :])
+    dF = rk[:, None, :] * mh_prev[None, :, :] + _mm(PiD, _mt(E_prev))
+    dP0 = F0.T @ dQ[:, :, 0] @ F0
+
+    # Observation terms (observed steps only); R is (1, 1).
+    Hm = (h[:, None] * mhat).sum(0)
+    resid = y - Hm
+    HPhat = (h[:, None, None] * Phat).sum(0)  # (d, T): (H P̂)_j
+    # ∇H = R⁻¹ Σ [(y − Hm̂) m̂ᵀ − H P̂]
+    dH = ((maskf[None] * (resid[None] * mhat - HPhat)).sum(-1) / r)[None, :]
+    # ∇R = ½ Σ [R⁻¹ N R⁻¹ − R⁻¹],  N = resid² + H P̂ Hᵀ
+    HPH = (h[:, None] * HPhat).sum(0)
+    Nk = resid * resid + HPH
+    dR = (0.5 * maskf * (Nk / (r * r) - 1.0 / r)).sum().reshape(1, 1)
+    # ∇y_k = −R⁻¹ (y_k − H m̂_k) at observed steps
+    dy = torch.where(mask, -resid / r, torch.zeros_like(resid)).reshape(observations.shape)
+
+    g = gbar.to(P0.dtype)
+    return LGSSMTL(g * dP0, g * dF, g * dQ, g * dH, g * dR), g * dy
+
+
+class _LmlTL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, P0, Fs, Qs, H, R, observations):
+        b_tl, C_tl, ell = pkf_from_tl(LGSSMTL(P0, Fs, Qs, H, R), observations, True)
+        ctx.save_for_backward(P0, Fs, Qs, H, R, observations, b_tl, C_tl)
+        return ell
+
+    @staticmethod
+    def backward(ctx, gbar):
+        P0, Fs, Qs, H, R, observations, b_tl, C_tl = ctx.saved_tensors
+        ssm = LGSSMTL(P0, Fs, Qs, H, R)
+        mhat, Phat = pks_from_tl(ssm, b_tl, C_tl)
+        ct, dy = fisher_grads_from_smoothed(ssm, observations, b_tl, C_tl, mhat, Phat, gbar)
+        return (*ct, dy)
+
+
+def lml_tl(lgssm_tl: LGSSMTL, observations: Tensor) -> Tensor:
+    """Log marginal likelihood of an LGSSMTL with Fisher-identity gradients
+    (see the section comment)."""
+    return _LmlTL.apply(*lgssm_tl, observations)

@@ -80,6 +80,7 @@ class _Matern(SDEKernel):
     def __init__(self, variance=1.0, lengthscales=1.0, *, dtype=None, device=None):
         super().__init__()
         dtype = dtype or config.default_float()
+        device = config.resolve_device(device)
 
         def raw(v):
             u = inv_softplus(torch.as_tensor(v, dtype=torch.float64))

@@ -3,9 +3,10 @@ parallel_gps_tpu/models/ssgp.py).
 
 ``StateSpaceGP`` is an ``nn.Module`` holding the sorted training times and
 observations (NaN = missing) as buffers, a kernel module and a
-softplus-unconstrained noise variance.  Both entry points run the
+softplus-unconstrained noise variance.  Its entry points run the
 dt-engine (kalman/dt.py): hand-written CUDA kernels when the model lives on
-a CUDA device, their plain PyTorch versions on the CPU.
+a CUDA device, their plain PyTorch versions on the CPU.  A model is built
+on the card unless the caller names another device.
 
 Prediction merges the training and (sorted) query times with a
 searchsorted merge, puts NaN observations at the queries, smooths the
@@ -81,7 +82,8 @@ class StateSpaceGP(nn.Module):
         stable: bool = False,
     ) -> "StateSpaceGP":
         """``data`` = (ts, ys): sorted times and observations (arrays or
-        tensors, NaN = missing)."""
+        tensors, NaN = missing).  ``device=None`` is the card
+        (``config.default_device()``); the CPU must be asked for."""
         if not parallel:
             raise NotImplementedError("parallel=False (the sequential engine) is ROADMAP A3")
         if mesh is not None:
@@ -89,6 +91,7 @@ class StateSpaceGP(nn.Module):
         if stable:
             raise NotImplementedError("stable=True (the square-root engine) is ROADMAP A10")
         dtype = dtype or config.default_float()
+        device = config.resolve_device(device)
         ts, ys = (_as_tensor(x, dtype, device) for x in data)
         kernel = kernel.to(dtype=dtype, device=device)
         nv = torch.as_tensor(float(noise_variance), dtype=torch.float64)
@@ -111,13 +114,34 @@ class StateSpaceGP(nn.Module):
         ``kernel.variance``, ``kernel.lengthscales``, ``noise_variance``),
         so both packages compute the same thing."""
         dtype = dtype or config.default_float()
+        device = config.resolve_device(device)
         k = KERNELS[kernel](float(np.asarray(variance)), float(np.asarray(lengthscales)), dtype=dtype, device=device)
         return cls.create((ts, ys), k, float(np.asarray(noise_variance)), dtype=dtype, device=device)
 
+    def to_numpy(self) -> dict:
+        """The constrained hyperparameters as numpy arrays (the inverse of
+        ``from_numpy``'s ``variance``, ``lengthscales``, ``noise_variance``)."""
+        values = {
+            "variance": self.kernel.variance, "lengthscales": self.kernel.lengthscales,
+            "noise_variance": self.noise_variance,
+        }
+        return {k: v.detach().cpu().numpy() for k, v in values.items()}
+
     def log_marginal_likelihood(self) -> Tensor:
-        """LML of the data through the dt-engine filter.  Forward only: the
-        gradient needs the Fisher-tail kernel (ROADMAP B4)."""
+        """LML of the data through the dt-engine filter, differentiable in
+        the hyperparameters: the backward is the dt-engine smoother and the
+        fused Fisher tail (kalman/dt.py::lml_dt)."""
         return lml_dt(self.kernel, self.ts, self.noise_variance.reshape(1, 1), self.ys)
+
+    # Alias matching the reference method name.
+    maximum_log_likelihood_objective = log_marginal_likelihood
+
+    # Calling the module evaluates it: what ``torch.func.functional_call``
+    # runs with substituted parameters (``inference.optim``).
+    forward = log_marginal_likelihood
+
+    def training_loss(self) -> Tensor:
+        return -self.log_marginal_likelihood()
 
     @torch.no_grad()
     def predict_f(self, Xnew, full_cov: bool = False):

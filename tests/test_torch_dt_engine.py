@@ -88,7 +88,7 @@ def test_filter_and_smoother_match_jax_time_last_engine(name, v, ell, T):
     t, y = _data(T, 7)
     ssm, ys = _jax_model(getattr(jk, name)(v, ell), t, y)
     b_x, C_x, ell_x, g_x, L_x = _jax_pkfs(ssm, ys)
-    fam, co, P0, H, R, dts, ty = _torch_inputs(getattr(tk, name)(v, ell, dtype=torch.float64), t, y)
+    fam, co, P0, H, R, dts, ty = _torch_inputs(getattr(tk, name)(v, ell, dtype=torch.float64, device="cpu"), t, y)
     with torch.no_grad():
         b, C, ell_t = tdt.strip_filter_dt(fam, co, P0, H, R, dts, ty)
         g, L = tdt.strip_smoother_dt(fam, co, P0, dts, b, C)
@@ -114,7 +114,7 @@ def test_filter_and_smoother_match_jax_dt_kernels_in_interpret_mode():
     dts = _dts_from_ts(jnp.asarray(t)).astype(ssm.P0.dtype)
     b_s, C_s, ell_s = strip_filter_dt(build, coeffs, ssm.P0, ssm.H, ssm.R, dts, ys, block=32, interpret=True)
     g_s, L_s = strip_smoother_dt(build, coeffs, ssm.P0, dts, b_s, C_s, block=32, interpret=True)
-    fam, co, P0, H, R, tdts, ty = _torch_inputs(tk.Matern12(1.2, 0.6, dtype=torch.float64), t, y)
+    fam, co, P0, H, R, tdts, ty = _torch_inputs(tk.Matern12(1.2, 0.6, dtype=torch.float64, device="cpu"), t, y)
     with torch.no_grad():
         b, C, ell_t = tdt.strip_filter_dt(fam, co, P0, H, R, tdts, ty)
         g, L = tdt.strip_smoother_dt(fam, co, P0, tdts, torch.tensor(np.asarray(b_s)), torch.tensor(np.asarray(C_s)))
@@ -133,7 +133,7 @@ def test_chunked_passes_compose_to_the_plain_engine(T):
     chunk prefixes, seeded re-scan), which the kernels are held against on
     the card, give the plain filter and smoother at any chunk remainder."""
     t, y = _data(T, 3)
-    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.Matern52(0.9, 0.45, dtype=torch.float64), t, y)
+    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.Matern52(0.9, 0.45, dtype=torch.float64, device="cpu"), t, y)
     with torch.no_grad():
         b0, C0, ell0 = tdt.strip_filter_dt_plain(fam, co, P0, H, R, dts, ty)
         g0, L0 = tdt.strip_smoother_dt_plain(fam, co, P0, dts, b0, C0)
@@ -153,7 +153,7 @@ def test_chunked_passes_compose_to_the_plain_engine(T):
 def test_blocked_scan_matches_flat_scan():
     """Two-level Kogge–Stone (T ≥ 8192) == flat Kogge–Stone."""
     t, y = _data(8200, 5)
-    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.Matern12(1.0, 0.3, dtype=torch.float64), t, y)
+    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.Matern12(1.0, 0.3, dtype=torch.float64, device="cpu"), t, y)
     with torch.no_grad():
         Fs, Qs, P0s = tdt.build_planes_tl(fam, co, P0, dts)
         e = ttl._filtering_elements_from_planes(P0s, Fs, Qs, H, R, ty)
@@ -166,22 +166,27 @@ def test_blocked_scan_matches_flat_scan():
 
 @pytest.fixture(scope="module")
 def fresh_process_facts():
-    """Import the port in a fresh interpreter, run the model once on the
-    CPU, and report which modules were loaded and which kernels launched."""
+    """Import the port and each of its modules in a fresh interpreter, run
+    the model once on the CPU (LML, a gradient, predict_f and a step of each
+    optimiser), and report which modules were loaded and which kernels
+    launched."""
     code = textwrap.dedent(
         """
         import json, sys
         import parallel_gps_torch as pgt
-        after_import = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+        import parallel_gps_torch.inference.optim, parallel_gps_torch.models.params
+        import parallel_gps_torch.kalman.dt, parallel_gps_torch.kalman.timelast
         import numpy as np
         import torch
         from parallel_gps_torch.kalman import dt
         rng = np.random.RandomState(0)
         t = np.sort(rng.rand(200)); y = np.sin(t); y[::7] = np.nan
-        m = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, 0.1, dtype=torch.float64)
-        m.log_marginal_likelihood(); m.predict_f(rng.rand(10))
+        m = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, 0.1, dtype=torch.float64, device="cpu")
+        m.log_marginal_likelihood().backward(); m.predict_f(rng.rand(10))
+        pgt.inference.fit_adam(m, n_iters=1); pgt.inference.fit_lbfgs(m, n_iters=1)
+        foreign = ("jax", "jaxlib", "flax", "optax", "parallel_gps_tpu")
         print(json.dumps({
-            "jax_modules": after_import,
+            "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in foreign),
             "launches": dt.LAUNCHES,
             "cuda_loader_imported": "parallel_gps_torch.kalman._cuda" in sys.modules,
         }))
@@ -193,7 +198,8 @@ def fresh_process_facts():
 
 
 def test_port_imports_no_jax(fresh_process_facts):
-    """``import parallel_gps_torch`` leaves jax and flax unloaded."""
+    """Importing and running the port (serving and training) leaves jax,
+    flax, optax and the JAX package unloaded."""
     assert fresh_process_facts["jax_modules"] == []
 
 
@@ -207,21 +213,34 @@ def test_cpu_dispatch_launches_no_kernel_and_loads_no_build_step(fresh_process_f
 def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     """A tensor on a device other than the CPU goes to the kernel wrapper,
     which refuses what it cannot launch instead of falling back."""
-    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.Matern32(1.0, 0.5, dtype=torch.float64), *_data(50, 1))
+    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.Matern32(1.0, 0.5, dtype=torch.float64, device="cpu"), *_data(50, 1))
     meta = [x.to("meta") for x in (co, P0, H, R, dts, ty)]
     with pytest.raises(ValueError, match="CUDA device"):
         tdt.strip_filter_dt(fam, *meta)
+    b, C = torch.zeros(2, 50, device="meta"), torch.zeros(2, 2, 50, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        tdt.dt_smoother_scan(fam, meta[0], meta[1], meta[4], torch.zeros(2, 50, device="meta"),
-                             torch.zeros(2, 2, 50, device="meta"))
+        tdt.dt_smoother_scan(fam, meta[0], meta[1], meta[4], b, C)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tdt.dt_fisher(fam, *meta, b, C, b, C)
+    assert set(tdt.LAUNCHES) == {"dt_filter_scan", "dt_filter_apply", "dt_smoother_scan", "dt_smoother_apply", "dt_fisher"}
     assert set(tdt.LAUNCHES.values()) == {0}
 
 
-def test_lml_dt_gradient_is_not_ported_yet():
+def test_lml_dt_gradient_is_the_fisher_backward():
+    """``lml_dt`` is differentiable: its backward (smoother + Fisher tail)
+    gives the gradient that autograd through the plain filter's scan gives,
+    rtol 1e-7 / atol 1e-10 (tests/test_torch_fisher.py holds it against the
+    JAX package)."""
     t, y = _data(40, 2)
-    k = tk.Matern32(1.0, 0.5, dtype=torch.float64)
-    ell = tdt.lml_dt(k, torch.tensor(t), torch.tensor([[0.1]], dtype=torch.float64), torch.tensor(y))
-    assert ell.requires_grad
-    with pytest.raises(NotImplementedError, match="B4"):
+    R = torch.tensor([[0.1]], dtype=torch.float64)
+    grads = []
+    for through_scan in (False, True):
+        k = tk.Matern32(1.0, 0.5, dtype=torch.float64, device="cpu")
+        if through_scan:
+            ell = ttl.pkf_from_tl(k.get_ssm_tl(torch.tensor(t), R), torch.tensor(y), True)[2]
+        else:
+            ell = tdt.lml_dt(k, torch.tensor(t), R, torch.tensor(y))
+        assert ell.requires_grad
         ell.backward()
-
+        grads.append([k.raw_variance.grad.item(), k.raw_lengthscales.grad.item()])
+    npt.assert_allclose(grads[0], grads[1], rtol=1e-7, atol=1e-10)

@@ -31,7 +31,7 @@ def _pair(name, t, y, variance, lengthscale, noise):
     tm = StateSpaceGP.from_numpy(
         np.asarray(jm.ts)[:, 0], np.asarray(jm.ys)[:, 0], kernel=name,
         variance=np.asarray(jm.kernel.variance), lengthscales=np.asarray(jm.kernel.lengthscales),
-        noise_variance=np.asarray(jm.noise_variance), dtype=torch.float64,
+        noise_variance=np.asarray(jm.noise_variance), dtype=torch.float64, device="cpu",
     )
     return jm, tm
 
@@ -62,7 +62,7 @@ def test_predict_matches_jax():
 
 def test_unsorted_queries_match_sorted_ones():
     t, y = _data(200, 1)
-    tm = StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, 0.1, dtype=torch.float64)
+    tm = StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, 0.1, dtype=torch.float64, device="cpu")
     X = np.random.RandomState(2).rand(17) * 1.5 - 0.25
     order = np.argsort(X)
     m_u, v_u = tm.predict_f(X)
@@ -104,7 +104,7 @@ def test_single_observation():
 
 def test_empty_queries():
     t, y = _data(20, 4)
-    tm = StateSpaceGP.from_numpy(t, y, "Matern12", 1.0, 0.3, 0.1, dtype=torch.float64)
+    tm = StateSpaceGP.from_numpy(t, y, "Matern12", 1.0, 0.3, 0.1, dtype=torch.float64, device="cpu")
     mean, var = tm.predict_f(np.zeros(0))
     assert mean.shape == (0, 1) and var.shape == (0, 1)
 
@@ -122,7 +122,35 @@ def test_merge_sorted_matches_jax_with_ties():
 
 def test_unported_options_raise():
     t, y = _data(10, 0)
-    k = Matern32(1.0, 0.5, dtype=torch.float64)
+    k = Matern32(1.0, 0.5, dtype=torch.float64, device="cpu")
     for kwargs, item in (({"parallel": False}, "A3"), ({"mesh": object()}, "A13"), ({"stable": True}, "A10")):
         with pytest.raises(NotImplementedError, match=item):
-            StateSpaceGP.create((t, y), k, 0.1, dtype=torch.float64, **kwargs)
+            StateSpaceGP.create((t, y), k, 0.1, dtype=torch.float64, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("build", ["from_numpy", "create", "kernel"])
+def test_default_device_is_the_card_and_raises_without_one(build):
+    """``device=None`` means the card at every entry point that creates
+    tensors; where there is none (as here) it raises and names
+    ``device="cpu"`` instead of carrying on on the CPU."""
+    from parallel_gps_torch import config
+
+    assert config.default_device() == torch.device("cuda")
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    t, y = _data(10, 0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        if build == "from_numpy":
+            StateSpaceGP.from_numpy(t, y, "Matern32", 1.0, 0.5, 0.1, dtype=torch.float64)
+        elif build == "create":
+            StateSpaceGP.create((t, y), Matern32(1.0, 0.5, dtype=torch.float64, device="cpu"), 0.1, dtype=torch.float64)
+        else:
+            Matern32(1.0, 0.5, dtype=torch.float64)
+
+
+def test_to_numpy_inverts_from_numpy():
+    t, y = _data(10, 0)
+    tm = StateSpaceGP.from_numpy(t, y, "Matern52", 0.7, 1.9, 0.25, dtype=torch.float64, device="cpu")
+    got = tm.to_numpy()
+    assert {k: v.shape for k, v in got.items()} == {"variance": (), "lengthscales": (), "noise_variance": ()}
+    npt.assert_allclose([got["variance"], got["lengthscales"], got["noise_variance"]], [0.7, 1.9, 0.25], rtol=1e-14)

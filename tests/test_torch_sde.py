@@ -29,7 +29,7 @@ IDS = [k for k, _, _ in KERNELS]
 
 
 def _pair(name, v, ell):
-    return getattr(jk, name)(v, ell), getattr(tk, name)(v, ell, dtype=torch.float64)
+    return getattr(jk, name)(v, ell), getattr(tk, name)(v, ell, dtype=torch.float64, device="cpu")
 
 
 def _np(x):
@@ -100,7 +100,7 @@ def test_positive_hyperparameters_round_trip_through_softplus():
     npt.assert_allclose(_np(softplus(inv_softplus(y))), _np(y), rtol=1e-12)
     x = np.linspace(-30.0, 40.0, 11)
     npt.assert_allclose(_np(softplus(torch.tensor(x))), np.asarray(jax.nn.softplus(jnp.asarray(x))), rtol=1e-14)
-    k = tk.Matern52(0.8, 0.4, dtype=torch.float64)
+    k = tk.Matern52(0.8, 0.4, dtype=torch.float64, device="cpu")
     assert {n for n, _ in k.named_parameters()} == {"raw_variance", "raw_lengthscales"}
     npt.assert_allclose(k.variance.item(), 0.8, rtol=1e-14)
     npt.assert_allclose(k.lengthscales.item(), 0.4, rtol=1e-14)
