@@ -3,11 +3,14 @@
 State-space Gaussian-process regression for stationary kernels: the kernel is
 compiled to a linear-Gaussian state-space model and solved by a parallel
 (associative-scan) Kalman filter and smoother, and trained on the LML's
-Fisher-identity gradients (``inference``).  On a CUDA device the four scan
-passes of the dt-engine and the Fisher tail of its backward run as
-hand-written CUDA kernels (``kalman/dt.py``, ``csrc/``); on the CPU the same
-functions run their plain PyTorch versions.  Entry points build on the card
-unless the caller passes ``device="cpu"``.
+Fisher-identity gradients (``inference``).  On a CUDA device the scan passes
+of the dt-engine and of the plane-streaming strip engine, and the Fisher tail
+of the dt-engine's backward, run as hand-written CUDA kernels
+(``kalman/dt.py``, ``kalman/strip.py``, ``csrc/``); on the CPU the same
+functions run their plain PyTorch versions.  ``kalman.pkf`` / ``pks`` /
+``pkfs`` filter and smooth an explicit state-space model (``LGSSM``,
+``LGSSMTL``).  Entry points build on the card unless the caller passes
+``device="cpu"``.
 
 The JAX package ``parallel_gps_tpu`` is the reference this package is tested
 against; module names follow it where that helps find the counterpart.
@@ -16,7 +19,7 @@ against; module names follow it where that helps find the counterpart.
 from parallel_gps_torch import models  # isort: skip
 from parallel_gps_torch import config, inference, kalman, kernels, ops
 from parallel_gps_torch.models import StateSpaceGP
-from parallel_gps_torch.types import LGSSMTL, ContinuousDiscreteModel
+from parallel_gps_torch.types import LGSSM, LGSSMTL, ContinuousDiscreteModel, lgssm_from_numpy
 
 __version__ = "0.1.0"
 
@@ -28,6 +31,8 @@ __all__ = [
     "models",
     "ops",
     "StateSpaceGP",
+    "LGSSM",
     "LGSSMTL",
     "ContinuousDiscreteModel",
+    "lgssm_from_numpy",
 ]

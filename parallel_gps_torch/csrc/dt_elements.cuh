@@ -1,15 +1,17 @@
-// Element algebra of the dt-engine scans, as CUDA device code.
+// Element algebra of the dt-engine and strip-engine scans, as CUDA device code.
 //
 // Counterpart of the row-list algebra in parallel_gps_tpu/kalman/pallas_scan.py
 // (_build_filtering_rows :309, _filt_combine_rows :225, _build_smoothing_rows
-// :356, _smooth_combine_rows :290, the closed-form _inv :160) and of the
+// :356, _smooth_combine_rows :290, the Schur-recursed _inv :132) and of the
 // in-register F/Q rebuild in kalman/pallas_dt.py (_build_fq_pure :104) for the
 // exponential-polynomial transition family of kernels/matern.py, with its
 // chain rule (build_fq_vjp) for the Fisher-tail kernel.
 //
 // Everything is templated on the scalar type S and the state dimension D
-// (1..3), with every loop fully unrolled, so an element lives in registers:
-// a filtering element is 3D²+2D values (33 at D=3), a smoothing element 2D²+D.
+// (1..8; the dt kernels instantiate 1..3), with every loop fully unrolled, so
+// an element lives in registers as far as they reach: a filtering element is
+// 3D²+2D values (33 at D=3, 120 at D=6, 208 at D=8), a smoothing element
+// 2D²+D; beyond about D=4 the compiler spills part of it to local memory.
 // Matrices are row-major arrays of D*D values.
 #pragma once
 
@@ -94,7 +96,24 @@ __device__ __forceinline__ void mm_symout(const S* a, const S* bt, const S* add,
     }
 }
 
-// Closed-form (adjugate) inverse, D ≤ 3.
+// (P×Q)·(Q×R) product of row-major blocks (the Schur recursion below).
+template <typename S, int P, int Q, int R>
+__device__ __forceinline__ void mm_rect(const S* a, const S* b, S* out) {
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      S s = a[i * Q] * b[j];
+#pragma unroll
+      for (int k = 1; k < Q; ++k) s += a[i * Q + k] * b[k * R + j];
+      out[i * R + j] = s;
+    }
+}
+
+// Inverse: closed-form adjugate for D ≤ 3, and for D > 3 the Schur-complement
+// block recursion of pallas_scan._inv (:132) onto those base cases, with the
+// same split k = (D+1)/2: M = [[A, B], [C, E]], S = E − C A⁻¹ B,
+// M⁻¹ = [[A⁻¹ + A⁻¹B S⁻¹ C A⁻¹, −A⁻¹B S⁻¹], [−S⁻¹ C A⁻¹, S⁻¹]].
 template <typename S, int D>
 __device__ __forceinline__ void inv(const S* M, S* out) {
   if constexpr (D == 1) {
@@ -106,8 +125,49 @@ __device__ __forceinline__ void inv(const S* M, S* out) {
     out[1] = -b * r;
     out[2] = -c * r;
     out[3] = a * r;
+  } else if constexpr (D > 3) {
+    constexpr int k = (D + 1) / 2, m = D - k;
+    S A[k * k], B[k * m], C[m * k], E[m * m];
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int j = 0; j < k; ++j) A[i * k + j] = M[i * D + j];
+#pragma unroll
+      for (int j = 0; j < m; ++j) B[i * m + j] = M[i * D + k + j];
+    }
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+#pragma unroll
+      for (int j = 0; j < k; ++j) C[i * k + j] = M[(k + i) * D + j];
+#pragma unroll
+      for (int j = 0; j < m; ++j) E[i * m + j] = M[(k + i) * D + k + j];
+    }
+    S Ainv[k * k], CAinv[m * k], AinvB[k * m], Sc[m * m], Sinv[m * m], AS[k * m], TL[k * k], BL[m * k];
+    inv<S, k>(A, Ainv);
+    mm_rect<S, m, k, k>(C, Ainv, CAinv);
+    mm_rect<S, k, k, m>(Ainv, B, AinvB);
+    mm_rect<S, m, k, m>(CAinv, B, Sc);
+#pragma unroll
+    for (int q = 0; q < m * m; ++q) Sc[q] = E[q] - Sc[q];
+    inv<S, m>(Sc, Sinv);
+    mm_rect<S, k, m, m>(AinvB, Sinv, AS);
+    mm_rect<S, k, m, k>(AS, CAinv, TL);
+    mm_rect<S, m, m, k>(Sinv, CAinv, BL);
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int j = 0; j < k; ++j) out[i * D + j] = Ainv[i * k + j] + TL[i * k + j];
+#pragma unroll
+      for (int j = 0; j < m; ++j) out[i * D + k + j] = -AS[i * m + j];
+    }
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+#pragma unroll
+      for (int j = 0; j < k; ++j) out[(k + i) * D + j] = -BL[i * k + j];
+#pragma unroll
+      for (int j = 0; j < m; ++j) out[(k + i) * D + k + j] = Sinv[i * m + j];
+    }
   } else {
-    static_assert(D == 3, "closed-form inverse for D <= 3 only");
     const S a = M[0], b = M[1], c = M[2];
     const S e = M[3], f = M[4], g = M[5];
     const S h = M[6], i = M[7], j = M[8];

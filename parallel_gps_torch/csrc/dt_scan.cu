@@ -3,8 +3,9 @@
 // Each thread owns a contiguous chunk of K time steps.  For every step it
 // rebuilds the transition F and the noise Q from dt and the kernel's
 // transition coefficients (dt_elements.cuh: build_fq) and forms the scan
-// element in registers; nothing per step but dt, y and the moments is read or
-// written.  A pass-1 kernel folds each chunk to its total; the exclusive
+// element in registers (the pass bodies are scan_passes.cuh, shared with the
+// plane-streaming kernels of strip_scan.cu); nothing per step but dt, y and
+// the moments is read or written.  A pass-1 kernel folds each chunk to its total; the exclusive
 // prefix over the (n, n_chunks) totals runs between the passes (plain PyTorch
 // on the device, kalman/dt.py); a pass-2 kernel re-folds each chunk seeded
 // with its prefix and writes the moments.
@@ -25,39 +26,27 @@
 // work).  Each kernel below notes which of the two bounds it.
 #include <cuda_runtime.h>
 
-#include "dt_launch.cuh"
+#include "scan_passes.cuh"
 
 namespace pgt {
 
-// Filtering element of step t; also returns its F, Q and cleaned observation.
+// The dt-engine's sources of a step's F and Q for the shared pass bodies
+// (scan_passes.cuh): rebuilt from dt[t] and the transition coefficients.
 template <typename S, int D>
-__device__ __forceinline__ void filter_step(const FilterScalars<S, D>& p, const S* dt, const S* y, long long t,
-                                            S* F, S* Q, S& yc, bool& observed, Filt<S, D>& e) {
-  const S yv = y[t];
-  observed = !(yv != yv);  // NaN marks a missing observation
-  yc = observed ? yv : S(0);
-  build_fq<S, D>(p.c, p.degree, p.P0, dt[t], F, Q);
-  build_filtering<S, D>(F, Q, yc, observed ? S(1) : S(0), p.h, p.r, p.P0, t == 0, e);
-}
-
-// Smoothing element of step t: F, Q at dt[t+1] and the filtered (m, P) at t;
-// the global-last step is (E = 0, g = m, L = P).
-template <typename S, int D>
-__device__ __forceinline__ void smoother_step(const SmootherScalars<S, D>& p, const S* dt, const S* b, const S* C,
-                                              long long t, long long T, Smooth<S, D>& e) {
-  S m[D], P[D * D];
-#pragma unroll
-  for (int a = 0; a < D; ++a) m[a] = b[a * T + t];
-#pragma unroll
-  for (int q = 0; q < D * D; ++q) P[q] = C[q * T + t];
-  if (t == T - 1) {
-    build_smoothing_last<S, D>(m, P, e);
-  } else {
-    S Fn[D * D], Qn[D * D];
-    build_fq<S, D>(p.c, p.degree, p.P0, dt[t + 1], Fn, Qn);
-    build_smoothing<S, D>(Fn, Qn, m, P, e);
+struct DtFilterSource : FilterScalars<S, D> {
+  const S* dt;
+  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
+    build_fq<S, D>(this->c, this->degree, this->P0, dt[t], F, Q);
   }
-}
+};
+
+template <typename S, int D>
+struct DtSmootherSource : SmootherScalars<S, D> {
+  const S* dt;
+  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
+    build_fq<S, D>(this->c, this->degree, this->P0, dt[t], F, Q);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Filter pass 1.  Replaces parallel_gps_tpu/kalman/pallas_dt.py
@@ -71,19 +60,10 @@ __global__ void __launch_bounds__(kThreads)
                           S* __restrict__ totals, long long T, int K, long long n_chunks) {
   const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (c >= n_chunks) return;
-  FilterScalars<S, D> p;
+  DtFilterSource<S, D> p;
   p.load(scal, degree);
-  const long long t0 = c * K;
-  const long long t1 = (t0 + K < T) ? t0 + K : T;
-  S F[D * D], Q[D * D], yc;
-  bool observed;
-  Filt<S, D> acc, e;
-  filter_step<S, D>(p, dt, y, t0, F, Q, yc, observed, acc);
-  for (long long t = t0 + 1; t < t1; ++t) {
-    filter_step<S, D>(p, dt, y, t, F, Q, yc, observed, e);
-    acc = filt_combine<S, D>(acc, e);
-  }
-  store_filt<S, D>(totals, n_chunks, c, acc);
+  p.dt = dt;
+  filter_scan_chunk<S, D>(p, y, totals, T, K, n_chunks, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -100,66 +80,15 @@ __global__ void __launch_bounds__(kThreads)
     dt_filter_apply_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ prefix,
                            const S* __restrict__ dt, const S* __restrict__ y, S* __restrict__ b_out,
                            S* __restrict__ C_out, S* __restrict__ ell_parts, long long T, int K, long long n_chunks) {
-  __shared__ S red[kThreads];
   const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
   S ll = S(0);
   if (c < n_chunks) {
-    FilterScalars<S, D> p;
+    DtFilterSource<S, D> p;
     p.load(scal, degree);
-    const S log2pi = S(1.8378770664093454835606594728112);  // log(2π)
-    const long long t0 = c * K;
-    const long long t1 = (t0 + K < T) ? t0 + K : T;
-    Filt<S, D> acc, e;
-    load_filt<S, D>(prefix, n_chunks, c, acc);
-    for (long long t = t0; t < t1; ++t) {
-      S F[D * D], Q[D * D], yc;
-      bool observed;
-      filter_step<S, D>(p, dt, y, t, F, Q, yc, observed, e);
-      if (observed) {
-        S mprev[D], Pprev[D * D];
-#pragma unroll
-        for (int a = 0; a < D; ++a) mprev[a] = (t == 0) ? S(0) : acc.b[a];
-#pragma unroll
-        for (int q = 0; q < D * D; ++q) Pprev[q] = (t == 0) ? p.P0[q] : acc.C[q];
-        S hF[D], hQ[D], PhF[D];
-#pragma unroll
-        for (int j = 0; j < D; ++j) {
-          S sf = p.h[0] * F[j], sq = p.h[0] * Q[j];
-#pragma unroll
-          for (int k = 1; k < D; ++k) {
-            sf += p.h[k] * F[k * D + j];
-            sq += p.h[k] * Q[k * D + j];
-          }
-          hF[j] = sf;
-          hQ[j] = sq;
-        }
-        mv<S, D>(Pprev, hF, PhF);
-        S mean = hF[0] * mprev[0], v1 = hF[0] * PhF[0], v2 = hQ[0] * p.h[0];
-#pragma unroll
-        for (int j = 1; j < D; ++j) {
-          mean += hF[j] * mprev[j];
-          v1 += hF[j] * PhF[j];
-          v2 += hQ[j] * p.h[j];
-        }
-        const S var = v1 + v2 + p.r;
-        const S diff = yc - mean;
-        ll += S(-0.5) * (diff * diff / var + dlog(var) + log2pi);
-      }
-      acc = filt_combine<S, D>(acc, e);
-#pragma unroll
-      for (int a = 0; a < D; ++a) b_out[a * T + t] = acc.b[a];
-#pragma unroll
-      for (int q = 0; q < D * D; ++q) C_out[q * T + t] = acc.C[q];
-    }
+    p.dt = dt;
+    ll = filter_apply_chunk<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c);
   }
-  red[threadIdx.x] = ll;
-  __syncthreads();
-#pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) ell_parts[blockIdx.x] = red[0];
+  block_sum<S>(ll, ell_parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -177,17 +106,10 @@ __global__ void __launch_bounds__(kThreads)
                             int K, long long n_chunks) {
   const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (c >= n_chunks) return;
-  SmootherScalars<S, D> p;
+  DtSmootherSource<S, D> p;
   p.load(scal, degree);
-  const long long t0 = c * K;
-  const long long t1 = (t0 + K < T) ? t0 + K : T;
-  Smooth<S, D> acc, e;
-  smoother_step<S, D>(p, dt, b, C, t1 - 1, T, acc);
-  for (long long t = t1 - 2; t >= t0; --t) {
-    smoother_step<S, D>(p, dt, b, C, t, T, e);
-    acc = smooth_combine<S, D>(acc, e);
-  }
-  store_smooth<S, D>(totals, n_chunks, c, acc);
+  p.dt = dt;
+  smoother_scan_chunk<S, D>(p, b, C, totals, T, K, n_chunks, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -204,20 +126,10 @@ __global__ void __launch_bounds__(kThreads)
                              S* __restrict__ g_out, S* __restrict__ L_out, long long T, int K, long long n_chunks) {
   const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (c >= n_chunks) return;
-  SmootherScalars<S, D> p;
+  DtSmootherSource<S, D> p;
   p.load(scal, degree);
-  const long long t0 = c * K;
-  const long long t1 = (t0 + K < T) ? t0 + K : T;
-  Smooth<S, D> acc, e;
-  load_smooth<S, D>(prefix, n_chunks, c, acc);
-  for (long long t = t1 - 1; t >= t0; --t) {
-    smoother_step<S, D>(p, dt, b, C, t, T, e);
-    acc = smooth_combine<S, D>(acc, e);
-#pragma unroll
-    for (int a = 0; a < D; ++a) g_out[a * T + t] = acc.g[a];
-#pragma unroll
-    for (int q = 0; q < D * D; ++q) L_out[q * T + t] = acc.L[q];
-  }
+  p.dt = dt;
+  smoother_apply_chunk<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c);
 }
 
 }  // namespace pgt

@@ -1,0 +1,175 @@
+// The four passes of the two-pass chunked scans, as device code shared by the
+// dt-engine kernels (dt_scan.cu: F and Q rebuilt from dt) and the
+// plane-streaming strip kernels (strip_scan.cu: F and Q loaded from (D, D, T)
+// planes).  The two engines differ only in the source of a step's F and Q.
+//
+// A filter source ``Src`` provides the members P0 (D²), h (D), r and
+//     void fq(long long t, S* F, S* Q) const;   // F_t, Q_t, row-major
+// a smoother source provides fq alone.
+//
+// Each thread owns chunk c: the K consecutive steps [c·K, min(T, (c+1)·K)).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "dt_launch.cuh"
+
+namespace pgt {
+
+// Filtering element of step t; also returns its F, Q and cleaned observation.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ void filter_step(const Src& p, const S* y, long long t, S* F, S* Q, S& yc, bool& observed,
+                                            Filt<S, D>& e) {
+  const S yv = y[t];
+  observed = !(yv != yv);  // NaN marks a missing observation
+  yc = observed ? yv : S(0);
+  p.fq(t, F, Q);
+  build_filtering<S, D>(F, Q, yc, observed ? S(1) : S(0), p.h, p.r, p.P0, t == 0, e);
+}
+
+// Smoothing element of step t: F, Q of step t+1 and the filtered (m, P) at t;
+// the global-last step is (E = 0, g = m, L = P).
+template <typename S, int D, typename Src>
+__device__ __forceinline__ void smoother_step(const Src& p, const S* b, const S* C, long long t, long long T,
+                                              Smooth<S, D>& e) {
+  S m[D], P[D * D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) m[a] = b[a * T + t];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) P[q] = C[q * T + t];
+  if (t == T - 1) {
+    build_smoothing_last<S, D>(m, P, e);
+  } else {
+    S Fn[D * D], Qn[D * D];
+    p.fq(t + 1, Fn, Qn);
+    build_smoothing<S, D>(Fn, Qn, m, P, e);
+  }
+}
+
+// log p(y_t | y_<t) of an observed step from its F, Q and the moments before
+// it: the prefix-included element before step t, or (0, P0) at global t = 0.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ S step_loglik(const Src& p, const S* F, const S* Q, S yc, const Filt<S, D>& acc,
+                                         bool is_first) {
+  const S log2pi = S(1.8378770664093454835606594728112);  // log(2π)
+  S mprev[D], Pprev[D * D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) mprev[a] = is_first ? S(0) : acc.b[a];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) Pprev[q] = is_first ? p.P0[q] : acc.C[q];
+  S hF[D], hQ[D], PhF[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    S sf = p.h[0] * F[j], sq = p.h[0] * Q[j];
+#pragma unroll
+    for (int k = 1; k < D; ++k) {
+      sf += p.h[k] * F[k * D + j];
+      sq += p.h[k] * Q[k * D + j];
+    }
+    hF[j] = sf;
+    hQ[j] = sq;
+  }
+  mv<S, D>(Pprev, hF, PhF);
+  S mean = hF[0] * mprev[0], v1 = hF[0] * PhF[0], v2 = hQ[0] * p.h[0];
+#pragma unroll
+  for (int j = 1; j < D; ++j) {
+    mean += hF[j] * mprev[j];
+    v1 += hF[j] * PhF[j];
+    v2 += hQ[j] * p.h[j];
+  }
+  const S var = v1 + v2 + p.r;
+  const S diff = yc - mean;
+  return S(-0.5) * (diff * diff / var + dlog(var) + log2pi);
+}
+
+// Filter pass 1: fold chunk c to its total.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ void filter_scan_chunk(const Src& p, const S* y, S* totals, long long T, int K,
+                                                  long long n_chunks, long long c) {
+  const long long t0 = c * K;
+  const long long t1 = (t0 + K < T) ? t0 + K : T;
+  S F[D * D], Q[D * D], yc;
+  bool observed;
+  Filt<S, D> acc, e;
+  filter_step<S, D>(p, y, t0, F, Q, yc, observed, acc);
+  for (long long t = t0 + 1; t < t1; ++t) {
+    filter_step<S, D>(p, y, t, F, Q, yc, observed, e);
+    acc = filt_combine<S, D>(acc, e);
+  }
+  store_filt<S, D>(totals, n_chunks, c, acc);
+}
+
+// Filter pass 2: re-fold chunk c seeded with its exclusive prefix, write the
+// filtered moments, and return the chunk's share of the log-likelihood.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ S filter_apply_chunk(const Src& p, const S* prefix, const S* y, S* b_out, S* C_out,
+                                                long long T, int K, long long n_chunks, long long c) {
+  const long long t0 = c * K;
+  const long long t1 = (t0 + K < T) ? t0 + K : T;
+  S ll = S(0);
+  Filt<S, D> acc, e;
+  load_filt<S, D>(prefix, n_chunks, c, acc);
+  for (long long t = t0; t < t1; ++t) {
+    S F[D * D], Q[D * D], yc;
+    bool observed;
+    filter_step<S, D>(p, y, t, F, Q, yc, observed, e);
+    if (observed) ll += step_loglik<S, D>(p, F, Q, yc, acc, t == 0);
+    acc = filt_combine<S, D>(acc, e);
+#pragma unroll
+    for (int a = 0; a < D; ++a) b_out[a * T + t] = acc.b[a];
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) C_out[q * T + t] = acc.C[q];
+  }
+  return ll;
+}
+
+// Sum of one value per thread over the block, in a fixed tree (no atomics);
+// thread 0 writes it to parts[blockIdx.x].  Every thread of the block calls it.
+template <typename S>
+__device__ __forceinline__ void block_sum(S value, S* parts) {
+  __shared__ S red[kThreads];
+  red[threadIdx.x] = value;
+  __syncthreads();
+#pragma unroll
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) parts[blockIdx.x] = red[0];
+}
+
+// Smoother pass 1: reverse fold of chunk c to its suffix total.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ void smoother_scan_chunk(const Src& p, const S* b, const S* C, S* totals, long long T,
+                                                    int K, long long n_chunks, long long c) {
+  const long long t0 = c * K;
+  const long long t1 = (t0 + K < T) ? t0 + K : T;
+  Smooth<S, D> acc, e;
+  smoother_step<S, D>(p, b, C, t1 - 1, T, acc);
+  for (long long t = t1 - 2; t >= t0; --t) {
+    smoother_step<S, D>(p, b, C, t, T, e);
+    acc = smooth_combine<S, D>(acc, e);
+  }
+  store_smooth<S, D>(totals, n_chunks, c, acc);
+}
+
+// Smoother pass 2: reverse re-fold of chunk c seeded with its exclusive
+// suffix; writes the smoothed moments.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ void smoother_apply_chunk(const Src& p, const S* prefix, const S* b, const S* C, S* g_out,
+                                                     S* L_out, long long T, int K, long long n_chunks, long long c) {
+  const long long t0 = c * K;
+  const long long t1 = (t0 + K < T) ? t0 + K : T;
+  Smooth<S, D> acc, e;
+  load_smooth<S, D>(prefix, n_chunks, c, acc);
+  for (long long t = t1 - 1; t >= t0; --t) {
+    smoother_step<S, D>(p, b, C, t, T, e);
+    acc = smooth_combine<S, D>(acc, e);
+#pragma unroll
+    for (int a = 0; a < D; ++a) g_out[a * T + t] = acc.g[a];
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) L_out[q * T + t] = acc.L[q];
+  }
+}
+
+}  // namespace pgt

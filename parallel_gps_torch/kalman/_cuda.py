@@ -1,7 +1,8 @@
-"""Build and load the dt-engine CUDA kernels (``csrc/*.cu``).
+"""Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles the package's CUDA sources (one process per
-source, all started together) and links them into a shared library with a
+translation unit, all started together; ``strip_scan.cu`` is one unit per
+state dimension, ``VARIANTS``) and links them into a shared library with a
 plain C interface, under ``build/parallel_gps_torch/`` at the root of the
 checkout, and ``ctypes`` loads it.  The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt and
@@ -24,8 +25,13 @@ BUILD_DIR = _PKG.parent / "build" / "parallel_gps_torch"
 # -Xptxas -v: the build log lists each kernel's registers and spills.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Threads per block of every dt kernel (csrc/dt_launch.cuh: kThreads).
+# Threads per block of every scan kernel (csrc/dt_launch.cuh: kThreads).
 THREADS = 128
+
+# State dimensions the strip kernels are built for (kalman/strip.py).
+STRIP_DIMS = tuple(range(1, 9))
+# Sources compiled more than once: {file name: [(object suffix, extra flags)]}.
+VARIANTS = {"strip_scan.cu": [(f"_d{d}", [f"-DPGT_D={d}"]) for d in STRIP_DIMS]}
 
 _LIB = None
 
@@ -48,6 +54,7 @@ def library_path() -> Path:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(VARIANTS).encode())
     return BUILD_DIR / f"libpgt_dt_{h.hexdigest()[:16]}.so"
 
 
@@ -68,8 +75,12 @@ def build() -> tuple[Path, str]:
     cu, _ = _sources()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, f.stem + ".o") for f in cu]
-        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(f)] for f, o in zip(cu, objs)]
+        units = [(f, suffix, flags) for f in cu for suffix, flags in VARIANTS.get(f.name, [("", [])])]
+        objs = [os.path.join(tmp, f.stem + suffix + ".o") for f, suffix, _ in units]
+        cmds = [
+            [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-c", "-o", o, str(f)]
+            for (f, _, flags), o in zip(units, objs)
+        ]
         with ThreadPoolExecutor(len(cmds)) as pool:
             logs = list(pool.map(_run, cmds))
         out = os.path.join(tmp, so.name)
@@ -94,6 +105,11 @@ def load():
         "pgt_dt_fisher": [i, i, i, p, p, p, p, p, p, p, p, p, p, ll, i, p],
         "pgt_dt_fisher_n_sums": [i],
     }
+    for d in STRIP_DIMS:
+        sigs[f"pgt_strip_filter_scan_d{d}"] = [i, p, p, p, p, p, ll, i, p]
+        sigs[f"pgt_strip_filter_apply_d{d}"] = [i, p, p, p, p, p, p, p, p, ll, i, p]
+        sigs[f"pgt_strip_smoother_scan_d{d}"] = [i, p, p, p, p, p, ll, i, p]
+        sigs[f"pgt_strip_smoother_apply_d{d}"] = [i, p, p, p, p, p, p, p, ll, i, p]
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -106,6 +122,20 @@ def load():
         raise RuntimeError("csrc/dt_launch.cuh and kalman/_cuda.py disagree on threads per block")
     _LIB = lib
     return lib
+
+
+def launch(name: str, fn, *args) -> None:
+    """Call the library entry ``fn`` on PyTorch's current stream of the device
+    given last: tensors pass as their data pointers, other arguments as they
+    are; the stream goes last.  Raises when the launch is refused."""
+    import torch
+
+    with torch.cuda.device(args[-1]):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args[:-1]]
+        rc = fn(*ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: {error_string(rc)}")
 
 
 def error_string(rc: int) -> str:

@@ -20,7 +20,8 @@ The filter and the smoother are each a two-pass chunked scan over chunks of
 ``CHUNK`` consecutive steps: pass 1 folds each chunk to its total, an
 exclusive prefix over the (n, n_chunks) totals runs in plain PyTorch on the
 totals' device, and pass 2 re-folds each chunk seeded with its prefix and
-writes the moments (the filter's pass 2 also streams the log-likelihood).
+writes the moments (the filter's pass 2 also streams the log-likelihood); the
+chunk helpers and the plain passes on planes are ``kalman/strip.py``'s.
 Each pass, and the Fisher tail, is a wrapper that dispatches on the device
 of its tensors:
 
@@ -37,55 +38,32 @@ time-last engine directly (``strip_filter_dt_plain``,
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 from torch import Tensor
 from torch.autograd.function import once_differentiable
 
-from parallel_gps_torch.kalman.timelast import (
-    FilteringElementTL,
-    SmoothingElementTL,
-    _filtering_elements_from_planes,
-    _loglik_from_planes,
-    _map,
-    _smoothing_elements_from_planes,
-    exclusive_shift,
-    filtering_identity_tl,
-    filtering_operator_tl,
-    fisher_grads_from_smoothed,
-    kogge_stone_scan_tl,
-    pkf_from_tl,
-    pks_from_tl,
-    smoothing_identity_tl,
-    smoothing_operator_tl,
+from parallel_gps_torch.kalman.strip import (
+    CHUNK,
+    exclusive_chunk_prefixes,
+    filt_rows,
+    n_chunks,
+    smooth_rows,
+    strip_filter_apply_plain,
+    strip_filter_scan_plain,
+    strip_smoother_apply_plain,
+    strip_smoother_scan_plain,
 )
+from parallel_gps_torch.kalman.timelast import fisher_grads_from_smoothed, pkf_from_tl, pks_from_tl
 from parallel_gps_torch.kernels.matern import EXPPOLY, build_transitions_m1
 from parallel_gps_torch.ops.linalg import symmetrize
 from parallel_gps_torch.types import LGSSMTL
 
 LAUNCHES = {"dt_filter_scan": 0, "dt_filter_apply": 0, "dt_smoother_scan": 0, "dt_smoother_apply": 0, "dt_fisher": 0}
 
-# Steps folded sequentially by one CUDA thread.
-CHUNK = 64
 MAX_KERNEL_D = 3
 # Most blocks of the Fisher-tail kernel's grid-stride loop: one row of
 # partial sums per block.
 FISHER_MAX_BLOCKS = 2048
-
-
-def filt_rows(d: int) -> int:
-    """Components of a filtering element: A (d²), b (d), C (d²), J (d²), η (d)."""
-    return 3 * d * d + 2 * d
-
-
-def smooth_rows(d: int) -> int:
-    """Components of a smoothing element: E (d²), g (d), L (d²)."""
-    return 2 * d * d + d
-
-
-def n_chunks(T: int) -> int:
-    return -(-T // CHUNK)
 
 
 def reset_launch_counts() -> None:
@@ -118,112 +96,33 @@ def build_planes_tl(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor):
     return Fs, Qs, P0s
 
 
-def _unpack_filt(X: Tensor, d: int) -> FilteringElementTL:
-    d2 = d * d
-    m = X.shape[-1]
-    return FilteringElementTL(
-        X[:d2].reshape(d, d, m), X[d2 : d2 + d], X[d2 + d : 2 * d2 + d].reshape(d, d, m),
-        X[2 * d2 + d : 3 * d2 + d].reshape(d, d, m), X[3 * d2 + d :],
-    )
-
-
-def _unpack_smooth(X: Tensor, d: int) -> SmoothingElementTL:
-    d2 = d * d
-    m = X.shape[-1]
-    return SmoothingElementTL(X[:d2].reshape(d, d, m), X[d2 : d2 + d], X[d2 + d :].reshape(d, d, m))
-
-
-def _pack(elem, m: int) -> Tensor:
-    """Element leaves with trailing axis m → packed (n, m) component rows."""
-    return torch.cat([x.reshape(-1, m) for x in elem]).contiguous()
-
-
-def _chunk_scan(elems, identity, operator, reverse: bool):
-    """Inclusive scan inside each CHUNK-step chunk: leaves (..., T) →
-    (..., n_chunks, CHUNK), the ragged last chunk padded at its end with
-    identity elements (exact no-ops in either direction)."""
-    T = elems[0].shape[-1]
-    nc = n_chunks(T)
-    pad = nc * CHUNK - T
-
-    def blocked(x, ident):
-        if pad:
-            fill = ident.reshape(ident.shape + (1,)).to(x.dtype).expand(x.shape[:-1] + (pad,))
-            x = torch.cat([x, fill], -1)
-        return x.reshape(x.shape[:-1] + (nc, CHUNK))
-
-    return kogge_stone_scan_tl(operator, _map(blocked, elems, identity), identity, reverse)
-
-
-def _seed_chunks(operator, prefix, local, T: int):
-    """Fold each chunk's exclusive prefix into its scanned steps; → (..., T)."""
-    out = operator(_map(lambda p, x: p[..., None].expand_as(x), prefix, local), local)
-    return _map(lambda x: x.reshape(x.shape[:-2] + (-1,))[..., :T], out)
-
-
-def exclusive_chunk_prefixes(totals: Tensor, d: int, reverse: bool) -> Tensor:
-    """Exclusive prefixes (suffixes, for ``reverse``) of the packed
-    (n, n_chunks) chunk totals, by the plain Kogge–Stone scan on the
-    totals' device (counterpart: pallas_scan.py::_strip_exclusive_prefixes)."""
-    if reverse:
-        elems, op, ident = _unpack_smooth(totals, d), smoothing_operator_tl, smoothing_identity_tl
-    else:
-        elems, op, ident = _unpack_filt(totals, d), filtering_operator_tl, filtering_identity_tl
-    identity = ident(d, totals.dtype, totals.device)
-    scanned = kogge_stone_scan_tl(op, elems, identity, reverse)
-    return _pack(_map(lambda x, i: exclusive_shift(x, i, reverse), scanned, identity), totals.shape[-1])
-
-
 # --------------------------------------------------------------------------
 # Plain versions of the four passes and of the Fisher tail
 # --------------------------------------------------------------------------
 
 
-def _filter_elements(family, coeffs, P0, H, R, dts, y):
-    Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
-    e = _filtering_elements_from_planes(P0s, Fs, Qs, H, R.reshape(1, 1), y)
-    return e, (P0s, Fs, Qs)
-
-
 def dt_filter_scan_plain(family, coeffs, P0, H, R, dts, y) -> Tensor:
     """Filter chunk totals, packed (3d²+2d, n_chunks)."""
-    e, _ = _filter_elements(family, coeffs, P0, H, R, dts, y)
-    ident = filtering_identity_tl(P0.shape[0], P0.dtype, P0.device)
-    local = _chunk_scan(e, ident, filtering_operator_tl, reverse=False)
-    return _pack(_map(lambda x: x[..., -1], local), n_chunks(dts.shape[0]))
+    Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
+    return strip_filter_scan_plain(Fs, Qs, P0s, H, R, y)
 
 
 def dt_filter_apply_plain(family, coeffs, P0, H, R, dts, y, prefix):
     """Filtered (b (d, T), C (d, d, T), ell) from the chunks' exclusive prefixes."""
-    d, T = P0.shape[0], dts.shape[0]
-    e, (P0s, Fs, Qs) = _filter_elements(family, coeffs, P0, H, R, dts, y)
-    ident = filtering_identity_tl(d, P0.dtype, P0.device)
-    local = _chunk_scan(e, ident, filtering_operator_tl, reverse=False)
-    out = _seed_chunks(filtering_operator_tl, _unpack_filt(prefix, d), local, T)
-    return out.b, out.C, _loglik_from_planes(P0s, Fs, Qs, H, R.reshape(1, 1), out.b, out.C, y)
-
-
-def _smoother_elements(family, coeffs, P0, dts, b_tl, C_tl):
-    Fs, Qs, _ = build_planes_tl(family, coeffs, P0, dts)
-    return _smoothing_elements_from_planes(Fs, Qs, b_tl, C_tl)
+    Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
+    return strip_filter_apply_plain(Fs, Qs, P0s, H, R, y, prefix)
 
 
 def dt_smoother_scan_plain(family, coeffs, P0, dts, b_tl, C_tl) -> Tensor:
     """Smoother chunk (suffix) totals, packed (2d²+d, n_chunks)."""
-    e = _smoother_elements(family, coeffs, P0, dts, b_tl, C_tl)
-    ident = smoothing_identity_tl(P0.shape[0], P0.dtype, P0.device)
-    local = _chunk_scan(e, ident, smoothing_operator_tl, reverse=True)
-    return _pack(_map(lambda x: x[..., 0], local), n_chunks(dts.shape[0]))
+    Fs, Qs, _ = build_planes_tl(family, coeffs, P0, dts)
+    return strip_smoother_scan_plain(Fs, Qs, b_tl, C_tl)
 
 
 def dt_smoother_apply_plain(family, coeffs, P0, dts, b_tl, C_tl, prefix):
     """Smoothed (g (d, T), L (d, d, T)) from the chunks' exclusive suffixes."""
-    d, T = P0.shape[0], dts.shape[0]
-    e = _smoother_elements(family, coeffs, P0, dts, b_tl, C_tl)
-    ident = smoothing_identity_tl(d, P0.dtype, P0.device)
-    local = _chunk_scan(e, ident, smoothing_operator_tl, reverse=True)
-    out = _seed_chunks(smoothing_operator_tl, _unpack_smooth(prefix, d), local, T)
-    return out.g, out.L
+    Fs, Qs, _ = build_planes_tl(family, coeffs, P0, dts)
+    return strip_smoother_apply_plain(Fs, Qs, b_tl, C_tl, prefix)
 
 
 def dt_fisher_plain(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl):
@@ -270,7 +169,7 @@ def _check(family, coeffs, P0, dts, tensors):
     _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
     _require(family == EXPPOLY, f"unsupported transition family {family!r}")
     _require(P0.dtype in (torch.float32, torch.float64), f"dtype must be float32 or float64, got {P0.dtype}")
-    _require(1 <= d <= MAX_KERNEL_D, f"state dimension {d} > {MAX_KERNEL_D} (Schur-recursed inverse: ROADMAP A9)")
+    _require(1 <= d <= MAX_KERNEL_D, f"state dimension {d} > {MAX_KERNEL_D} (the dt kernels are built for d <= 3)")
     _require(dts.dim() == 1 and dts.shape[0] >= 1, f"dts must be (T,) with T >= 1, got {tuple(dts.shape)}")
     T = dts.shape[0]
     n = coeffs.numel()
@@ -288,12 +187,7 @@ def _check(family, coeffs, P0, dts, tensors):
 def _launch(name: str, fn, *args) -> None:
     from parallel_gps_torch.kalman import _cuda
 
-    with torch.cuda.device(args[-1]):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, Tensor) else a for a in args[:-1]]
-        rc = fn(*ptrs, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: {_cuda.error_string(rc)}")
+    _cuda.launch(name, fn, *args)
     LAUNCHES[name] += 1
 
 
@@ -485,17 +379,19 @@ class _LmlDt(torch.autograd.Function):
         return (None, *(g * x if needed else None for x, needed in zip(grads, ctx.needs_input_grad[1:])))
 
 
-def _model_inputs(kernel, ts):
-    family, coeffs = kernel.transition_coeffs()
+def _model_inputs(kernel, ts, transition=None):
+    """``transition``: the kernel's ``transition_coeffs()`` where the caller
+    has computed them already."""
+    family, coeffs = transition or kernel.transition_coeffs()
     sde = kernel.get_sde()
     dts = _dts_from_ts(ts).to(sde.P0.dtype)
     return family, coeffs, sde, dts
 
 
-def lml_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor) -> Tensor:
+def lml_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor, transition=None) -> Tensor:
     """Log marginal likelihood via the dt-engine, differentiable in the
     kernel's hyperparameters, R and the observations."""
-    family, coeffs, sde, dts = _model_inputs(kernel, ts)
+    family, coeffs, sde, dts = _model_inputs(kernel, ts, transition)
     return _LmlDt.apply(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
 
 
@@ -505,8 +401,8 @@ def pkf_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor):
     return strip_filter_dt(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
 
 
-def pkfs_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor):
+def pkfs_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor, transition=None):
     """Filter + smoother; returns smoothed (g_tl (d, T), L_tl (d, d, T))."""
-    family, coeffs, sde, dts = _model_inputs(kernel, ts)
+    family, coeffs, sde, dts = _model_inputs(kernel, ts, transition)
     b_tl, C_tl, _ = strip_filter_dt(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
     return strip_smoother_dt(family, coeffs, sde.P0, dts, b_tl, C_tl)

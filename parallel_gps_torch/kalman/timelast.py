@@ -4,7 +4,8 @@
 Scan elements keep every component time-last — A as (d, d, T), b as (d, T)
 — so each small-matrix operation of the combine is an elementwise
 multiply-add over the time axis: d×d products are unrolled
-broadcast-multiply-reduce, and inverses use closed-form adjugates (d ≤ 3).
+broadcast-multiply-reduce, and inverses use closed-form adjugates (d ≤ 3)
+or a Schur-complement recursion onto them (d > 3).
 The scan is Kogge–Stone over the last axis, two-level for T ≥ 8192.
 
 This is the plain version the dt-engine kernels are held against
@@ -63,9 +64,25 @@ def _sym(a: Tensor) -> Tensor:
 
 
 def _inv(M: Tensor) -> Tensor:
-    """Closed-form adjugate inverse over (d, d, ...) planes, d ≤ 3 (the
-    Schur recursion for larger d comes with the kernels that need it)."""
+    """Inverse over (d, d, ...) planes, elementwise in every trailing axis:
+    closed-form adjugate for d ≤ 3, and for d > 3 the Schur-complement block
+    recursion M = [[A, B], [C, D]], S = D − C A⁻¹ B onto those base cases
+    (split k = (d+1)/2, as the CUDA kernels' ``inv``).  The engine inverts
+    SPD predicted covariances and I + C·J with C, J PSD, whose leading
+    blocks are well conditioned."""
     d = M.shape[0]
+    if d > 3:
+        k = (d + 1) // 2
+        A, B = M[:k, :k], M[:k, k:]
+        C, D = M[k:, :k], M[k:, k:]
+        Ainv = _inv(A)
+        CAinv = _mm(C, Ainv)
+        AinvB = _mm(Ainv, B)
+        Sinv = _inv(D - _mm(CAinv, B))
+        AS = _mm(AinvB, Sinv)
+        top = torch.cat([Ainv + _mm(AS, CAinv), -AS], 1)
+        bot = torch.cat([-_mm(Sinv, CAinv), Sinv], 1)
+        return torch.cat([top, bot], 0)
     if d == 1:
         return 1.0 / M
     if d == 2:
@@ -73,25 +90,21 @@ def _inv(M: Tensor) -> Tensor:
         c, e = M[1, 0], M[1, 1]
         det = a * e - b * c
         return torch.stack([torch.stack([e, -b]), torch.stack([-c, a])]) / det
-    if d == 3:
-        a, b, c = M[0, 0], M[0, 1], M[0, 2]
-        e, f, g = M[1, 0], M[1, 1], M[1, 2]
-        h, i, j = M[2, 0], M[2, 1], M[2, 2]
-        A00 = f * j - g * i
-        A01 = c * i - b * j
-        A02 = b * g - c * f
-        A10 = g * h - e * j
-        A11 = a * j - c * h
-        A12 = c * e - a * g
-        A20 = e * i - f * h
-        A21 = b * h - a * i
-        A22 = a * f - b * e
-        det = a * A00 + b * A10 + c * A20
-        adj = torch.stack(
-            [torch.stack([A00, A01, A02]), torch.stack([A10, A11, A12]), torch.stack([A20, A21, A22])]
-        )
-        return adj / det
-    raise NotImplementedError(f"state dimension {d} > 3 (Schur-recursed inverse: ROADMAP A9)")
+    a, b, c = M[0, 0], M[0, 1], M[0, 2]
+    e, f, g = M[1, 0], M[1, 1], M[1, 2]
+    h, i, j = M[2, 0], M[2, 1], M[2, 2]
+    A00 = f * j - g * i
+    A01 = c * i - b * j
+    A02 = b * g - c * f
+    A10 = g * h - e * j
+    A11 = a * j - c * h
+    A12 = c * e - a * g
+    A20 = e * i - f * h
+    A21 = b * h - a * i
+    A22 = a * f - b * e
+    det = a * A00 + b * A10 + c * A20
+    adj = torch.stack([torch.stack([A00, A01, A02]), torch.stack([A10, A11, A12]), torch.stack([A20, A21, A22])])
+    return adj / det
 
 
 def _eye_like(d: int, like: Tensor) -> Tensor:
@@ -327,10 +340,17 @@ def _loglik_from_planes(P0, A, Q, H, R, b_tl, C_tl, observations) -> Tensor:
     return torch.where(mask, logprobs, torch.zeros_like(logprobs)).sum()
 
 
-def pkf_from_tl(lgssm_tl, observations: Tensor, return_loglikelihood: bool = False):
+def pkf_from_tl(lgssm_tl, observations: Tensor, return_loglikelihood: bool = False, strip: bool = False):
     """Parallel Kalman filter on a time-last LGSSMTL; returns (b_tl, C_tl)
-    or (b_tl, C_tl, ell)."""
+    or (b_tl, C_tl, ell).  ``strip=True`` takes the strip engine
+    (kalman/strip.py: CUDA kernels on the card, d ≤ 8, forward only);
+    otherwise the plain Kogge–Stone scan, differentiable, any d."""
     P0, Fs_tl, Qs_tl, H, R = lgssm_tl
+    if strip:
+        from parallel_gps_torch.kalman.strip import strip_filter
+
+        out = strip_filter(Fs_tl, Qs_tl, P0, H, R, observations)
+        return out if return_loglikelihood else out[:2]
     e = _filtering_elements_from_planes(P0, Fs_tl, Qs_tl, H, R, observations)
     final = kogge_stone_scan_tl(
         filtering_operator_tl, e, filtering_identity_tl(P0.shape[0], P0.dtype, P0.device)
@@ -341,14 +361,31 @@ def pkf_from_tl(lgssm_tl, observations: Tensor, return_loglikelihood: bool = Fal
     return b_tl, C_tl, _loglik_from_planes(P0, Fs_tl, Qs_tl, H, R, b_tl, C_tl, observations)
 
 
-def pks_from_tl(lgssm_tl, b_tl: Tensor, C_tl: Tensor):
-    """Parallel RTS smoother on time-last moments; returns (g_tl, L_tl)."""
+def pks_from_tl(lgssm_tl, b_tl: Tensor, C_tl: Tensor, strip: bool = False):
+    """Parallel RTS smoother on time-last moments; returns (g_tl, L_tl).
+    ``strip`` as in ``pkf_from_tl``."""
     P0, Fs_tl, Qs_tl, _, _ = lgssm_tl
+    if strip:
+        from parallel_gps_torch.kalman.strip import strip_smoother
+
+        return strip_smoother(Fs_tl, Qs_tl, b_tl, C_tl)
     e = _smoothing_elements_from_planes(Fs_tl, Qs_tl, b_tl, C_tl)
     final = kogge_stone_scan_tl(
         smoothing_operator_tl, e, smoothing_identity_tl(P0.shape[0], P0.dtype, P0.device), reverse=True
     )
     return final.g, final.L
+
+
+def pkfs_from_tl(lgssm_tl, observations: Tensor, strip: bool = False, time_first_out: bool = True):
+    """Filter + smoother on an LGSSMTL; the filtered moments stay time-last
+    between the two scans.  Returns (sms (T, d), sPs (T, d, d)) when
+    ``time_first_out`` (the reference layout), else the time-last
+    (g_tl (d, T), L_tl (d, d, T))."""
+    b_tl, C_tl = pkf_from_tl(lgssm_tl, observations, strip=strip)
+    g_tl, L_tl = pks_from_tl(lgssm_tl, b_tl, C_tl, strip=strip)
+    if not time_first_out:
+        return g_tl, L_tl
+    return g_tl.movedim(-1, 0), L_tl.movedim(-1, 0)
 
 
 # --------------------------------------------------------------------------
@@ -451,8 +488,9 @@ def fisher_grads_from_smoothed(lgssm_tl: LGSSMTL, observations: Tensor, b_tl, C_
 
 class _LmlTL(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, P0, Fs, Qs, H, R, observations):
-        b_tl, C_tl, ell = pkf_from_tl(LGSSMTL(P0, Fs, Qs, H, R), observations, True)
+    def forward(ctx, strip, P0, Fs, Qs, H, R, observations):
+        b_tl, C_tl, ell = pkf_from_tl(LGSSMTL(P0, Fs, Qs, H, R), observations, True, strip=strip)
+        ctx.strip = strip
         ctx.save_for_backward(P0, Fs, Qs, H, R, observations, b_tl, C_tl)
         return ell
 
@@ -460,12 +498,14 @@ class _LmlTL(torch.autograd.Function):
     def backward(ctx, gbar):
         P0, Fs, Qs, H, R, observations, b_tl, C_tl = ctx.saved_tensors
         ssm = LGSSMTL(P0, Fs, Qs, H, R)
-        mhat, Phat = pks_from_tl(ssm, b_tl, C_tl)
+        mhat, Phat = pks_from_tl(ssm, b_tl, C_tl, strip=ctx.strip)
         ct, dy = fisher_grads_from_smoothed(ssm, observations, b_tl, C_tl, mhat, Phat, gbar)
-        return (*ct, dy)
+        return (None, *ct, dy)
 
 
-def lml_tl(lgssm_tl: LGSSMTL, observations: Tensor) -> Tensor:
+def lml_tl(lgssm_tl: LGSSMTL, observations: Tensor, strip: bool = False) -> Tensor:
     """Log marginal likelihood of an LGSSMTL with Fisher-identity gradients
-    (see the section comment)."""
-    return _LmlTL.apply(*lgssm_tl, observations)
+    (see the section comment).  ``strip`` selects the strip engine for the
+    forward filter and the backward's smoother (kalman/strip.py); the
+    elementwise Fisher tail is plain PyTorch either way."""
+    return _LmlTL.apply(strip, *lgssm_tl, observations)

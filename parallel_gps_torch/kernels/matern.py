@@ -20,11 +20,10 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import Tensor, nn
+from torch import Tensor
 
 from parallel_gps_torch import config
-from parallel_gps_torch.kernels.base import SDEKernel
-from parallel_gps_torch.models.params import inv_softplus, softplus
+from parallel_gps_torch.kernels.base import VarianceLengthscaleKernel, scaled_dist
 from parallel_gps_torch.ops.balance import balance_scale, balance_ss
 from parallel_gps_torch.ops.lyapunov import solve_lyap_vec
 from parallel_gps_torch.types import ContinuousDiscreteModel
@@ -72,37 +71,7 @@ def matern_sde(variance: Tensor, lengthscales: Tensor, d: int):
     return F, L, H, q.reshape(1, 1)
 
 
-class _Matern(SDEKernel):
-    """Shared storage: softplus-unconstrained variance and lengthscale."""
-
-    order: int
-
-    def __init__(self, variance=1.0, lengthscales=1.0, *, dtype=None, device=None):
-        super().__init__()
-        dtype = dtype or config.default_float()
-        device = config.resolve_device(device)
-
-        def raw(v):
-            u = inv_softplus(torch.as_tensor(v, dtype=torch.float64))
-            return nn.Parameter(u.to(dtype=dtype, device=device))
-
-        self.raw_variance = raw(variance)
-        self.raw_lengthscales = raw(lengthscales)
-
-    @property
-    def variance(self) -> Tensor:
-        return softplus(self.raw_variance)
-
-    @property
-    def lengthscales(self) -> Tensor:
-        return softplus(self.raw_lengthscales)
-
-    @property
-    def state_dim(self) -> int:
-        return self.order
-
-
-class Matern12(_Matern):
+class Matern12(VarianceLengthscaleKernel):
     order = 1
 
     def get_sde(self) -> ContinuousDiscreteModel:
@@ -113,8 +82,12 @@ class Matern12(_Matern):
         lam = 1.0 / self.lengthscales
         return EXPPOLY, lam.reshape(1)
 
+    def dense(self, X: Tensor, X2: Tensor) -> Tensor:
+        r = scaled_dist(X, X2, self.lengthscales)
+        return self.variance * torch.exp(-r)
 
-class Matern32(_Matern):
+
+class Matern32(VarianceLengthscaleKernel):
     order = 2
 
     def get_sde(self) -> ContinuousDiscreteModel:
@@ -130,8 +103,12 @@ class Matern32(_Matern):
         N = torch.stack([torch.stack([lam, one]), torch.stack([-lam * lam, -lam])])
         return EXPPOLY, torch.cat([lam.reshape(1), N.reshape(-1)])
 
+    def dense(self, X: Tensor, X2: Tensor) -> Tensor:
+        r = math.sqrt(3) * scaled_dist(X, X2, self.lengthscales)
+        return self.variance * (1.0 + r) * torch.exp(-r)
 
-class Matern52(_Matern):
+
+class Matern52(VarianceLengthscaleKernel):
     order = 3
 
     def __init__(self, variance=1.0, lengthscales=1.0, *, balancing_iter: int = -1, dtype=None, device=None):
@@ -155,3 +132,7 @@ class Matern52(_Matern):
         dvec = balance_scale(F, self._n_iter())
         scale = dvec[None, :] / dvec[:, None]  # [i, j] = d_j / d_i
         return EXPPOLY, torch.cat([lam.reshape(1), (N * scale).reshape(-1), (N2 * scale).reshape(-1)])
+
+    def dense(self, X: Tensor, X2: Tensor) -> Tensor:
+        r = math.sqrt(5) * scaled_dist(X, X2, self.lengthscales)
+        return self.variance * (1.0 + r + r**2 / 3.0) * torch.exp(-r)

@@ -3,10 +3,15 @@ parallel_gps_tpu/models/ssgp.py).
 
 ``StateSpaceGP`` is an ``nn.Module`` holding the sorted training times and
 observations (NaN = missing) as buffers, a kernel module and a
-softplus-unconstrained noise variance.  Its entry points run the
-dt-engine (kalman/dt.py): hand-written CUDA kernels when the model lives on
-a CUDA device, their plain PyTorch versions on the CPU.  A model is built
-on the card unless the caller names another device.
+softplus-unconstrained noise variance.  Its entry points pick an engine from
+what they can observe (``engine``): the sequential oracle for
+``parallel=False``; the dt-engine (kalman/dt.py) for a kernel with a
+closed-form transition family and d ≤ 3; the plane-streaming strip engine
+(kalman/strip.py) for any other kernel with d ≤ 8; the plain time-last
+engine above that.  The dt and strip engines run hand-written CUDA kernels
+when the model lives on a CUDA device and their plain PyTorch versions on
+the CPU.  A model is built on the card unless the caller names another
+device.
 
 Prediction merges the training and (sorted) query times with a
 searchsorted merge, puts NaN observations at the queries, smooths the
@@ -19,12 +24,15 @@ import torch
 from torch import Tensor, nn
 
 from parallel_gps_torch import config
-from parallel_gps_torch.kalman.dt import lml_dt, pkfs_dt
+from parallel_gps_torch.kalman import dt, strip
+from parallel_gps_torch.kalman.sequential import kf, kfs
+from parallel_gps_torch.kalman.timelast import lml_tl, pkfs_from_tl
 from parallel_gps_torch.kernels.base import SDEKernel
 from parallel_gps_torch.kernels.matern import Matern12, Matern32, Matern52
+from parallel_gps_torch.kernels.rbf import RBF
 from parallel_gps_torch.models.params import inv_softplus, softplus
 
-KERNELS = {"Matern12": Matern12, "Matern32": Matern32, "Matern52": Matern52}
+KERNELS = {"Matern12": Matern12, "Matern32": Matern32, "Matern52": Matern52, "RBF": RBF}
 
 
 def merge_sorted(a: Tensor, b: Tensor, a_data, b_data):
@@ -56,7 +64,7 @@ def _as_tensor(x, dtype, device) -> Tensor:
 
 
 class StateSpaceGP(nn.Module):
-    def __init__(self, ts: Tensor, ys: Tensor, kernel: SDEKernel, raw_noise_variance: Tensor):
+    def __init__(self, ts: Tensor, ys: Tensor, kernel: SDEKernel, raw_noise_variance: Tensor, parallel: bool = True):
         """``raw_noise_variance``: softplus⁻¹ of the noise variance (use
         ``create`` or ``from_numpy`` to build from constrained values)."""
         super().__init__()
@@ -64,6 +72,7 @@ class StateSpaceGP(nn.Module):
         self.register_buffer("ys", ys.reshape(-1))
         self.kernel = kernel
         self.raw_noise_variance = nn.Parameter(raw_noise_variance)
+        self.parallel = parallel
 
     @property
     def noise_variance(self) -> Tensor:
@@ -83,9 +92,9 @@ class StateSpaceGP(nn.Module):
     ) -> "StateSpaceGP":
         """``data`` = (ts, ys): sorted times and observations (arrays or
         tensors, NaN = missing).  ``device=None`` is the card
-        (``config.default_device()``); the CPU must be asked for."""
-        if not parallel:
-            raise NotImplementedError("parallel=False (the sequential engine) is ROADMAP A3")
+        (``config.default_device()``); the CPU must be asked for.
+        ``parallel=False`` runs the sequential Kalman filter and smoother, a
+        Python loop over time (the oracle; kalman/sequential.py)."""
         if mesh is not None:
             raise NotImplementedError("mesh= (time-sharded engines) is ROADMAP A13")
         if stable:
@@ -95,7 +104,7 @@ class StateSpaceGP(nn.Module):
         ts, ys = (_as_tensor(x, dtype, device) for x in data)
         kernel = kernel.to(dtype=dtype, device=device)
         nv = torch.as_tensor(float(noise_variance), dtype=torch.float64)
-        return cls(ts, ys, kernel, inv_softplus(nv).to(dtype=dtype, device=device))
+        return cls(ts, ys, kernel, inv_softplus(nv).to(dtype=dtype, device=device), parallel=parallel)
 
     @classmethod
     def from_numpy(
@@ -108,30 +117,60 @@ class StateSpaceGP(nn.Module):
         noise_variance=1.0,
         dtype=None,
         device=None,
+        parallel: bool = True,
+        **kernel_options,
     ) -> "StateSpaceGP":
         """Model from numpy arrays of constrained values: the same
         quantities a JAX ``StateSpaceGP`` holds (``ts``, ``ys``,
         ``kernel.variance``, ``kernel.lengthscales``, ``noise_variance``),
-        so both packages compute the same thing."""
+        so both packages compute the same thing.  ``kernel_options``: the
+        kernel's static fields (``order`` and ``balancing_iter`` of "RBF",
+        ``balancing_iter`` of "Matern52")."""
         dtype = dtype or config.default_float()
         device = config.resolve_device(device)
-        k = KERNELS[kernel](float(np.asarray(variance)), float(np.asarray(lengthscales)), dtype=dtype, device=device)
-        return cls.create((ts, ys), k, float(np.asarray(noise_variance)), dtype=dtype, device=device)
+        k = KERNELS[kernel](
+            float(np.asarray(variance)), float(np.asarray(lengthscales)), dtype=dtype, device=device, **kernel_options
+        )
+        return cls.create((ts, ys), k, float(np.asarray(noise_variance)), parallel=parallel, dtype=dtype, device=device)
 
     def to_numpy(self) -> dict:
-        """The constrained hyperparameters as numpy arrays (the inverse of
-        ``from_numpy``'s ``variance``, ``lengthscales``, ``noise_variance``)."""
+        """The constrained hyperparameters as numpy arrays and, for an RBF
+        kernel, its static fields ``order`` and ``balancing_iter`` (the
+        inverse of ``from_numpy``'s ``variance``, ``lengthscales``,
+        ``noise_variance`` and ``kernel_options``)."""
         values = {
             "variance": self.kernel.variance, "lengthscales": self.kernel.lengthscales,
             "noise_variance": self.noise_variance,
         }
-        return {k: v.detach().cpu().numpy() for k, v in values.items()}
+        out = {k: v.detach().cpu().numpy() for k, v in values.items()}
+        if isinstance(self.kernel, RBF):
+            out.update(order=self.kernel.order, balancing_iter=self.kernel.balancing_iter)
+        return out
+
+    def engine(self):
+        """("sequential" | "dt" | "strip" | "timelast", transition): the
+        engine the entry points run, and the kernel's ``transition_coeffs()``
+        where the dt-engine takes them."""
+        if not self.parallel:
+            return "sequential", None
+        d = self.kernel.state_dim
+        transition = self.kernel.transition_coeffs()
+        if transition is not None and d <= dt.MAX_KERNEL_D:
+            return "dt", transition
+        return ("strip" if d <= strip.MAX_KERNEL_D else "timelast"), None
 
     def log_marginal_likelihood(self) -> Tensor:
-        """LML of the data through the dt-engine filter, differentiable in
-        the hyperparameters: the backward is the dt-engine smoother and the
-        fused Fisher tail (kalman/dt.py::lml_dt)."""
-        return lml_dt(self.kernel, self.ts, self.noise_variance.reshape(1, 1), self.ys)
+        """LML of the data, differentiable in the hyperparameters.  On the dt
+        and strip engines the backward is the engine's smoother and the
+        Fisher tail (kalman/dt.py::lml_dt, kalman/timelast.py::lml_tl); the
+        sequential engine differentiates through its loop."""
+        engine, transition = self.engine()
+        R = self.noise_variance.reshape(1, 1)
+        if engine == "dt":
+            return dt.lml_dt(self.kernel, self.ts, R, self.ys, transition)
+        if engine == "sequential":
+            return kf(self.kernel.get_ssm(self.ts, R), self.ys, return_loglikelihood=True)[2]
+        return lml_tl(self.kernel.get_ssm_tl(self.ts, R), self.ys, strip=engine == "strip")
 
     # Alias matching the reference method name.
     maximum_log_likelihood_objective = log_marginal_likelihood
@@ -157,8 +196,19 @@ class StateSpaceGP(nn.Module):
         order = torch.argsort(X)
         nan_ys = torch.full((m,), float("nan"), dtype=self.ys.dtype, device=self.ys.device)
         all_ts, (all_ys,), q_idx = merge_sorted(self.ts, X[order], (self.ys,), (nan_ys,))
-        g_tl, L_tl = pkfs_dt(self.kernel, all_ts, self.noise_variance.reshape(1, 1), all_ys)
-        h = self.kernel.get_sde().H[0]
+        engine, transition = self.engine()
+        R = self.noise_variance.reshape(1, 1)
+        if engine == "dt":
+            g_tl, L_tl = dt.pkfs_dt(self.kernel, all_ts, R, all_ys, transition)
+            h = self.kernel.get_sde().H[0]
+        elif engine == "sequential":
+            ssm = self.kernel.get_ssm(all_ts, R)
+            sms, sPs = kfs(ssm, all_ys)
+            g_tl, L_tl, h = sms.movedim(0, -1), sPs.movedim(0, -1), ssm.H[0]
+        else:
+            ssm = self.kernel.get_ssm_tl(all_ts, R)
+            g_tl, L_tl = pkfs_from_tl(ssm, all_ys, strip=engine == "strip", time_first_out=False)
+            h = ssm.H[0]
         mean = h @ g_tl[:, q_idx]  # (M,)
         var = torch.einsum("i,ijm,j->m", h, L_tl[:, :, q_idx], h)
         inv_order = torch.argsort(order)

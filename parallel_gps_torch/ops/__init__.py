@@ -1,3 +1,3 @@
-from parallel_gps_torch.ops import balance, disc, linalg, lyapunov
+from parallel_gps_torch.ops import balance, disc, linalg, lyapunov, scan
 
-__all__ = ["balance", "disc", "linalg", "lyapunov"]
+__all__ = ["balance", "disc", "linalg", "lyapunov", "scan"]

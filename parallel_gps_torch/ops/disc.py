@@ -1,5 +1,5 @@
-"""Continuous → discrete compilation, time-last
-(counterpart: parallel_gps_tpu/ops/disc.py:73-106).
+"""Continuous → discrete compilation, time-last and time-first
+(counterpart: parallel_gps_tpu/ops/disc.py:34-106).
 
 With P0 the stationary covariance P∞ and Am1 = expm(dt·F) − I, the discrete
 process noise is
@@ -14,7 +14,7 @@ import torch
 from torch import Tensor
 
 from parallel_gps_torch.ops.linalg import symmetrize
-from parallel_gps_torch.types import LGSSMTL, ContinuousDiscreteModel
+from parallel_gps_torch.types import LGSSM, LGSSMTL, ContinuousDiscreteModel
 
 
 def _dts(ts: Tensor, t0=0.0) -> Tensor:
@@ -42,3 +42,17 @@ def discretize_tl(
     Q = -(AP + AP.transpose(0, 1) + APAt)
     Qs = 0.5 * (Q + Q.transpose(0, 1))
     return LGSSMTL(P0, Fs, Qs, sde.H, torch.as_tensor(R).reshape(1, 1))
+
+
+def discretize(sde: ContinuousDiscreteModel, ts: Tensor, R: Tensor, t0=0.0, transitions_m1=None) -> LGSSM:
+    """The same discretization in the reference layout: (T, d, d) stacks.
+    ``transitions_m1``: callable ``dts -> (T, d, d)`` giving
+    ``expm(dt_k F) − I``."""
+    dts = _dts(ts, t0)
+    Am1 = transitions_m1(dts)
+    d = sde.F.shape[0]
+    P0 = symmetrize(sde.P0)
+    Fs = Am1 + torch.eye(d, dtype=Am1.dtype, device=Am1.device)
+    AP = Am1 @ P0
+    Qs = symmetrize(-(AP + AP.transpose(-1, -2) + AP @ Am1.transpose(-1, -2)))
+    return LGSSM(P0, Fs, Qs, sde.H, torch.as_tensor(R).reshape(1, 1))
