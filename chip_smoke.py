@@ -32,7 +32,18 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      and its bound at N = 10M float32, the LML, one predict_f request and
      one training step;
   7. profile (torch.profiler): device time by kernel and the device's idle
-     share for one LML, one predict_f request and one training step.
+     share for one LML, one predict_f request and one training step;
+  8. the strip path the same way (phases 4–7): the RBF(order=6) model at
+     N = 1,000,000 and pkfs(engine="strip") on an explicit model at N = 10M;
+  9. the batched path: the two single-pass batched kernels and the Fisher
+     tail with a batch axis against their plain versions (B = 5 and 64 series
+     of T = 65,537, d = 1, 2, 3, 6 and 8; stride-0 shared operands; B = 1 bit
+     for bit the single-series Fisher tail); then Matern52 with 64 chains over
+     T = 65,536 float32 observations — one batched log posterior and gradient
+     with exactly the launches that takes and no plain prefix, HMC, MALA, NUTS
+     and the dual-averaging warm-up through the normal entry points, each
+     chain against the single-series engine — with times, the same LMLs as a
+     loop of single-series calls, and a profile.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,9 +63,19 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from parallel_gps_torch import StateSpaceGP  # noqa: E402
-from parallel_gps_torch.inference import fit_adam, fit_lbfgs  # noqa: E402
+from parallel_gps_torch.inference import (  # noqa: E402
+    dual_averaging_warmup,
+    find_reasonable_step_size,
+    fit_adam,
+    fit_lbfgs,
+    make_kernel,
+    make_log_posterior,
+    mcmc,
+    ravel_positions,
+    sample_chains,
+)
 from parallel_gps_torch.kalman import _cuda  # noqa: E402
-from parallel_gps_torch.kalman import dt, strip, timelast  # noqa: E402
+from parallel_gps_torch.kalman import batched, dt, strip, timelast  # noqa: E402
 from parallel_gps_torch.kalman.parallel import pkfs  # noqa: E402
 from parallel_gps_torch.kernels import RBF, Matern12, Matern32, Matern52  # noqa: E402
 from parallel_gps_torch.types import LGSSMTL  # noqa: E402
@@ -77,6 +98,8 @@ SOURCES = {
     "strip_filter_apply": "parallel_gps_torch/csrc/strip_scan.cu",
     "strip_smoother_scan": "parallel_gps_torch/csrc/strip_scan.cu",
     "strip_smoother_apply": "parallel_gps_torch/csrc/strip_scan.cu",
+    "batched_filter": "parallel_gps_torch/csrc/batched_scan.cu",
+    "batched_smoother": "parallel_gps_torch/csrc/batched_scan.cu",
 }
 DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_"))
 STRIP_KERNELS = tuple(k for k in SOURCES if k.startswith("strip_"))
@@ -90,6 +113,8 @@ REPLACES = {
     "strip_filter_apply": "parallel_gps_tpu/kalman/pallas_scan.py:798",
     "strip_smoother_scan": "parallel_gps_tpu/kalman/pallas_scan.py:1795",
     "strip_smoother_apply": "parallel_gps_tpu/kalman/pallas_scan.py:1840",
+    "batched_filter": "parallel_gps_tpu/kalman/pallas_scan.py:1271",
+    "batched_smoother": "parallel_gps_tpu/kalman/pallas_scan.py:1385",
 }
 # Launches the serving path makes: the filter passes for the LML, and all
 # four passes for each predict_f request.
@@ -308,14 +333,32 @@ def flops_per_step(d: int, degree: int) -> dict:
         "dt_fisher": (fisher, fisher_obs),
         "strip_filter_scan": (filt, 0), "strip_filter_apply": (filt, loglik_obs),
         "strip_smoother_scan": (smooth, 0), "strip_smoother_apply": (smooth, 0),
+        # One element and one combine a step: what the function needs, not the
+        # re-fold and the scan rounds this design spends on it.
+        "batched_filter": (filt, loglik_obs), "batched_smoother": (smooth, 0),
     }
 
 
-def kernel_bound(name: str, d: int, degree: int, T: int, n_obs: int, itemsize: int):
+def kernel_bound(name: str, d: int, degree: int, T: int, n_obs: int, itemsize: int, B: int = 1, y_series: int | None = None):
     """(bound in ms, "bytes" or "operations"): the least time the card could
     take — each input read once and each output written once at the memory
     peak, against this run's operations at the float32 peak.  ``degree`` is
-    read by the dt kernels only."""
+    read by the dt kernels only.  ``B`` series: ``n_obs`` counts all series'
+    observed steps; ``y_series`` is the number of observation vectors the
+    call reads (B by default, 1 where the chains share one with a batch
+    stride of 0); the batched Fisher tail reads one shared dt."""
+    if B > 1 or name in BATCHED_KERNELS:
+        steps = B * T
+        y_values = (B if y_series is None else y_series) * T
+        values = {
+            "batched_filter": (3 * d * d + d) * steps + y_values,
+            "batched_smoother": (4 * d * d + 2 * d) * steps,  # without the projection's two planes
+            "dt_fisher": T + y_values + 2 * (d + d * d) * steps + 2 * steps,
+        }[name]
+        every, observed = flops_per_step(d, degree)[name]
+        bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
+        ops_ms = 1e3 * (every * steps + observed * n_obs) / PEAK_F32_FLOPS
+        return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     nc = dt.n_chunks(T)
     mom = (d + d * d) * T
     planes = 2 * d * d * T
@@ -515,6 +558,492 @@ def check_strip_kernels(t, y) -> None:
         print(f"strip {name} f32 vs f64 truth (kernel / plain f32): " + " ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in errs.items()))
         for k, (a, b) in errs.items():
             check(a <= max(F32_FACTOR * b, F32_FLOOR), f"strip {name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
+
+
+# --------------------------------------------------------------------------
+# The batched path: B series (or chains) through one launch per pass
+# --------------------------------------------------------------------------
+
+B_SMALL, B_FULL = 5, 64
+T_BATCHED = 65_536  # the batched slice's series length
+BATCHED_KERNELS = ("batched_filter", "batched_smoother")
+
+
+def batched_tolerances(d: int):
+    """float64 tolerances of the batched kernels against their plain
+    versions: those of the JAX interpret tests (test_batched_pallas.py:73-86)
+    and, above d = 3, ``strip_tolerances``: (filter rtol, atol, smoother rtol,
+    atol)."""
+    return (1e-9, 1e-11, 1e-8, 1e-10) if d <= 3 else strip_tolerances(d)
+
+
+def series_data(B: int, T: int, seed: int):
+    """Shared sorted times and B observation vectors, ~10% NaN each."""
+    rng = np.random.RandomState(seed)
+    t = np.sort(rng.rand(T))
+    ys = np.sin(12.0 * t)[None] + np.sqrt(NOISE) * rng.randn(B, T)
+    ys[rng.rand(B, T) < 0.1] = np.nan
+    return t, ys
+
+
+def series_hypers(B: int):
+    """Per-series (variance, lengthscale, noise variance), spread around the
+    serving model's."""
+    j = np.arange(B) / max(B - 1, 1)
+    return 0.6 + 0.5 * j, 0.3 + 0.2 * j, NOISE * (0.7 + 0.8 * j)
+
+
+def batched_matern_inputs(kcls, B: int, t, dtype):
+    """(family, coeffs (B, n), P0 (B, d, d), H (B, 1, d), R (B, 1, 1), dts,
+    Fs, Qs) of B models with their own hyperparameters, built on the card by
+    the batched SDE build and the batched plane build."""
+    var, ell, noise = series_hypers(B)
+    with torch.no_grad():
+        k = kcls(var, ell, dtype=dtype, device=DEV)
+        fam, co = k.transition_coeffs()
+        co, P0, H, R, _ = dt.series_inputs(co, k.get_sde(), torch.as_tensor(noise, dtype=dtype, device=DEV))
+        dts = dt._dts_from_ts(torch.as_tensor(t, dtype=dtype, device=DEV))
+        Fs, Qs, P0s = dt.build_planes_tl(fam, co, P0, dts)
+    return fam, co.contiguous(), P0s.contiguous(), H.contiguous(), R.contiguous(), dts, Fs, Qs
+
+
+def batched_rbf_inputs(B: int, t, dtype, order: int = 6):
+    """The same for RBF(order) models, whose planes are built one model at a
+    time (the RBF build takes scalar hyperparameters) and stacked.
+    Lengthscales from 0.05 down: above it the d = 8 model is too
+    ill-conditioned for either float32 version (``STRIP_CASES``)."""
+    var, _, noise = series_hypers(B)
+    ts = torch.as_tensor(t, dtype=dtype, device=DEV)
+    with torch.no_grad():
+        ssms = [
+            RBF(var[b], 0.05 - 0.005 * b, order=order, dtype=dtype, device=DEV).get_ssm_tl(
+                ts, torch.full((1, 1), noise[b], dtype=dtype, device=DEV)
+            )
+            for b in range(B)
+        ]
+    stack = lambda leaf, axis: torch.stack([getattr(m, leaf) for m in ssms], axis)  # noqa: E731
+    return stack("P0", 0), stack("H", 0), stack("R", 0), stack("Fs", 2), stack("Qs", 2)
+
+
+def check_batched_case(name: str, planes64, planes32, ys) -> None:
+    """One case of the batched kernels against their plain versions: float64
+    to ``batched_tolerances``, float32 against the float64 truth; a few
+    series against the single-series strip engine; one launch per call."""
+    P0, H, R, Fs, Qs = planes64
+    d, B = P0.shape[-1], P0.shape[0]
+    rf, af, rs, as_ = batched_tolerances(d)
+    with torch.no_grad():
+        y64 = torch.as_tensor(ys, dtype=torch.float64, device=DEV)
+        batched.reset_launch_counts()
+        b_k, C_k, ell_k = batched.batched_strip_filter(Fs, Qs, P0, H, R, y64)
+        b_p, C_p, ell_p = batched.batched_strip_filter_plain(Fs, Qs, P0, H, R, y64)
+        g_k, L_k, mean_k, var_k = batched.batched_strip_smoother(Fs, Qs, b_p.contiguous(), C_p.contiguous(), H)
+        g_p, L_p, mean_p, var_p = batched.batched_strip_smoother_plain(Fs, Qs, b_p, C_p, H)
+        g_n, L_n = batched.batched_strip_smoother(Fs, Qs, b_p.contiguous(), C_p.contiguous(), None, project=False)
+        torch.cuda.synchronize()
+        check(batched.LAUNCHES == {"batched_filter": 1, "batched_smoother": 2}, f"{name}: launches {batched.LAUNCHES}")
+        ell_rel = float(((ell_k - ell_p).abs() / ell_p.abs()).max())
+        print(
+            f"batched {name} f64 B={B} T={ys.shape[1]}: |b| {max_abs(b_k, b_p):.3e} |C| {max_abs(C_k, C_p):.3e} ell rel {ell_rel:.3e} "
+            f"|g| {max_abs(g_k, g_p):.3e} |L| {max_abs(L_k, L_p):.3e} |mean| {max_abs(mean_k, mean_p):.3e} |var| {max_abs(var_k, var_p):.3e}"
+        )
+        check(ell_k.shape == (B,) and bool(torch.isfinite(ell_k).all()), f"batched {name} f64 ell shape or values")
+        check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"batched {name} f64 filter moments")
+        check(ell_rel <= 1e-10, f"batched {name} f64 per-series LML")
+        check(allclose(g_k, g_p, rs, as_) and allclose(L_k, L_p, rs, as_), f"batched {name} f64 smoother moments")
+        check(allclose(mean_k, mean_p, rs, as_) and allclose(var_k, var_p, rs, as_), f"batched {name} f64 projections")
+        check(torch.equal(g_n, g_k) and torch.equal(L_n, L_k), f"batched {name}: project=False changes the moments")
+        # Series of the batch against the single-series two-pass strip engine.
+        for s in sorted({0, B // 2, B - 1}):
+            b_s, C_s, ell_s = strip.strip_filter(Fs[:, :, s], Qs[:, :, s], P0[s], H[s], R[s], y64[s])
+            g_s, L_s = strip.strip_smoother(Fs[:, :, s], Qs[:, :, s], b_s, C_s)
+            g_b, L_b = g_k[:, s], L_k[:, :, s]
+            check(allclose(b_k[:, s], b_s, rf, af) and allclose(C_k[:, :, s], C_s, rf, af), f"batched {name} series {s} vs strip_filter")
+            check(abs(float(ell_k[s] - ell_s)) <= 1e-10 * abs(float(ell_s)), f"batched {name} series {s} LML vs strip_filter")
+            check(allclose(g_b, g_s, rs, as_) and allclose(L_b, L_s, rs, as_), f"batched {name} series {s} vs strip_smoother")
+        del b_k, C_k, g_k, L_k, g_n, L_n, mean_k, var_k, mean_p, var_p
+        torch.cuda.empty_cache()
+
+        # float32 against float64 truth, beside the plain float32 engine.
+        P0f, Hf, Rf, Fsf, Qsf = planes32
+        y32 = y64.float()
+        b_k, C_k, ell_k = batched.batched_strip_filter(Fsf, Qsf, P0f, Hf, Rf, y32)
+        g_k, L_k = batched.batched_strip_smoother(Fsf, Qsf, b_k, C_k, None, project=False)
+        b_q, C_q, ell_q = batched.batched_strip_filter_plain(Fsf, Qsf, P0f, Hf, Rf, y32)
+        g_q, L_q = batched.batched_strip_smoother_plain(Fsf, Qsf, b_q, C_q, None, project=False)
+        torch.cuda.synchronize()
+    rel_ell = lambda e: float(((e.double() - ell_p).abs() / ell_p.abs()).max())  # noqa: E731
+    errs = {
+        "b": (rel_err(b_k, b_p), rel_err(b_q, b_p)), "C": (rel_err(C_k, C_p), rel_err(C_q, C_p)),
+        "ell": (rel_ell(ell_k), rel_ell(ell_q)), "g": (rel_err(g_k, g_p), rel_err(g_q, g_p)),
+        "L": (rel_err(L_k, L_p), rel_err(L_q, L_p)),
+    }
+    print(f"batched {name} f32 vs f64 truth (kernel / plain f32): " + " ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in errs.items()))
+    for k, (a, b) in errs.items():
+        check(a <= max(F32_FACTOR * b, F32_FLOOR), f"batched {name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
+
+
+def phase_batched_kernels() -> None:
+    """The two single-pass batched kernels and the batched Fisher tail
+    against their plain versions."""
+    cases = [(Matern12, "Matern12 d=1"), (Matern32, "Matern32 d=2"), (Matern52, "Matern52 d=3")]
+    for B in (B_SMALL, B_FULL):
+        t, ys = series_data(B, T_KERNEL, SEED + 10 + B)
+        for kcls, name in cases:
+            planes = []
+            for dtype in (torch.float64, torch.float32):
+                fam, co, P0, H, R, dts, Fs, Qs = batched_matern_inputs(kcls, B, t, dtype)
+                planes.append((P0, H, R, Fs, Qs))
+            check_batched_case(name, planes[0], planes[1], ys)
+            del planes
+            torch.cuda.empty_cache()
+    # d = 8 in float64 is the one case whose block needs more than 48 KB of
+    # shared memory (the opt-in of its launcher).
+    t, ys = series_data(B_SMALL, T_KERNEL, SEED + 20)
+    for order in (6, 8):
+        check_batched_case(
+            f"RBF d={order}", batched_rbf_inputs(B_SMALL, t, torch.float64, order),
+            batched_rbf_inputs(B_SMALL, t, torch.float32, order), ys,
+        )
+        torch.cuda.empty_cache()
+
+    # One model shared by 64 observation vectors (batch stride 0) against the
+    # same model copied 64 times: the same bits.
+    t, ys = series_data(B_FULL, T_KERNEL, SEED + 21)
+    with torch.no_grad():
+        k = Matern32(1.0, 0.5, dtype=torch.float32, device=DEV)
+        ssm = k.get_ssm_tl(torch.as_tensor(t, dtype=torch.float32, device=DEV), torch.full((1, 1), NOISE, device=DEV))
+        y32 = torch.as_tensor(ys, dtype=torch.float32, device=DEV)
+        d, T = 2, T_KERNEL
+        shared = (ssm.Fs[:, :, None].expand(d, d, B_FULL, T), ssm.Qs[:, :, None].expand(d, d, B_FULL, T))
+        leaves = (ssm.P0.expand(B_FULL, d, d), ssm.H.expand(B_FULL, 1, d), ssm.R.expand(B_FULL, 1, 1))
+        check(shared[0].stride(2) == 0, "the shared planes are not a stride-0 view")
+        out_s = batched.batched_strip_filter(*shared, *leaves, y32)
+        out_e = batched.batched_strip_filter(*(x.contiguous() for x in shared), *leaves, y32)
+        sm_s = batched.batched_strip_smoother(*shared, out_s[0], out_s[1], leaves[1])
+        sm_e = batched.batched_strip_smoother(*(x.contiguous() for x in shared), out_s[0], out_s[1], leaves[1])
+        torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out_s + sm_s, out_e + sm_e)), "shared (stride-0) planes differ from expanded ones")
+    check(bool(torch.isfinite(out_s[2]).all()), "shared-model LMLs not finite")
+    print(f"batched shared model, {B_FULL} observation vectors T={T}: stride-0 planes give the expanded planes' bits")
+    del shared, out_s, out_e, sm_s, sm_e
+    torch.cuda.empty_cache()
+
+    # The Fisher tail with a batch axis against its plain version (shared dts,
+    # per-series y), and at B = 1 against the single-series call, bit for bit.
+    t, ys = series_data(B_SMALL, T_KERNEL, SEED + 22)
+    for kcls, name in cases:
+        with torch.no_grad():
+            fam, co, P0, H, R, dts, Fs, Qs = batched_matern_inputs(kcls, B_SMALL, t, torch.float64)
+            y64 = torch.as_tensor(ys, dtype=torch.float64, device=DEV)
+            b, C, _ = batched.batched_strip_filter(Fs, Qs, P0, H, R, y64)
+            g, L = batched.batched_strip_smoother(Fs, Qs, b, C, None, project=False)
+            f_k = dt.dt_fisher(fam, co, P0, H, R, dts, y64, b, C, g, L)
+            f_p = dt.dt_fisher_plain(fam, co, P0, H, R, dts, y64, b, C, g, L)
+            one = [x[:1].contiguous() for x in (co, P0, H, R)] + [dts, y64[:1].contiguous()] + [
+                x[:, :1].contiguous() for x in (b,)
+            ] + [C[:, :, :1].contiguous(), g[:, :1].contiguous(), L[:, :, :1].contiguous()]
+            f_1 = dt.dt_fisher(fam, *one)
+            f_s = dt.dt_fisher(
+                fam, co[0], P0[0], H[0], R[0], dts, y64[0], *(x[..., 0, :].contiguous() for x in (b, C, g, L))
+            )
+            torch.cuda.synchronize()
+        print(f"batched {name} f64 B={B_SMALL} fisher: " + " ".join(f"|{n}| {max_abs(a, b_):.3e}" for n, a, b_ in zip(FISHER_OUTPUTS, f_k, f_p)))
+        for n, a, b_, a1, s1 in zip(FISHER_OUTPUTS, f_k, f_p, f_1, f_s):
+            check(a.shape == b_.shape and allclose(a, b_, 1e-7, 1e-10), f"batched {name} f64 fisher {n}")
+            check(torch.equal(a1[0], s1), f"batched {name} fisher {n}: B = 1 differs from the single-series call")
+
+
+C_CHAINS = 64
+T_CHAIN_CHECK = 16_384
+N_HMC, N_MALA, N_NUTS, N_WARMUP = 4, 4, 2, 10
+CHAIN_PRIORS = {k: (lambda u: -0.5 * u * u) for k in ("kernel.variance", "kernel.lengthscales", "noise_variance")}
+TWO_PASS_KERNELS = tuple(k for k in SOURCES if k.endswith(("_scan", "_apply")))
+# One batched log posterior with its gradient: one launch each of the
+# batched filter, the batched smoother and the Fisher tail, and nothing else.
+BATCHED_STEP_LAUNCHES = {"batched_filter": 1, "batched_smoother": 1, "dt_fisher": 1, **dict.fromkeys(TWO_PASS_KERNELS, 0)}
+PREFIX_CALLS = [0]
+
+
+def count_prefix_calls() -> None:
+    """Count every call of the plain exclusive prefix between two passes
+    (``exclusive_chunk_prefixes``, which both two-pass engines call by its
+    module's name)."""
+    plain = strip.exclusive_chunk_prefixes
+
+    def counting(*args, **kwargs):
+        PREFIX_CALLS[0] += 1
+        return plain(*args, **kwargs)
+
+    strip.exclusive_chunk_prefixes = counting
+    dt.exclusive_chunk_prefixes = counting
+
+
+def all_launches() -> dict:
+    return {**dt.LAUNCHES, **strip.LAUNCHES, **batched.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    dt.reset_launch_counts()
+    strip.reset_launch_counts()
+    batched.reset_launch_counts()
+    PREFIX_CALLS[0] = 0
+
+
+def chain_hypers(C: int, seed: int):
+    """C chains' (variance, lengthscale, noise variance), jittered around the
+    serving model's (0.8, 0.4, 0.1) from a seeded generator."""
+    jitter = torch.exp(0.1 * torch.randn((3, C), generator=torch.Generator().manual_seed(seed), dtype=torch.float64)).numpy()
+    return 0.8 * jitter[0], 0.4 * jitter[1], NOISE * jitter[2]
+
+
+def chain_model(t, y, hypers, dtype):
+    return StateSpaceGP.from_numpy(t, y, "Matern52", *hypers, dtype=dtype, device=DEV)
+
+
+def chains_value_and_grad(model):
+    """One log posterior and its gradient: values (C,), gradients (C, 3) in
+    (variance, lengthscale, noise) order; a scalar and (3,) for a scalar
+    model."""
+    log_post, u0 = make_log_posterior(model, CHAIN_PRIORS)
+    u = {k: v.clone().requires_grad_() for k, v in u0.items()}
+    lp = log_post(u)
+    names = ["kernel.raw_variance", "kernel.raw_lengthscales", "raw_noise_variance"]
+    grads = torch.autograd.grad(lp.sum(), [u[n] for n in names])
+    return lp.detach(), torch.stack(grads, -1)
+
+
+def phase_batched_slice():
+    """The batched slice at full width: Matern52, 64 chains over one series of
+    T = 65,536 in float32 — one batched log posterior and its gradient with
+    the launches that takes, then HMC, MALA, NUTS and the dual-averaging
+    warm-up through the normal entry points.  Returns the model and the
+    launch counts of the path."""
+    t, y = make_data(T_BATCHED, SEED + 30)
+    hypers = chain_hypers(C_CHAINS, SEED + 31)
+    model = chain_model(t, y, hypers, torch.float32)
+    check(model.engine()[0] == "dt", f"the chains' model runs the {model.engine()[0]} engine")
+    torch.cuda.synchronize()
+    reset_all_launches()
+    lp, grad = chains_value_and_grad(model)
+    torch.cuda.synchronize()
+    step_counts = all_launches()
+    print(
+        f"batched slice f32 Matern52 C={C_CHAINS} T={T_BATCHED}: log posterior min {float(lp.min()):.4f} max {float(lp.max()):.4f}; "
+        f"launches of one value and gradient {step_counts}, plain prefixes {PREFIX_CALLS[0]}"
+    )
+    check(lp.shape == (C_CHAINS,) and grad.shape == (C_CHAINS, 3), "batched log posterior shapes")
+    check(bool(torch.isfinite(lp).all()) and bool(torch.isfinite(grad).all()), "batched log posterior or gradient not finite")
+    check(step_counts == BATCHED_STEP_LAUNCHES, f"one batched value and gradient launched {step_counts}")
+    check(PREFIX_CALLS[0] == 0, f"the batched path ran {PREFIX_CALLS[0]} plain prefixes")
+    lp2, grad2 = chains_value_and_grad(model)
+    check(torch.equal(lp, lp2) and torch.equal(grad, grad2), "two batched evaluations differ")
+
+    # The samplers, through the entry points a user calls.
+    log_post, u0 = make_log_posterior(model, CHAIN_PRIORS)
+    flat0, unravel = ravel_positions(u0)
+    log_post_flat = lambda x: log_post(unravel(x))  # noqa: E731
+
+    def run(seed):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        found = find_reasonable_step_size(log_post_flat, flat0, gen)
+        out = {"found": found}
+        out["hmc_found"] = sample_chains(make_kernel("hmc", log_post_flat, found, num_leapfrog_steps=10), u0, log_post, gen, N_HMC)
+        # The other samplers run at half that step size: the heuristic holds
+        # one leapfrog step to an acceptance of 1/2, a looser criterion than a
+        # ten-step trajectory's.
+        eps = 0.5 * found
+        out["eps"] = eps
+        out["hmc"] = sample_chains(make_kernel("hmc", log_post_flat, eps, num_leapfrog_steps=10), u0, log_post, gen, N_HMC)
+        out["mala"] = sample_chains(make_kernel("mala", log_post_flat, eps), u0, log_post, gen, N_MALA)
+        mcmc.MASK_TESTS["nuts"] = 0
+        out["nuts"] = sample_chains(make_kernel("nuts", log_post_flat, eps, max_depth=3), u0, log_post, gen, N_NUTS)
+        out["nuts_mask_tests"] = mcmc.MASK_TESTS["nuts"]
+        out["warmup"] = dual_averaging_warmup(
+            lambda e: make_kernel("hmc", log_post_flat, e, num_leapfrog_steps=10), u0, log_post, gen,
+            num_warmup=N_WARMUP, init_step_size=float(eps.median()),
+        )
+        return out
+
+    first = run(SEED + 32)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    second = run(SEED + 32)
+    torch.cuda.synchronize()
+    for algo in ("hmc_found", "hmc", "mala", "nuts"):
+        samples, accept = first[algo]
+        last = {k: v[:, -1] for k, v in samples.items()}
+        with torch.no_grad():
+            lp_last = log_post(last)
+        check(all(bool(torch.isfinite(v).all()) for v in samples.values()), f"{algo} samples not finite")
+        check(bool(torch.isfinite(lp_last).all()), f"{algo}: log posterior of the last draws not finite")
+        check(float(accept.min()) >= 0.0 and float(accept.max()) <= 1.0, f"{algo} acceptance statistic outside [0, 1]")
+        check(all(torch.equal(samples[k], second[algo][0][k]) for k in samples) and torch.equal(accept, second[algo][1]),
+              f"{algo}: a second run from the same seed differs")
+        print(f"  {algo}: {accept.shape[1]} steps of {C_CHAINS} chains, mean acceptance {float(accept.mean()):.3f}")
+    for algo, what in (("hmc_found", "the step size find_reasonable_step_size found"), ("hmc", "half that step size")):
+        hmc_rate = float(first[algo][1].mean())
+        check(0.2 < hmc_rate <= 1.0, f"HMC mean acceptance {hmc_rate} at {what}")
+    eps_w, warm = first["warmup"]
+    check(eps_w.shape == (C_CHAINS,) and bool(torch.isfinite(eps_w).all()) and bool((eps_w > 0).all()), "warm-up step sizes")
+    check(torch.equal(eps_w, second["warmup"][0]) and torch.equal(first["eps"], second["eps"]), "warm-up differs between two runs")
+    with torch.no_grad():
+        check(bool(torch.isfinite(log_post(warm)).all()), "log posterior of the warmed positions not finite")
+    print(
+        f"  step size by find_reasonable_step_size: median {float(first['found'].median()):.4g} (hmc_found runs at it, the others at half); after {N_WARMUP} dual-averaging "
+        f"steps median {float(eps_w.median()):.4g}; NUTS (max_depth=3) tested its masks {first['nuts_mask_tests'] / N_NUTS:.1f} times a step"
+    )
+    print(f"  launches of the batched path (one run of the samplers included) {counts}, plain prefixes {PREFIX_CALLS[0]}")
+    check(not any(counts[k] for k in TWO_PASS_KERNELS) and PREFIX_CALLS[0] == 0, f"the samplers left the batched path: {counts}")
+    check(counts["batched_filter"] >= counts["batched_smoother"] == counts["dt_fisher"] > N_HMC * 10, f"sampler launches {counts}")
+    del first, second
+    torch.cuda.empty_cache()
+
+    # Each chain against the single-series engine on a model with that chain's
+    # hyperparameters: float64 at a smaller T, then float32 at full length by
+    # the gradient rule of the training path.
+    tc, yc = make_data(T_CHAIN_CHECK, SEED + 33)
+    lp64, grad64 = chains_value_and_grad(chain_model(tc, yc, hypers, torch.float64))
+    worst_v = worst_g = 0.0
+    for c in range(C_CHAINS):
+        one = chain_model(tc, yc, tuple(h[c] for h in hypers), torch.float64)
+        lp_c, grad_c = chains_value_and_grad(one)
+        worst_v = max(worst_v, abs(float(lp64[c] - lp_c)) / abs(float(lp_c)))
+        worst_g = max(worst_g, rel_err(grad64[c], grad_c))
+        check(abs(float(lp64[c] - lp_c)) <= 1e-9 * abs(float(lp_c)), f"chain {c}: batched f64 log posterior vs single series")
+        check(allclose(grad64[c], grad_c, 1e-7, 1e-10), f"chain {c}: batched f64 gradient vs single series")
+    print(f"batched check f64 C={C_CHAINS} T={T_CHAIN_CHECK}: chains vs single-series lml_dt, value rel {worst_v:.2e}, gradient rel {worst_g:.2e}")
+    lp_t, grad_t = chains_value_and_grad(chain_model(t, y, hypers, torch.float64))
+    rels = []
+    for c in (0, C_CHAINS // 2, C_CHAINS - 1):
+        _, grad_c = chains_value_and_grad(chain_model(t, y, tuple(h[c] for h in hypers), torch.float32))
+        rel_k, rel_s = rel_err(grad[c], grad_t[c]), rel_err(grad_c, grad_t[c])
+        rels.append((rel_k, rel_s))
+        check(rel_k <= max(F32_FACTOR * rel_s, f32_sum_floor(T_BATCHED)), f"chain {c} f32 gradient: batched {rel_k:.3e} vs single series {rel_s:.3e} from f64")
+    print(
+        f"batched f32 vs f64 C={C_CHAINS} T={T_BATCHED}: log posterior rel {float(((lp.double() - lp_t).abs() / lp_t.abs()).max()):.3e}; gradient "
+        f"(batched / single-series f32) " + " ".join(f"{a:.2e}/{b:.2e}" for a, b in rels)
+    )
+
+    # bench.py's batched workload: one Matern32 model, 64 observation vectors,
+    # lml_tl on planes with a batch axis, against 64 single calls.
+    tb_, ys = series_data(C_CHAINS, T_CHAIN_CHECK, SEED + 34)
+    with torch.no_grad():
+        ssm = Matern32(1.0, 0.5, dtype=torch.float64, device=DEV).get_ssm_tl(
+            torch.as_tensor(tb_, dtype=torch.float64, device=DEV), torch.full((1, 1), NOISE, dtype=torch.float64, device=DEV)
+        )
+        n, T_ = C_CHAINS, T_CHAIN_CHECK
+        shared = LGSSMTL(
+            ssm.P0.expand(n, 2, 2), ssm.Fs[:, :, None].expand(2, 2, n, T_), ssm.Qs[:, :, None].expand(2, 2, n, T_),
+            ssm.H.expand(n, 1, 2), ssm.R.expand(n, 1, 1),
+        )
+        y_b = torch.as_tensor(ys, dtype=torch.float64, device=DEV)
+        before = dict(batched.LAUNCHES)
+        lml_b = timelast.lml_tl(shared, y_b, strip=True)
+        check(batched.LAUNCHES["batched_filter"] == before["batched_filter"] + 1, "lml_tl on batched planes did not launch the batched filter")
+        lml_1 = torch.stack([timelast.lml_tl(ssm, y_b[i], strip=True) for i in range(n)])
+    rel = float(((lml_b - lml_1).abs() / lml_1.abs()).max())
+    print(f"batched lml_tl(strip=True) f64, one Matern32 model and {n} observation vectors T={T_}: vs {n} single calls rel {rel:.2e}")
+    check(lml_b.shape == (n,) and rel <= 1e-10, "batched lml_tl vs single calls")
+    return model, counts
+
+
+def phase_batched_times(card: str, model, counts) -> list:
+    """The two batched kernels and the batched Fisher tail against bound and
+    plain version at d = 3, B = 64, T = 65,536 in float32; the batched entry
+    points; the same LMLs as a loop of single-series calls; an HMC step; a
+    profile of one batched value and gradient."""
+    records = []
+    t = model.ts
+    R = model.noise_variance.detach()
+    with torch.no_grad():
+        fam, co = model.kernel.transition_coeffs()
+        co, P0, H, R, _ = dt.series_inputs(co, model.kernel.get_sde(), R)
+        co, P0, H, R = (x.contiguous() for x in (co, P0, H, R))
+        dts = dt._dts_from_ts(t)
+        Fs, Qs, P0s = dt.build_planes_tl(fam, co, P0, dts)
+        ys = batched.series_observations(model.ys, (C_CHAINS, T_BATCHED))
+        d, degree = P0.shape[-1], (co.shape[1] - 1) // (P0.shape[-1] ** 2)
+        n_obs = C_CHAINS * int((~torch.isnan(model.ys)).sum())
+        b, C, _ = batched.batched_strip_filter(Fs, Qs, P0s, H, R, ys)
+        g, L = batched.batched_strip_smoother(Fs, Qs, b, C, None, project=False)
+        smoother = lambda F_, Q_, b_, C_: batched.batched_strip_smoother(F_, Q_, b_, C_, None, project=False)  # noqa: E731
+        smoother_plain = lambda F_, Q_, b_, C_: batched.batched_strip_smoother_plain(F_, Q_, b_, C_, None, project=False)  # noqa: E731
+        passes = {
+            "batched_filter": (batched.batched_strip_filter, batched.batched_strip_filter_plain, (Fs, Qs, P0s, H, R, ys)),
+            "batched_smoother": (smoother, smoother_plain, (Fs, Qs, b, C)),
+            "dt_fisher": (dt.dt_fisher, dt.dt_fisher_plain, (fam, co, P0, H, R, dts, model.ys, b, C, g, L)),
+        }
+        what = f"d={d} B={C_CHAINS} T={T_BATCHED}"
+        for name, (kern, plain, args) in passes.items():
+            as64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+            out_k, out_p, out_t = list(kern(*args)), list(plain(*args)), list(plain(*as64))
+            torch.cuda.synchronize()
+            err = max(max_abs(a, b_) for a, b_ in zip(out_k, out_p))
+            rks = [rel_err(a, c) for a, c in zip(out_k, out_t)]
+            rps = [rel_err(a, c) for a, c in zip(out_p, out_t)]
+            del out_k, out_p, out_t, as64
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: kern(*args), reps=10)
+            plain_ms = cuda_ms(lambda: plain(*args), reps=3)
+            torch.cuda.empty_cache()
+            # The chains share one observation vector: ``ys`` is a stride-0 view.
+            bound_ms, bound_by = kernel_bound(name, d, degree, T_BATCHED, n_obs, 4, B=C_CHAINS, y_series=1 if ys.stride(0) == 0 else C_CHAINS)
+            print(
+                f"{name} {what} f32 [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                f"({bound_by}); |kernel - plain| {err:.3e}; vs f64 truth kernel {max(rks):.2e} plain {max(rps):.2e}"
+            )
+            floors = [f32_sum_floor(T_BATCHED)] * 4 + [F32_FLOOR] * 2 if name == "dt_fisher" else [F32_FLOOR] * len(rks)
+            for a, b_, floor in zip(rks, rps, floors):
+                check(a <= max(F32_FACTOR * b_, floor), f"{name} {what}: f32 kernel {rks} vs plain {rps}")
+            measured = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            if name == "dt_fisher":
+                records.append({"at": f"{what} f32", "launches": counts[name], **measured})
+            else:
+                # No single PyTorch call computes either function.
+                records.append({
+                    "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+                    "launches": counts[name], "at": f"{what} f32", **measured,
+                })
+        planes_ms = cuda_ms(lambda: dt.build_planes_tl(fam, co, P0, dts), reps=5)
+        sde_ms = cuda_ms(lambda: (model.kernel.transition_coeffs(), model.kernel.get_sde()), reps=5)
+        del passes, args, Fs, Qs, b, C, g, L
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        lml_ms = cuda_ms(model.log_marginal_likelihood, reps=5)
+        lml_peak = torch.cuda.max_memory_allocated() / 2**30
+        # The same 64 LMLs as a loop of single-series calls: two passes and a
+        # plain prefix each.
+        hypers = [v.detach().cpu().numpy() for v in (model.kernel.variance, model.kernel.lengthscales, model.noise_variance)]
+        t_np, y_np = t.cpu().numpy(), model.ys.cpu().numpy()
+        singles = [chain_model(t_np, y_np, tuple(h[c] for h in hypers), torch.float32) for c in range(C_CHAINS)]
+        loop_ms = cuda_ms(lambda: [m.log_marginal_likelihood() for m in singles], reps=2)
+        lml_b = model.log_marginal_likelihood()
+        lml_s = torch.stack([m.log_marginal_likelihood() for m in singles])
+        loop_rel = float(((lml_b - lml_s).abs() / lml_s.abs()).max())
+        del singles
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: chains_value_and_grad(model), reps=5)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    log_post, u0 = make_log_posterior(model, CHAIN_PRIORS)
+    flat0, unravel = ravel_positions(u0)
+    log_post_flat = lambda x: log_post(unravel(x))  # noqa: E731
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 35)
+    kernel = make_kernel("hmc", log_post_flat, 0.005, num_leapfrog_steps=10)
+    n_steps = 3
+    sample_chains(kernel, u0, log_post, gen, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample_chains(kernel, u0, log_post, gen, n_steps)
+    torch.cuda.synchronize()
+    hmc_s = (time.perf_counter() - t0) / n_steps
+    print(f"batched SDE build (transition_coeffs + get_sde) Matern52 C={C_CHAINS} [{card}]: {sde_ms:.3f} ms; plane build (build_planes_tl) {what} f32: {planes_ms:.3f} ms")
+    print(f"batched LML C={C_CHAINS} T={T_BATCHED} f32 [{card}]: {lml_ms:.3f} ms (peak {lml_peak:.2f} GiB); the same {C_CHAINS} LMLs as a loop of single-series lml_dt calls: {loop_ms:.3f} ms (values agree to {loop_rel:.2e})")
+    print(f"batched log posterior + gradient C={C_CHAINS} T={T_BATCHED} f32 [{card}]: {step_ms:.3f} ms (peak {step_peak:.2f} GiB)")
+    print(f"HMC step (10 leapfrog steps, {C_CHAINS} chains, T={T_BATCHED}) f32 [{card}]: {hmc_s:.4f} s a step (host clock, {n_steps} steps, one initial evaluation included)")
+    profile_calls(card, f"Matern52 C={C_CHAINS} T={T_BATCHED}", {"batched log posterior + gradient": lambda: chains_value_and_grad(model)})
+    return records
 
 
 def phase_slice():
@@ -985,13 +1514,19 @@ def phase_profile(card: str, what: str, model, queries) -> None:
     """Device time by kernel and the device's idle share for one call of each
     entry point of ``model`` (torch.profiler; the wall is the host-clock
     median of five unprofiled calls, each ended by a synchronise)."""
-    from torch.profiler import ProfilerActivity, profile
 
     def lml():
         with torch.no_grad():
             model.log_marginal_likelihood()
 
-    calls = {"LML": lml, "predict_f": lambda: model.predict_f(queries), "training step": lambda: value_and_grad(model)}
+    profile_calls(card, what, {"LML": lml, "predict_f": lambda: model.predict_f(queries), "training step": lambda: value_and_grad(model)})
+    model.zero_grad(set_to_none=True)
+
+
+def profile_calls(card: str, what: str, calls: dict) -> None:
+    """``phase_profile`` for the given {name: call}."""
+    from torch.profiler import ProfilerActivity, profile
+
     for call, fn in calls.items():
         walls = []
         for _ in range(6):
@@ -1020,13 +1555,14 @@ def phase_profile(card: str, what: str, model, queries) -> None:
             f"profile {call} {what} f32 [{card}]: wall {wall:.3f} ms, device {busy:.3f} ms in {n_kernels} kernels "
             f"({parts}), idle share {max(0.0, 1.0 - busy / wall):.3f}"
         )
-    model.zero_grad(set_to_none=True)
 
 
 def main() -> int:
     card = phase_device()
     phase_build()
+    count_prefix_calls()
     phase_kernels()
+    phase_batched_kernels()
     model, data, queries, serving = phase_slice()
     training = phase_training(model, data)
     print(f"launches: serving path {serving}, training path {training}")
@@ -1044,7 +1580,17 @@ def main() -> int:
     records += phase_strip_times(card, rbf, rbf_queries, planes, strip_counts)
     del planes
     phase_profile(card, f"RBF(order=6) N={N_STRIP}", rbf, rbf_queries)
+    del rbf
+    torch.cuda.empty_cache()
     phase_sequential_time(card)
+    chains, batched_counts = phase_batched_slice()
+    for name in BATCHED_KERNELS + ("dt_fisher",):
+        check(batched_counts[name] > 0, f"{name} was never launched on the batched path")
+    for record in phase_batched_times(card, chains, batched_counts):
+        if "name" in record:
+            records.append(record)
+        else:  # the Fisher tail with a batch axis: a field of its row
+            next(r for r in records if r["name"] == "dt_fisher")["batched"] = record
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

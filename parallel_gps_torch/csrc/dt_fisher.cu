@@ -21,7 +21,14 @@
 // Neighbouring threads read and write neighbouring addresses of every plane:
 // the loads and stores are coalesced.
 //
-// Outputs: d_dt (T,), d_y (T,) and, per block, one row of sums
+// A batch axis: B series (or B chains over one series) in one launch, the
+// series on the grid's second axis.  Each reads its own row of the scalar
+// table and its own (D, B, T) / (D, D, B, T) moments; dt and y are shared
+// (batch stride 0) or per series.  B = 1 is the single-series call, with
+// the same arithmetic in the same order.  The TPU package has no batched
+// Fisher kernel: under vmap it falls back to the planes and an XLA tail.
+//
+// Outputs: d_dt (B, T), d_y (B, T) and, per series and block, one row of sums
 // [d_coeffs (kMaxCoef) | d_P0 (D², unsymmetrised) | d_H (D) | d_R].  Each
 // thread sums its steps in registers, each block reduces its threads in a
 // fixed tree in shared memory, and the caller adds the rows with one
@@ -45,9 +52,10 @@ struct FisherSums {
 };
 
 // Step t: adds its share to the sums and returns ∂ℓ/∂dt_t and ∂ℓ/∂y_t.
+// ``ms`` is the plane stride of the moments (T for one series, B·T batched).
 template <typename S, int D>
 __device__ __forceinline__ void fisher_step(const FilterScalars<S, D>& p, const S* dt, const S* y, const S* b,
-                                            const S* C, const S* g, const S* L, long long t, long long T, S* acc,
+                                            const S* C, const S* g, const S* L, long long t, long long ms, S* acc,
                                             S& d_dt, S& d_y) {
   const bool first = (t == 0);
   const long long tp = first ? 0 : t - 1;
@@ -58,15 +66,15 @@ __device__ __forceinline__ void fisher_step(const FilterScalars<S, D>& p, const 
   S m_prev[D], P_prev[D * D], mhat[D], Phat[D * D];
 #pragma unroll
   for (int a = 0; a < D; ++a) {
-    const S v = b[a * T + tp];
+    const S v = b[a * ms + tp];
     m_prev[a] = first ? S(0) : v;
-    mhat[a] = g[a * T + t];
+    mhat[a] = g[a * ms + t];
   }
 #pragma unroll
   for (int q = 0; q < D * D; ++q) {
-    const S v = C[q * T + tp];
+    const S v = C[q * ms + tp];
     P_prev[q] = first ? p.P0[q] : v;
-    Phat[q] = L[q * T + t];
+    Phat[q] = L[q * ms + t];
   }
 
   // Predicted moments and the only inverse: Pp = F P_prev Fᵀ + Q.
@@ -106,7 +114,7 @@ __device__ __forceinline__ void fisher_step(const FilterScalars<S, D>& p, const 
   mv<S, D>(E, mhat, Em);
 #pragma unroll
   for (int a = 0; a < D; ++a) {
-    const S v = g[a * T + tp];
+    const S v = g[a * ms + tp];
     mh_prev[a] = first ? Em[a] : v;
   }
   S dF[D * D];
@@ -175,12 +183,25 @@ __device__ __forceinline__ void fisher_step(const FilterScalars<S, D>& p, const 
 
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
-    dt_fisher_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ dt, const S* __restrict__ y,
-                     const S* __restrict__ b, const S* __restrict__ C, const S* __restrict__ g,
-                     const S* __restrict__ L, S* __restrict__ ddt_out, S* __restrict__ dy_out,
-                     S* __restrict__ sums, long long T) {
+    dt_fisher_kernel(const S* __restrict__ scal, int n_scal, int degree, const S* __restrict__ dt, long long dt_bs,
+                     const S* __restrict__ y, long long y_bs, const S* __restrict__ b, const S* __restrict__ C,
+                     const S* __restrict__ g, const S* __restrict__ L, S* __restrict__ ddt_out,
+                     S* __restrict__ dy_out, S* __restrict__ sums, long long T) {
   constexpr int kN = FisherSums<D>::kN;
   __shared__ S red[kThreads];
+  // This block's series: its scalars, its slice of every plane.
+  const long long series = blockIdx.y;
+  const long long ms = (long long)gridDim.y * T;
+  scal += series * n_scal;
+  dt += series * dt_bs;
+  y += series * y_bs;
+  b += series * T;
+  C += series * T;
+  g += series * T;
+  L += series * T;
+  ddt_out += series * T;
+  dy_out += series * T;
+  sums += series * gridDim.x * kN;
   FilterScalars<S, D> p;
   p.load(scal, degree);
   S acc[kN];
@@ -189,7 +210,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x; t < T; t += stride) {
     S d_dt, d_y;
-    fisher_step<S, D>(p, dt, y, b, C, g, L, t, T, acc, d_dt, d_y);
+    fisher_step<S, D>(p, dt, y, b, C, g, L, t, ms, acc, d_dt, d_y);
     ddt_out[t] = d_dt;
     dy_out[t] = d_y;
   }
@@ -223,16 +244,20 @@ int pgt_dt_fisher_n_sums(int d) {
   return pgt::kBadArgs;
 }
 
-// scal: [P0 (d²) | h (d) | r | coeffs]; sums: (n_blocks, pgt_dt_fisher_n_sums(d)).
-int pgt_dt_fisher(int is64, int d, int degree, const void* scal, const void* dt, const void* y, const void* b,
-                  const void* C, const void* g, const void* L, void* ddt, void* dy, void* sums, long long T,
-                  int n_blocks, void* stream) {
-  if (pgt::bad_shape(d, degree, T, 1) || n_blocks < 1) return pgt::kBadArgs;
+// scal: (B, n_scal) rows [P0 (d²) | h (d) | r | coeffs]; dt, y: series·bs + t
+// (bs = 0: shared); b, g (d, B, T) and C, L (d, d, B, T) contiguous; ddt, dy
+// (B, T); sums: (B, n_blocks, pgt_dt_fisher_n_sums(d)).
+int pgt_dt_fisher(int is64, int d, int degree, const void* scal, const void* dt, long long dt_bs, const void* y,
+                  long long y_bs, const void* b, const void* C, const void* g, const void* L, void* ddt, void* dy,
+                  void* sums, long long T, int B, int n_blocks, void* stream) {
+  if (pgt::bad_shape(d, degree, T, 1) || n_blocks < 1 || B < 1 || B > 65535) return pgt::kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
+  const int n_scal = d * d + d + 2 + degree * d * d;
+  const dim3 grid((unsigned int)n_blocks, (unsigned int)B);
 #define PGT_LAUNCH(S, DD)                                                                                       \
-  pgt::dt_fisher_kernel<S, DD><<<(unsigned int)n_blocks, pgt::kThreads, 0, st>>>(                               \
-      (const S*)scal, degree, (const S*)dt, (const S*)y, (const S*)b, (const S*)C, (const S*)g, (const S*)L,    \
-      (S*)ddt, (S*)dy, (S*)sums, T)
+  pgt::dt_fisher_kernel<S, DD><<<grid, pgt::kThreads, 0, st>>>(                                                 \
+      (const S*)scal, n_scal, degree, (const S*)dt, dt_bs, (const S*)y, y_bs, (const S*)b, (const S*)C,         \
+      (const S*)g, (const S*)L, (S*)ddt, (S*)dy, (S*)sums, T)
   PGT_DISPATCH(is64, d, PGT_LAUNCH);
 #undef PGT_LAUNCH
   return (int)cudaGetLastError();

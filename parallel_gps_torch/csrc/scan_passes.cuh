@@ -28,15 +28,16 @@ __device__ __forceinline__ void filter_step(const Src& p, const S* y, long long 
 }
 
 // Smoothing element of step t: F, Q of step t+1 and the filtered (m, P) at t;
-// the global-last step is (E = 0, g = m, L = P).
+// the global-last step is (E = 0, g = m, L = P).  ``bs`` and ``cs`` are the
+// plane strides of b and C (T for one series; B·T with a batch axis).
 template <typename S, int D, typename Src>
-__device__ __forceinline__ void smoother_step(const Src& p, const S* b, const S* C, long long t, long long T,
-                                              Smooth<S, D>& e) {
+__device__ __forceinline__ void smoother_step(const Src& p, const S* b, long long bs, const S* C, long long cs,
+                                              long long t, long long T, Smooth<S, D>& e) {
   S m[D], P[D * D];
 #pragma unroll
-  for (int a = 0; a < D; ++a) m[a] = b[a * T + t];
+  for (int a = 0; a < D; ++a) m[a] = b[a * bs + t];
 #pragma unroll
-  for (int q = 0; q < D * D; ++q) P[q] = C[q * T + t];
+  for (int q = 0; q < D * D; ++q) P[q] = C[q * cs + t];
   if (t == T - 1) {
     build_smoothing_last<S, D>(m, P, e);
   } else {
@@ -145,9 +146,9 @@ __device__ __forceinline__ void smoother_scan_chunk(const Src& p, const S* b, co
   const long long t0 = c * K;
   const long long t1 = (t0 + K < T) ? t0 + K : T;
   Smooth<S, D> acc, e;
-  smoother_step<S, D>(p, b, C, t1 - 1, T, acc);
+  smoother_step<S, D>(p, b, T, C, T, t1 - 1, T, acc);
   for (long long t = t1 - 2; t >= t0; --t) {
-    smoother_step<S, D>(p, b, C, t, T, e);
+    smoother_step<S, D>(p, b, T, C, T, t, T, e);
     acc = smooth_combine<S, D>(acc, e);
   }
   store_smooth<S, D>(totals, n_chunks, c, acc);
@@ -163,7 +164,7 @@ __device__ __forceinline__ void smoother_apply_chunk(const Src& p, const S* pref
   Smooth<S, D> acc, e;
   load_smooth<S, D>(prefix, n_chunks, c, acc);
   for (long long t = t1 - 1; t >= t0; --t) {
-    smoother_step<S, D>(p, b, C, t, T, e);
+    smoother_step<S, D>(p, b, T, C, T, t, T, e);
     acc = smooth_combine<S, D>(acc, e);
 #pragma unroll
     for (int a = 0; a < D; ++a) g_out[a * T + t] = acc.g[a];

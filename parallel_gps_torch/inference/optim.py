@@ -46,6 +46,11 @@ def make_log_posterior(model, priors: dict | None = None, trainable=None):
 
     ``trainable`` is an optional predicate on dotted leaf names; leaves it
     rejects are pinned to their initial values.
+
+    Leaves of shape (C,) are C chains: the model returns their LMLs as (C,)
+    and the priors are summed per chain, so ``log_post`` is then the batched
+    target ``inference.mcmc`` samples from (``jax.vmap(log_post)`` in the JAX
+    package).
     """
     loss, u0 = make_loss(model)
     mask = trainable_mask(u0, trainable) if trainable is not None else None
@@ -55,7 +60,9 @@ def make_log_posterior(model, priors: dict | None = None, trainable=None):
             u = {name: u[name] if mask[name] else u0[name] for name in u0}
         lp = -loss(u)
         if priors:
-            lp = lp + log_prior(u, priors)
+            # Every hyperparameter of the port's models is a scalar, so any
+            # axis of a leaf is a chain axis.
+            lp = lp + log_prior(u, priors, batch_ndim=max(x.dim() for x in u.values()))
         return lp
 
     return log_post, u0

@@ -1,4 +1,10 @@
-from parallel_gps_torch.kalman import dt, parallel, sequential, strip, timelast
+from parallel_gps_torch.kalman import batched, dt, parallel, sequential, strip, timelast
+from parallel_gps_torch.kalman.batched import (
+    batched_strip_filter,
+    batched_strip_filter_plain,
+    batched_strip_smoother,
+    batched_strip_smoother_plain,
+)
 from parallel_gps_torch.kalman.dt import (
     LAUNCHES,
     dt_fisher,
@@ -17,6 +23,11 @@ from parallel_gps_torch.kalman.strip import strip_filter, strip_filter_plain, st
 from parallel_gps_torch.kalman.timelast import lml_tl, pkf_from_tl, pkfs_from_tl, pks_from_tl
 
 __all__ = [
+    "batched",
+    "batched_strip_filter",
+    "batched_strip_filter_plain",
+    "batched_strip_smoother",
+    "batched_strip_smoother_plain",
     "dt",
     "parallel",
     "sequential",

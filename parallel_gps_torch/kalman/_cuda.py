@@ -2,7 +2,8 @@
 
 At first use, ``nvcc`` compiles the package's CUDA sources (one process per
 translation unit, all started together; ``strip_scan.cu`` is one unit per
-state dimension, ``VARIANTS``) and links them into a shared library with a
+state dimension and ``batched_scan.cu`` one per state dimension and scalar
+type, ``VARIANTS``) and links them into a shared library with a
 plain C interface, under ``build/parallel_gps_torch/`` at the root of the
 checkout, and ``ctypes`` loads it.  The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt and
@@ -25,13 +26,20 @@ BUILD_DIR = _PKG.parent / "build" / "parallel_gps_torch"
 # -Xptxas -v: the build log lists each kernel's registers and spills.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Threads per block of every scan kernel (csrc/dt_launch.cuh: kThreads).
+# Threads per block of the two-pass scan kernels and the Fisher tail
+# (csrc/dt_launch.cuh: kThreads).
 THREADS = 128
 
-# State dimensions the strip kernels are built for (kalman/strip.py).
+# State dimensions the strip and the batched kernels are built for
+# (kalman/strip.py, kalman/batched.py).
 STRIP_DIMS = tuple(range(1, 9))
 # Sources compiled more than once: {file name: [(object suffix, extra flags)]}.
-VARIANTS = {"strip_scan.cu": [(f"_d{d}", [f"-DPGT_D={d}"]) for d in STRIP_DIMS]}
+VARIANTS = {
+    "strip_scan.cu": [(f"_d{d}", [f"-DPGT_D={d}"]) for d in STRIP_DIMS],
+    "batched_scan.cu": [
+        (f"_d{d}_f{bits}", [f"-DPGT_D={d}", f"-DPGT_F64={int(bits == 64)}"]) for d in STRIP_DIMS for bits in (32, 64)
+    ],
+}
 
 _LIB = None
 
@@ -39,7 +47,7 @@ _LIB = None
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the dt-engine kernels need the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
     return path
 
 
@@ -102,7 +110,7 @@ def load():
         "pgt_dt_filter_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
         "pgt_dt_smoother_scan": [i, i, i, p, p, p, p, p, ll, i, p],
         "pgt_dt_smoother_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
-        "pgt_dt_fisher": [i, i, i, p, p, p, p, p, p, p, p, p, p, ll, i, p],
+        "pgt_dt_fisher": [i, i, i, p, p, ll, p, ll, p, p, p, p, p, p, p, ll, i, i, p],
         "pgt_dt_fisher_n_sums": [i],
     }
     for d in STRIP_DIMS:
@@ -110,6 +118,9 @@ def load():
         sigs[f"pgt_strip_filter_apply_d{d}"] = [i, p, p, p, p, p, p, p, p, ll, i, p]
         sigs[f"pgt_strip_smoother_scan_d{d}"] = [i, p, p, p, p, p, ll, i, p]
         sigs[f"pgt_strip_smoother_apply_d{d}"] = [i, p, p, p, p, p, p, p, ll, i, p]
+        for bits in (32, 64):
+            sigs[f"pgt_batched_filter_d{d}_f{bits}"] = [p, p, ll, ll, p, ll, ll, p, ll, p, p, p, ll, i, i, p]
+            sigs[f"pgt_batched_smoother_d{d}_f{bits}"] = [i, p, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p, p, ll, i, i, p]
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

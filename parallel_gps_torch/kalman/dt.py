@@ -34,6 +34,15 @@ On the CPU, ``strip_filter_dt``/``strip_smoother_dt`` run the plain
 time-last engine directly (``strip_filter_dt_plain``,
 ``strip_smoother_dt_plain``: build_planes_tl + pkf_from_tl/pks_from_tl).
 
+With a batch axis — ``coeffs`` (B, n), ``P0`` (B, d, d), ``H`` (B, 1, d),
+``R`` (B, 1, 1), ``dts`` and the observations (T,) when all series share them
+or (B, T) — the entry points take the single-pass batched engine
+(kalman/batched.py) instead: the (d, d, B, T) planes are built once by
+``build_planes_tl`` and one launch filters (or smooths) all B series, with no
+prefix step on the host; ``lml_dt`` then returns (B,) and its backward is the
+batched smoother and one launch of the Fisher tail for all series.  This is
+what ``jax.vmap`` of the single-series entry points does in the JAX package.
+
 ``LAUNCHES`` counts kernel launches by kernel name.
 """
 from __future__ import annotations
@@ -42,6 +51,7 @@ import torch
 from torch import Tensor
 from torch.autograd.function import once_differentiable
 
+from parallel_gps_torch.kalman.batched import batched_strip_filter, batched_strip_smoother, series_observations
 from parallel_gps_torch.kalman.strip import (
     CHUNK,
     exclusive_chunk_prefixes,
@@ -61,8 +71,8 @@ from parallel_gps_torch.types import LGSSMTL
 LAUNCHES = {"dt_filter_scan": 0, "dt_filter_apply": 0, "dt_smoother_scan": 0, "dt_smoother_apply": 0, "dt_fisher": 0}
 
 MAX_KERNEL_D = 3
-# Most blocks of the Fisher-tail kernel's grid-stride loop: one row of
-# partial sums per block.
+# Most blocks of the Fisher-tail kernel's grid-stride loops, over all series:
+# one row of partial sums per block.
 FISHER_MAX_BLOCKS = 2048
 
 
@@ -83,14 +93,17 @@ def _dts_from_ts(ts: Tensor, t0=0.0) -> Tensor:
 
 def build_planes_tl(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor):
     """Time-last (Fs, Qs, P0) planes rebuilt from the transition
-    coefficients — the same algebra as ops/disc.py::discretize_tl."""
-    d = P0.shape[0]
+    coefficients — the same algebra as ops/disc.py::discretize_tl.  With
+    ``coeffs`` (B, n) and ``P0`` (B, d, d) the planes are (d, d, B, T) and
+    ``dts`` is (T,), shared, or (B, T)."""
+    d = P0.shape[-1]
     Am1 = build_transitions_m1(family, coeffs, dts, d)
     P0s = symmetrize(P0)
-    T = dts.shape[0]
-    Fs = Am1 + torch.eye(d, dtype=Am1.dtype, device=Am1.device)[:, :, None].expand(d, d, T)
-    AP = (Am1[:, :, None, :] * P0s[None, :, :, None]).sum(1)
-    APAt = (AP[:, :, None, :] * Am1[None].transpose(1, 2)).sum(1)
+    P0p = P0s.permute(1, 2, 0) if P0s.dim() == 3 else P0s  # (d, d, *batch)
+    eye = torch.eye(d, dtype=Am1.dtype, device=Am1.device)
+    Fs = Am1 + eye.reshape((d, d) + (1,) * (Am1.dim() - 2)).expand(Am1.shape)
+    AP = (Am1[:, :, None] * P0p[None, ..., None]).sum(1)
+    APAt = (AP[:, :, None] * Am1[None].transpose(1, 2)).sum(1)
     Q = -(AP + AP.transpose(0, 1) + APAt)
     Qs = 0.5 * (Q + Q.transpose(0, 1))
     return Fs, Qs, P0s
@@ -129,12 +142,15 @@ def dt_fisher_plain(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl):
     """Plain Fisher tail (counterpart: pallas_dt.py:1061-1071): the planes
     rebuilt under autograd, the elementwise tail on them, and autograd back
     from the plane cotangents to (coeffs, P0, dts).  Returns what
-    ``dt_fisher`` returns."""
+    ``dt_fisher`` returns, with a batch axis too."""
+    batch = tuple(coeffs.shape[:-1])
+    if batch:
+        dts = dts.expand(batch + dts.shape[-1:]).contiguous()  # per-series ∂ℓ/∂dt also where dts is shared
     with torch.enable_grad():
         co, p0, dt_ = (x.detach().requires_grad_() for x in (coeffs, P0, dts))
         planes = build_planes_tl(family, co, p0, dt_)
     Fs, Qs, P0s = (x.detach() for x in planes)
-    one = torch.ones((), dtype=P0.dtype, device=P0.device)
+    one = torch.ones(batch, dtype=P0.dtype, device=P0.device)
     ct, d_y = fisher_grads_from_smoothed(LGSSMTL(P0s, Fs, Qs, H, R), y, b_tl, C_tl, g_tl, L_tl, one)
     d_co, d_p0, d_dt = torch.autograd.grad(planes, (co, p0, dt_), (ct.Fs, ct.Qs, ct.P0))
     return d_co, d_p0, ct.H, ct.R, d_dt, d_y
@@ -176,12 +192,42 @@ def _check(family, coeffs, P0, dts, tensors):
     degree = (n - 1) // (d * d)
     _require(n == 1 + degree * d * d and degree <= d - 1, f"coeffs of length {n} do not fit the d={d} exppoly layout")
     tensors = {"coeffs": (coeffs, (n,)), "P0": (P0, (d, d)), "dts": (dts, (T,)), **tensors}
+    _check_tensors(dev, P0.dtype, tensors)
+    return d, T, degree
+
+
+def _check_tensors(dev, dtype, tensors: dict) -> None:
+    """Every ``{name: (tensor, shape)}`` on ``dev``, of ``dtype``, of its shape
+    and contiguous."""
     for name, (x, shape) in tensors.items():
         _require(x.device == dev, f"{name} is on {x.device}, expected {dev}")
-        _require(x.dtype == P0.dtype, f"{name} has dtype {x.dtype}, expected {P0.dtype}")
+        _require(x.dtype == dtype, f"{name} has dtype {x.dtype}, expected {dtype}")
         _require(tuple(x.shape) == shape, f"{name} must have shape {shape}, got {tuple(x.shape)}")
         _require(x.is_contiguous(), f"{name} must be contiguous")
-    return d, T, degree
+
+
+def _check_fisher(family, coeffs, P0, H, R, dts, y, moments: dict):
+    """Validate the inputs of a (batched) Fisher-tail launch: ``coeffs``
+    (B, n), ``P0`` (B, d, d), ``dts`` and ``y`` (T,) or (B, T), moments with
+    the batch axis before time.  Returns (d, B, T, degree)."""
+    d, dev, dtype = P0.shape[-1], dts.device, P0.dtype
+    _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
+    _require(family == EXPPOLY, f"unsupported transition family {family!r}")
+    _require(dtype in (torch.float32, torch.float64), f"dtype must be float32 or float64, got {dtype}")
+    _require(1 <= d <= MAX_KERNEL_D, f"state dimension {d} > {MAX_KERNEL_D} (the dt kernels are built for d <= 3)")
+    _require(coeffs.dim() == 2 and coeffs.shape[0] >= 1, f"coeffs must be (B, n), got {tuple(coeffs.shape)}")
+    B, n = coeffs.shape
+    _require(dts.dim() in (1, 2) and dts.shape[-1] >= 1, f"dts must be (T,) or (B, T) with T >= 1, got {tuple(dts.shape)}")
+    T = dts.shape[-1]
+    degree = (n - 1) // (d * d)
+    _require(n == 1 + degree * d * d and degree <= d - 1, f"coeffs of length {n} do not fit the d={d} exppoly layout")
+    tensors = {
+        "coeffs": (coeffs, (B, n)), "P0": (P0, (B, d, d)), "H": (H, (B, 1, d)), "R": (R, (B, 1, 1)),
+        "dts": (dts, (T,) if dts.dim() == 1 else (B, T)), "y": (y, (T,) if y.dim() == 1 else (B, T)),
+        **{name: (x, (d,) * k + (B, T)) for name, (x, k) in moments.items()},
+    }
+    _check_tensors(dev, dtype, tensors)
+    return d, B, T, degree
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -283,40 +329,56 @@ def dt_fisher(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl):
     filtered (b, C) and smoothed (g, L) moments, unscaled by the output
     cotangent.  Returns (d_coeffs, d_P0 (d, d), d_H (1, d), d_R (1, 1),
     d_dts (T,), d_y (T,)); ``d_P0`` is the cotangent of a symmetric P0,
-    distributed symmetrically."""
+    distributed symmetrically.
+
+    With a batch axis (``coeffs`` (B, n), module docstring) one launch serves
+    all B series and every output gains a leading B — ``d_dts`` and ``d_y``
+    are (B, T), per series, also where ``dts`` or ``y`` is shared."""
     if dts.device.type == "cpu":
         return dt_fisher_plain(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl)
+    if coeffs.dim() == 1:
+        # The single-series call is the B = 1 case of the same launch.
+        outs = _dt_fisher_launch(
+            family, coeffs[None], P0[None], H[None], R[None], dts, y,
+            b_tl[:, None], C_tl[:, :, None], g_tl[:, None], L_tl[:, :, None],
+        )
+        return tuple(x[0] for x in outs)
+    return _dt_fisher_launch(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl)
+
+
+def _dt_fisher_launch(family, coeffs, P0, H, R, dts, y, b_bt, C_bt, g_bt, L_bt):
     from parallel_gps_torch.kalman import _cuda
 
-    d, T = P0.shape[0], dts.shape[0]
-    d, T, degree = _check(
-        family, coeffs, P0, dts,
-        {
-            "y": (y, (T,)), "H": (H, (1, d)), "R": (R, (1, 1)),
-            "b_tl": (b_tl, (d, T)), "C_tl": (C_tl, (d, d, T)), "g_tl": (g_tl, (d, T)), "L_tl": (L_tl, (d, d, T)),
-        },
+    d, B, T, degree = _check_fisher(
+        family, coeffs, P0, H, R, dts, y, {"b_tl": (b_bt, 1), "C_tl": (C_bt, 2), "g_tl": (g_bt, 1), "L_tl": (L_bt, 2)}
     )
     lib = _cuda.load()
     dev, dtype = dts.device, P0.dtype
     n_sums = lib.pgt_dt_fisher_n_sums(d)
-    n_blocks = min(-(-T // _cuda.THREADS), FISHER_MAX_BLOCKS)
-    d_dts = torch.empty((T,), dtype=dtype, device=dev)
-    d_y = torch.empty((T,), dtype=dtype, device=dev)
-    sums = torch.empty((n_blocks, n_sums), dtype=dtype, device=dev)
+    # Blocks a series: the B series share the grid's budget, so that a thread
+    # still sums several steps in registers before its block reduces.
+    n_blocks = min(-(-T // _cuda.THREADS), max(1, FISHER_MAX_BLOCKS // B))
+    d_dts = torch.empty((B, T), dtype=dtype, device=dev)
+    d_y = torch.empty((B, T), dtype=dtype, device=dev)
+    sums = torch.empty((B, n_blocks, n_sums), dtype=dtype, device=dev)
+    # Per-series scalar table, rows [P0 (d²) | h (d) | r | coeffs].
+    scal = torch.cat([P0.reshape(B, -1), H.reshape(B, -1), R.reshape(B, -1), coeffs], 1).contiguous()
     _launch(
-        "dt_fisher", lib.pgt_dt_fisher, int(dtype == torch.float64), d, degree,
-        _filter_scalars(P0, H, R, coeffs), dts, y, b_tl, C_tl, g_tl, L_tl, d_dts, d_y, sums, T, n_blocks, dev,
+        "dt_fisher", lib.pgt_dt_fisher, int(dtype == torch.float64), d, degree, scal,
+        dts, T if dts.dim() == 2 else 0, y, T if y.dim() == 2 else 0, b_bt, C_bt, g_bt, L_bt, d_dts, d_y, sums,
+        T, B, n_blocks, dev,
     )
-    # One row of sums per block, each reduced in a fixed order by the
-    # kernel; the final sum is one deterministic reduction (no atomics).
+    # One row of sums per series and block, each reduced in a fixed order by
+    # the kernel; the final sum over the blocks is one deterministic
+    # reduction (no atomics), of the same shape at B = 1 as a single series'.
     # Row layout: [d_coeffs, padded to the degree d−1 | d_P0 | d_H | d_R].
-    total = sums.sum(0)
+    total = sums.transpose(0, 1).reshape(n_blocks, B * n_sums).sum(0).reshape(B, n_sums)
     d2 = d * d
     off = n_sums - d2 - d - 1
-    d_P0 = total[off : off + d2].reshape(d, d)
+    d_P0 = total[:, off : off + d2].reshape(B, d, d)
     return (
-        total[: coeffs.numel()], symmetrize(d_P0), total[off + d2 : off + d2 + d].reshape(1, d),
-        total[-1].reshape(1, 1), d_dts, d_y,
+        total[:, : coeffs.shape[1]], symmetrize(d_P0), total[:, off + d2 : off + d2 + d].reshape(B, 1, d),
+        total[:, -1].reshape(B, 1, 1), d_dts, d_y,
     )
 
 
@@ -327,7 +389,11 @@ def dt_fisher(family, coeffs, P0, H, R, dts, y, b_tl, C_tl, g_tl, L_tl):
 
 def strip_filter_dt(family: str, coeffs: Tensor, P0: Tensor, H: Tensor, R: Tensor, dts: Tensor, observations: Tensor):
     """dt-engine filter; returns (b_tl (d, T), C_tl (d, d, T), ell).
-    ``dts``: the (T,) gaps between observation times (t0-prepended diff)."""
+    ``dts``: the (T,) gaps between observation times (t0-prepended diff).
+    With a batch axis (module docstring): (b (d, B, T), C (d, d, B, T),
+    ell (B,)) from one launch of the batched filter."""
+    if coeffs.dim() == 2:
+        return _batched_filter_dt(family, coeffs, P0, H, R, dts, observations)[0]
     if dts.device.type == "cpu":
         return strip_filter_dt_plain(family, coeffs, P0, H, R, dts, observations)
     y = observations.reshape(-1).contiguous()
@@ -338,7 +404,12 @@ def strip_filter_dt(family: str, coeffs: Tensor, P0: Tensor, H: Tensor, R: Tenso
 
 
 def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl: Tensor, C_tl: Tensor):
-    """dt-engine smoother over filtered moments; returns (g_tl, L_tl)."""
+    """dt-engine smoother over filtered moments; returns (g_tl, L_tl) — with
+    a batch axis (g (d, B, T), L (d, d, B, T)) from one launch of the batched
+    smoother."""
+    if coeffs.dim() == 2:
+        Fs, Qs, _ = build_planes_tl(family, coeffs, P0, dts)
+        return batched_strip_smoother(Fs, Qs, b_tl, C_tl, None, project=False)
     if dts.device.type == "cpu":
         return strip_smoother_dt_plain(family, coeffs, P0, dts, b_tl, C_tl)
     # The kernels take contiguous planes; the plain filter returns views.
@@ -346,6 +417,14 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
     totals = dt_smoother_scan(family, coeffs, P0, dts, b_tl, C_tl)
     prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=True)
     return dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix)
+
+
+def _batched_filter_dt(family, coeffs, P0, H, R, dts, observations):
+    """The batched filter on planes built once from the coefficients; returns
+    ((b, C, ell), (Fs, Qs)), the planes for a smoother that follows."""
+    Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
+    ys = series_observations(observations, Fs.shape[2:])
+    return batched_strip_filter(Fs, Qs, P0s, H, R.reshape(-1, 1, 1), ys), (Fs, Qs)
 
 
 # --------------------------------------------------------------------------
@@ -379,6 +458,43 @@ class _LmlDt(torch.autograd.Function):
         return (None, *(g * x if needed else None for x, needed in zip(grads, ctx.needs_input_grad[1:])))
 
 
+class _LmlDtBatched(torch.autograd.Function):
+    """``_LmlDt`` for B series (or chains) at once: the forward is one launch
+    of the batched filter on planes built from the coefficients, the backward
+    one launch of the batched smoother on the same planes and one of the
+    Fisher tail, each series scaled by its own output cotangent.  The planes
+    are kept from the forward for the backward, not rebuilt: 2·d²·B·T values
+    held in between (302 MB at d = 3, B = 64, T = 65,536 in float32)."""
+
+    @staticmethod
+    def forward(ctx, family, coeffs, P0, H, R, dts, observations):
+        (b_bt, C_bt, ell), (Fs, Qs) = _batched_filter_dt(family, coeffs, P0, H, R, dts, observations)
+        ctx.family = family
+        ctx.save_for_backward(coeffs, P0, H, R, dts, observations, b_bt, C_bt, Fs, Qs)
+        return ell
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gbar):
+        coeffs, P0, H, R, dts, y, b_bt, C_bt, Fs, Qs = ctx.saved_tensors
+        b_bt, C_bt = b_bt.contiguous(), C_bt.contiguous()
+        g_bt, L_bt = batched_strip_smoother(Fs, Qs, b_bt, C_bt, None, project=False)
+        grads = dt_fisher(
+            ctx.family, coeffs.contiguous(), P0.contiguous(), H.contiguous(), R.contiguous(), dts.contiguous(),
+            y.contiguous(), b_bt, C_bt, g_bt.contiguous(), L_bt.contiguous(),
+        )
+        g = gbar.to(P0.dtype)
+        out = [None]
+        for x, like, needed in zip(grads, (coeffs, P0, H, R, dts, y), ctx.needs_input_grad[1:]):
+            if not needed:
+                out.append(None)
+                continue
+            x = g.reshape((-1,) + (1,) * (x.dim() - 1)) * x
+            # An input that all series share receives the sum of their cotangents.
+            out.append(x.sum(0).reshape(like.shape) if like.numel() != x.numel() else x.reshape(like.shape))
+        return tuple(out)
+
+
 def _model_inputs(kernel, ts, transition=None):
     """``transition``: the kernel's ``transition_coeffs()`` where the caller
     has computed them already."""
@@ -388,21 +504,51 @@ def _model_inputs(kernel, ts, transition=None):
     return family, coeffs, sde, dts
 
 
+def series_inputs(coeffs: Tensor, sde, R: Tensor):
+    """(coeffs, P0, H, R, batched): for hyperparameters with a leading batch
+    axis — any of the kernel's or the noise — every leaf expanded to that
+    axis, (B, n), (B, d, d), (B, 1, d), (B, 1, 1); else the single-series
+    leaves with R as (1, 1)."""
+    d = sde.P0.shape[-1]
+    R = R.reshape(-1)
+    batch = torch.broadcast_shapes(coeffs.shape[:-1], sde.P0.shape[:-2], sde.H.shape[:-2], R.shape if R.numel() > 1 else ())
+    if not batch:
+        return coeffs, sde.P0, sde.H, R.reshape(1, 1), False
+    if len(batch) != 1:
+        raise ValueError(f"hyperparameters may carry one leading batch axis, got batch shape {tuple(batch)}")
+    (B,) = batch
+    return (
+        coeffs.expand(B, coeffs.shape[-1]), sde.P0.expand(B, d, d), sde.H.expand(B, 1, d),
+        R.reshape(-1, 1, 1).expand(B, 1, 1), True,
+    )
+
+
 def lml_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor, transition=None) -> Tensor:
     """Log marginal likelihood via the dt-engine, differentiable in the
-    kernel's hyperparameters, R and the observations."""
+    kernel's hyperparameters, R and the observations.  Hyperparameters (or an
+    ``R``) with a leading batch axis of B give (B,): B chains over the shared
+    ``ts`` and observations ((T,), or (B, T) for B series)."""
     family, coeffs, sde, dts = _model_inputs(kernel, ts, transition)
-    return _LmlDt.apply(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
+    coeffs, P0, H, R, batched = series_inputs(coeffs, sde, R)
+    if batched:
+        return _LmlDtBatched.apply(family, coeffs, P0, H, R, dts, observations)
+    return _LmlDt.apply(family, coeffs, P0, H, R, dts, observations.reshape(-1))
 
 
 def pkf_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor):
     """Filter from (kernel, times) directly; returns (b_tl, C_tl, ell)."""
     family, coeffs, sde, dts = _model_inputs(kernel, ts)
-    return strip_filter_dt(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
+    coeffs, P0, H, R, batched = series_inputs(coeffs, sde, R)
+    return strip_filter_dt(family, coeffs, P0, H, R, dts, observations if batched else observations.reshape(-1))
 
 
 def pkfs_dt(kernel, ts: Tensor, R: Tensor, observations: Tensor, transition=None):
-    """Filter + smoother; returns smoothed (g_tl (d, T), L_tl (d, d, T))."""
+    """Filter + smoother; returns smoothed (g_tl (d, T), L_tl (d, d, T)), or
+    (g (d, B, T), L (d, d, B, T)) for batched hyperparameters (``lml_dt``)."""
     family, coeffs, sde, dts = _model_inputs(kernel, ts, transition)
-    b_tl, C_tl, _ = strip_filter_dt(family, coeffs, sde.P0, sde.H, R.reshape(1, 1), dts, observations.reshape(-1))
-    return strip_smoother_dt(family, coeffs, sde.P0, dts, b_tl, C_tl)
+    coeffs, P0, H, R, batched = series_inputs(coeffs, sde, R)
+    if batched:
+        (b_bt, C_bt, _), (Fs, Qs) = _batched_filter_dt(family, coeffs, P0, H, R, dts, observations)
+        return batched_strip_smoother(Fs, Qs, b_bt.contiguous(), C_bt.contiguous(), None, project=False)
+    b_tl, C_tl, _ = strip_filter_dt(family, coeffs, P0, H, R, dts, observations.reshape(-1))
+    return strip_smoother_dt(family, coeffs, P0, dts, b_tl, C_tl)

@@ -8,6 +8,13 @@ broadcast-multiply-reduce, and inverses use closed-form adjugates (d ≤ 3)
 or a Schur-complement recursion onto them (d > 3).
 The scan is Kogge–Stone over the last axis, two-level for T ≥ 8192.
 
+Every function here also takes a model with a batch axis — B independent
+series, or B chains over one series — in the JAX package's batched layout:
+planes (d, d, B, T), moments (d, B, T), ``P0`` (B, d, d), ``H`` (B, 1, d),
+``R`` (B, 1, 1) and observations (B, T), or (T,) when all series share them.
+The algebra is elementwise over whatever axes trail the matrix axes, so the
+batch rides along; the log-likelihood is then (B,).
+
 This is the plain version the dt-engine kernels are held against
 (kalman/dt.py), and what those entry points run on the CPU.
 
@@ -117,11 +124,22 @@ def _eye_like(d: int, like: Tensor) -> Tensor:
 # --------------------------------------------------------------------------
 
 
-def _clean_observations(observations: Tensor, T: int):
-    ys = observations.reshape(T)
+def _clean_observations(observations: Tensor, shape):
+    """(y with NaN → 0, mask).  ``shape``: the planes' trailing axes, (T,) or
+    (B, T); observations shared by a batch stay (T,) and broadcast."""
+    shape = tuple(shape)
+    ys = observations.reshape(shape if observations.numel() == math.prod(shape) else shape[-1:])
     mask = ~torch.isnan(ys)
     y = torch.where(mask, ys, torch.zeros_like(ys))
     return y, mask
+
+
+def _series_leaves(P0: Tensor, H: Tensor, R: Tensor, batched: bool):
+    """(P0 (d, d, *batch), h (d, *batch), r (*batch)): the per-series leaves
+    with the batch axis moved behind the matrix axes, like the planes'."""
+    if not batched:
+        return P0, H[0], R[0, 0]
+    return P0.permute(1, 2, 0), H[:, 0, :].transpose(0, 1), R[:, 0, 0]
 
 
 def _filtering_elements_from_planes(
@@ -130,22 +148,23 @@ def _filtering_elements_from_planes(
     """Filtering elements (A, b, C, J, η) from time-last (d, d, T) planes;
     NaN observations give the masked element (A=F, C=Q, b=η=J=0) and t=0
     updates against (m0 = 0, P0)."""
-    T = A_std.shape[-1]
-    h = H[0]
-    r = R[0, 0]
-    y, mask = _clean_observations(observations, T)
+    batched = A_std.dim() == 4
+    P0, h, r = _series_leaves(P0, H, R, batched)
+    y, mask = _clean_observations(observations, A_std.shape[2:])
+    hc = h[..., None]  # (d, *batch, 1)
+    rc = r[..., None] if batched else r
 
-    HQ = (h[:, None, None] * Q).sum(0)  # (d, T)
-    S = (h[:, None] * HQ).sum(0) + r
+    HQ = (hc[:, None] * Q).sum(0)  # (d, *batch, T)
+    S = (hc * HQ).sum(0) + rc
     Sinv = 1.0 / S
     K = HQ * Sinv[None]
-    HF = (h[:, None, None] * A_std).sum(0)
+    HF = (hc[:, None] * A_std).sum(0)
 
-    A_ok = A_std - K[:, None, :] * HF[None, :, :]
+    A_ok = A_std - K[:, None] * HF[None]
     b_ok = K * y[None]
-    C_ok = Q - K[:, None, :] * HQ[None, :, :]
+    C_ok = Q - K[:, None] * HQ[None]
     eta_ok = HF * (Sinv * y)[None]
-    J_ok = HF[:, None, :] * HF[None, :, :] * Sinv[None, None]
+    J_ok = HF[:, None] * HF[None] * Sinv[None, None]
 
     m2 = mask[None]
     m3 = mask[None, None]
@@ -157,26 +176,26 @@ def _filtering_elements_from_planes(
     J = torch.where(m3, J_ok, zero)
 
     # First element: filter step against (m0 = 0, P0).
-    P0h = P0 @ h
-    S1 = h @ P0h + r
+    P0h = _mv(P0, h)
+    S1 = (h * P0h).sum(0) + r
     K1 = P0h / S1
-    ok0 = mask[0]
-    b0 = torch.where(ok0, K1 * y[0], zero)
-    C0 = torch.where(ok0, P0 - torch.outer(K1, P0h), P0)
-    HF0 = HF[:, 0]
-    eta0 = torch.where(ok0, HF0 * (y[0] / S[0]), zero)
-    J0 = torch.where(ok0, torch.outer(HF0, HF0) / S[0], zero)
+    ok0, y0, S0 = mask[..., 0], y[..., 0], S[..., 0]
+    b0 = torch.where(ok0, K1 * y0, zero)
+    C0 = torch.where(ok0, P0 - K1[:, None] * P0h[None], P0)
+    HF0 = HF[..., 0]
+    eta0 = torch.where(ok0, HF0 * (y0 / S0), zero)
+    J0 = torch.where(ok0, HF0[:, None] * HF0[None] / S0, zero)
 
     A = A.clone()
-    A[:, :, 0] = 0.0
+    A[..., 0] = 0.0
     b = b.clone()
-    b[:, 0] = b0
+    b[..., 0] = b0
     C = C.clone()
-    C[:, :, 0] = C0
+    C[..., 0] = C0
     J = J.clone()
-    J[:, :, 0] = J0
+    J[..., 0] = J0
     eta = eta.clone()
-    eta[:, 0] = eta0
+    eta[..., 0] = eta0
     return FilteringElementTL(A, b, C, J, eta)
 
 
@@ -205,21 +224,19 @@ def filtering_identity_tl(d: int, dtype, device=None) -> FilteringElementTL:
 def _smoothing_elements_from_planes(A_all: Tensor, Q_all: Tensor, m_all: Tensor, P_all: Tensor) -> SmoothingElementTL:
     """Smoothing elements (E, g, L) from (d, d, T) transition/noise planes
     and the filtered moments; the last step is (E=0, g=m_T, L=P_T)."""
-    d = A_all.shape[0]
-    A = A_all[:, :, 1:]
-    Q = Q_all[:, :, 1:]
-    m = m_all[:, :-1]
-    P = P_all[:, :, :-1]
+    A = A_all[..., 1:]
+    Q = Q_all[..., 1:]
+    m = m_all[..., :-1]
+    P = P_all[..., :-1]
     Pp = _mm(_mm(A, P), _mt(A)) + Q
     FP = _mm(A, P)
     E = _mt(_mm(_inv(_sym(Pp)), FP))
     g = m - _mv(_mm(E, A), m)
     L = _sym(P - _mm(_mm(E, Pp), _mt(E)))
-    zeros = torch.zeros((d, d, 1), dtype=A_all.dtype, device=A_all.device)
     return SmoothingElementTL(
-        E=torch.cat([E, zeros], -1),
-        g=torch.cat([g, m_all[:, -1:]], -1),
-        L=torch.cat([L, P_all[:, :, -1:]], -1),
+        E=torch.cat([E, torch.zeros_like(A_all[..., :1])], -1),
+        g=torch.cat([g, m_all[..., -1:]], -1),
+        L=torch.cat([L, P_all[..., -1:]], -1),
     )
 
 
@@ -273,7 +290,7 @@ def _blocked_scan_tl(operator, elems, identity, reverse: bool):
     def pad(x, ident):
         if Tp == T:
             return x
-        fill = ident.reshape(ident.shape + (1,)).to(x.dtype).expand(x.shape[:-1] + (Tp - T,))
+        fill = _bcast_ident(ident, x[..., :1]).expand(x.shape[:-1] + (Tp - T,))
         # Forward scans pad at the end, reverse scans at the front.
         return torch.cat([fill, x], -1) if reverse else torch.cat([x, fill], -1)
 
@@ -322,38 +339,44 @@ def _kogge_stone_flat_tl(operator, elems, identity, reverse: bool = False):
 
 
 def _loglik_from_planes(P0, A, Q, H, R, b_tl, C_tl, observations) -> Tensor:
-    """Σ_t log p(y_t | y_<t) from the filtered moments (masked steps add 0)."""
-    d = P0.shape[0]
-    T = A.shape[-1]
-    h = H[0]
-    r = R[0, 0]
-    y, mask = _clean_observations(observations, T)
-    zeros = torch.zeros((d, 1), dtype=P0.dtype, device=P0.device)
-    m_prev = torch.cat([zeros, b_tl[:, :-1]], -1)
-    P_prev = torch.cat([P0[:, :, None], C_tl[:, :, :-1]], -1)
+    """Σ_t log p(y_t | y_<t) from the filtered moments (masked steps add 0);
+    one value per series."""
+    batched = A.dim() == 4
+    P0, h, r = _series_leaves(P0, H, R, batched)
+    y, mask = _clean_observations(observations, A.shape[2:])
+    hc = h[..., None]
+    m_prev = torch.cat([torch.zeros_like(b_tl[..., :1]), b_tl[..., :-1]], -1)
+    P_prev = torch.cat([P0[..., None], C_tl[..., :-1]], -1)
     mp = _mv(A, m_prev)
     Pp = _mm(_mm(A, P_prev), _mt(A)) + Q
-    mean = (h[:, None] * mp).sum(0)
-    var = (h[:, None] * _mv(Pp, h[:, None].expand(d, T))).sum(0) + r
+    mean = (hc * mp).sum(0)
+    var = (hc * _mv(Pp, hc.expand(mp.shape))).sum(0) + (r[..., None] if batched else r)
     diff = y - mean
     logprobs = -0.5 * (diff * diff / var + torch.log(var) + math.log(2.0 * math.pi))
-    return torch.where(mask, logprobs, torch.zeros_like(logprobs)).sum()
+    return torch.where(mask, logprobs, torch.zeros_like(logprobs)).sum(-1)
 
 
 def pkf_from_tl(lgssm_tl, observations: Tensor, return_loglikelihood: bool = False, strip: bool = False):
     """Parallel Kalman filter on a time-last LGSSMTL; returns (b_tl, C_tl)
     or (b_tl, C_tl, ell).  ``strip=True`` takes the strip engine
     (kalman/strip.py: CUDA kernels on the card, d ≤ 8, forward only);
-    otherwise the plain Kogge–Stone scan, differentiable, any d."""
+    otherwise the plain Kogge–Stone scan, differentiable, any d.  A model
+    with a batch axis (module docstring) takes the single-pass batched
+    kernel (kalman/batched.py) for ``strip=True``."""
     P0, Fs_tl, Qs_tl, H, R = lgssm_tl
     if strip:
-        from parallel_gps_torch.kalman.strip import strip_filter
+        if Fs_tl.dim() == 4:
+            from parallel_gps_torch.kalman.batched import batched_strip_filter, series_observations
 
-        out = strip_filter(Fs_tl, Qs_tl, P0, H, R, observations)
+            out = batched_strip_filter(Fs_tl, Qs_tl, P0, H, R, series_observations(observations, Fs_tl.shape[2:]))
+        else:
+            from parallel_gps_torch.kalman.strip import strip_filter
+
+            out = strip_filter(Fs_tl, Qs_tl, P0, H, R, observations)
         return out if return_loglikelihood else out[:2]
     e = _filtering_elements_from_planes(P0, Fs_tl, Qs_tl, H, R, observations)
     final = kogge_stone_scan_tl(
-        filtering_operator_tl, e, filtering_identity_tl(P0.shape[0], P0.dtype, P0.device)
+        filtering_operator_tl, e, filtering_identity_tl(Fs_tl.shape[0], P0.dtype, P0.device)
     )
     b_tl, C_tl = final.b, final.C
     if not return_loglikelihood:
@@ -366,12 +389,16 @@ def pks_from_tl(lgssm_tl, b_tl: Tensor, C_tl: Tensor, strip: bool = False):
     ``strip`` as in ``pkf_from_tl``."""
     P0, Fs_tl, Qs_tl, _, _ = lgssm_tl
     if strip:
+        if Fs_tl.dim() == 4:
+            from parallel_gps_torch.kalman.batched import batched_strip_smoother
+
+            return batched_strip_smoother(Fs_tl, Qs_tl, b_tl, C_tl, None, project=False)
         from parallel_gps_torch.kalman.strip import strip_smoother
 
         return strip_smoother(Fs_tl, Qs_tl, b_tl, C_tl)
     e = _smoothing_elements_from_planes(Fs_tl, Qs_tl, b_tl, C_tl)
     final = kogge_stone_scan_tl(
-        smoothing_operator_tl, e, smoothing_identity_tl(P0.shape[0], P0.dtype, P0.device), reverse=True
+        smoothing_operator_tl, e, smoothing_identity_tl(Fs_tl.shape[0], Fs_tl.dtype, Fs_tl.device), reverse=True
     )
     return final.g, final.L
 
@@ -409,9 +436,9 @@ def pkfs_from_tl(lgssm_tl, observations: Tensor, strip: bool = False, time_first
 def _smoother_gains_tl(Fs_tl: Tensor, Qs_tl: Tensor, b_tl: Tensor, C_tl: Tensor) -> Tensor:
     """RTS gains E_k = (Pp_{k+1}⁻¹ F_{k+1} P_k)ᵀ for k = 0..T−2, (d, d, T−1):
     Cov(x_{k+1}, x_k | y) = P̂_{k+1} E_kᵀ."""
-    A = Fs_tl[:, :, 1:]
-    Q = Qs_tl[:, :, 1:]
-    P = C_tl[:, :, :-1]
+    A = Fs_tl[..., 1:]
+    Q = Qs_tl[..., 1:]
+    P = C_tl[..., :-1]
     Pp = _sym(_mm(_mm(A, P), _mt(A)) + Q)
     return _mt(_mm(_inv(Pp), _mm(A, P)))
 
@@ -420,30 +447,33 @@ def fisher_grads_from_smoothed(lgssm_tl: LGSSMTL, observations: Tensor, b_tl, C_
     """Fisher-identity LML cotangents from filtered (b, C) and smoothed
     (m̂, P̂) time-last moments: the elementwise tail of the backward (every
     formula is elementwise over T apart from one-step shifts).  Returns
-    (LGSSMTL cotangent, ∂ℓ/∂y), both scaled by ``gbar``."""
-    P0, Fs, Qs, H, R = lgssm_tl
-    d = P0.shape[0]
-    T = Fs.shape[-1]
-    h = H[0]
-    r = R[0, 0]
-    y, mask = _clean_observations(observations, T)
+    (LGSSMTL cotangent, ∂ℓ/∂y), both scaled by ``gbar``.  With a batch axis
+    (module docstring) ``gbar`` is (B,), the cotangent's leaves have the
+    model's shapes, and ∂ℓ/∂y is (B, T): per series, also where the series
+    share their observations."""
+    batched = lgssm_tl.Fs.dim() == 4
+    _, Fs, Qs, H, R = lgssm_tl
+    P0, h, r = _series_leaves(lgssm_tl.P0, H, R, batched)
+    y, mask = _clean_observations(observations, Fs.shape[2:])
     maskf = mask.to(P0.dtype)
+    hc = h[..., None]
+    rc = r[..., None] if batched else r
 
     # RTS gains E_{k−1} (pair (k−1, k), aligned with transition k;
     # pre-initial gain E₋₁ from P0).
     E = _smoother_gains_tl(Fs, Qs, b_tl, C_tl)
-    F0 = Fs[:, :, 0]
-    Q0 = Qs[:, :, 0]
-    Pp0 = F0 @ P0 @ F0.T + Q0
-    Pp0inv = _inv(_sym(Pp0[:, :, None]))[:, :, 0]
-    Em1 = (Pp0inv @ (F0 @ P0)).T  # P0 F0ᵀ Pp0⁻¹
-    E_prev = torch.cat([Em1[:, :, None], E], -1)
-    mham1 = Em1 @ mhat[:, 0]  # m̂₋₁ (mp₀ = 0)
-    mh_prev = torch.cat([mham1[:, None], mhat[:, :-1]], -1)
+    F0 = Fs[..., 0]
+    Q0 = Qs[..., 0]
+    FP0 = _mm(F0, P0)
+    Pp0 = _mm(FP0, _mt(F0)) + Q0
+    Em1 = _mt(_mm(_inv(_sym(Pp0)), FP0))  # P0 F0ᵀ Pp0⁻¹
+    E_prev = torch.cat([Em1[..., None], E], -1)
+    mham1 = _mv(Em1, mhat[..., 0])  # m̂₋₁ (mp₀ = 0)
+    mh_prev = torch.cat([mham1[..., None], mhat[..., :-1]], -1)
 
     # Predicted moments mp_k = F_k m_{k−1}, Pp_k = F_k P_{k−1} F_kᵀ + Q_k.
-    m_prev = torch.cat([torch.zeros((d, 1), dtype=P0.dtype, device=P0.device), b_tl[:, :-1]], -1)
-    P_prev = torch.cat([P0[:, :, None], C_tl[:, :, :-1]], -1)
+    m_prev = torch.cat([torch.zeros_like(b_tl[..., :1]), b_tl[..., :-1]], -1)
+    P_prev = torch.cat([P0[..., None], C_tl[..., :-1]], -1)
     mp = _mv(Fs, m_prev)
     Pp = _sym(_mm(_mm(Fs, P_prev), _mt(Fs)) + Qs)
 
@@ -465,25 +495,32 @@ def fisher_grads_from_smoothed(lgssm_tl: LGSSMTL, observations: Tensor, b_tl, C_
     Dk = Phat - Pp
     rk = _mv(Ppinv, delta)
     PiD = _mm(Ppinv, Dk)
-    dQ = 0.5 * (_mm(PiD, Ppinv) + rk[:, None, :] * rk[None, :, :])
-    dF = rk[:, None, :] * mh_prev[None, :, :] + _mm(PiD, _mt(E_prev))
-    dP0 = F0.T @ dQ[:, :, 0] @ F0
+    dQ = 0.5 * (_mm(PiD, Ppinv) + rk[:, None] * rk[None])
+    dF = rk[:, None] * mh_prev[None] + _mm(PiD, _mt(E_prev))
+    dP0 = _mm(_mm(_mt(F0), dQ[..., 0]), F0)
 
     # Observation terms (observed steps only); R is (1, 1).
-    Hm = (h[:, None] * mhat).sum(0)
+    Hm = (hc * mhat).sum(0)
     resid = y - Hm
-    HPhat = (h[:, None, None] * Phat).sum(0)  # (d, T): (H P̂)_j
+    HPhat = (hc[:, None] * Phat).sum(0)  # (d, *batch, T): (H P̂)_j
     # ∇H = R⁻¹ Σ [(y − Hm̂) m̂ᵀ − H P̂]
-    dH = ((maskf[None] * (resid[None] * mhat - HPhat)).sum(-1) / r)[None, :]
+    dH = (maskf[None] * (resid[None] * mhat - HPhat)).sum(-1) / r
     # ∇R = ½ Σ [R⁻¹ N R⁻¹ − R⁻¹],  N = resid² + H P̂ Hᵀ
-    HPH = (h[:, None] * HPhat).sum(0)
+    HPH = (hc * HPhat).sum(0)
     Nk = resid * resid + HPH
-    dR = (0.5 * maskf * (Nk / (r * r) - 1.0 / r)).sum().reshape(1, 1)
+    dR = (0.5 * maskf * (Nk / (rc * rc) - 1.0 / rc)).sum(-1)
     # ∇y_k = −R⁻¹ (y_k − H m̂_k) at observed steps
-    dy = torch.where(mask, -resid / r, torch.zeros_like(resid)).reshape(observations.shape)
+    dy = torch.where(mask, -resid / rc, torch.zeros_like(resid))
 
     g = gbar.to(P0.dtype)
-    return LGSSMTL(g * dP0, g * dF, g * dQ, g * dH, g * dR), g * dy
+    if batched:
+        gt = g[:, None]
+        ct = LGSSMTL(
+            g[:, None, None] * dP0.permute(2, 0, 1), gt * dF, gt * dQ, (g * dH).transpose(0, 1)[:, None, :],
+            (g * dR)[:, None, None],
+        )
+        return ct, gt * dy
+    return LGSSMTL(g * dP0, g * dF, g * dQ, g * dH[None, :], g * dR.reshape(1, 1)), g * dy.reshape(observations.shape)
 
 
 class _LmlTL(torch.autograd.Function):
@@ -500,7 +537,9 @@ class _LmlTL(torch.autograd.Function):
         ssm = LGSSMTL(P0, Fs, Qs, H, R)
         mhat, Phat = pks_from_tl(ssm, b_tl, C_tl, strip=ctx.strip)
         ct, dy = fisher_grads_from_smoothed(ssm, observations, b_tl, C_tl, mhat, Phat, gbar)
-        return (None, *ct, dy)
+        if dy.numel() != observations.numel():
+            dy = dy.sum(0)  # series that share their observations: the cotangents add up
+        return (None, *ct, dy.reshape(observations.shape))
 
 
 def lml_tl(lgssm_tl: LGSSMTL, observations: Tensor, strip: bool = False) -> Tensor:

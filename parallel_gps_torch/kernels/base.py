@@ -80,7 +80,9 @@ class SDEKernel(nn.Module):
 
 class VarianceLengthscaleKernel(SDEKernel):
     """Shared storage of the stationary kernels: softplus-unconstrained
-    variance and lengthscale; the state dimension is ``order``."""
+    variance and lengthscale; the state dimension is ``order``.  Either may
+    have shape (C,) — C chains of a sampler, or C models — and the Matérn
+    kernels then build every matrix over that leading axis."""
 
     order: int
 

@@ -14,6 +14,12 @@ Transitions are the exponential-polynomial family (matern.py:69-103):
 with N = F + λI nilpotent (balance-scaled for Matern52) and N_p = Nᵖ.  Its
 coefficients are laid out flat as ``[λ | N₁ (d²) | … | N_deg (d²)]``, degree
 d − 1; the CUDA kernels read the same layout (csrc/dt_elements.cuh).
+
+Hyperparameters may carry leading batch axes (B chains of a sampler, B
+models over one data set): every function here then returns its matrices
+with the same leading axes — ``F`` (…, d, d), ``P0`` (…, d, d), ``coeffs``
+(…, n) — from tensor operations over the whole batch, and a scalar
+hyperparameter gives what it always gave.
 """
 from __future__ import annotations
 
@@ -32,16 +38,18 @@ EXPPOLY = "exppoly"
 
 
 def exppoly_transitions_m1(coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
-    """(d, d, T) ``expm(dt·F) − I`` of the exponential-polynomial family."""
-    degree = (coeffs.numel() - 1) // (d * d)
-    lam = coeffs[0]
-    eye = torch.eye(d, dtype=dts.dtype, device=dts.device)[:, :, None]
+    """(d, d, T) ``expm(dt·F) − I`` of the exponential-polynomial family;
+    (d, d, B, T) for ``coeffs`` (B, n), with ``dts`` (T,) or (B, T)."""
+    batch = tuple(coeffs.shape[:-1])
+    degree = (coeffs.shape[-1] - 1) // (d * d)
+    lam = coeffs[..., 0:1]  # (*batch, 1): broadcasts against the time axis
+    eye = torch.eye(d, dtype=dts.dtype, device=dts.device).reshape((d, d) + (1,) * (len(batch) + 1))
     Am1 = eye * torch.expm1(-lam * dts)
     if degree:
         term = torch.exp(-lam * dts) * dts
         for p in range(1, degree + 1):
             off = 1 + (p - 1) * d * d
-            Np = coeffs[off : off + d * d].reshape(d, d, 1)
+            Np = coeffs[..., off : off + d * d].reshape(batch + (d, d)).movedim((-2, -1), (0, 1))[..., None]
             Am1 = Am1 + term * Np
             if p < degree:
                 term = term * dts * (1.0 / (p + 1))
@@ -57,18 +65,21 @@ def build_transitions_m1(family: str, coeffs: Tensor, dts: Tensor, d: int) -> Te
 
 
 def matern_sde(variance: Tensor, lengthscales: Tensor, d: int):
-    """(F, L, H, Q) of the order-d Matérn SDE (see module docstring)."""
-    dtype, device = variance.dtype, variance.device
+    """(F, L, H, Q) of the order-d Matérn SDE (see module docstring): F
+    (…, d, d) and Q (…, 1, 1) over the hyperparameters' batch axes, L (d, 1)
+    and H (1, d) shared."""
+    variance, lengthscales = torch.broadcast_tensors(variance, lengthscales)
+    dtype, device, batch = variance.dtype, variance.device, tuple(variance.shape)
     lam = math.sqrt(2 * d - 1) / lengthscales
-    last = torch.stack([-math.comb(d, k) * lam ** (d - k) for k in range(d)])
+    last = torch.stack([-math.comb(d, k) * lam ** (d - k) for k in range(d)], -1)
     shift = torch.diag(torch.ones(d - 1, dtype=dtype, device=device), 1)
-    F = torch.cat([shift[: d - 1], (shift[d - 1] + last)[None]], dim=0)
+    F = torch.cat([shift[: d - 1].expand(batch + (d - 1, d)), (shift[d - 1] + last)[..., None, :]], dim=-2)
     L = torch.zeros((d, 1), dtype=dtype, device=device)
     L[d - 1, 0] = 1.0
     H = torch.zeros((1, d), dtype=dtype, device=device)
     H[0, 0] = 1.0
     q = (2.0 * lam) ** (2 * d - 1) * variance * math.factorial(d - 1) ** 2 / math.factorial(2 * d - 2)
-    return F, L, H, q.reshape(1, 1)
+    return F, L, H, q.reshape(batch + (1, 1))
 
 
 class Matern12(VarianceLengthscaleKernel):
@@ -76,11 +87,12 @@ class Matern12(VarianceLengthscaleKernel):
 
     def get_sde(self) -> ContinuousDiscreteModel:
         F, L, H, Q = matern_sde(self.variance, self.lengthscales, 1)
-        return ContinuousDiscreteModel(self.variance.reshape(1, 1), F, L, H, Q)
+        variance = torch.broadcast_tensors(self.variance, self.lengthscales)[0]
+        return ContinuousDiscreteModel(variance.reshape(variance.shape + (1, 1)), F, L, H, Q)
 
     def transition_coeffs(self):
-        lam = 1.0 / self.lengthscales
-        return EXPPOLY, lam.reshape(1)
+        lam = 1.0 / torch.broadcast_tensors(self.lengthscales, self.variance)[0]
+        return EXPPOLY, lam.reshape(lam.shape + (1,))
 
     def dense(self, X: Tensor, X2: Tensor) -> Tensor:
         r = scaled_dist(X, X2, self.lengthscales)
@@ -92,16 +104,16 @@ class Matern32(VarianceLengthscaleKernel):
 
     def get_sde(self) -> ContinuousDiscreteModel:
         F, L, H, Q = matern_sde(self.variance, self.lengthscales, 2)
-        lam = math.sqrt(3) / self.lengthscales
-        var = self.variance
-        Pinf = torch.diag(torch.stack([var, lam**2 * var]))
+        var, ell = torch.broadcast_tensors(self.variance, self.lengthscales)
+        lam = math.sqrt(3) / ell
+        Pinf = torch.diag_embed(torch.stack([var, lam**2 * var], -1))
         return ContinuousDiscreteModel(Pinf, F, L, H, Q)
 
     def transition_coeffs(self):
-        lam = math.sqrt(3) / self.lengthscales
+        lam = math.sqrt(3) / torch.broadcast_tensors(self.lengthscales, self.variance)[0]
         one = torch.ones_like(lam)
-        N = torch.stack([torch.stack([lam, one]), torch.stack([-lam * lam, -lam])])
-        return EXPPOLY, torch.cat([lam.reshape(1), N.reshape(-1)])
+        N = torch.stack([torch.stack([lam, one], -1), torch.stack([-lam * lam, -lam], -1)], -2)
+        return EXPPOLY, torch.cat([lam[..., None], N.reshape(lam.shape + (4,))], -1)
 
     def dense(self, X: Tensor, X2: Tensor) -> Tensor:
         r = math.sqrt(3) * scaled_dist(X, X2, self.lengthscales)
@@ -126,12 +138,17 @@ class Matern52(VarianceLengthscaleKernel):
 
     def transition_coeffs(self):
         F, _, _, _ = matern_sde(self.variance, self.lengthscales, 3)
-        lam = math.sqrt(5) / self.lengthscales
-        N = F + lam * torch.eye(3, dtype=F.dtype, device=F.device)
-        N2 = N @ N
+        batch = tuple(F.shape[:-2])
+        lam = (math.sqrt(5) / self.lengthscales).expand(batch)
+        N = F + lam[..., None, None] * torch.eye(3, dtype=F.dtype, device=F.device)
+        # Written out, not ``N @ N``: a batched product may round differently
+        # from a single one, and a chain must not depend on its neighbours.
+        N2 = (N[..., :, :, None] * N[..., None, :, :]).sum(-2)
         dvec = balance_scale(F, self._n_iter())
-        scale = dvec[None, :] / dvec[:, None]  # [i, j] = d_j / d_i
-        return EXPPOLY, torch.cat([lam.reshape(1), (N * scale).reshape(-1), (N2 * scale).reshape(-1)])
+        scale = dvec[..., None, :] / dvec[..., :, None]  # [i, j] = d_j / d_i
+        return EXPPOLY, torch.cat(
+            [lam[..., None], (N * scale).reshape(batch + (9,)), (N2 * scale).reshape(batch + (9,))], -1
+        )
 
     def dense(self, X: Tensor, X2: Tensor) -> Tensor:
         r = math.sqrt(5) * scaled_dist(X, X2, self.lengthscales)

@@ -133,6 +133,11 @@ class RBF(VarianceLengthscaleKernel):
     def _scaled_F(self) -> Tensor:
         """The lengthscale-scaled companion F(ℓ): the last row of F(1)
         divided by ℓ^{d−j}."""
+        if self.variance.dim() or self.lengthscales.dim():
+            raise NotImplementedError(
+                "an RBF kernel whose hyperparameters carry a batch axis (chains of a sampler) is not ported: "
+                "its SDE build and spectral transitions are written for scalars (ROADMAP.md, B7)"
+            )
         F = self._const(_unscaled_rbf_sde(self.order)[0])
         dim = F.shape[0]
         ell_vec = self.lengthscales ** self._const(np.arange(dim, 0, -1.0))

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import Tensor, nn
 
@@ -52,9 +53,14 @@ def trainable_mask(params, predicate: Callable[[str], bool]) -> dict:
     return {name: bool(predicate(_split(name)[0])) for name in _named(params)}
 
 
-def log_prior(params, priors: dict) -> Tensor:
+def log_prior(params, priors: dict, batch_ndim: int = 0) -> Tensor:
     """Sum of prior log-densities over the matching *unconstrained*
     parameters.
+
+    ``batch_ndim`` leading axes of every parameter are chains of a sampler
+    and are kept: the sum runs over a parameter's own axes only, so
+    parameters of shape (C,) with ``batch_ndim=1`` give a (C,) result, one
+    log-density per chain.
 
     ``priors`` maps a dotted-name *suffix* (e.g. ``"kernel.lengthscales"``)
     to either
@@ -65,6 +71,9 @@ def log_prior(params, priors: dict) -> Tensor:
         value softplus(u), plus the log-Jacobian of the transform.
 
     The longest matching suffix wins, at most one prior per parameter."""
+    def own_sum(x: Tensor) -> Tensor:
+        return x.sum(tuple(range(batch_ndim, x.dim()))) if x.dim() > batch_ndim else x
+
     total = 0.0
     for name, u in _named(params).items():
         dotted, positive = _split(name)
@@ -75,7 +84,35 @@ def log_prior(params, priors: dict) -> Tensor:
         logpdf, on = spec if isinstance(spec, tuple) else (spec, "unconstrained")
         if on == "constrained" and positive:
             # + log|d softplus(u)/du| = log sigmoid(u) = −softplus(−u)
-            total = total + logpdf(softplus(u)).sum() + (-softplus(-u)).sum()
+            total = total + own_sum(logpdf(softplus(u))) + own_sum(-softplus(-u))
         else:
-            total = total + logpdf(u).sum()
+            total = total + own_sum(logpdf(u))
     return total
+
+
+def positions_from_tree(tree, params, dtype=None, device=None) -> dict:
+    """A position of the JAX package — its unconstrained hyperparameter tree,
+    nested by the constrained quantity's name (``{"kernel": {"variance": u,
+    "lengthscales": u}, "noise_variance": u}``, dicts or objects with such
+    attributes, leaves numpy arrays with or without a leading chain axis) —
+    as the port's ``{parameter name: tensor}`` dict for ``params`` (a module
+    or its named parameters)."""
+    out = {}
+    for name, p in _named(params).items():
+        node = tree
+        for key in _split(name)[0].split("."):
+            node = node[key] if isinstance(node, dict) else getattr(node, key)
+        out[name] = torch.tensor(np.asarray(node), dtype=dtype or p.dtype, device=device or p.device)
+    return out
+
+
+def positions_to_tree(positions: dict) -> dict:
+    """The inverse of ``positions_from_tree``: nested dicts of numpy arrays."""
+    tree: dict = {}
+    for name, x in positions.items():
+        *heads, leaf = _split(name)[0].split(".")
+        node = tree
+        for head in heads:
+            node = node.setdefault(head, {})
+        node[leaf] = x.detach().cpu().numpy()
+    return tree

@@ -13,6 +13,13 @@ when the model lives on a CUDA device and their plain PyTorch versions on
 the CPU.  A model is built on the card unless the caller names another
 device.
 
+Hyperparameters of shape (C,) — given to ``from_numpy``, or substituted by
+``torch.func.functional_call`` — are C chains of a sampler (or C models) over
+the one data set: the LML is then (C,), one launch of the batched kernels for
+all chains (kalman/dt.py, kalman/batched.py).  It is the port's
+``jax.vmap(log_post)``, for the Matérn kernels; prediction stays
+single-series.
+
 Prediction merges the training and (sorted) query times with a
 searchsorted merge, puts NaN observations at the queries, smooths the
 merged series and reads off the H-projections.
@@ -103,7 +110,7 @@ class StateSpaceGP(nn.Module):
         device = config.resolve_device(device)
         ts, ys = (_as_tensor(x, dtype, device) for x in data)
         kernel = kernel.to(dtype=dtype, device=device)
-        nv = torch.as_tensor(float(noise_variance), dtype=torch.float64)
+        nv = torch.as_tensor(np.asarray(noise_variance, dtype=np.float64))
         return cls(ts, ys, kernel, inv_softplus(nv).to(dtype=dtype, device=device), parallel=parallel)
 
     @classmethod
@@ -123,15 +130,19 @@ class StateSpaceGP(nn.Module):
         """Model from numpy arrays of constrained values: the same
         quantities a JAX ``StateSpaceGP`` holds (``ts``, ``ys``,
         ``kernel.variance``, ``kernel.lengthscales``, ``noise_variance``),
-        so both packages compute the same thing.  ``kernel_options``: the
-        kernel's static fields (``order`` and ``balancing_iter`` of "RBF",
-        ``balancing_iter`` of "Matern52")."""
+        so both packages compute the same thing.  Each of the three may be
+        an array of shape (C,) — a batch of JAX models' hyperparameters, e.g.
+        ``jax.vmap``-stacked leaves: C chains over the one data set (module
+        docstring).  ``kernel_options``: the kernel's static fields
+        (``order`` and ``balancing_iter`` of "RBF", ``balancing_iter`` of
+        "Matern52")."""
         dtype = dtype or config.default_float()
         device = config.resolve_device(device)
-        k = KERNELS[kernel](
-            float(np.asarray(variance)), float(np.asarray(lengthscales)), dtype=dtype, device=device, **kernel_options
+        variance, lengthscales, noise_variance = (
+            np.asarray(x, dtype=np.float64) for x in (variance, lengthscales, noise_variance)
         )
-        return cls.create((ts, ys), k, float(np.asarray(noise_variance)), parallel=parallel, dtype=dtype, device=device)
+        k = KERNELS[kernel](variance, lengthscales, dtype=dtype, device=device, **kernel_options)
+        return cls.create((ts, ys), k, noise_variance, parallel=parallel, dtype=dtype, device=device)
 
     def to_numpy(self) -> dict:
         """The constrained hyperparameters as numpy arrays and, for an RBF
@@ -151,11 +162,17 @@ class StateSpaceGP(nn.Module):
         """("sequential" | "dt" | "strip" | "timelast", transition): the
         engine the entry points run, and the kernel's ``transition_coeffs()``
         where the dt-engine takes them."""
+        d = self.kernel.state_dim
+        on_dt = self.parallel and d <= dt.MAX_KERNEL_D
+        if any(p.dim() for p in self.parameters()) and not (on_dt and isinstance(self.kernel, (Matern12, Matern32, Matern52))):
+            raise NotImplementedError(
+                "hyperparameters with a batch axis (chains) run on the dt engine only, for the Matérn kernels with "
+                "parallel=True; a batched RBF model is still to be ported (ROADMAP.md, B7)"
+            )
         if not self.parallel:
             return "sequential", None
-        d = self.kernel.state_dim
         transition = self.kernel.transition_coeffs()
-        if transition is not None and d <= dt.MAX_KERNEL_D:
+        if transition is not None and on_dt:
             return "dt", transition
         return ("strip" if d <= strip.MAX_KERNEL_D else "timelast"), None
 
@@ -165,9 +182,9 @@ class StateSpaceGP(nn.Module):
         Fisher tail (kalman/dt.py::lml_dt, kalman/timelast.py::lml_tl); the
         sequential engine differentiates through its loop."""
         engine, transition = self.engine()
-        R = self.noise_variance.reshape(1, 1)
         if engine == "dt":
-            return dt.lml_dt(self.kernel, self.ts, R, self.ys, transition)
+            return dt.lml_dt(self.kernel, self.ts, self.noise_variance, self.ys, transition)
+        R = self.noise_variance.reshape(1, 1)
         if engine == "sequential":
             return kf(self.kernel.get_ssm(self.ts, R), self.ys, return_loglikelihood=True)[2]
         return lml_tl(self.kernel.get_ssm_tl(self.ts, R), self.ys, strip=engine == "strip")
@@ -188,6 +205,8 @@ class StateSpaceGP(nn.Module):
         inside or outside the data range), each (M, 1).  ``full_cov`` is
         accepted and ignored, as in the reference."""
         del full_cov
+        if any(p.dim() for p in self.parameters()):
+            raise NotImplementedError("predict_f of a model with batched hyperparameters is not ported (ROADMAP.md, B7)")
         X = _as_tensor(Xnew, self.ts.dtype, self.ts.device).reshape(-1)
         m = X.shape[0]
         if m == 0:

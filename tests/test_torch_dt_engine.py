@@ -167,8 +167,8 @@ def test_blocked_scan_matches_flat_scan():
 @pytest.fixture(scope="module")
 def fresh_process_facts():
     """Import the port and each of its modules in a fresh interpreter, run
-    the model once on the CPU (LML, a gradient, predict_f and a step of each
-    optimiser), and report which modules were loaded and which kernels
+    the model once on the CPU (LML, a gradient, predict_f, a step of each
+    optimiser and a batched LML with its gradient), and report which modules were loaded and which kernels
     launched."""
     code = textwrap.dedent(
         """
@@ -176,18 +176,23 @@ def fresh_process_facts():
         import parallel_gps_torch as pgt
         import parallel_gps_torch.inference.optim, parallel_gps_torch.models.params
         import parallel_gps_torch.kalman.dt, parallel_gps_torch.kalman.timelast
+        import parallel_gps_torch.kalman.batched, parallel_gps_torch.inference.mcmc
+        import parallel_gps_torch.experiments.common
         import numpy as np
         import torch
-        from parallel_gps_torch.kalman import dt
+        from parallel_gps_torch.kalman import batched, dt
         rng = np.random.RandomState(0)
         t = np.sort(rng.rand(200)); y = np.sin(t); y[::7] = np.nan
         m = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, 0.1, dtype=torch.float64, device="cpu")
         m.log_marginal_likelihood().backward(); m.predict_f(rng.rand(10))
         pgt.inference.fit_adam(m, n_iters=1); pgt.inference.fit_lbfgs(m, n_iters=1)
+        chains = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", np.full(3, 0.8), np.full(3, 0.4), np.full(3, 0.1),
+                                             dtype=torch.float64, device="cpu")
+        chains.log_marginal_likelihood().sum().backward()
         foreign = ("jax", "jaxlib", "flax", "optax", "parallel_gps_tpu")
         print(json.dumps({
             "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in foreign),
-            "launches": dt.LAUNCHES,
+            "launches": {**dt.LAUNCHES, **batched.LAUNCHES},
             "cuda_loader_imported": "parallel_gps_torch.kalman._cuda" in sys.modules,
         }))
         """
