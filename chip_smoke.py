@@ -43,7 +43,15 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      with exactly the launches that takes and no plain prefix, HMC, MALA, NUTS
      and the dual-averaging warm-up through the normal entry points, each
      chain against the single-series engine — with times, the same LMLs as a
-     loop of single-series calls, and a profile.
+     loop of single-series calls, and a profile;
+ 10. the probe programs (parallel_gps_torch/probes, kernels in
+     csrc/probes.cu): each probe kernel against its plain version at
+     T = 65,537 in float32 and float64, bit for bit; then the three command
+     lines at full size — the copy in the two-pass kernels' chunk pattern,
+     coalesced and blocked; the read floor of a strip-filter pass beside the
+     passes and the cost of one launch; the cost of a block against its tile
+     length — with the probe kernels' launches counted, one JSON line a
+     measurement.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -78,6 +86,10 @@ from parallel_gps_torch.kalman import _cuda  # noqa: E402
 from parallel_gps_torch.kalman import batched, dt, strip, timelast  # noqa: E402
 from parallel_gps_torch.kalman.parallel import pkfs  # noqa: E402
 from parallel_gps_torch.kernels import RBF, Matern12, Matern32, Matern52  # noqa: E402
+from parallel_gps_torch.probes import attrib as probe_attrib  # noqa: E402
+from parallel_gps_torch.probes import common as probe_common  # noqa: E402
+from parallel_gps_torch.probes import dma as probe_dma  # noqa: E402
+from parallel_gps_torch.probes import grid as probe_grid  # noqa: E402
 from parallel_gps_torch.types import LGSSMTL  # noqa: E402
 
 N_FULL = 10_000_000
@@ -100,6 +112,7 @@ SOURCES = {
     "strip_smoother_apply": "parallel_gps_torch/csrc/strip_scan.cu",
     "batched_filter": "parallel_gps_torch/csrc/batched_scan.cu",
     "batched_smoother": "parallel_gps_torch/csrc/batched_scan.cu",
+    **{f"probe_{name}": "parallel_gps_torch/csrc/probes.cu" for name in probe_common.LAUNCHES},
 }
 DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_"))
 STRIP_KERNELS = tuple(k for k in SOURCES if k.startswith("strip_"))
@@ -115,6 +128,18 @@ REPLACES = {
     "strip_smoother_apply": "parallel_gps_tpu/kalman/pallas_scan.py:1840",
     "batched_filter": "parallel_gps_tpu/kalman/pallas_scan.py:1271",
     "batched_smoother": "parallel_gps_tpu/kalman/pallas_scan.py:1385",
+    # The probe programs' Pallas kernels: the copy's body (:56) behind its
+    # strided (:69) and blocked (:93) calls; read_kernel; the kernels passed
+    # to run (:76).
+    "probe_copy_chunk": "scripts/bench_dma_probe.py:69",
+    "probe_copy_coalesced": "scripts/bench_dma_probe.py:56",
+    "probe_copy_blocked": "scripts/bench_dma_probe.py:93",
+    "probe_read_chunk": "scripts/bench_r4_attrib.py:98",
+    "probe_read_coalesced": "scripts/bench_r4_attrib.py:98",
+    "probe_tile_noop": "scripts/bench_grid_isolation.py:102",
+    "probe_tile_stream": "scripts/bench_grid_isolation.py:105",
+    "probe_tile_carry": "scripts/bench_grid_isolation.py:109",
+    "probe_tile_outwrite": "scripts/bench_grid_isolation.py:123",
 }
 # Launches the serving path makes: the filter passes for the LML, and all
 # four passes for each predict_f request.
@@ -404,9 +429,10 @@ def phase_build() -> None:
     # One line per kernel: registers, stack and spills as ptxas reports them.
     entry, frame = None, {}
     for line in log.splitlines():
-        found = re.search(r"Compiling entry function '_ZN3pgt\d+(\w+?)_kernelI([fd])Li(\d)E", line)
+        found = re.search(r"Compiling entry function '_ZN(?:3pgt|9pgt_probe)\d+(\w+?)_kernelI([fd])(?:Li(\d)E|Lb([01])E)?", line)
         if found:
-            entry = f"{found.group(1)} {'f64' if found.group(2) == 'd' else 'f32'} D={found.group(3)}"
+            entry = f"{found.group(1)} {'f64' if found.group(2) == 'd' else 'f32'}" + (f" D={found.group(3)}" if found.group(3) else "")
+            entry += {"0": " chunk", "1": " coalesced"}.get(found.group(4), "")
         elif "spill stores" in line:
             frame = {what: n for n, what in re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line)}
         elif "registers" in line and entry:
@@ -1557,6 +1583,92 @@ def profile_calls(card: str, what: str, calls: dict) -> None:
         )
 
 
+def phase_probe_kernels() -> None:
+    """Each probe kernel against its plain version at T = 65,537, float32 and
+    float64: the plain versions sum in the kernels' order, so every result
+    must be the plain version's bits."""
+    for dtype in (torch.float32, torch.float64):
+        tag = f"T={T_KERNEL} {str(dtype).split('.')[-1]}"
+        src = probe_common.rows(12, T_KERNEL, dtype, torch.device(DEV), SEED + 40)
+        outs = {f"copy_chunk K={K}": (probe_dma.copy_chunk(src, K), src) for K in probe_dma.CHUNKS}
+        outs["copy_coalesced"] = (probe_dma.copy_coalesced(src), src)
+        n_tiles = T_KERNEL // 1024
+        blocked = src[:, : n_tiles * 1024].reshape(12, n_tiles, 1024).transpose(0, 1).contiguous()
+        outs["copy_blocked tile=1024"] = (probe_dma.copy_blocked(blocked), blocked)
+        ssm, y = probe_attrib.make_model(T_KERNEL, dtype, torch.device(DEV), SEED + 41)
+        for name, coalesced in (("read_chunk", False), ("read_coalesced", True)):
+            outs[name] = (probe_attrib.read(ssm.Fs, ssm.Qs, y, coalesced=coalesced), probe_attrib.read_plain(ssm.Fs, ssm.Qs, y, coalesced=coalesced))
+        x3 = probe_common.rows(22, T_KERNEL, dtype, torch.device(DEV), SEED + 42)
+        for tile in probe_grid.TILES:
+            n = probe_grid.n_tiles(T_KERNEL, tile)
+            outs[f"tile_noop tile={tile}"] = (probe_grid.tile_noop(torch.zeros(n, dtype=dtype, device=DEV)), torch.ones(n, dtype=dtype, device=DEV))
+            for r in (3, 22):
+                xr = x3[:r].contiguous()
+                outs[f"tile_stream rows={r} tile={tile}"] = (probe_grid.tile_stream(xr, tile), probe_grid.stream_plain(xr, tile))
+            xr = x3[:3].contiguous()
+            for part, a, b_ in zip(("rows", "sums"), probe_grid.tile_outwrite(xr, tile), probe_grid.outwrite_plain(xr, tile)):
+                outs[f"tile_outwrite {part} tile={tile}"] = (a, b_)
+            for part, a, b_ in zip(("sums", "carry"), probe_grid.tile_carry(x3[0], tile), probe_grid.carry_plain(x3[0], tile)):
+                outs[f"tile_carry {part} tile={tile}"] = (a, b_)
+        torch.cuda.synchronize()
+        worst = max((max_abs(a, b_), what) for what, (a, b_) in outs.items())
+        print(f"probe kernels vs plain {tag}: {len(outs)} results, largest |kernel - plain| {worst[0]:.3e} ({worst[1]})")
+        for what, (a, b_) in outs.items():
+            check(a.shape == b_.shape and torch.equal(a, b_), f"probe {what} {tag}: kernel differs from its plain version")
+
+
+def phase_probes(card: str) -> list:
+    """The probe programs at full size through their command lines, with the
+    probe kernels' launches counted from zero; one kernel record each."""
+    probe_common.reset_launch_counts()
+    runs = {
+        "dma": probe_dma.main([]),
+        "attrib": probe_attrib.main([]),
+        "grid": probe_grid.main([]),
+    }
+    counts = dict(probe_common.LAUNCHES)
+    print(f"launches: probes {counts}")
+    for name, n in counts.items():
+        check(n > 0, f"probe kernel {name} was never launched by the probe programs")
+    for name, recs in runs.items():
+        check(all(r["card"] == card for r in recs), f"probe {name}: records name another card")
+        check(all(r.get("max_abs_err", 0.0) == 0.0 for r in recs), f"probe {name}: a kernel differs from its plain version")
+    dma_recs, attrib_recs, grid_recs = runs["dma"], runs["attrib"], runs["grid"]
+
+    def pick(recs, **want):
+        return [r for r in recs if all(r.get(k) == v for k, v in want.items())]
+
+    # {kernel: (the record on the kernels line, the other shapes it ran at)}
+    chosen = {
+        "copy_chunk": (pick(dma_recs, bench="copy_chunk", rows=12, K=strip.CHUNK), pick(dma_recs, bench="copy_chunk")),
+        "copy_coalesced": (pick(dma_recs, bench="copy_coalesced", rows=12), pick(dma_recs, bench="copy_coalesced")),
+        "copy_blocked": (pick(dma_recs, bench="copy_blocked", rows=12, tile=1024), pick(dma_recs, bench="copy_blocked")),
+        "read_chunk": (pick(attrib_recs, bench="read_chunk"), []),
+        "read_coalesced": (pick(attrib_recs, bench="read_coalesced"), []),
+        "tile_noop": (pick(grid_recs, bench="noop", tile=1024), pick(grid_recs, bench="noop")),
+        "tile_stream": (pick(grid_recs, bench="stream22", tile=1024), pick(grid_recs, bench="stream22") + pick(grid_recs, bench="stream3")),
+        "tile_outwrite": (pick(grid_recs, bench="outwrite12", tile=1024), pick(grid_recs, bench="outwrite12")),
+        "tile_carry": (pick(grid_recs, bench="carry33", tile=1024), pick(grid_recs, bench="carry33")),
+    }
+    shape_keys = ("bench", "rows", "K", "tile", "ms", "bound_ms", "library_ms")
+    records = []
+    for name, (main_rec, others) in chosen.items():
+        check(len(main_rec) == 1, f"probe {name}: no single record at the chosen shape")
+        r = main_rec[0]
+        records.append({
+            "name": f"probe_{name}", "route": "cuda", "source": SOURCES[f"probe_{name}"], "replaces": REPLACES[f"probe_{name}"],
+            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"],
+            "at": " ".join(f"{k}={r[k]}" for k in ("bench", "rows", "K", "tile", "T") if k in r) + f" {r['dtype']}",
+            "other_shapes": [{k: o[k] for k in shape_keys if k in o} for o in others if o is not r],
+        })
+        print(
+            f"probe {name} {records[-1]['at']} [{card}]: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms, library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms"
+        )
+    return records
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1591,6 +1703,10 @@ def main() -> int:
             records.append(record)
         else:  # the Fisher tail with a batch axis: a field of its row
             next(r for r in records if r["name"] == "dt_fisher")["batched"] = record
+    del chains
+    torch.cuda.empty_cache()
+    phase_probe_kernels()
+    records += phase_probes(card)
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -112,6 +112,15 @@ def load():
         "pgt_dt_smoother_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
         "pgt_dt_fisher": [i, i, i, p, p, ll, p, ll, p, p, p, p, p, p, p, ll, i, i, p],
         "pgt_dt_fisher_n_sums": [i],
+        # csrc/probes.cu (parallel_gps_torch/probes/)
+        "pgt_probe_copy_chunk": [i, p, p, i, ll, i, p],
+        "pgt_probe_copy_coalesced": [i, p, p, ll, p],
+        "pgt_probe_copy_blocked": [i, p, p, ll, ll, p],
+        "pgt_probe_read": [i, i, p, p, p, p, i, ll, i, p],
+        "pgt_probe_tile_noop": [i, p, ll, p],
+        "pgt_probe_tile_stream": [i, p, p, i, ll, i, p],
+        "pgt_probe_tile_outwrite": [i, p, p, p, ll, i, p],
+        "pgt_probe_tile_carry": [i, p, p, p, ll, i, p],
     }
     for d in STRIP_DIMS:
         sigs[f"pgt_strip_filter_scan_d{d}"] = [i, p, p, p, p, p, ll, i, p]

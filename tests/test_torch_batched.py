@@ -5,6 +5,8 @@ mode; the batched ``lml_dt`` and log posterior against ``jax.vmap`` of the JAX
 model's; the batch axis of the Fisher tail and of the SDE build against loops
 over single series.  f64 on the CPU, same numpy inputs through both packages.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,21 +32,24 @@ from parallel_gps_tpu.models import StateSpaceGP as JaxStateSpaceGP
 
 torch.set_num_threads(1)
 
-B, T, BLOCK = 12, 40, 16  # tests/test_batched_pallas.py: more than 8 series, three time blocks
+B, T, BLOCK = 9, 17, 16  # as tests/test_batched_pallas.py: more than 8 series; two time blocks, the second ragged
 MATERN = [("Matern12", 1), ("Matern32", 2), ("Matern52", 3)]
 
 
-@pytest.fixture(autouse=True, scope="module")
+@contextlib.contextmanager
 def _no_compile_cache():
     """Interpret-mode programs segfault in the persistent compilation cache
-    (see test_model_interpret.py); disable it for this module."""
+    (see test_model_interpret.py); disable it around them, and only there:
+    the jitted references keep the cache."""
     from jax._src import compilation_cache as _cc
 
     jax.config.update("jax_enable_compilation_cache", False)
     _cc.reset_cache()
-    yield
-    jax.config.update("jax_enable_compilation_cache", True)
-    _cc.reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", True)
+        _cc.reset_cache()
 
 
 def _t(x):
@@ -90,8 +95,9 @@ def jax_batch():
         ssms.append(k.get_ssm_tl(jnp.asarray(t).reshape(-1, 1), jnp.asarray(0.1 + 0.02 * i).reshape(1, 1)))
     Fs, Qs = (jnp.stack([getattr(s, n) for s in ssms], axis=2) for n in ("Fs", "Qs"))
     P0, H, R = (jnp.stack([getattr(s, n) for s in ssms]) for n in ("P0", "H", "R"))
-    b, C, ell = jax_batched_filter(Fs, Qs, P0, H, R, jnp.asarray(ys), block=BLOCK, interpret=True)
-    g, L, mean, var = jax_batched_smoother(Fs, Qs, b, C, H, block=BLOCK, interpret=True)
+    with _no_compile_cache():
+        b, C, ell = jax_batched_filter(Fs, Qs, P0, H, R, jnp.asarray(ys), block=BLOCK, interpret=True)
+        g, L, mean, var = jax_batched_smoother(Fs, Qs, b, C, H, block=BLOCK, interpret=True)
     inputs = tuple(_t(x) for x in (Fs, Qs, P0, H, R, ys))
     return inputs, tuple(np.asarray(x) for x in (b, C, ell, g, L, mean, var))
 

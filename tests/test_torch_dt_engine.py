@@ -3,6 +3,7 @@
 parallel_gps_tpu's dt kernels in interpret mode and its time-last engine,
 f64, same numpy inputs; and the CPU dispatch contract of the kernel
 wrappers."""
+import contextlib
 import json
 import subprocess
 import sys
@@ -29,17 +30,20 @@ from parallel_gps_tpu.kalman.timelast import pkf_from_tl, pks_from_tl
 torch.set_num_threads(1)
 
 
-@pytest.fixture(autouse=True, scope="module")
+@contextlib.contextmanager
 def _no_compile_cache():
     """Interpret-mode programs segfault in the persistent compilation cache
-    (see test_model_interpret.py); disable it for this module."""
+    (see test_model_interpret.py); disable it around them, and only there:
+    the jitted references keep the cache."""
     from jax._src import compilation_cache as _cc
 
     jax.config.update("jax_enable_compilation_cache", False)
     _cc.reset_cache()
-    yield
-    jax.config.update("jax_enable_compilation_cache", True)
-    _cc.reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", True)
+        _cc.reset_cache()
 
 
 def _data(T, seed):
@@ -76,7 +80,7 @@ def _jax_model(jkern, t, y):
 
 @pytest.mark.parametrize(
     "name,v,ell,T",
-    # The T values of test_pallas_dt.py:57-58; Matern12 at T=301 is the
+    # The T values of test_pallas_dt.py:57-58; Matern12 is the
     # interpret-mode test below.
     [("Matern32", 1.0, 0.5, 517), ("Matern52", 0.8, 0.4, 279)],
     ids=["m32_T517", "m52_T279"],
@@ -103,17 +107,19 @@ def test_filter_and_smoother_match_jax_time_last_engine(name, v, ell, T):
 def test_filter_and_smoother_match_jax_dt_kernels_in_interpret_mode():
     """Port vs the JAX dt kernels themselves (strip_filter_dt and
     strip_smoother_dt, interpret mode, block=32) and the time-last engine,
-    Matern12 at T=301 (test_pallas_dt.py:56).  The
+    Matern12 at T=257: two grid steps of 8 strips × 32 lanes with a ragged
+    tail (test_pallas_dt.py:56 runs T=301).  The
     d = 2 and 3 kernels cost 20-100 s each in interpret mode on the CPU;
     test_pallas_dt.py holds them against the time-last engine that the test
     above holds the port against."""
-    t, y = _data(301, 7)
+    t, y = _data(257, 7)
     jkern = jk.Matern12(1.2, 0.6)
     ssm, ys = _jax_model(jkern, t, y)
     coeffs, build = jkern.transition_coeffs()
     dts = _dts_from_ts(jnp.asarray(t)).astype(ssm.P0.dtype)
-    b_s, C_s, ell_s = strip_filter_dt(build, coeffs, ssm.P0, ssm.H, ssm.R, dts, ys, block=32, interpret=True)
-    g_s, L_s = strip_smoother_dt(build, coeffs, ssm.P0, dts, b_s, C_s, block=32, interpret=True)
+    with _no_compile_cache():
+        b_s, C_s, ell_s = strip_filter_dt(build, coeffs, ssm.P0, ssm.H, ssm.R, dts, ys, block=32, interpret=True)
+        g_s, L_s = strip_smoother_dt(build, coeffs, ssm.P0, dts, b_s, C_s, block=32, interpret=True)
     fam, co, P0, H, R, tdts, ty = _torch_inputs(tk.Matern12(1.2, 0.6, dtype=torch.float64, device="cpu"), t, y)
     with torch.no_grad():
         b, C, ell_t = tdt.strip_filter_dt(fam, co, P0, H, R, tdts, ty)
@@ -166,9 +172,10 @@ def test_blocked_scan_matches_flat_scan():
 
 @pytest.fixture(scope="module")
 def fresh_process_facts():
-    """Import the port and each of its modules in a fresh interpreter, run
-    the model once on the CPU (LML, a gradient, predict_f, a step of each
-    optimiser and a batched LML with its gradient), and report which modules were loaded and which kernels
+    """Import the port and each of its modules (the probe programs too) in a
+    fresh interpreter, run the model once on the CPU at T = 70 (LML, a
+    gradient, predict_f, a step of each optimiser and a batched LML with its
+    gradient), and report which modules were loaded and which kernels
     launched."""
     code = textwrap.dedent(
         """
@@ -178,13 +185,14 @@ def fresh_process_facts():
         import parallel_gps_torch.kalman.dt, parallel_gps_torch.kalman.timelast
         import parallel_gps_torch.kalman.batched, parallel_gps_torch.inference.mcmc
         import parallel_gps_torch.experiments.common
+        import parallel_gps_torch.probes.dma, parallel_gps_torch.probes.attrib, parallel_gps_torch.probes.grid
         import numpy as np
         import torch
         from parallel_gps_torch.kalman import batched, dt
         rng = np.random.RandomState(0)
-        t = np.sort(rng.rand(200)); y = np.sin(t); y[::7] = np.nan
+        t = np.sort(rng.rand(70)); y = np.sin(t); y[::7] = np.nan
         m = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, 0.1, dtype=torch.float64, device="cpu")
-        m.log_marginal_likelihood().backward(); m.predict_f(rng.rand(10))
+        m.log_marginal_likelihood().backward(); m.predict_f(rng.rand(5))
         pgt.inference.fit_adam(m, n_iters=1); pgt.inference.fit_lbfgs(m, n_iters=1)
         chains = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", np.full(3, 0.8), np.full(3, 0.4), np.full(3, 0.1),
                                              dtype=torch.float64, device="cpu")

@@ -230,8 +230,10 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 
 def test_documented_drives_load_no_jax_and_launch_nothing_on_the_cpu():
-    """The canonical drive, the RBF model drive and the Kalman-API drive of
-    the README, in a fresh interpreter on the CPU: jax and the JAX package
+    """The canonical drive (its optimiser step is the fresh-interpreter
+    drive of test_torch_dt_engine.py), the RBF model drive and the
+    Kalman-API drive of the README, at T = 40, in a fresh interpreter on the
+    CPU: jax and the JAX package
     stay unloaded, no launch counter moves and the CUDA loader is never
     imported."""
     import json
@@ -244,14 +246,12 @@ def test_documented_drives_load_no_jax_and_launch_nothing_on_the_cpu():
         import json, sys
         import numpy as np, torch
         from parallel_gps_torch import StateSpaceGP
-        from parallel_gps_torch.inference import fit_adam
         from parallel_gps_torch.kalman import pkfs, dt, strip
         from parallel_gps_torch.kernels import Matern52
         from parallel_gps_torch.toymodels import sinu, obs_noise
-        t = np.sort(np.random.RandomState(0).rand(120)); y = obs_noise(sinu(t), 0.1, 1)
+        t = np.sort(np.random.RandomState(0).rand(40)); y = obs_noise(sinu(t), 0.1, 1)
         m = StateSpaceGP.from_numpy(t, y, "Matern32", 2.0, 1.0, 0.5, dtype=torch.float64, device="cpu")
-        fitted, hist = fit_adam(m, n_iters=3, learning_rate=0.05)
-        fitted.predict_f(np.linspace(0.02, 0.98, 5))
+        m.predict_f(np.linspace(0.02, 0.98, 5))
         rbf = StateSpaceGP.from_numpy(t, y, "RBF", 1.0, 0.3, 0.1, dtype=torch.float64, device="cpu", order=6)
         rbf.training_loss().backward(); rbf.predict_f(np.linspace(0.02, 0.98, 5))
         k = Matern52(0.8, 0.4, dtype=torch.float64, device="cpu")
@@ -272,4 +272,4 @@ def test_documented_drives_load_no_jax_and_launch_nothing_on_the_cpu():
     assert facts["foreign"] == []
     assert len(facts["launches"]) == 9 and set(facts["launches"].values()) == {0}
     assert not facts["cuda_loader_imported"]
-    assert facts["engine"] == "strip" and facts["shapes"] == [[120, 3], [120, 3, 3]]
+    assert facts["engine"] == "strip" and facts["shapes"] == [[40, 3], [40, 3, 3]]

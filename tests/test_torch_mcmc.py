@@ -305,7 +305,8 @@ def test_run_one_mcmc_records_nans_for_numerical_failures_only():
 
 
 def test_mcmc_drive_loads_no_jax_and_launches_nothing_on_the_cpu():
-    """The documented CPU drive of ``run_one_mcmc``, in a fresh interpreter:
+    """The documented CPU drive of ``run_one_mcmc``, at T = 100 and six
+    steps, in a fresh interpreter:
     jax and the JAX package stay unloaded, no launch counter moves and the CUDA
     loader is never imported."""
     code = """
@@ -315,11 +316,11 @@ from parallel_gps_torch import StateSpaceGP
 from parallel_gps_torch.experiments.common import run_one_mcmc
 from parallel_gps_torch.kalman import batched, dt, strip
 rng = np.random.RandomState(0)
-t = np.sort(rng.rand(300)); y = np.sin(12 * t) + 0.3 * rng.randn(300)
+t = np.sort(rng.rand(100)); y = np.sin(12 * t) + 0.3 * rng.randn(100)
 prior = lambda u: -0.5 * u * u
 priors = {"kernel.variance": prior, "kernel.lengthscales": prior, "noise_variance": prior}
 m = StateSpaceGP.from_numpy(t, y, "Matern32", np.full(4, 1.0), np.full(4, 0.5), np.full(4, 0.3), dtype=torch.float64, device="cpu")
-samples, rate, wall = run_one_mcmc(m, priors, "hmc", n_samples=10, burnin=2, step_size=0.05)
+samples, rate, wall = run_one_mcmc(m, priors, "hmc", n_samples=5, burnin=1, step_size=0.05)
 foreign = ("jax", "jaxlib", "flax", "optax", "parallel_gps_tpu")
 print(json.dumps({
     "rate": rate,

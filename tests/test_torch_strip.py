@@ -2,6 +2,8 @@
 (kalman/strip.py) — its plain passes, which the CUDA kernels are held against
 on the card, against the JAX strip kernels in interpret mode and the JAX
 time-last engine — and ``lml_tl(strip=True)``; f64 on the CPU."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,17 +22,20 @@ from parallel_gps_tpu.kalman.timelast import lml_tl, pkf_from_tl, pks_from_tl
 torch.set_num_threads(1)
 
 
-@pytest.fixture(autouse=True, scope="module")
+@contextlib.contextmanager
 def _no_compile_cache():
     """Interpret-mode programs segfault in the persistent compilation cache
-    (see test_model_interpret.py); disable it for this module."""
+    (see test_model_interpret.py); disable it around them, and only there:
+    the jitted references keep the cache."""
     from jax._src import compilation_cache as _cc
 
     jax.config.update("jax_enable_compilation_cache", False)
     _cc.reset_cache()
-    yield
-    jax.config.update("jax_enable_compilation_cache", True)
-    _cc.reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", True)
+        _cc.reset_cache()
 
 
 def _np(x):
@@ -68,37 +73,45 @@ def _run_port(tssm, ty):
     return b, C, ell, g, L
 
 
+@jax.jit
+def _jax_pkfs(ssm, ys):
+    b, C, ell = pkf_from_tl(ssm, ys, True)
+    return (b, C, ell) + tuple(pks_from_tl(ssm, b, C))
+
+
 @pytest.mark.parametrize(
     "jkern,T,block,tols",
     # Kernels and tolerances of tests/test_pallas_scan.py (:88-90, :106-107
-    # for d ≤ 3; :131-138 for d = 4); block 16 at d = 3 halves the
-    # interpret-mode compile against that file's 32.
+    # for d ≤ 3; :131-138 for d = 4).  One case runs the JAX strip kernels in
+    # interpret mode: Matern32 at block 8, so that T = 97 spans two grid steps
+    # of 8 strips × 8 lanes with a ragged tail; the others (block None) hold
+    # the port against the jitted JAX time-last engine, which
+    # test_pallas_scan.py holds those kernels against.
     [
-        (jk.Matern32(1.0, 0.5), 97, 32, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
-        (jk.Matern52(0.8, 0.4), 301, 16, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
-        (jk.RBF(variance=1.0, lengthscales=0.3, order=4, balancing_iter=5), 37, 8, (1e-8, 1e-9, 1e-9, 1e-7, 1e-8)),
+        (jk.Matern32(1.0, 0.5), 97, 8, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
+        (jk.Matern52(0.8, 0.4), 301, None, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
+        (jk.RBF(variance=1.0, lengthscales=0.3, order=4, balancing_iter=5), 37, None, (1e-8, 1e-9, 1e-9, 1e-7, 1e-8)),
     ],
     ids=["m32_T97", "m52_T301", "rbf4_T37"],
 )
 def test_strip_engine_matches_jax_strip_kernels_in_interpret_mode(jkern, T, block, tols):
     """Port's strip filter / smoother (plain passes) vs the JAX strip kernels
-    themselves, run as the JAX tests run them on the CPU."""
+    themselves, run as the JAX tests run them on the CPU (interpret mode), or
+    vs the JAX time-last engine those kernels are held against."""
     rf, af, rell, rs, as_ = tols
     ssm, ys, tssm, ty = _model(jkern, T, 7)
-    b_s, C_s, ell_s = strip_filter(ssm.Fs, ssm.Qs, ssm.P0, ssm.H, ssm.R, ys, block=block, interpret=True)
-    g_s, L_s = strip_smoother(ssm.Fs, ssm.Qs, b_s, C_s, block=block, interpret=True)
+    if block is None:
+        b_s, C_s, ell_s, g_s, L_s = _jax_pkfs(ssm, ys)
+    else:
+        with _no_compile_cache():
+            b_s, C_s, ell_s = strip_filter(ssm.Fs, ssm.Qs, ssm.P0, ssm.H, ssm.R, ys, block=block, interpret=True)
+            g_s, L_s = strip_smoother(ssm.Fs, ssm.Qs, b_s, C_s, block=block, interpret=True)
     b, C, ell, g, L = _run_port(tssm, ty)
     npt.assert_allclose(_np(b), _np(b_s), rtol=rf, atol=af)
     npt.assert_allclose(_np(C), _np(C_s), rtol=rf, atol=af)
     npt.assert_allclose(float(ell), float(ell_s), rtol=rell)
     npt.assert_allclose(_np(g), _np(g_s), rtol=rs, atol=as_)
     npt.assert_allclose(_np(L), _np(L_s), rtol=rs, atol=as_)
-
-
-@jax.jit
-def _jax_pkfs(ssm, ys):
-    b, C, ell = pkf_from_tl(ssm, ys, True)
-    return (b, C, ell) + tuple(pks_from_tl(ssm, b, C))
 
 
 @pytest.mark.parametrize("order,T", [(6, 150), (8, 70)], ids=["rbf6_T150", "rbf8_T70"])
