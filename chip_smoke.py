@@ -51,7 +51,20 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      coalesced and blocked; the read floor of a strip-filter pass beside the
      passes and the cost of one launch; the cost of a block against its tile
      length — with the probe kernels' launches counted, one JSON line a
-     measurement.
+     measurement;
+ 11. the time-first fused path, pkf / pks / pkfs on an LGSSM with
+     engine="strip" (kalman/plane.py, kernels in csrc/plane_scan.cu): the
+     plane scan against its plain version at T = 65,537 (filter and smoother
+     rows of d = 1, 2, 3 Matérn and d = 4, 6, 8 RBF models, float64 to the
+     JAX interpret-test tolerances, float32 against float64 truth), at one
+     tile (the in-block scan alone) and at T = 1, and its look-back's bounded
+     spin raising; the plane transpose bit for bit against
+     x.t().contiguous(); then the path on configuration (i)'s data at
+     N = 10M float32 with the launch counts it requires and no plain
+     version, against pkfs(LGSSMTL, "strip") and float64 truth, and at
+     N = 262,144 float64 against engine="timelast"; times of both kernels
+     against bound, plain version and x.t().contiguous(), and of pkfs
+     beside pkfs(LGSSMTL, "strip") and pkfs_dt.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -83,14 +96,14 @@ from parallel_gps_torch.inference import (  # noqa: E402
     sample_chains,
 )
 from parallel_gps_torch.kalman import _cuda  # noqa: E402
-from parallel_gps_torch.kalman import batched, dt, strip, timelast  # noqa: E402
-from parallel_gps_torch.kalman.parallel import pkfs  # noqa: E402
+from parallel_gps_torch.kalman import batched, dt, plane, strip, timelast  # noqa: E402
+from parallel_gps_torch.kalman.parallel import pkf, pkfs, pks  # noqa: E402
 from parallel_gps_torch.kernels import RBF, Matern12, Matern32, Matern52  # noqa: E402
 from parallel_gps_torch.probes import attrib as probe_attrib  # noqa: E402
 from parallel_gps_torch.probes import common as probe_common  # noqa: E402
 from parallel_gps_torch.probes import dma as probe_dma  # noqa: E402
 from parallel_gps_torch.probes import grid as probe_grid  # noqa: E402
-from parallel_gps_torch.types import LGSSMTL  # noqa: E402
+from parallel_gps_torch.types import LGSSM, LGSSMTL  # noqa: E402
 
 N_FULL = 10_000_000
 N_STRIP = 1_000_000  # the strip path's model: RBF(order=6), d = 6
@@ -113,6 +126,8 @@ SOURCES = {
     "batched_filter": "parallel_gps_torch/csrc/batched_scan.cu",
     "batched_smoother": "parallel_gps_torch/csrc/batched_scan.cu",
     **{f"probe_{name}": "parallel_gps_torch/csrc/probes.cu" for name in probe_common.LAUNCHES},
+    "plane_scan": "parallel_gps_torch/csrc/plane_scan.cu",
+    "plane_transpose": "parallel_gps_torch/csrc/plane_scan.cu",
 }
 DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_"))
 STRIP_KERNELS = tuple(k for k in SOURCES if k.startswith("strip_"))
@@ -140,7 +155,12 @@ REPLACES = {
     "probe_tile_stream": "scripts/bench_grid_isolation.py:105",
     "probe_tile_carry": "scripts/bench_grid_isolation.py:109",
     "probe_tile_outwrite": "scripts/bench_grid_isolation.py:123",
+    # _carry_scan_kernel; its in-block body _local_scan_kernel (:410, no
+    # pallas_call) is the scan's block_scan (PLANE_BODY, on its record).
+    "plane_scan": "parallel_gps_tpu/kalman/pallas_scan.py:428",
+    "plane_transpose": "parallel_gps_tpu/kalman/pallas_scan.py:531",
 }
+PLANE_BODY = "parallel_gps_tpu/kalman/pallas_scan.py:410"
 # Launches the serving path makes: the filter passes for the LML, and all
 # four passes for each predict_f request.
 N_REQUESTS = 3
@@ -361,6 +381,9 @@ def flops_per_step(d: int, degree: int) -> dict:
         # One element and one combine a step: what the function needs, not the
         # re-fold and the scan rounds this design spends on it.
         "batched_filter": (filt, loglik_obs), "batched_smoother": (smooth, 0),
+        # The plane scan: one combine a step over given elements; the
+        # transpose computes nothing.
+        "plane_scan_filter": (filt_combine, 0), "plane_scan_smoother": (smooth_combine, 0), "plane_transpose": (0, 0),
     }
 
 
@@ -371,7 +394,19 @@ def kernel_bound(name: str, d: int, degree: int, T: int, n_obs: int, itemsize: i
     read by the dt kernels only.  ``B`` series: ``n_obs`` counts all series'
     observed steps; ``y_series`` is the number of observation vectors the
     call reads (B by default, 1 where the chains share one with a batch
-    stride of 0); the batched Fisher tail reads one shared dt."""
+    stride of 0); the batched Fisher tail reads one shared dt.  The plane
+    scan ("plane_scan_filter" / "_smoother") reads and writes its packed
+    rows; "plane_transpose" moves the d² rows of Fs or Qs."""
+    if name.startswith("plane_"):
+        values = {
+            "plane_scan_filter": 2 * dt.filt_rows(d) * T,
+            "plane_scan_smoother": 2 * dt.smooth_rows(d) * T,
+            "plane_transpose": 2 * d * d * T,
+        }[name]
+        every, _ = flops_per_step(d, degree)[name]
+        bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
+        ops_ms = 1e3 * every * T / PEAK_F32_FLOPS
+        return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     if B > 1 or name in BATCHED_KERNELS:
         steps = B * T
         y_values = (B if y_series is None else y_series) * T
@@ -433,6 +468,8 @@ def phase_build() -> None:
         if found:
             entry = f"{found.group(1)} {'f64' if found.group(2) == 'd' else 'f32'}" + (f" D={found.group(3)}" if found.group(3) else "")
             entry += {"0": " chunk", "1": " coalesced"}.get(found.group(4), "")
+            ops = re.search(r"NS_\d+(Filter|Smoother)Ops", line)  # the plane scan's two kinds
+            entry += f" {ops.group(1).lower()}" if ops else ""
         elif "spill stores" in line:
             frame = {what: n for n, what in re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line)}
         elif "registers" in line and entry:
@@ -784,7 +821,7 @@ C_CHAINS = 64
 T_CHAIN_CHECK = 16_384
 N_HMC, N_MALA, N_NUTS, N_WARMUP = 4, 4, 2, 10
 CHAIN_PRIORS = {k: (lambda u: -0.5 * u * u) for k in ("kernel.variance", "kernel.lengthscales", "noise_variance")}
-TWO_PASS_KERNELS = tuple(k for k in SOURCES if k.endswith(("_scan", "_apply")))
+TWO_PASS_KERNELS = tuple(k for k in DT_KERNELS + STRIP_KERNELS if k.endswith(("_scan", "_apply")))
 # One batched log posterior with its gradient: one launch each of the
 # batched filter, the batched smoother and the Fisher tail, and nothing else.
 BATCHED_STEP_LAUNCHES = {"batched_filter": 1, "batched_smoother": 1, "dt_fisher": 1, **dict.fromkeys(TWO_PASS_KERNELS, 0)}
@@ -1669,6 +1706,308 @@ def phase_probes(card: str) -> list:
     return records
 
 
+# --------------------------------------------------------------------------
+# The time-first fused path: pkf / pks / pkfs on an LGSSM, engine="strip"
+# --------------------------------------------------------------------------
+
+PLANE_KERNELS = ("plane_scan", "plane_transpose")
+# Launches of the path: one scan a pass, one transpose a layout move.
+PKF_LAUNCHES = {"plane_scan": 1, "plane_transpose": 4}  # Fs, Qs in; b, C out
+PKS_LAUNCHES = {"plane_scan": 1, "plane_transpose": 6}  # Fs, Qs, ms, Ps in; g, L out
+PKFS_LAUNCHES = {"plane_scan": 2, "plane_transpose": 4}  # Fs, Qs in; g, L out (b, C stay time-last)
+PLAIN_CALLS = {"plane_scan_plain": 0, "plane_transpose_plain": 0}
+# A sanity bound for the element rows that are not moments (A, J, η; E): the
+# kernel and the plain scan fold in different orders, so each row is held to
+# its own magnitude.
+ROW_RTOL64 = 1e-6
+
+
+def count_plain_plane_calls() -> None:
+    """Count every call of the two plain versions (the wrappers look them up
+    by their module's name)."""
+    for name in PLAIN_CALLS:
+        plain = getattr(plane, name)
+
+        def counting(*args, _plain=plain, _name=name, **kwargs):
+            PLAIN_CALLS[_name] += 1
+            return _plain(*args, **kwargs)
+
+        setattr(plane, name, counting)
+
+
+def plane_threads(d: int, dtype) -> int:
+    return getattr(_cuda.load(), f"pgt_plane_scan_threads_d{d}_f{64 if dtype == torch.float64 else 32}")()
+
+
+def plane_rows(make, t, y, dtype):
+    """Packed filtering rows of the kernel's model, smoothing rows from the
+    plain filter's moments, and the state dimension, on the card."""
+    Fs, Qs, P0, H, R, yt = strip_inputs(make(dtype), t, y, dtype)
+    T = Fs.shape[-1]
+    with torch.no_grad():
+        filt = strip._pack(timelast._filtering_elements_from_planes(P0, Fs, Qs, H, R, yt), T)
+        b, C = timelast.pkf_from_tl(LGSSMTL(P0, Fs, Qs, H, R), yt)
+        smooth = strip._pack(timelast._smoothing_elements_from_planes(Fs, Qs, b, C), T)
+    return filt, smooth, P0.shape[0]
+
+
+def moment_rows(x, d: int):
+    """The moment rows of packed rows: (b, C) of a filter, (g, L) of a
+    smoother."""
+    d2 = d * d
+    return x[d2 : d2 + d], x[d2 + d : 2 * d2 + d]
+
+
+def row_err(a, b_) -> float:
+    """max over rows of max |a − b| / max |b| in the row."""
+    a, b_ = a.double(), b_.double()
+    return float(((a - b_).abs().amax(1) / b_.abs().amax(1).clamp_min(1e-300)).max())
+
+
+def check_plane_case(what: str, d: int, rows64: dict, rows32: dict | None) -> None:
+    """The plane scan against its plain version: float64 moments to the
+    tolerances of the strip kernels, every row to ROW_RTOL64 of its
+    magnitude; float32 moments against float64 truth by the 10× rule."""
+    rf, af, rs, as_ = strip_tolerances(d)
+    for (kind, reverse), x in rows64.items():
+        rtol, atol = (rf, af) if kind == "filter" else (rs, as_)
+        with torch.no_grad():
+            k, p = plane.plane_scan(x, d, kind, reverse), plane.plane_scan_plain(x, d, kind, reverse)
+        torch.cuda.synchronize()
+        errs = [max_abs(a, b_) for a, b_ in zip(moment_rows(k, d), moment_rows(p, d))]
+        print(f"plane_scan {what} {kind}{' reverse' if reverse else ''} f64: |moments| {max(errs):.3e}, rows {row_err(k, p):.2e}")
+        check(all(allclose(a, b_, rtol, atol) for a, b_ in zip(moment_rows(k, d), moment_rows(p, d))), f"plane_scan {what} {kind} f64 moments")
+        check(row_err(k, p) <= ROW_RTOL64 and bool(torch.isfinite(k).all()), f"plane_scan {what} {kind} f64 rows")
+        if rows32 is None or (kind, reverse) not in rows32:
+            continue
+        x32 = rows32[(kind, reverse)]
+        with torch.no_grad():
+            k32, p32 = plane.plane_scan(x32, d, kind, reverse), plane.plane_scan_plain(x32, d, kind, reverse)
+        torch.cuda.synchronize()
+        errs = [(rel_err(a, c), rel_err(b_, c)) for a, b_, c in zip(moment_rows(k32, d), moment_rows(p32, d), moment_rows(p, d))]
+        print(f"plane_scan {what} {kind} f32 vs f64 truth (kernel / plain f32): " + " ".join(f"{a:.2e}/{b_:.2e}" for a, b_ in errs))
+        for a, b_ in errs:
+            check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"plane_scan {what} {kind} f32: kernel {a:.3e} vs plain {b_:.3e}")
+
+
+def phase_plane_kernels() -> None:
+    """Both plane kernels against their plain versions on the card."""
+    t, y = make_data(T_KERNEL, SEED + 50)
+    for name, make in STRIP_CASES:
+        filt64, smooth64, d = plane_rows(make, t, y, torch.float64)
+        filt32, smooth32, _ = plane_rows(make, t, y, torch.float32)
+        rows32 = {("filter", False): filt32, ("smoother", True): smooth32}
+        rows64 = {("filter", False): filt64, ("smoother", True): smooth64}
+        if d == 3:  # the directions the path does not take
+            rows64.update({("filter", True): filt64, ("smoother", False): smooth64})
+        check_plane_case(f"{name} T={T_KERNEL}", d, rows64, rows32)
+        # One tile: the look-back does nothing, so this holds block_scan
+        # (the port of _local_scan_kernel) alone; and one step.
+        for T in (plane_threads(d, torch.float64), 1):
+            cut = {key: x[:, :T].contiguous() for key, x in rows64.items()}
+            check_plane_case(f"{name} T={T}", d, cut, None)
+        del filt64, smooth64, filt32, smooth32
+    # The look-back's spin is bounded: with no polls allowed every tile after
+    # the first overruns, and the wrapper raises instead of hanging.
+    filt, _, _ = plane_rows(STRIP_CASES[2][1], t, y, torch.float32)
+    try:
+        plane.plane_scan(filt, 3, "filter", max_polls=0)
+    except RuntimeError as err:
+        print(f"plane_scan with max_polls=0 raised, as it must: {err}")
+    else:
+        raise AssertionError("plane_scan with max_polls=0 did not raise")
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 51)
+        for r in (1, 3, 9, 33, 64):
+            x = torch.randn((r, T_KERNEL), dtype=dtype, device=DEV, generator=gen)
+            xt = plane.plane_transpose(x)
+            back = plane.plane_transpose(xt)
+            torch.cuda.synchronize()
+            check(torch.equal(xt, x.t().contiguous()) and torch.equal(back, x), f"plane_transpose r={r} {dtype}")
+    print(f"plane_transpose f32 and f64, r in (1, 3, 9, 33, 64), T={T_KERNEL}, both directions: equal to x.t().contiguous()")
+
+
+def phase_plane_slice():
+    """The time-first path at full width on configuration (i)'s data, with
+    the launch counts it requires and no plain version; returns the launch
+    counts and what the times phase needs."""
+    t, y = make_data(N_FULL, SEED)
+    kernel = Matern52(0.8, 0.4, dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        R = torch.full((1, 1), NOISE, dtype=torch.float32, device=DEV)
+        ts, yt = (torch.as_tensor(x, dtype=torch.float32, device=DEV) for x in (t, y))
+        views = kernel.get_ssm(ts, R)
+        # A caller's own time-first arrays (numpy's, or a JAX model's carried
+        # across) are contiguous (T, d, d); get_ssm returns time-first views
+        # of time-last memory, driven below.
+        ssm = LGSSM(views.P0, views.Fs.contiguous(), views.Qs.contiguous(), views.H, views.R)
+    torch.cuda.synchronize()
+    count_plain_plane_calls()
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    plane.reset_launch_counts()
+    with torch.no_grad():
+        fms, fPs, ell = pkf(ssm, yt, True, engine="strip")
+        counts["pkf"] = dict(plane.LAUNCHES)
+        plane.reset_launch_counts()
+        sms_a, sPs_a = pks(ssm, fms, fPs, engine="strip")
+        counts["pks"] = dict(plane.LAUNCHES)
+        plane.reset_launch_counts()
+        sms, sPs = pkfs(ssm, yt, engine="strip")
+        counts["pkfs"] = dict(plane.LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    others = all_launches()
+    print(f"plane slice f32 Matern52 N={N_FULL}: LML {float(ell):.6f}; launches {counts}; other kernels {others}; plain calls {PLAIN_CALLS}; peak {peak:.2f} GiB")
+    check(counts == {"pkf": PKF_LAUNCHES, "pks": PKS_LAUNCHES, "pkfs": PKFS_LAUNCHES}, f"plane path launches {counts}")
+    check(not any(others.values()) and PREFIX_CALLS[0] == 0, f"the plane path launched another engine's kernel: {others}")
+    check(not any(PLAIN_CALLS.values()), f"the plane path called a plain version: {PLAIN_CALLS}")
+    check(fms.shape == (N_FULL, 3) and fPs.shape == (N_FULL, 3, 3) and sms.shape == (N_FULL, 3) and sPs.shape == (N_FULL, 3, 3), "plane path shapes (time first)")
+    check(all(bool(torch.isfinite(x).all()) for x in (fms, fPs, sms, sPs, sms_a, sPs_a)) and bool(torch.isfinite(ell)), "plane path moments not finite")
+    print(f"  pks on pkf's moments vs pkfs: |sms| {max_abs(sms_a, sms):.3e} |sPs| {max_abs(sPs_a, sPs):.3e}")
+    del sms_a, sPs_a
+    # get_ssm's Fs lies time-last in memory and moves without a launch; its
+    # Qs is contiguous time first and is transposed.
+    time_last = [x.movedim(0, -1).is_contiguous() for x in (views.Fs, views.Qs)]
+    want = {"plane_scan": 2, "plane_transpose": PKFS_LAUNCHES["plane_transpose"] - sum(time_last)}
+    plane.reset_launch_counts()
+    with torch.no_grad():
+        sms_v, sPs_v = pkfs(views, yt, engine="strip")
+    torch.cuda.synchronize()
+    counts_v = dict(plane.LAUNCHES)
+    print(
+        f"  pkfs on get_ssm's views (Fs, Qs time-last in memory: {time_last}): launches {counts_v}; "
+        f"vs the contiguous model |sms| {max_abs(sms_v, sms):.3e} |sPs| {max_abs(sPs_v, sPs):.3e}"
+    )
+    check(any(time_last) and counts_v == want and not any(PLAIN_CALLS.values()), f"pkfs on views launched {counts_v}, expected {want}")
+    check(bool(torch.isfinite(sms_v).all()) and bool(torch.isfinite(sPs_v).all()), "pkfs on views: moments not finite")
+    del sms_v, sPs_v, views
+
+    # Against pkfs(LGSSMTL, "strip") on the same model and float64 truth.
+    with torch.no_grad():
+        ssm_tl = kernel.get_ssm_tl(ts, R)
+        b_s, C_s, ell_s = strip.strip_filter(ssm_tl.Fs, ssm_tl.Qs, ssm_tl.P0, ssm_tl.H, ssm_tl.R, yt)
+        g_s, L_s = strip.strip_smoother(ssm_tl.Fs, ssm_tl.Qs, b_s, C_s)
+        del ssm_tl
+        fam, co, P0d, Hd, Rd, dts, yd = engine_inputs(Matern52, (0.8, 0.4), t, y, torch.float64)
+        b_t, C_t, ell_t = dt.strip_filter_dt(fam, co, P0d, Hd, Rd, dts, yd)
+        g_t, L_t = dt.strip_smoother_dt(fam, co, P0d, dts, b_t, C_t)
+        del dts, yd
+    torch.cuda.synchronize()
+    errs = {
+        "fms": (rel_err(fms.t(), b_t), rel_err(b_s, b_t)),
+        "fPs": (rel_err(fPs.movedim(0, -1), C_t), rel_err(C_s, C_t)),
+        "ell": (abs(float(ell) - float(ell_t)) / abs(float(ell_t)), abs(float(ell_s) - float(ell_t)) / abs(float(ell_t))),
+        "sms": (rel_err(sms.t(), g_t), rel_err(g_s, g_t)),
+        "sPs": (rel_err(sPs.movedim(0, -1), L_t), rel_err(L_s, L_t)),
+    }
+    print(f"plane slice f32 vs f64 truth (plane / strip LGSSMTL): " + " ".join(f"{k} {a:.2e}/{b_:.2e}" for k, (a, b_) in errs.items()))
+    for k, (a, b_) in errs.items():
+        check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"plane path f32 {k}: {a:.3e} vs strip {b_:.3e} from f64")
+    del fms, fPs, sms, sPs, b_s, C_s, g_s, L_s, b_t, C_t, g_t, L_t
+    torch.cuda.empty_cache()
+
+    # float64 at N_CHECK against the plain time-last engine on the card.
+    tc, yc = make_data(N_CHECK, SEED + 3)
+    with torch.no_grad():
+        k64 = Matern52(0.8, 0.4, dtype=torch.float64, device=DEV)
+        ssm64 = k64.get_ssm(torch.as_tensor(tc, device=DEV), torch.full((1, 1), NOISE, dtype=torch.float64, device=DEV))
+        y64 = torch.as_tensor(yc, device=DEV)
+        f_p, f_r = pkf(ssm64, y64, True, engine="strip"), pkf(ssm64, y64, True, engine="timelast")
+        s_p, s_r = pkfs(ssm64, y64, engine="strip"), pkfs(ssm64, y64, engine="timelast")
+        s_q = pks(ssm64, f_p[0], f_p[1], engine="strip")
+    torch.cuda.synchronize()
+    print(
+        f"plane check f64 N={N_CHECK} vs timelast: |fms| {max_abs(f_p[0], f_r[0]):.3e} |fPs| {max_abs(f_p[1], f_r[1]):.3e} "
+        f"ell {float(f_p[2]):.10f} vs {float(f_r[2]):.10f}; |sms| {max_abs(s_p[0], s_r[0]):.3e} |sPs| {max_abs(s_p[1], s_r[1]):.3e}"
+    )
+    check(all(allclose(a, b_, 1e-9, 1e-10) for a, b_ in zip(f_p[:2], f_r[:2])), "plane pkf f64 vs timelast")
+    check(abs(float(f_p[2] - f_r[2])) <= 1e-10 * abs(float(f_r[2])), "plane pkf f64 LML vs timelast")
+    check(all(allclose(a, b_, 1e-8, 1e-9) for a, b_ in zip(s_p + s_q, s_r + s_r)), "plane pkfs / pks f64 vs timelast")
+    return {k: sum(c[k] for c in counts.values()) for k in PLANE_KERNELS}, (kernel, ts, R, yt, ssm)
+
+
+def phase_plane_times(card: str, counts: dict, inputs) -> list:
+    """Both plane kernels at the path's shapes (N = 10M, d = 3, float32)
+    against bound, plain version and x.t().contiguous(); pkfs end to end
+    beside pkfs(LGSSMTL, "strip") and pkfs_dt; a profile of pkfs."""
+    kernel, ts, R, yt, ssm = inputs
+    T, d = N_FULL, 3
+    with torch.no_grad():
+        planes = timelast.time_last_planes(ssm)
+        filt = strip._pack(timelast.make_filtering_elements_tl(ssm, yt, planes), T)
+        b, C = moment_rows(plane.plane_scan(filt, d, "filter"), d)
+        smooth = strip._pack(timelast._smoothing_elements_from_planes(*planes, b, C.reshape(d, d, T)), T)
+        del b, C
+    out = {}
+    for kind, x in (("filter", filt), ("smoother", smooth)):
+        reverse = kind == "smoother"
+        with torch.no_grad():
+            k, p = plane.plane_scan(x, d, kind, reverse), plane.plane_scan_plain(x, d, kind, reverse)
+            torch.cuda.synchronize()
+            err, look_back = max_abs(k, p), dict(plane.LOOK_BACK)
+            del k, p
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: plane.plane_scan(x, d, kind, reverse), reps=10)
+            plain_ms = cuda_ms(lambda: plane.plane_scan_plain(x, d, kind, reverse), reps=3)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = kernel_bound(f"plane_scan_{kind}", d, 0, T, 0, x.element_size())
+        folds = look_back["folded"] / max(look_back["tiles"], 1)
+        print(
+            f"plane_scan {kind} d=3 N={T} f32 [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}); |kernel - plain| {err:.3e}; look-back {look_back['folded']} predecessors folded over "
+            f"{look_back['tiles']} tiles ({folds:.2f} a tile)"
+        )
+        out[kind] = {
+            "at": f"{kind} rows d=3 N={T} f32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "look_back_folds_per_tile": folds,
+        }
+    del filt, smooth
+    torch.cuda.empty_cache()
+    tr = {}
+    for what, x in (("(T, 9) -> (9, T), Fs in", ssm.Fs.reshape(T, d * d)), ("(9, T) -> (T, 9), C out", planes[0].reshape(d * d, T))):
+        check(x.is_contiguous(), f"plane_transpose {what}: input not contiguous")
+        with torch.no_grad():
+            err = max_abs(plane.plane_transpose(x), plane.plane_transpose_plain(x))
+            ms = cuda_ms(lambda: plane.plane_transpose(x), reps=10)
+            plain_ms = cuda_ms(lambda: plane.plane_transpose_plain(x), reps=10)
+            library_ms = cuda_ms(lambda: x.t().contiguous(), reps=10)
+        bound_ms, bound_by = kernel_bound("plane_transpose", d, 0, T, 0, x.element_size())
+        print(f"plane_transpose {what} N={T} f32 [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, x.t().contiguous() {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        tr[what] = {"at": f"{what} N={T} f32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    del planes
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        plane_ms = cuda_ms(lambda: pkfs(ssm, yt, engine="strip"), reps=5)
+        plane_peak = torch.cuda.max_memory_allocated() / 2**30
+        pkf_ms = cuda_ms(lambda: pkf(ssm, yt, True, engine="strip"), reps=5)
+        views = kernel.get_ssm(ts, R)
+        views_ms = cuda_ms(lambda: pkfs(views, yt, engine="strip"), reps=5)
+        del views
+        ssm_tl = kernel.get_ssm_tl(ts, R)
+        strip_ms = cuda_ms(lambda: pkfs(ssm_tl, yt, engine="strip"), reps=5)
+        dt_ms = cuda_ms(lambda: dt.pkfs_dt(kernel, ts, R, yt), reps=5)
+        del ssm_tl
+    print(
+        f"pkfs(LGSSM, engine='strip') Matern52 N={T} f32 [{card}]: {plane_ms:.3f} ms (peak {plane_peak:.2f} GiB); pkf with the LML "
+        f"{pkf_ms:.3f} ms; pkfs on get_ssm's views (Fs, Qs time-last in memory) {views_ms:.3f} ms; in the same call "
+        f"pkfs(LGSSMTL, engine='strip') {strip_ms:.3f} ms, pkfs_dt {dt_ms:.3f} ms"
+    )
+    with torch.no_grad():
+        profile_calls(card, f"Matern52 N={T}", {"pkfs(LGSSM, strip)": lambda: pkfs(ssm, yt, engine="strip")})
+    torch.cuda.empty_cache()
+    fwd = tr["(T, 9) -> (9, T), Fs in"]
+    return [
+        {"name": "plane_scan", "route": "cuda", "source": SOURCES["plane_scan"], "replaces": REPLACES["plane_scan"],
+         "body_replaces": PLANE_BODY, "launches": counts["plane_scan"], **out["filter"], "other_shapes": [out["smoother"]]},
+        {"name": "plane_transpose", "route": "cuda", "source": SOURCES["plane_transpose"], "replaces": REPLACES["plane_transpose"],
+         "launches": counts["plane_transpose"], **fwd, "other_shapes": [v for v in tr.values() if v is not fwd]},
+    ]
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1707,6 +2046,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_probe_kernels()
     records += phase_probes(card)
+    phase_plane_kernels()
+    plane_counts, plane_inputs = phase_plane_slice()
+    print(f"launches: plane path {plane_counts}")
+    for name in PLANE_KERNELS:
+        check(plane_counts[name] > 0, f"{name} was never launched on the time-first path")
+    records += phase_plane_times(card, plane_counts, plane_inputs)
+    del plane_inputs
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

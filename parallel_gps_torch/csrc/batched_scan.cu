@@ -37,9 +37,9 @@
 // of y.
 //
 // Shared memory: a filtering element is 3D²+2D values (33 at D = 3, 208 at
-// D = 8), so the block size falls with D (BatchedThreads below) to keep
-// NT elements plus the carry within what a block may hold; above 48 KB the
-// launcher opts in (cudaFuncAttributeMaxDynamicSharedMemorySize).
+// D = 8), so the block size falls with D (TileThreads, dt_elements.cuh) to
+// keep NT elements plus the carry within what a block may hold; above 48 KB
+// the launcher opts in (cudaFuncAttributeMaxDynamicSharedMemorySize).
 //
 // What bounds these kernels on an H100: latency, by design.  B blocks of NT
 // threads occupy at most B of the 132 SMs with a few warps each, and a tile
@@ -69,20 +69,6 @@
 #endif
 
 namespace pgt {
-
-// Threads of a block (a power of two) at state dimension D.
-template <int D>
-struct BatchedThreads {
-  static constexpr int kN = D <= 3 ? 128 : (D <= 5 ? 64 : 32);
-};
-
-// Values of a filtering element (A, b, C, J, η) and of a smoothing element
-// (E, g, L).
-template <int D>
-struct ElementRows {
-  static constexpr int kFilt = 3 * D * D + 2 * D;
-  static constexpr int kSmooth = 2 * D * D + D;
-};
 
 extern __shared__ __align__(16) unsigned char pgt_batched_smem[];
 
@@ -386,7 +372,7 @@ static int launch_batched_smoother(const void* h, const void* Fs, long long f_ps
                                    const void* C, long long c_ps, long long c_bs, void* g, void* L, void* mean,
                                    void* var, long long T, int B, int K, void* stream) {
   typedef pgt_scalar S;
-  constexpr int NT = pgt::BatchedThreads<PGT_D>::kN;
+  constexpr int NT = pgt::TileThreads<PGT_D>::kN;
   auto kern = pgt::batched_smoother_kernel<S, PGT_D, NT, PROJECT>;
   const int bytes = (int)(sizeof(S) * pgt::ElementRows<PGT_D>::kSmooth * (NT + 1));
   cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -407,7 +393,7 @@ int PGT_ENTRY(pgt_batched_filter)(const void* scal, const void* Fs, long long f_
                                   void* ell, long long T, int B, int K, void* stream) {
   typedef pgt_scalar S;
   if (T < 1 || B < 1 || K < 1) return pgt::kBadArgs;
-  constexpr int NT = pgt::BatchedThreads<PGT_D>::kN;
+  constexpr int NT = pgt::TileThreads<PGT_D>::kN;
   auto kern = pgt::batched_filter_kernel<S, PGT_D, NT>;
   const int bytes = (int)(sizeof(S) * pgt::ElementRows<PGT_D>::kFilt * (NT + 1));
   cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -51,6 +51,22 @@ struct Smooth {
   S L[D * D];
 };
 
+// Values of a filtering element (A, b, C, J, η) and of a smoothing element
+// (E, g, L).
+template <int D>
+struct ElementRows {
+  static constexpr int kFilt = 3 * D * D + 2 * D;
+  static constexpr int kSmooth = 2 * D * D + D;
+};
+
+// Threads of a block (a power of two) of the kernels that scan a tile of
+// elements in shared memory, one element a thread (batched_scan.cu,
+// plane_scan.cu): fewer as an element grows, so that a tile fits.
+template <int D>
+struct TileThreads {
+  static constexpr int kN = D <= 3 ? 128 : (D <= 5 ? 64 : 32);
+};
+
 // ---------------------------------------------------------------------------
 // Small-matrix helpers
 // ---------------------------------------------------------------------------

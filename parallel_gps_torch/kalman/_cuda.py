@@ -2,10 +2,10 @@
 
 At first use, ``nvcc`` compiles the package's CUDA sources (one process per
 translation unit, all started together; ``strip_scan.cu`` is one unit per
-state dimension and ``batched_scan.cu`` one per state dimension and scalar
-type, ``VARIANTS``) and links them into a shared library with a
-plain C interface, under ``build/parallel_gps_torch/`` at the root of the
-checkout, and ``ctypes`` loads it.  The library's file name
+state dimension, ``batched_scan.cu`` and ``plane_scan.cu`` one per state
+dimension and scalar type, ``VARIANTS``) and links them into a shared
+library with a plain C interface, under ``build/parallel_gps_torch/`` at the
+root of the checkout, and ``ctypes`` loads it.  The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt and
 an unchanged one is reused.  Nothing here runs at import time.
 """
@@ -30,15 +30,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # (csrc/dt_launch.cuh: kThreads).
 THREADS = 128
 
-# State dimensions the strip and the batched kernels are built for
-# (kalman/strip.py, kalman/batched.py).
+# State dimensions the strip, batched and plane kernels are built for
+# (kalman/strip.py, kalman/batched.py, kalman/plane.py).
 STRIP_DIMS = tuple(range(1, 9))
+_BY_D_AND_TYPE = [
+    (f"_d{d}_f{bits}", [f"-DPGT_D={d}", f"-DPGT_F64={int(bits == 64)}"]) for d in STRIP_DIMS for bits in (32, 64)
+]
 # Sources compiled more than once: {file name: [(object suffix, extra flags)]}.
 VARIANTS = {
     "strip_scan.cu": [(f"_d{d}", [f"-DPGT_D={d}"]) for d in STRIP_DIMS],
-    "batched_scan.cu": [
-        (f"_d{d}_f{bits}", [f"-DPGT_D={d}", f"-DPGT_F64={int(bits == 64)}"]) for d in STRIP_DIMS for bits in (32, 64)
-    ],
+    "batched_scan.cu": _BY_D_AND_TYPE,
+    "plane_scan.cu": _BY_D_AND_TYPE,
 }
 
 _LIB = None
@@ -130,6 +132,11 @@ def load():
         for bits in (32, 64):
             sigs[f"pgt_batched_filter_d{d}_f{bits}"] = [p, p, ll, ll, p, ll, ll, p, ll, p, p, p, ll, i, i, p]
             sigs[f"pgt_batched_smoother_d{d}_f{bits}"] = [i, p, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p, p, ll, i, i, p]
+            # csrc/plane_scan.cu (kalman/plane.py)
+            sigs[f"pgt_plane_scan_d{d}_f{bits}"] = [i, i, p, p, ll, p, p, p, p, ll, p]
+            sigs[f"pgt_plane_scan_threads_d{d}_f{bits}"] = []
+    for bits in (32, 64):
+        sigs[f"pgt_plane_transpose_f{bits}"] = [p, p, ll, ll, p]
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -6,8 +6,9 @@ The filtering and smoothing element algebra of Särkkä & García-Fernández,
 reference layout (time first) and as the reference writes it — two solves per
 filtering combine, general m-row observations — on the blocked associative
 scan of ``ops/scan.py``.  It is the literal oracle; the fast engines are the
-time-last one (kalman/timelast.py) and the strip kernels (kalman/strip.py),
-which ``pkf`` / ``pks`` / ``pkfs`` dispatch to.
+time-last one (kalman/timelast.py), the strip kernels (kalman/strip.py) and,
+for a time-first model, the plane scan (kalman/plane.py), which ``pkf`` /
+``pks`` / ``pkfs`` dispatch to.
 
 Element types:
   filtering: (A, b, C, J, eta);  smoothing: (E, g, L).
@@ -182,29 +183,31 @@ def _tl_strip(lgssm: LGSSMTL, engine: str) -> bool:
     return engine == "strip"
 
 
-def _use_timelast(lgssm: LGSSM, engine: str) -> bool:
-    """Whether a time-first model goes through the time-last engine."""
+def _time_first_engine(lgssm: LGSSM, engine: str) -> str:
+    """The engine a time-first model goes through: "plane" (the plane scan),
+    "timelast" or "generic"; a request no engine can honour raises."""
     _check_engine(engine)
     if lgssm.H.shape[0] > 1:
         # m > 1 observation rows: only the generic engine carries the (m, m)
-        # solves; the time-last and strip engines are scalar-observation.
+        # solves; the time-last, strip and plane engines are scalar-observation.
         if engine in ("timelast", "strip"):
             raise ValueError(
                 f"engine={engine!r} supports scalar observations only (H has {lgssm.H.shape[0]} rows);"
                 " use engine='generic'"
             )
-        return False
+        return "generic"
+    d = lgssm.P0.shape[0]
     if engine == "strip":
-        raise NotImplementedError(
-            "engine='strip' on a time-first LGSSM is the first-generation plane scan (ROADMAP B9);"
-            " pass an LGSSMTL (e.g. SDEKernel.get_ssm_tl) to run the strip kernels"
-        )
-    if engine == "timelast":
-        return True
-    if engine == "generic":
-        return False
-    # auto: closed-form inverses cover d ≤ 3; larger states take the generic layout.
-    return lgssm.P0.shape[0] <= 3
+        if d > MAX_KERNEL_D:
+            raise ValueError(
+                f"engine='strip' (the fused plane scan) supports d <= {MAX_KERNEL_D}, got d={d};"
+                " use engine='auto' (any d)"
+            )
+        return "plane"
+    if engine == "auto":
+        # Closed-form inverses cover d ≤ 3; larger states take the generic layout.
+        return "timelast" if d <= 3 else "generic"
+    return engine
 
 
 def _as_tl(lgssm: LGSSM) -> LGSSMTL:
@@ -216,18 +219,23 @@ def pkf(lgssm, observations: Tensor, return_loglikelihood: bool = False, max_par
     ``ell``.  Accepts an ``LGSSM`` (time first, the reference layout) or an
     ``LGSSMTL`` (time last).  ``engine``: "auto" (an LGSSMTL: the plain
     time-last engine; an LGSSM: time-last for d ≤ 3, else generic),
-    "timelast", "strip" (the fused strip kernels on a CUDA LGSSMTL, their
-    plain versions on the CPU; d ≤ 8) or "generic".  ``max_parallel`` is
-    accepted for reference-API compatibility and ignored."""
+    "timelast", "strip" (d ≤ 8, on a CUDA model the hand-written kernels,
+    on the CPU their plain versions: an LGSSMTL goes through the two-pass
+    strip kernels, an LGSSM through the single-pass plane scan,
+    ``timelast.pkf_plane``) or "generic".  ``max_parallel`` is accepted for
+    reference-API compatibility and ignored."""
     del max_parallel
-    from parallel_gps_torch.kalman.timelast import pkf_from_tl
+    from parallel_gps_torch.kalman.timelast import pkf_from_tl, pkf_plane
 
     if isinstance(lgssm, LGSSMTL):
         out = pkf_from_tl(lgssm, observations, return_loglikelihood, strip=_tl_strip(lgssm, engine))
-    elif _use_timelast(lgssm, engine):
-        out = pkf_from_tl(_as_tl(lgssm), observations, return_loglikelihood)
     else:
-        return _pkf_generic(lgssm, observations, return_loglikelihood)
+        route = _time_first_engine(lgssm, engine)
+        if route == "plane":
+            return pkf_plane(lgssm, observations, return_loglikelihood)
+        if route == "generic":
+            return _pkf_generic(lgssm, observations, return_loglikelihood)
+        out = pkf_from_tl(_as_tl(lgssm), observations, return_loglikelihood)
     return (out[0].movedim(-1, 0), out[1].movedim(-1, 0)) + tuple(out[2:])
 
 
@@ -253,13 +261,15 @@ def _pkf_generic(lgssm: LGSSM, observations: Tensor, return_loglikelihood: bool)
 def pks(lgssm, ms: Tensor, Ps: Tensor, max_parallel: int = 0, engine: str = "auto"):
     """Parallel RTS smoother over filtered moments ``ms`` (T, d), ``Ps``
     (T, d, d), for either layout of the model; returns (sms, sPs) time
-    first."""
+    first.  ``engine`` as in ``pkf``."""
     del max_parallel
-    from parallel_gps_torch.kalman.timelast import pks_from_tl
+    from parallel_gps_torch.kalman.timelast import pks_from_tl, pks_plane
 
     if isinstance(lgssm, LGSSMTL):
         strip = _tl_strip(lgssm, engine)
-    elif _use_timelast(lgssm, engine):
+    elif (route := _time_first_engine(lgssm, engine)) == "plane":
+        return pks_plane(lgssm, ms, Ps)
+    elif route == "timelast":
         lgssm, strip = _as_tl(lgssm), False
     else:
         elems = make_smoothing_elements(lgssm, ms, Ps)
@@ -272,11 +282,13 @@ def pks(lgssm, ms: Tensor, Ps: Tensor, max_parallel: int = 0, engine: str = "aut
 
 def pkfs(lgssm, observations: Tensor, max_parallel: int = 0, engine: str = "auto"):
     """Parallel filter + smoother; returns smoothed (sms (T, d), sPs
-    (T, d, d)).  On an LGSSMTL the filtered moments stay time-last between
-    the two scans."""
-    if isinstance(lgssm, LGSSMTL):
-        from parallel_gps_torch.kalman.timelast import pkfs_from_tl
+    (T, d, d)).  On an LGSSMTL, and on an LGSSM with ``engine="strip"``, the
+    filtered moments stay time-last between the two scans."""
+    from parallel_gps_torch.kalman.timelast import pkfs_from_tl, pkfs_plane
 
+    if isinstance(lgssm, LGSSMTL):
         return pkfs_from_tl(lgssm, observations, strip=_tl_strip(lgssm, engine))
+    if _time_first_engine(lgssm, engine) == "plane":
+        return pkfs_plane(lgssm, observations)
     fms, fPs = pkf(lgssm, observations, False, engine=engine)
     return pks(lgssm, fms, fPs, engine=engine)

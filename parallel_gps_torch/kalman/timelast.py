@@ -416,6 +416,100 @@ def pkfs_from_tl(lgssm_tl, observations: Tensor, strip: bool = False, time_first
 
 
 # --------------------------------------------------------------------------
+# Time-first models through the plane scan (counterpart: pkf_pallas,
+# pks_pallas, pkfs_pallas and the time-first element helpers of the JAX
+# package's timelast.py).  The elements and the log-likelihood are plain
+# PyTorch; each scan is one launch of ``plane.plane_scan`` and every layout
+# move between (T, ...) and (..., T) one of ``plane.plane_transpose``: Fs and
+# Qs in (unless they already lie time-last in memory), the moments out, and
+# pks's filtered moments in.
+# --------------------------------------------------------------------------
+
+
+def _to_time_last(x: Tensor) -> Tensor:
+    """(T, ...) → (..., T), contiguous.  A time-first view of time-last
+    memory (what ``SDEKernel.get_ssm`` returns) needs no move and is taken as
+    it is; other strides are made contiguous time-first first."""
+    from parallel_gps_torch.kalman.plane import plane_transpose
+
+    T = x.shape[0]
+    tl = x.movedim(0, -1)
+    if tl.is_contiguous():
+        return tl
+    return plane_transpose(x.reshape(T, -1).contiguous()).reshape(x.shape[1:] + (T,))
+
+
+def _to_time_first(x: Tensor) -> Tensor:
+    """(..., T) → (T, ...)."""
+    from parallel_gps_torch.kalman.plane import plane_transpose
+
+    T = x.shape[-1]
+    return plane_transpose(x.reshape(-1, T).contiguous()).reshape((T,) + x.shape[:-1])
+
+
+def time_last_planes(lgssm) -> tuple[Tensor, Tensor]:
+    """(Fs, Qs) of a time-first LGSSM as (d, d, T) planes."""
+    return _to_time_last(lgssm.Fs), _to_time_last(lgssm.Qs)
+
+
+def make_filtering_elements_tl(lgssm, observations: Tensor, planes) -> FilteringElementTL:
+    """Time-last filtering elements of a time-first LGSSM whose
+    ``time_last_planes`` are ``planes``."""
+    return _filtering_elements_from_planes(lgssm.P0, *planes, lgssm.H, lgssm.R, observations)
+
+
+def _loglik_tl(lgssm, b_tl: Tensor, C_tl: Tensor, observations: Tensor, planes) -> Tensor:
+    """Σ_t log p(y_t | y_<t) of a time-first LGSSM (``planes`` as in
+    ``make_filtering_elements_tl``) from time-last filtered moments."""
+    return _loglik_from_planes(lgssm.P0, *planes, lgssm.H, lgssm.R, b_tl, C_tl, observations)
+
+
+def make_smoothing_elements_tl(lgssm, ms: Tensor, Ps: Tensor) -> SmoothingElementTL:
+    """Time-last smoothing elements of a time-first LGSSM from time-first
+    filtered moments ``ms`` (T, d), ``Ps`` (T, d, d)."""
+    return _smoothing_elements_from_planes(*time_last_planes(lgssm), _to_time_last(ms), _to_time_last(Ps))
+
+
+def _plane_scan_moments(elems, kind: str):
+    """Pack the elements, scan them in one launch and return the moment rows
+    of the result: (b (d, T), C (d, d, T)) or (g, L)."""
+    from parallel_gps_torch.kalman.plane import plane_scan
+    from parallel_gps_torch.kalman.strip import _pack
+
+    d, T = elems[1].shape
+    out = plane_scan(_pack(elems, T), d, kind, reverse=kind == "smoother")
+    d2 = d * d
+    return out[d2 : d2 + d], out[d2 + d : 2 * d2 + d].reshape(d, d, T)
+
+
+def pkf_plane(lgssm, observations: Tensor, return_loglikelihood: bool = False):
+    """Filter of a time-first LGSSM through the plane scan; returns
+    (fms (T, d), fPs (T, d, d)) or with ``ell``."""
+    planes = time_last_planes(lgssm)
+    b_tl, C_tl = _plane_scan_moments(make_filtering_elements_tl(lgssm, observations, planes), "filter")
+    moments = (_to_time_first(b_tl), _to_time_first(C_tl))
+    if not return_loglikelihood:
+        return moments
+    return moments + (_loglik_tl(lgssm, b_tl, C_tl, observations, planes),)
+
+
+def pks_plane(lgssm, ms: Tensor, Ps: Tensor):
+    """Smoother of a time-first LGSSM over filtered moments through the plane
+    scan; returns (sms (T, d), sPs (T, d, d))."""
+    g_tl, L_tl = _plane_scan_moments(make_smoothing_elements_tl(lgssm, ms, Ps), "smoother")
+    return _to_time_first(g_tl), _to_time_first(L_tl)
+
+
+def pkfs_plane(lgssm, observations: Tensor):
+    """Filter + smoother of a time-first LGSSM through the plane scan, the
+    filtered moments time-last between the two scans; returns (sms, sPs)."""
+    planes = time_last_planes(lgssm)
+    b_tl, C_tl = _plane_scan_moments(make_filtering_elements_tl(lgssm, observations, planes), "filter")
+    g_tl, L_tl = _plane_scan_moments(_smoothing_elements_from_planes(*planes, b_tl, C_tl), "smoother")
+    return _to_time_first(g_tl), _to_time_first(L_tl)
+
+
+# --------------------------------------------------------------------------
 # LML with Fisher-identity gradients
 #
 # ∇θ log p(y) = E_{x|y}[∇θ log p(x, y)]: the gradient of the LML w.r.t.

@@ -189,8 +189,12 @@ def test_dispatch_refuses_what_an_engine_cannot_do(m52, m2_problem):
             pkf(m2, ty2, engine=engine)
         with pytest.raises(ValueError, match="scalar observations only"):
             pks(m2, *kf(m2, ty2), engine=engine)
-    with pytest.raises(NotImplementedError, match="B9"):
-        pkfs(ttf, ty, engine="strip")
+    # A time-first model with engine="strip" runs the plane scan
+    # (kalman/plane.py) and matches the time-last engine.
+    sms, sPs = pkfs(ttf, ty, engine="strip")
+    sms_tl, sPs_tl = pkfs(ttf, ty, engine="timelast")
+    npt.assert_allclose(_np(sms), _np(sms_tl), **SMOOTHER_TOL)
+    npt.assert_allclose(_np(sPs), _np(sPs_tl), **SMOOTHER_TOL)
     d = 9
     eye = np.eye(d)
     big = lgssm_from_numpy(eye, 0.5 * eye[:, :, None].repeat(4, -1), 0.75 * eye[:, :, None].repeat(4, -1), eye[:1], [[0.1]], time_last=True, dtype=torch.float64, device="cpu")
