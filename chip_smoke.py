@@ -1810,12 +1810,15 @@ def phase_plane_kernels() -> None:
     # The look-back's spin is bounded: with no polls allowed every tile after
     # the first overruns, and the wrapper raises instead of hanging.
     filt, _, _ = plane_rows(STRIP_CASES[2][1], t, y, torch.float32)
+    max_polls, plane.MAX_POLLS = plane.MAX_POLLS, 0
     try:
-        plane.plane_scan(filt, 3, "filter", max_polls=0)
+        plane.plane_scan(filt, 3, "filter")
     except RuntimeError as err:
-        print(f"plane_scan with max_polls=0 raised, as it must: {err}")
+        print(f"plane_scan with MAX_POLLS = 0 raised, as it must: {err}")
     else:
-        raise AssertionError("plane_scan with max_polls=0 did not raise")
+        raise AssertionError("plane_scan with MAX_POLLS = 0 did not raise")
+    finally:
+        plane.MAX_POLLS = max_polls
     for dtype in (torch.float32, torch.float64):
         gen = torch.Generator(device=DEV).manual_seed(SEED + 51)
         for r in (1, 3, 9, 33, 64):
@@ -1947,8 +1950,14 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
             k, p = plane.plane_scan(x, d, kind, reverse), plane.plane_scan_plain(x, d, kind, reverse)
             torch.cuda.synchronize()
             err, look_back = max_abs(k, p), dict(plane.LOOK_BACK)
-            del k, p
+            truth = [m.clone() for m in moment_rows(plane.plane_scan_plain(x.double(), d, kind, reverse), d)]
+            errs = [(rel_err(a, c), rel_err(b_, c)) for a, b_, c in zip(moment_rows(k, d), moment_rows(p, d), truth)]
+            del k, p, truth
             torch.cuda.empty_cache()
+        print(f"plane_scan {kind} d=3 N={T} f32 vs f64 truth (kernel / plain f32): " + " ".join(f"{a:.2e}/{b_:.2e}" for a, b_ in errs))
+        for a, b_ in errs:
+            check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"plane_scan {kind} d=3 N={T} f32: kernel {a:.3e} vs plain {b_:.3e} from f64")
+        with torch.no_grad():
             ms = cuda_ms(lambda: plane.plane_scan(x, d, kind, reverse), reps=10)
             plain_ms = cuda_ms(lambda: plane.plane_scan_plain(x, d, kind, reverse), reps=3)
         torch.cuda.empty_cache()
@@ -1969,7 +1978,11 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
     for what, x in (("(T, 9) -> (9, T), Fs in", ssm.Fs.reshape(T, d * d)), ("(9, T) -> (T, 9), C out", planes[0].reshape(d * d, T))):
         check(x.is_contiguous(), f"plane_transpose {what}: input not contiguous")
         with torch.no_grad():
-            err = max_abs(plane.plane_transpose(x), plane.plane_transpose_plain(x))
+            k, p = plane.plane_transpose(x), plane.plane_transpose_plain(x)
+            torch.cuda.synchronize()
+            check(torch.equal(k, p), f"plane_transpose {what} N={T}: not equal to x.t().contiguous()")
+            err = max_abs(k, p)
+            del k, p
             ms = cuda_ms(lambda: plane.plane_transpose(x), reps=10)
             plain_ms = cuda_ms(lambda: plane.plane_transpose_plain(x), reps=10)
             library_ms = cuda_ms(lambda: x.t().contiguous(), reps=10)

@@ -53,10 +53,11 @@
 //  - No hang.  A spin is bounded (max_polls polls with __nanosleep back-off);
 //    on overrun the kernel sets status[1], publishes what it has so that no
 //    other block waits on it, and the wrapper raises.
-//  - Scratch, zeroed by the wrapper: status (ticket, error, predecessors
-//    folded by all look-backs together), flags (n_tiles), agg and incl
-//    (n_tiles, n).  Reads of another block's agg / incl bypass
-//    L1 (__ldcg), which is not coherent across SMs.
+//  - Scratch: status (ticket, error, predecessors folded by all look-backs
+//    together) and flags (n_tiles), zeroed by the wrapper; agg and incl
+//    (n_tiles, n), left as allocated (a tile's values are written before its
+//    flag is raised and read only after).  Reads of another block's agg /
+//    incl bypass L1 (__ldcg), which is not coherent across SMs.
 //
 // plane_transpose: a (rows, cols) → (cols, rows) copy through shared memory,
 // padded against bank conflicts: where a side is at most 32 wide (the d²
@@ -374,7 +375,8 @@ int PGT_ENTRY(pgt_plane_scan_threads)(void) { return pgt::TileThreads<PGT_D>::kN
 
 // in, out: contiguous (n, T) rows, n = 3D²+2D (smoother = 0) or 2D²+D
 // (smoother = 1); status: int (ticket, error, predecessors folded), zeroed; flags: int
-// (n_tiles,), zeroed; agg, incl: (n_tiles, n); n_tiles = ceil(T / threads).
+// (n_tiles,), zeroed; agg, incl: (n_tiles, n), need not be zeroed;
+// n_tiles = ceil(T / threads).
 int PGT_ENTRY(pgt_plane_scan)(int smoother, int reverse, const void* in, void* out, long long T, void* status,
                               void* flags, void* agg, void* incl, long long max_polls, void* stream) {
   if (T < 1 || max_polls < 0 || (T + pgt::TileThreads<PGT_D>::kN - 1) / pgt::TileThreads<PGT_D>::kN > 0x7fffffffLL)

@@ -43,7 +43,7 @@ MAX_KERNEL_D = 8
 KINDS = ("filter", "smoother")
 # Polls of a predecessor's flag before the scan gives up and reports an
 # overrun (each poll sleeps up to 256 ns): seconds, against the microseconds
-# a predecessor takes.
+# a predecessor takes.  Read at every launch.
 MAX_POLLS = 1 << 22
 OVERRUN = 1  # csrc/plane_scan.cu: kSpinOverrun
 
@@ -102,10 +102,10 @@ def _bits(x: Tensor) -> int:
     return 64 if x.dtype == torch.float64 else 32
 
 
-def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False, max_polls: int = MAX_POLLS) -> Tensor:
+def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False) -> Tensor:
     """Inclusive scan of packed (n, T) element rows along T (from the end,
     with ``reverse``), ``kind`` "filter" or "smoother"; one launch.  A spin
-    of the look-back that outlasts ``max_polls`` polls raises."""
+    of the look-back that outlasts ``MAX_POLLS`` polls raises."""
     n = rows(d, kind)
     if planes.device.type == "cpu":
         return plane_scan_plain(planes, d, kind, reverse)
@@ -114,14 +114,16 @@ def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False, max_pol
     _check(planes, "planes")
     _require(1 <= d <= MAX_KERNEL_D, f"state dimension {d} > {MAX_KERNEL_D}")
     _require(planes.shape[0] == n, f"{kind} planes of d = {d} have {n} rows, got {planes.shape[0]}")
-    _require(max_polls >= 0, f"max_polls must be >= 0, got {max_polls}")
+    max_polls = MAX_POLLS
+    _require(max_polls >= 0, f"MAX_POLLS must be >= 0, got {max_polls}")
     dev, dtype, T = planes.device, planes.dtype, planes.shape[1]
     lib, tag = _cuda.load(), f"d{d}_f{_bits(planes)}"
     n_tiles = -(-T // getattr(lib, f"pgt_plane_scan_threads_{tag}")())
     status = torch.zeros(3, dtype=torch.int32, device=dev)  # ticket, overrun, predecessors folded
     flags = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    agg = torch.zeros((n_tiles, n), dtype=dtype, device=dev)
-    incl = torch.zeros((n_tiles, n), dtype=dtype, device=dev)
+    # A tile's values are written before its flag is raised, and read after.
+    agg = torch.empty((n_tiles, n), dtype=dtype, device=dev)
+    incl = torch.empty((n_tiles, n), dtype=dtype, device=dev)
     out = torch.empty_like(planes)
     _cuda.launch(
         "plane_scan", getattr(lib, f"pgt_plane_scan_{tag}"), int(kind == "smoother"), int(reverse), planes, out, T,

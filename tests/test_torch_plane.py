@@ -20,7 +20,12 @@ from parallel_gps_torch.kalman import kf, pkf, pkfs, pks, plane
 from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_torch.kalman.strip import _pack
 from parallel_gps_tpu.kalman.pallas_scan import plane_transpose as jax_plane_transpose
-from parallel_gps_tpu.kalman.timelast import pkf_pallas, pkf_tl, pks_pallas, pks_tl
+from parallel_gps_tpu.kalman.timelast import FilteringElementTL, SmoothingElementTL, pkf_pallas, pkf_tl, pks_pallas, pks_tl
+from parallel_gps_tpu.kalman.timelast import filtering_identity_tl as jax_filtering_identity_tl
+from parallel_gps_tpu.kalman.timelast import filtering_operator_tl as jax_filtering_operator_tl
+from parallel_gps_tpu.kalman.timelast import kogge_stone_scan_tl as jax_kogge_stone_scan_tl
+from parallel_gps_tpu.kalman.timelast import smoothing_identity_tl as jax_smoothing_identity_tl
+from parallel_gps_tpu.kalman.timelast import smoothing_operator_tl as jax_smoothing_operator_tl
 from parallel_gps_tpu.types import LGSSM as JaxLGSSM
 
 torch.set_num_threads(1)
@@ -124,26 +129,56 @@ def test_plane_path_matches_jax_time_last_engine(make, T):
     _assert_matches(_run_port(tssm, ty), _jax_pkfs_tl(ssm, ys))
 
 
-@pytest.mark.parametrize("T", [1, 2, 33], ids=lambda T: f"T{T}")
+def _jax_unpack(X, d, kind):
+    """Packed (n, T) rows → the JAX package's time-last element, in the row
+    order of ``strip._pack``."""
+    T, d2 = X.shape[-1], d * d
+    if kind == "filter":
+        sizes, shapes, cls = (d2, d, d2, d2, d), ((d, d), (d,), (d, d), (d, d), (d,)), FilteringElementTL
+    else:
+        sizes, shapes, cls = (d2, d, d2), ((d, d), (d,), (d, d)), SmoothingElementTL
+    cuts = np.cumsum(sizes)[:-1].tolist()
+    return cls(*(x.reshape(*shape, T) for x, shape in zip(jnp.split(X, cuts), shapes)))
+
+
+@partial(jax.jit, static_argnums=2)
+def _jax_plane_scans(filt, smooth, d):
+    """JAX ``kogge_stone_scan_tl`` over packed filtering and smoothing rows,
+    forward and reverse, repacked: {(kind, reverse): (n, T)}."""
+    T, out = filt.shape[-1], {}
+    for kind, X, op, ident in (
+        ("filter", filt, jax_filtering_operator_tl, jax_filtering_identity_tl),
+        ("smoother", smooth, jax_smoothing_operator_tl, jax_smoothing_identity_tl),
+    ):
+        for reverse in (False, True):
+            scanned = jax_kogge_stone_scan_tl(op, _jax_unpack(X, d, kind), ident(d, X.dtype), reverse)
+            out[(kind, reverse)] = jnp.concatenate([x.reshape(-1, T) for x in scanned])
+    return out
+
+
+@pytest.mark.parametrize("T", [1, 2], ids=lambda T: f"T{T}")
 def test_plane_scan_plain_at_the_edges(T):
-    """A scan of one element is the element, in either direction and of
-    either kind; the plane path equals the port's time-last engine at a
-    single step and at a few."""
-    _, _, tssm, ty = _problem(_kernel("Matern52", 0.9, 0.45), T, T // 3, 3)
+    """``plane_scan_plain``, forward and reverse, of either kind, against the
+    JAX package's time-last Kogge–Stone scan of the same packed rows (a scan
+    of one element is the element; two take one combine, the earlier element
+    on the left); and the plane path against the jitted JAX time-last engine
+    there.  Longer series: the cases above (T = 37, 70, 301)."""
+    ssm, ys, tssm, ty = _problem(_kernel("Matern52", 0.9, 0.45), T, T // 3, 3)
+    ref = _jax_pkfs_tl(ssm, ys)
     with torch.no_grad():
-        fms, fPs = pkf(tssm, ty, engine="timelast")
+        fms, fPs = (torch.tensor(np.asarray(x)) for x in ref[:2])
         planes = ttl.time_last_planes(tssm)
         elems = {
             "filter": _pack(ttl.make_filtering_elements_tl(tssm, ty, planes), T),
             "smoother": _pack(ttl.make_smoothing_elements_tl(tssm, fms, fPs), T),
         }
-        for kind, packed in elems.items():
-            for reverse in (False, True):
-                out = plane.plane_scan_plain(packed, 3, kind, reverse)
-                if T == 1:
-                    assert torch.equal(out, packed)
+        scans = _jax_plane_scans(*(jnp.asarray(_np(x)) for x in elems.values()), 3)
+        for (kind, reverse), want in scans.items():
+            out = plane.plane_scan_plain(elems[kind], 3, kind, reverse)
+            npt.assert_allclose(_np(out), np.asarray(want), **(FILTER_TOL if kind == "filter" else SMOOTHER_TOL))
+            if T == 1:
+                assert torch.equal(out, elems[kind])
         port = _run_port(tssm, ty)
-        ref = pkf(tssm, ty, True, engine="timelast") + pkfs(tssm, ty, engine="timelast")
     _assert_matches(port, ref)
 
 
