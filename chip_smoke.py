@@ -13,7 +13,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   3. kernels vs plain: for Matern12/32/52 at T = 65,537 with ~10% missing
      observations, the CUDA filter, smoother and Fisher tail of the dt-engine
      against their plain PyTorch versions, float64 to the JAX interpret-test
-     tolerances, float32 against float64 truth; then the four
+     tolerances, float32 against float64 truth; the filter again at the
+     lengths where its staged pass 2 has ragged warps, rounds and blocks
+     (APPLY_EDGE_T); then the four
      plane-streaming strip kernels the same way at d = 1, 2, 3 (Matérn
      planes) and d = 4, 6, 8 (RBF planes), and at d = 3 the strip engine
      against the dt-engine on the same data;
@@ -59,11 +61,13 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      JAX interpret-test tolerances, float32 against float64 truth), at one
      tile (the in-block scan alone) and at T = 1, and its look-back's bounded
      spin raising; the plane transpose bit for bit against
-     x.t().contiguous(); then the path on configuration (i)'s data at
+     x.t().contiguous() at every width and length where its blocks change
+     shape, aligned or not (TRANSPOSE_WIDTHS); then the path on configuration (i)'s data at
      N = 10M float32 with the launch counts it requires and no plain
      version, against pkfs(LGSSMTL, "strip") and float64 truth, and at
      N = 262,144 float64 against engine="timelast"; times of both kernels
-     against bound, plain version and x.t().contiguous(), and of pkfs
+     (the transpose in its three moves of the path, on the device behind a
+     held stream) against bound, plain version and x.t().contiguous(), and of pkfs
      beside pkfs(LGSSMTL, "strip") and pkfs_dt.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -387,7 +391,10 @@ def flops_per_step(d: int, degree: int) -> dict:
     }
 
 
-def kernel_bound(name: str, d: int, degree: int, T: int, n_obs: int, itemsize: int, B: int = 1, y_series: int | None = None):
+def kernel_bound(
+    name: str, d: int, degree: int, T: int, n_obs: int, itemsize: int, B: int = 1, y_series: int | None = None,
+    rows: int | None = None,
+):
     """(bound in ms, "bytes" or "operations"): the least time the card could
     take — each input read once and each output written once at the memory
     peak, against this run's operations at the float32 peak.  ``degree`` is
@@ -396,12 +403,14 @@ def kernel_bound(name: str, d: int, degree: int, T: int, n_obs: int, itemsize: i
     call reads (B by default, 1 where the chains share one with a batch
     stride of 0); the batched Fisher tail reads one shared dt.  The plane
     scan ("plane_scan_filter" / "_smoother") reads and writes its packed
-    rows; "plane_transpose" moves the d² rows of Fs or Qs."""
+    rows; "plane_transpose" moves ``rows`` rows of T values (d² for Fs, Qs
+    and the covariances, d for the means)."""
     if name.startswith("plane_"):
+        check(name != "plane_transpose" or bool(rows), "kernel_bound: a transpose needs its row count")
         values = {
             "plane_scan_filter": 2 * dt.filt_rows(d) * T,
             "plane_scan_smoother": 2 * dt.smooth_rows(d) * T,
-            "plane_transpose": 2 * d * d * T,
+            "plane_transpose": 2 * (rows or 0) * T,
         }[name]
         every, _ = flops_per_step(d, degree)[name]
         bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
@@ -474,11 +483,23 @@ def phase_build() -> None:
             frame = {what: n for n, what in re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line)}
         elif "registers" in line and entry:
             regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
             print(
-                f"  ptxas: {entry}: {regs} registers, {frame.get('stack frame', '?')} B stack, "
+                f"  ptxas: {entry}: {regs} registers, {smem.group(1) if smem else 0} B static smem, "
+                f"{frame.get('stack frame', '?')} B stack, "
                 f"{frame.get('spill stores', '?')} B spill stores, {frame.get('spill loads', '?')} B spill loads"
             )
             entry = None
+    # The dynamic shared memory of the two kernels that stage through it.
+    lib = _cuda.load()
+    staged = {f"f{bits} D={d}": lib.pgt_dt_filter_apply_smem(int(bits == 64), d) for bits in (32, 64) for d in (1, 2, 3)}
+    print(f"  dynamic smem a block: dt_filter_apply {staged}")
+    for dtype in (torch.float32, torch.float64):
+        size = torch.finfo(dtype).bits // 8
+        runs = {w: plane.transpose_run(N_FULL, w, dtype) for w in (1, 3, 9, 16, 36, 64)}
+        # The tile: w rows of L values, padded by one 16-byte vector a row.
+        print(f"  dynamic smem a block: plane_transpose {dtype}, width w (run L): " + ", ".join(
+            f"w={w} (L={L}) {w * (L + 16 // size) * size} B" for w, L in runs.items()))
 
 
 FISHER_OUTPUTS = ("d_coeffs", "d_P0", "d_H", "d_R", "d_dts", "d_y")
@@ -543,7 +564,50 @@ def phase_kernels() -> None:
         for k, (a, b) in errs.items():
             floor = f32_sum_floor(T_KERNEL) if k in FISHER_OUTPUTS[:4] else F32_FLOOR
             check(a <= max(F32_FACTOR * b, floor), f"{name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
+    check_filter_apply_edges(cases)
     check_strip_kernels(t, y)
+
+
+# The edges of dt_filter_apply's staging (a warp stages 8 (f32) or 4 (f64)
+# steps of its 32 chunks of 64 steps, a block is 128 chunks): a short last
+# chunk; a warp's chunks and one past them with a short last round; a block's
+# chunks and one chunk past them, 5 steps long.
+APPLY_EDGE_T = (1, 63, 64, 65, 2_047, 2_048, 2_053, 8_191, 8_192, 8_197)
+
+
+def check_filter_apply_edges(cases) -> None:
+    """The dt filter through the kernels (its pass 2 the staged apply) against
+    the plain filter at APPLY_EDGE_T: float64 to the JAX interpret tests'
+    tolerances, float32 against float64 truth by the 10× rule."""
+    worst = {}
+    for T in APPLY_EDGE_T:
+        t, y = make_data(T, SEED + 7)
+        for kcls, params in cases:
+            what = f"{kcls.__name__} T={T}"
+            with torch.no_grad():
+                fam, co, P0, H, R, dts, yt = engine_inputs(kcls, params, t, y, torch.float64)
+                b_k, C_k, ell_k = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+                b_p, C_p, ell_p = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+                fam, co, P0, H, R, dts, yt = engine_inputs(kcls, params, t, y, torch.float32)
+                b_k32, C_k32, ell_k32 = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+                b_q32, C_q32, ell_q32 = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+            torch.cuda.synchronize()
+            check(allclose(b_k, b_p, 1e-9, 1e-10) and allclose(C_k, C_p, 1e-9, 1e-10), f"{what} f64 filter moments")
+            check(abs(float(ell_k - ell_p)) <= 1e-9 * abs(float(ell_p)), f"{what} f64 LML {float(ell_k)} vs {float(ell_p)}")
+            scale = max(abs(float(ell_p)), 1e-300)
+            errs = {
+                "b": (rel_err(b_k32, b_p), rel_err(b_q32, b_p)),
+                "C": (rel_err(C_k32, C_p), rel_err(C_q32, C_p)),
+                "ell": (abs(float(ell_k32) - float(ell_p)) / scale, abs(float(ell_q32) - float(ell_p)) / scale),
+            }
+            for k, (a, b_) in errs.items():
+                check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} f32 {k}: kernel {a:.3e} vs plain {b_:.3e}")
+            worst[what] = (max(max_abs(b_k, b_p), max_abs(C_k, C_p)), max(a / max(b_, F32_FLOOR / F32_FACTOR) for a, b_ in errs.values()))
+    top = max(worst, key=lambda k: worst[k][0])
+    print(
+        f"dt filter at T in {APPLY_EDGE_T}, Matern12/32/52: f64 |moments| max {worst[top][0]:.3e} ({top}); f32 "
+        f"kernel error over plain f32 error at most {max(v[1] for v in worst.values()):.2f} (limit {F32_FACTOR:.0f})"
+    )
 
 
 # The strip kernels' cases: Matérn planes at d ≤ 3, RBF planes above.  The
@@ -1819,15 +1883,40 @@ def phase_plane_kernels() -> None:
         raise AssertionError("plane_scan with MAX_POLLS = 0 did not raise")
     finally:
         plane.MAX_POLLS = max_polls
+    check_transpose_edges()
+
+
+# Widths of the transpose's checks: every d and d² of the plane path up to
+# d = 8 that shapes its narrow path differently, and 65, the wide tiles.
+TRANSPOSE_WIDTHS = (1, 2, 3, 4, 9, 16, 33, 36, 49, 64, 65)
+
+
+def check_transpose_edges() -> None:
+    """plane_transpose bit for bit against x.t().contiguous(), both
+    directions, float32 and float64: each width of TRANSPOSE_WIDTHS at T = 1,
+    L − 1, L, L + 1 (L the block's run at that width; the tile edge on the
+    wide path) and T_KERNEL, and an input whose storage starts one value
+    past an aligned address (the path without 16-byte accesses)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 51)
+    n = 0
     for dtype in (torch.float32, torch.float64):
-        gen = torch.Generator(device=DEV).manual_seed(SEED + 51)
-        for r in (1, 3, 9, 33, 64):
-            x = torch.randn((r, T_KERNEL), dtype=dtype, device=DEV, generator=gen)
-            xt = plane.plane_transpose(x)
-            back = plane.plane_transpose(xt)
-            torch.cuda.synchronize()
-            check(torch.equal(xt, x.t().contiguous()) and torch.equal(back, x), f"plane_transpose r={r} {dtype}")
-    print(f"plane_transpose f32 and f64, r in (1, 3, 9, 33, 64), T={T_KERNEL}, both directions: equal to x.t().contiguous()")
+        for w in TRANSPOSE_WIDTHS:
+            L = plane.transpose_run(w, T_KERNEL, dtype) or 32
+            for T in (1, L - 1, L, L + 1, T_KERNEL):
+                for offset in (0, 1) if T in (L, T_KERNEL) else (0,):
+                    buf = torch.randn(w * T + offset, dtype=dtype, device=DEV, generator=gen)
+                    x = buf[offset:].view(w, T)
+                    xt = plane.plane_transpose(x)
+                    back = plane.plane_transpose(xt)
+                    torch.cuda.synchronize()
+                    what = f"plane_transpose w={w} T={T} {dtype} storage offset {offset}"
+                    check(x.is_contiguous() and x.storage_offset() == offset, f"{what}: input not as meant")
+                    check(torch.equal(xt, x.t().contiguous()) and torch.equal(back, x), what)
+                    n += 2
+    print(
+        f"plane_transpose f32 and f64, w in {TRANSPOSE_WIDTHS}, T in (1, L-1, L, L+1, {T_KERNEL}), both directions, "
+        f"aligned and one value off at T = L and {T_KERNEL}: {n} launches equal to x.t().contiguous()"
+    )
 
 
 def phase_plane_slice():
@@ -1933,7 +2022,8 @@ def phase_plane_slice():
 
 def phase_plane_times(card: str, counts: dict, inputs) -> list:
     """Both plane kernels at the path's shapes (N = 10M, d = 3, float32)
-    against bound, plain version and x.t().contiguous(); pkfs end to end
+    against bound, plain version and x.t().contiguous() — the transpose in
+    its three moves, Fs in, covariances out and means out; pkfs end to end
     beside pkfs(LGSSMTL, "strip") and pkfs_dt; a profile of pkfs."""
     kernel, ts, R, yt, ssm = inputs
     T, d = N_FULL, 3
@@ -1942,6 +2032,7 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
         filt = strip._pack(timelast.make_filtering_elements_tl(ssm, yt, planes), T)
         b, C = moment_rows(plane.plane_scan(filt, d, "filter"), d)
         smooth = strip._pack(timelast._smoothing_elements_from_planes(*planes, b, C.reshape(d, d, T)), T)
+        means = b.clone()  # (3, T): the filtered means, moved out as (T, 3) by pkf
         del b, C
     out = {}
     for kind, x in (("filter", filt), ("smoother", smooth)):
@@ -1975,7 +2066,12 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
     del filt, smooth
     torch.cuda.empty_cache()
     tr = {}
-    for what, x in (("(T, 9) -> (9, T), Fs in", ssm.Fs.reshape(T, d * d)), ("(9, T) -> (T, 9), C out", planes[0].reshape(d * d, T))):
+    moves = (
+        ("(T, 9) -> (9, T), Fs in", ssm.Fs.reshape(T, d * d)),
+        ("(9, T) -> (T, 9), C out", planes[0].reshape(d * d, T)),
+        ("(3, T) -> (T, 3), means out", means),
+    )
+    for what, x in moves:
         check(x.is_contiguous(), f"plane_transpose {what}: input not contiguous")
         with torch.no_grad():
             k, p = plane.plane_transpose(x), plane.plane_transpose_plain(x)
@@ -1983,13 +2079,29 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
             check(torch.equal(k, p), f"plane_transpose {what} N={T}: not equal to x.t().contiguous()")
             err = max_abs(k, p)
             del k, p
-            ms = cuda_ms(lambda: plane.plane_transpose(x), reps=10)
-            plain_ms = cuda_ms(lambda: plane.plane_transpose_plain(x), reps=10)
-            library_ms = cuda_ms(lambda: x.t().contiguous(), reps=10)
-        bound_ms, bound_by = kernel_bound("plane_transpose", d, 0, T, 0, x.element_size())
-        print(f"plane_transpose {what} N={T} f32 [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, x.t().contiguous() {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
-        tr[what] = {"at": f"{what} N={T} f32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-    del planes
+            # Device time: each call queued behind a held stream, so that the
+            # wrapper's host work (tens of µs against a 0.1 ms kernel) is not
+            # timed; then events around the lone call, the host's share in.
+            held = {
+                name: probe_common.cuda_ms(fn, x.device, reps=20)
+                for name, fn in (
+                    ("ms", lambda: plane.plane_transpose(x)),
+                    ("plain_ms", lambda: plane.plane_transpose_plain(x)),
+                    ("library_ms", lambda: x.t().contiguous()),
+                )
+            }
+            lone = {"kernel": cuda_ms(lambda: plane.plane_transpose(x), reps=10), "library": cuda_ms(lambda: x.t().contiguous(), reps=10)}
+        bound_ms, bound_by = kernel_bound("plane_transpose", d, 0, T, 0, x.element_size(), rows=min(x.shape))
+        print(
+            f"plane_transpose {what} N={T} f32 [{card}]: kernel {held['ms']:.4f} ms, plain {held['plain_ms']:.4f} ms, "
+            f"x.t().contiguous() {held['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); events around a lone "
+            f"call: kernel {lone['kernel']:.4f} ms, x.t().contiguous() {lone['library']:.4f} ms"
+        )
+        tr[what] = {
+            "at": f"{what} N={T} f32", "max_abs_err": err, **held, "bound_ms": bound_ms, "bound_by": bound_by,
+            "lone_call_ms": lone,
+        }
+    del planes, moves, means
     torch.cuda.empty_cache()
 
     with torch.no_grad():

@@ -21,9 +21,12 @@
 // latency-bound on its own chain, and the card is kept busy by many
 // independent chunks in flight; the elements stay in registers and the F/Q
 // planes never exist in memory.  Memory access is the other bound: a thread
-// walks its own chunk, so a warp's loads and stores are strided by K and are
-// not coalesced (staging tiles through shared memory is left for later
-// work).  Each kernel below notes which of the two bounds it.
+// walks its own chunk, so a warp's loads are strided by K and are not
+// coalesced; reads of one or two rows (dt, y) are served by L1, and the
+// passes that read b and C pay for it.  A warp's stores strided by K touch 32
+// partial sectors each: the filter's pass 2 stages its stores through shared
+// memory instead (scan_passes.cuh: filter_apply_staged), the other passes
+// do not yet.  Each kernel below notes which of the two bounds it.
 #include <cuda_runtime.h>
 
 #include "scan_passes.cuh"
@@ -72,23 +75,42 @@ __global__ void __launch_bounds__(kThreads)
 // log p(y_t | y_<t) (pallas_dt.py:270-281) from the previous moments — the
 // prefix-included element before step t, or (0, P0) at global t = 0.
 // Per-thread sums are reduced per block in a fixed order (no atomics).
-// Bound: the strided stores of b and C (12 values a step at D = 3), not the
-// algebra it shares with pass 1; measured 9.1 ms at T = 10M f32.
+// Bound: bytes, 0.173 ms at T = 10M f32, D = 3 (dt, y and the prefixes in,
+// b and C out).  Its stores, 12 values a step at D = 3, are most of its
+// cost when each thread writes its own chunk's, strided by K: 8.5 ms of
+// device time on an NVIDIA H100 80GB HBM3 at 700 W, against 0.26 ms for
+// pass 1's same fold and reads.  So each warp stages kR steps of its 32
+// chunks in shared memory and writes every row as whole 32-byte sectors
+// (filter_apply_staged; FilterStage<S, D>::kBytes of dynamic shared memory
+// a block, 54 KB at D = 3 float, above the 48 KB static limit, hence the
+// opt-in in the launcher): 0.87 ms on the same card.
 // ---------------------------------------------------------------------------
+extern __shared__ __align__(16) unsigned char pgt_dt_smem[];
+
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
     dt_filter_apply_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ prefix,
                            const S* __restrict__ dt, const S* __restrict__ y, S* __restrict__ b_out,
                            S* __restrict__ C_out, S* __restrict__ ell_parts, long long T, int K, long long n_chunks) {
   const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  S ll = S(0);
-  if (c < n_chunks) {
-    DtFilterSource<S, D> p;
-    p.load(scal, degree);
-    p.dt = dt;
-    ll = filter_apply_chunk<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c);
-  }
+  S* stage = reinterpret_cast<S*>(pgt_dt_smem) + (threadIdx.x / 32) * FilterStage<S, D>::kWarp;
+  DtFilterSource<S, D> p;
+  p.load(scal, degree);
+  p.dt = dt;
+  const S ll = filter_apply_staged<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c, stage);
   block_sum<S>(ll, ell_parts);
+}
+
+template <typename S, int D>
+int launch_dt_filter_apply(int degree, const void* scal, const void* prefix, const void* dt, const void* y, void* b,
+                           void* C, void* ell_parts, long long T, int K, long long n_chunks, cudaStream_t st) {
+  auto kern = dt_filter_apply_kernel<S, D>;
+  constexpr int bytes = FilterStage<S, D>::kBytes;
+  const cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  kern<<<n_blocks(n_chunks), kThreads, bytes, st>>>((const S*)scal, degree, (const S*)prefix, (const S*)dt,
+                                                     (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, n_chunks);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -159,18 +181,26 @@ int pgt_dt_filter_scan(int is64, int d, int degree, const void* scal, const void
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory a block of pgt_dt_filter_apply takes, in bytes.
+int pgt_dt_filter_apply_smem(int is64, int d) {
+  int bytes = 0;
+#define PGT_LAUNCH(S, DD) bytes = pgt::FilterStage<S, DD>::kBytes
+  PGT_DISPATCH(is64, d, PGT_LAUNCH);
+#undef PGT_LAUNCH
+  return bytes;
+}
+
 int pgt_dt_filter_apply(int is64, int d, int degree, const void* scal, const void* prefix, const void* dt,
                         const void* y, void* b, void* C, void* ell_parts, long long T, int K, void* stream) {
   if (pgt::bad_shape(d, degree, T, K)) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
-  cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S, DD)                                                                          \
-  pgt::dt_filter_apply_kernel<S, DD><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(           \
-      (const S*)scal, degree, (const S*)prefix, (const S*)dt, (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, \
-      n_chunks)
+  int rc = 0;
+#define PGT_LAUNCH(S, DD)                                                                                    \
+  rc = pgt::launch_dt_filter_apply<S, DD>(degree, scal, prefix, dt, y, b, C, ell_parts, T, K, n_chunks, \
+                                          (cudaStream_t)stream)
   PGT_DISPATCH(is64, d, PGT_LAUNCH);
 #undef PGT_LAUNCH
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 int pgt_dt_smoother_scan(int is64, int d, int degree, const void* scal, const void* dt, const void* b, const void* C,

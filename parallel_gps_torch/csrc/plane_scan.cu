@@ -59,11 +59,22 @@
 //    flag is raised and read only after).  Reads of another block's agg /
 //    incl bypass L1 (__ldcg), which is not coherent across SMs.
 //
-// plane_transpose: a (rows, cols) → (cols, rows) copy through shared memory,
-// padded against bank conflicts: where a side is at most 32 wide (the d²
-// rows of a plane) a block moves 128 steps of the long side, both sides as
-// coalesced runs; else 32 × 32 tiles.  Ragged edges are masked.  Bound:
-// bytes (Fs of N = 10M, D = 3, float32: 0.72 GB, 0.215 ms).
+// plane_transpose: a (rows, cols) → (cols, rows) copy through shared memory.
+// Bound: bytes (Fs of N = 10M, D = 3, float32: 0.72 GB, 0.215 ms; the 3-row
+// means 0.072 ms).  A copy is as fast as the bytes it keeps in flight, so
+// where a side is w ≤ 64 wide (every d and d² of the path for d ≤ 8) a block
+// moves L steps of the long side, L the largest power of two with w·L values
+// in 40 KB (1,024 at w = 9 float): one contiguous run of w·L values on one
+// side, w runs of L on the other, each read and written as 16-byte vectors,
+// four loads in flight a thread before it stores any, the run walked by
+// incrementing (step, row) with no division a value.  Where a pointer is not
+// 16-byte aligned or the long side is not a multiple of four floats (two
+// doubles) the same kernel moves a value at a time.  Both sides wider than
+// 64: 32 × 32 tiles (no path of the port takes them).  Ragged edges are
+// masked.  Measured at N = 10M float32 on an NVIDIA H100 80GB HBM3 at 700 W
+// (device time): 0.245 ms Fs in and 0.244 ms covariances out, against
+// 1.156 and 0.299 ms for x.t().contiguous(); 0.086 ms for the 3-row means
+// out (bound 0.072), against 0.109 ms.
 //
 // One translation unit per state dimension and scalar type: compile with
 // -DPGT_D=<1..8> -DPGT_F64=<0|1> (kalman/_cuda.py); entry points carry both
@@ -269,68 +280,183 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-constexpr int kTile = 32;     // the transpose's tile edge
+constexpr int kTile = 32;     // the wide transpose's tile edge
 constexpr int kTileRows = 8;  // rows of threads: each thread moves kTile / kTileRows values of a tile
 constexpr int kTransposeThreads = kTile * kTileRows;
-// Long-side steps a block moves where the other side is narrow: 4–5 values
-// a thread in flight.  (Fs of N = 10M, d = 3, float32 on an NVIDIA H100 80GB
-// HBM3 at 700 W, in two separate calls: 0.343 ms at 128, 0.403 ms at 256,
-// whose tile halves the blocks an SM holds.)
-constexpr int kRun = 128;
+constexpr int kNarrow = 64;            // widest side the narrow path takes
+constexpr int kRunBytes = 40 * 1024;   // what a narrow block stages, at most
+constexpr int kBatch = 4;              // vectors a thread loads before it stores any
 
-// Blocks of the transpose: where a side is at most kTile wide (the d² rows
-// of a plane), a block moves kRun steps of the long side; else a kTile ×
-// kTile tile.
-inline long long transpose_blocks(long long rows, long long cols) {
-  if (cols <= kTile) return (rows + kRun - 1) / kRun;
-  if (rows <= kTile) return (cols + kRun - 1) / kRun;
+// Long-side steps a block of the narrow path moves: the largest power of two
+// L ≥ 64 with w·L values in kRunBytes (1,024 at w = 9 float, 128 at w = 64
+// float, 64 at w = 64 double); 0 where both sides are wider than kNarrow.
+inline int transpose_run(long long rows, long long cols, int itemsize) {
+  const long long w = cols <= kNarrow ? cols : rows;
+  if (w > kNarrow) return 0;
+  int L = 64;
+  while (2LL * L * w * itemsize <= kRunBytes) L *= 2;
+  return L;
+}
+
+inline long long transpose_blocks(long long rows, long long cols, int run) {
+  if (run) return ((cols <= kNarrow ? rows : cols) + run - 1) / run;
   return ((rows + kTile - 1) / kTile) * ((cols + kTile - 1) / kTile);
 }
 
-// out (cols, rows) = in (rows, cols)ᵀ.  A narrow side w ≤ kTile: the block's
-// kRun steps of the long side are one contiguous run of w·kRun values on the
-// narrow-major side and w runs of kRun on the other, so every load and store
-// is coalesced and each thread has several in flight (a block a 32 × 32 tile
-// would move 1.2 KB, too little to cover the memory latency).  Both sides
-// wide: a kTile × kTile tile, a warp a row of it.
+// V values of S, loaded and stored as one access of V·sizeof(S) bytes.
+template <typename S, int V>
+struct alignas(V * sizeof(S)) Pack {
+  S v[V];
+};
+
+// A position (s, k) on the narrow-major side, k < w, walked without
+// division, with ``a`` its tile offset k·stride + s kept alongside.
+struct Walk {
+  int k, a, w, stride;
+  __device__ Walk(int e, int w_, int stride_) : k(e % w_), a((e % w_) * stride_ + e / w_), w(w_), stride(stride_) {}
+  __device__ __forceinline__ void next() {  // (s, k) → (s, k + 1)
+    a += stride;
+    if (++k == w) {
+      k = 0;
+      a += 1 - w * stride;
+    }
+  }
+  __device__ __forceinline__ void skip(int ds, int dk) {  // ds·w + dk values on, dk < w
+    k += dk;
+    a += dk * stride + ds;
+    if (k >= w) {
+      k -= w;
+      a += 1 - w * stride;
+    }
+  }
+};
+
+// The narrow path.  The block's n ≤ L steps of the long side are one run of
+// w·n values on the narrow-major side (from s0·w) and w runs of n on the
+// other (row k from k·len + s0); the tile holds them as tile[k·(L+V) + s].
+// Accesses to device memory are V values wide (16 bytes where the caller
+// found both pointers aligned and len a multiple of V, else one value),
+// kBatch of them in flight a thread; the narrow-major run is walked by
+// incrementing (s, k), the rows by a shift.  The tile's rows are read and
+// written V values at a time too (the pad of V keeps them 16-byte aligned),
+// the narrow-major run a value at a time.
+template <typename S, int V>
+__device__ __forceinline__ void transpose_narrow(const S* __restrict__ in, S* __restrict__ out, long long len, int w,
+                                                 bool narrow_in, int L, S* tile) {
+  typedef Pack<S, V> P;
+  constexpr int NT = kTransposeThreads;
+  const int tid = threadIdx.x;
+  const long long s0 = (long long)blockIdx.x * L;
+  const int n = (int)((len - s0 < L) ? len - s0 : L);
+  const int stride = L + V;
+  const int run = w * n;                 // values of the narrow-major run
+  const int run_vecs = run / V;          // its whole vectors
+  const int row_vecs = L / V;            // vectors a row holds in a full block, a power of two
+  const int row_shift = __ffs(row_vecs) - 1;
+  const int n_vecs = n / V;              // whole vectors of each row here
+  const bool tail = n_vecs * V < n;      // values past them (the last block only)
+  // Thread tid takes the run's vectors tid, tid + NT, …: its walk starts at
+  // value V·tid and skips divmod(V·NT, w) a vector, both divided once.
+  const int ds = V * NT / w, dk = V * NT - ds * w;
+  Walk walk(V * tid, w, stride);
+  const S* run_in = in + s0 * w;
+  S* run_out = out + s0 * w;
+  if (narrow_in) {
+#pragma unroll 1
+    for (int u0 = tid; u0 < run_vecs; u0 += kBatch * NT) {
+      P v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (u0 + b * NT < run_vecs) v[b] = reinterpret_cast<const P*>(run_in)[u0 + b * NT];
+#pragma unroll
+      for (int b = 0; b < kBatch && u0 + b * NT < run_vecs; ++b) {
+        Walk at = walk;
+#pragma unroll
+        for (int j = 0; j < V; ++j, at.next()) tile[at.a] = v[b].v[j];
+        walk.skip(ds, dk);
+      }
+    }
+    if (tid == 0) {  // the run's values past its whole vectors (the last block only)
+      Walk at(run_vecs * V, w, stride);
+      for (int e = run_vecs * V; e < run; ++e, at.next()) tile[at.a] = run_in[e];
+    }
+  } else {
+#pragma unroll 1
+    for (int i0 = tid; i0 < w * row_vecs; i0 += kBatch * NT) {
+      P v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * NT, k = i >> row_shift, q = i & (row_vecs - 1);
+        if (k < w && q < n_vecs) v[b] = reinterpret_cast<const P*>(in + k * len + s0)[q];
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * NT, k = i >> row_shift, q = i & (row_vecs - 1);
+        if (k < w && q < n_vecs) reinterpret_cast<P*>(tile + k * stride)[q] = v[b];
+      }
+    }
+    for (int k = tid; tail && k < w; k += NT)  // each row's last values
+      for (int s = n_vecs * V; s < n; ++s) tile[k * stride + s] = in[k * len + s0 + s];
+  }
+  __syncthreads();
+  if (narrow_in) {
+#pragma unroll 4
+    for (int i = tid; i < w * row_vecs; i += NT) {
+      const int k = i >> row_shift, q = i & (row_vecs - 1);
+      if (k < w && q < n_vecs) reinterpret_cast<P*>(out + k * len + s0)[q] = reinterpret_cast<const P*>(tile + k * stride)[q];
+    }
+    for (int k = tid; tail && k < w; k += NT)
+      for (int s = n_vecs * V; s < n; ++s) out[k * len + s0 + s] = tile[k * stride + s];
+  } else {
+#pragma unroll 4
+    for (int u = tid; u < run_vecs; u += NT, walk.skip(ds, dk)) {
+      P v;
+      Walk at = walk;
+#pragma unroll
+      for (int j = 0; j < V; ++j, at.next()) v.v[j] = tile[at.a];
+      reinterpret_cast<P*>(run_out)[u] = v;
+    }
+    if (tid == 0) {
+      Walk at(run_vecs * V, w, stride);
+      for (int e = run_vecs * V; e < run; ++e, at.next()) run_out[e] = tile[at.a];
+    }
+  }
+}
+
+// out (cols, rows) = in (rows, cols)ᵀ.  A side w ≤ kNarrow (every d and d² of
+// the plane path for d ≤ 8): the narrow path, ``run`` long-side steps a
+// block; ``vec`` picks its 16-byte accesses.  Both sides wide: a kTile ×
+// kTile tile, a warp a row of it.  The tile is the dynamic shared memory.
 template <typename S>
 __global__ void __launch_bounds__(kTransposeThreads)
-    plane_transpose_kernel(const S* __restrict__ in, S* __restrict__ out, long long rows, long long cols) {
-  __shared__ S tile[kTile][kRun + 1];  // [narrow index][long index]; padded against bank conflicts
-  const int tid = threadIdx.x;
-  const long long b = blockIdx.x;
-  if (cols <= kTile || rows <= kTile) {
-    const bool long_rows = cols <= kTile;  // (T, w) → (w, T); else (w, T) → (T, w)
-    const long long len = long_rows ? rows : cols;
-    const int w = (int)(long_rows ? cols : rows);
-    const long long s0 = b * kRun;
-    const int n = (int)((len - s0 < kRun) ? len - s0 : kRun);
-    if (long_rows) {
-      for (int i = tid; i < n * w; i += kTransposeThreads) tile[i % w][i / w] = in[s0 * w + i];
-    } else {
-      for (int i = tid; i < n * w; i += kTransposeThreads) tile[i / n][i % n] = in[(i / n) * cols + s0 + i % n];
-    }
-    __syncthreads();
-    if (long_rows) {
-      for (int i = tid; i < n * w; i += kTransposeThreads) out[(i / n) * rows + s0 + i % n] = tile[i / n][i % n];
-    } else {
-      for (int i = tid; i < n * w; i += kTransposeThreads) out[s0 * w + i] = tile[i % w][i / w];
-    }
+    plane_transpose_kernel(const S* __restrict__ in, S* __restrict__ out, long long rows, long long cols, int run,
+                           int vec) {
+  S* tile = reinterpret_cast<S*>(pgt_plane_smem);
+  if (run) {
+    const bool narrow_in = cols <= kNarrow;  // (len, w) → (w, len); else (w, len) → (len, w)
+    const long long len = narrow_in ? rows : cols;
+    const int w = (int)(narrow_in ? cols : rows);
+    if (vec)
+      transpose_narrow<S, 16 / sizeof(S)>(in, out, len, w, narrow_in, run, tile);
+    else
+      transpose_narrow<S, 1>(in, out, len, w, narrow_in, run, tile);
     return;
   }
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x;
   const long long col_tiles = (cols + kTile - 1) / kTile;
   const long long r0 = (b / col_tiles) * kTile, c0 = (b % col_tiles) * kTile;
   const int tx = tid % kTile, ty = tid / kTile;
 #pragma unroll
   for (int j = ty; j < kTile; j += kTileRows) {
     const long long r = r0 + j, c = c0 + tx;
-    if (r < rows && c < cols) tile[j][tx] = in[r * cols + c];
+    if (r < rows && c < cols) tile[j * (kTile + 1) + tx] = in[r * cols + c];
   }
   __syncthreads();
 #pragma unroll
   for (int j = ty; j < kTile; j += kTileRows) {
     const long long c = c0 + j, r = r0 + tx;
-    if (c < cols && r < rows) out[c * rows + r] = tile[tx][j];
+    if (c < cols && r < rows) out[c * rows + r] = tile[tx * (kTile + 1) + j];
   }
 }
 
@@ -388,13 +514,26 @@ int PGT_ENTRY(pgt_plane_scan)(int smoother, int reverse, const void* in, void* o
 }
 
 #if PGT_D == 1
+// Long-side steps a block of the transpose moves for this shape (0: the
+// both-sides-wide tiles).
+int PGT_TYPED(pgt_plane_transpose_run)(long long rows, long long cols) {
+  return pgt::transpose_run(rows, cols, (int)sizeof(pgt_scalar));
+}
+
 // in: contiguous (rows, cols); out: contiguous (cols, rows).
 int PGT_TYPED(pgt_plane_transpose)(const void* in, void* out, long long rows, long long cols, void* stream) {
   if (rows < 1 || cols < 1) return pgt::kBadArgs;
-  const long long n_blocks = pgt::transpose_blocks(rows, cols);
+  typedef pgt_scalar S;
+  constexpr int V = 16 / sizeof(S);
+  const int run = pgt::transpose_run(rows, cols, (int)sizeof(S));
+  const long long n_blocks = pgt::transpose_blocks(rows, cols, run);
   if (n_blocks > 0x7fffffffLL) return pgt::kBadArgs;
-  pgt::plane_transpose_kernel<pgt_scalar><<<(unsigned int)n_blocks, pgt::kTransposeThreads, 0, (cudaStream_t)stream>>>(
-      (const pgt_scalar*)in, (pgt_scalar*)out, rows, cols);
+  const long long len = cols <= pgt::kNarrow ? rows : cols;
+  const int vec = run && (unsigned long long)in % 16 == 0 && (unsigned long long)out % 16 == 0 && len % V == 0;
+  const size_t bytes = sizeof(S) * (run ? (size_t)(cols <= pgt::kNarrow ? cols : rows) * (run + (vec ? V : 1))
+                                        : (size_t)pgt::kTile * (pgt::kTile + 1));
+  pgt::plane_transpose_kernel<S><<<(unsigned int)n_blocks, pgt::kTransposeThreads, bytes, (cudaStream_t)stream>>>(
+      (const S*)in, (S*)out, rows, cols, run, vec);
   return (int)cudaGetLastError();
 }
 #endif

@@ -124,6 +124,77 @@ __device__ __forceinline__ S filter_apply_chunk(const Src& p, const S* prefix, c
   return ll;
 }
 
+// Shared memory of filter_apply_staged: each warp stages kR steps of its 32
+// chunks' kRows output rows (b, then C), a chunk's kR values of a row in a
+// slot of kR + 1 (the pad keeps the warp's writes, 32 slots kR+1 apart, on
+// distinct banks).  kR fills one 32-byte sector: 8 steps at float, 4 at
+// double.
+template <typename S, int D>
+struct FilterStage {
+  static constexpr int kR = 32 / sizeof(S);
+  static constexpr int kRows = D + D * D;
+  static constexpr int kSlot = kR + 1;
+  static constexpr int kRow = 32 * kSlot;  // one row of a warp's region
+  static constexpr int kWarp = kRows * kRow;
+  static constexpr int kBytes = (kThreads / 32) * kWarp * (int)sizeof(S);
+};
+
+// Filter pass 2 with coalesced stores: filter_apply_chunk's fold, in the same
+// order, with the moments staged through ``stage`` (the calling warp's
+// FilterStage<S, D>::kWarp values of shared memory).  The warp folds kR steps
+// of each of its 32 chunks into shared memory, synchronises, and writes each
+// output row as 32 full sectors, four chunks' sectors a store instruction, in
+// place of 32 partial sectors a store.  Every thread of the warp calls it,
+// chunk or not (c ≥ n_chunks); the round count is the warp's first chunk's.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ S filter_apply_staged(const Src& p, const S* prefix, const S* y, S* b_out, S* C_out,
+                                                 long long T, int K, long long n_chunks, long long c, S* stage) {
+  typedef FilterStage<S, D> G;
+  constexpr int R = G::kR;
+  const int lane = threadIdx.x & 31;
+  const long long c0 = c - lane;  // the warp's first chunk
+  const long long t0 = c * K;
+  const long long t1 = (c < n_chunks) ? ((t0 + K < T) ? t0 + K : T) : t0;
+  const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
+  S ll = S(0);
+  Filt<S, D> acc, e;
+  if (c < n_chunks) load_filt<S, D>(prefix, n_chunks, c, acc);
+  S* slot = stage + lane * G::kSlot;
+#pragma unroll 1
+  for (int r0 = 0; r0 < span; r0 += R) {
+#pragma unroll 1
+    for (int s = 0; s < R; ++s) {
+      const long long t = t0 + r0 + s;
+      if (t >= t1) break;
+      S F[D * D], Q[D * D], yc;
+      bool observed;
+      filter_step<S, D>(p, y, t, F, Q, yc, observed, e);
+      if (observed) ll += step_loglik<S, D>(p, F, Q, yc, acc, t == 0);
+      acc = filt_combine<S, D>(acc, e);
+#pragma unroll
+      for (int a = 0; a < D; ++a) slot[a * G::kRow + s] = acc.b[a];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.C[q];
+    }
+    __syncwarp();
+    // Value i·32 + lane of a row: step lane % R of chunk i·(32/R) + lane / R.
+    const int s = lane % R;
+#pragma unroll 1
+    for (int row = 0; row < G::kRows; ++row) {
+      S* out = row < D ? b_out + row * T : C_out + (row - D) * T;
+      const S* src = stage + row * G::kRow + s;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int j = i * (32 / R) + lane / R;
+        const long long t = (c0 + j) * K + r0 + s;
+        if (r0 + s < K && t < T) out[t] = src[j * G::kSlot];
+      }
+    }
+    __syncwarp();
+  }
+  return ll;
+}
+
 // Sum of one value per thread over the block, in a fixed tree (no atomics);
 // thread 0 writes it to parts[blockIdx.x].  Every thread of the block calls it.
 template <typename S>

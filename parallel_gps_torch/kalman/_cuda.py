@@ -110,6 +110,7 @@ def load():
     sigs = {
         "pgt_dt_filter_scan": [i, i, i, p, p, p, p, ll, i, p],
         "pgt_dt_filter_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
+        "pgt_dt_filter_apply_smem": [i, i],
         "pgt_dt_smoother_scan": [i, i, i, p, p, p, p, p, ll, i, p],
         "pgt_dt_smoother_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
         "pgt_dt_fisher": [i, i, i, p, p, ll, p, ll, p, p, p, p, p, p, p, ll, i, i, p],
@@ -137,6 +138,7 @@ def load():
             sigs[f"pgt_plane_scan_threads_d{d}_f{bits}"] = []
     for bits in (32, 64):
         sigs[f"pgt_plane_transpose_f{bits}"] = [p, p, ll, ll, p]
+        sigs[f"pgt_plane_transpose_run_f{bits}"] = [ll, ll]
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -137,6 +137,15 @@ def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False) -> Tens
     return out
 
 
+def transpose_run(rows: int, cols: int, dtype) -> int:
+    """Long-side steps a block of the transpose kernel moves for a (rows,
+    cols) input: the narrow path's L where a side is at most 64 wide, 0 for
+    the both-sides-wide tiles."""
+    from parallel_gps_torch.kalman import _cuda
+
+    return getattr(_cuda.load(), f"pgt_plane_transpose_run_f{64 if dtype == torch.float64 else 32}")(rows, cols)
+
+
 def plane_transpose(x: Tensor) -> Tensor:
     """(r, c) → (c, r), contiguous; one launch."""
     if x.device.type == "cpu":
