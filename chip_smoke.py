@@ -13,9 +13,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   3. kernels vs plain: for Matern12/32/52 at T = 65,537 with ~10% missing
      observations, the CUDA filter, smoother and Fisher tail of the dt-engine
      against their plain PyTorch versions, float64 to the JAX interpret-test
-     tolerances, float32 against float64 truth; the filter again at the
-     lengths where its staged pass 2 has ragged warps, rounds and blocks
-     (APPLY_EDGE_T); then the four
+     tolerances, float32 against float64 truth; the filter and the smoother
+     again at the lengths where their staged pass 2 has ragged warps, rounds
+     and blocks (APPLY_EDGE_T); then the four
      plane-streaming strip kernels the same way at d = 1, 2, 3 (Matérn
      planes) and d = 4, 6, 8 (RBF planes), and at d = 3 the strip engine
      against the dt-engine on the same data;
@@ -58,9 +58,14 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      engine="strip" (kalman/plane.py, kernels in csrc/plane_scan.cu): the
      plane scan against its plain version at T = 65,537 (filter and smoother
      rows of d = 1, 2, 3 Matérn and d = 4, 6, 8 RBF models, float64 to the
-     JAX interpret-test tolerances, float32 against float64 truth), at one
-     tile (the in-block scan alone) and at T = 1, and its look-back's bounded
-     spin raising; the plane transpose bit for bit against
+     JAX interpret-test tolerances, float32 against float64 truth); at every
+     state dimension d = 1..8, both
+     kinds, both directions, float64 and float32, at the lengths where its
+     tiles have ragged edges — T = 1, and one tile, where the look-back does
+     nothing and block_scan (the port of _local_scan_kernel) works alone —
+     and where a look-back can reach past a window of 32 predecessors
+     (plane_edge_lengths); and its look-back's bounded spin raising; the
+     plane transpose bit for bit against
      x.t().contiguous() at every width and length where its blocks change
      shape, aligned or not (TRANSPOSE_WIDTHS); then the path on configuration (i)'s data at
      N = 10M float32 with the launch counts it requires and no plain
@@ -72,6 +77,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``ab_timers(label)`` runs this script's timers alone, on the Matern52 entry
+points, dt_smoother_apply, plane_scan and the time-first pkfs, so that two
+trees can be compared in one call (each with this file copied to its root):
+
+    python3 -c "import chip_smoke as c; c.ab_timers('parent')"
 """
 from __future__ import annotations
 
@@ -490,10 +501,16 @@ def phase_build() -> None:
                 f"{frame.get('spill stores', '?')} B spill stores, {frame.get('spill loads', '?')} B spill loads"
             )
             entry = None
-    # The dynamic shared memory of the two kernels that stage through it.
+    # The dynamic shared memory of the kernels that stage through it.
     lib = _cuda.load()
-    staged = {f"f{bits} D={d}": lib.pgt_dt_filter_apply_smem(int(bits == 64), d) for bits in (32, 64) for d in (1, 2, 3)}
-    print(f"  dynamic smem a block: dt_filter_apply {staged}")
+    for name in ("dt_filter_apply", "dt_smoother_apply"):
+        smem = getattr(lib, f"pgt_{name}_smem")
+        staged = {f"f{bits} D={d}": smem(int(bits == 64), d) for bits in (32, 64) for d in (1, 2, 3)}
+        print(f"  dynamic smem a block: {name} {staged}")
+    for dtype in (torch.float32, torch.float64):
+        tiling = {d: plane.scan_tiling(d, dtype) for d in range(1, plane.MAX_KERNEL_D + 1)}
+        print(f"  plane_scan {dtype}, by D: threads x steps a thread " + ", ".join(
+            f"D={d} {nt}x{st}" for d, (nt, st) in tiling.items()))
     for dtype in (torch.float32, torch.float64):
         size = torch.finfo(dtype).bits // 8
         runs = {w: plane.transpose_run(N_FULL, w, dtype) for w in (1, 3, 9, 16, 36, 64)}
@@ -564,50 +581,64 @@ def phase_kernels() -> None:
         for k, (a, b) in errs.items():
             floor = f32_sum_floor(T_KERNEL) if k in FISHER_OUTPUTS[:4] else F32_FLOOR
             check(a <= max(F32_FACTOR * b, floor), f"{name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
-    check_filter_apply_edges(cases)
+    check_apply_edges(cases)
     check_strip_kernels(t, y)
 
 
-# The edges of dt_filter_apply's staging (a warp stages 8 (f32) or 4 (f64)
-# steps of its 32 chunks of 64 steps, a block is 128 chunks): a short last
-# chunk; a warp's chunks and one past them with a short last round; a block's
-# chunks and one chunk past them, 5 steps long.
+# The edges of the staged pass-2 kernels, dt_filter_apply and
+# dt_smoother_apply (a warp stages 8 (f32) or 4 (f64) steps of its 32 chunks
+# of 64 steps, a block is 128 chunks): a short last chunk; a warp's chunks
+# and one past them with a short last round; a block's chunks and one chunk
+# past them, 5 steps long.
 APPLY_EDGE_T = (1, 63, 64, 65, 2_047, 2_048, 2_053, 8_191, 8_192, 8_197)
 
 
-def check_filter_apply_edges(cases) -> None:
-    """The dt filter through the kernels (its pass 2 the staged apply) against
-    the plain filter at APPLY_EDGE_T: float64 to the JAX interpret tests'
-    tolerances, float32 against float64 truth by the 10× rule."""
+def check_apply_edges(cases) -> None:
+    """The dt filter and smoother through the kernels (their pass 2 the
+    staged applies) against the plain versions at APPLY_EDGE_T: float64 to
+    the JAX interpret tests' tolerances (filter 1e-9 / 1e-10, smoother
+    1e-8 / 1e-9), float32 against float64 truth by the 10× rule.  The
+    smoothers run on the plain filter's moments, and the float32 smoothers'
+    truth is the float64 plain smoother on the same float32 moments."""
     worst = {}
     for T in APPLY_EDGE_T:
         t, y = make_data(T, SEED + 7)
         for kcls, params in cases:
             what = f"{kcls.__name__} T={T}"
             with torch.no_grad():
-                fam, co, P0, H, R, dts, yt = engine_inputs(kcls, params, t, y, torch.float64)
-                b_k, C_k, ell_k = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
-                b_p, C_p, ell_p = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+                fam, co64, P064, H, R, dts64, yt = engine_inputs(kcls, params, t, y, torch.float64)
+                b_k, C_k, ell_k = dt.strip_filter_dt(fam, co64, P064, H, R, dts64, yt)
+                b_p, C_p, ell_p = dt.strip_filter_dt_plain(fam, co64, P064, H, R, dts64, yt)
+                g_k, L_k = dt.strip_smoother_dt(fam, co64, P064, dts64, b_p, C_p)
+                g_p, L_p = dt.strip_smoother_dt_plain(fam, co64, P064, dts64, b_p, C_p)
                 fam, co, P0, H, R, dts, yt = engine_inputs(kcls, params, t, y, torch.float32)
                 b_k32, C_k32, ell_k32 = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
                 b_q32, C_q32, ell_q32 = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+                g_k32, L_k32 = dt.strip_smoother_dt(fam, co, P0, dts, b_q32, C_q32)
+                g_q32, L_q32 = dt.strip_smoother_dt_plain(fam, co, P0, dts, b_q32, C_q32)
+                g_t, L_t = dt.strip_smoother_dt_plain(fam, co64, P064, dts64, b_q32.double(), C_q32.double())
             torch.cuda.synchronize()
             check(allclose(b_k, b_p, 1e-9, 1e-10) and allclose(C_k, C_p, 1e-9, 1e-10), f"{what} f64 filter moments")
             check(abs(float(ell_k - ell_p)) <= 1e-9 * abs(float(ell_p)), f"{what} f64 LML {float(ell_k)} vs {float(ell_p)}")
+            check(allclose(g_k, g_p, 1e-8, 1e-9) and allclose(L_k, L_p, 1e-8, 1e-9), f"{what} f64 smoother moments")
             scale = max(abs(float(ell_p)), 1e-300)
             errs = {
                 "b": (rel_err(b_k32, b_p), rel_err(b_q32, b_p)),
                 "C": (rel_err(C_k32, C_p), rel_err(C_q32, C_p)),
                 "ell": (abs(float(ell_k32) - float(ell_p)) / scale, abs(float(ell_q32) - float(ell_p)) / scale),
+                "g": (rel_err(g_k32, g_t), rel_err(g_q32, g_t)),
+                "L": (rel_err(L_k32, L_t), rel_err(L_q32, L_t)),
             }
             for k, (a, b_) in errs.items():
                 check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} f32 {k}: kernel {a:.3e} vs plain {b_:.3e}")
-            worst[what] = (max(max_abs(b_k, b_p), max_abs(C_k, C_p)), max(a / max(b_, F32_FLOOR / F32_FACTOR) for a, b_ in errs.values()))
-    top = max(worst, key=lambda k: worst[k][0])
-    print(
-        f"dt filter at T in {APPLY_EDGE_T}, Matern12/32/52: f64 |moments| max {worst[top][0]:.3e} ({top}); f32 "
-        f"kernel error over plain f32 error at most {max(v[1] for v in worst.values()):.2f} (limit {F32_FACTOR:.0f})"
-    )
+            worst[what] = (
+                max(max_abs(b_k, b_p), max_abs(C_k, C_p)), max(max_abs(g_k, g_p), max_abs(L_k, L_p)),
+                max(a / max(b_, F32_FLOOR / F32_FACTOR) for a, b_ in errs.values()),
+            )
+    for i, part in ((0, "filter"), (1, "smoother")):
+        top = max(worst, key=lambda k: worst[k][i])
+        print(f"dt {part} at T in {APPLY_EDGE_T}, Matern12/32/52: f64 |moments| max {worst[top][i]:.3e} ({top})")
+    print(f"  f32 kernel error over plain f32 error at most {max(v[2] for v in worst.values()):.2f} (limit {F32_FACTOR:.0f})")
 
 
 # The strip kernels' cases: Matérn planes at d ≤ 3, RBF planes above.  The
@@ -1650,29 +1681,38 @@ def phase_profile(card: str, what: str, model, queries) -> None:
     model.zero_grad(set_to_none=True)
 
 
-def profile_calls(card: str, what: str, calls: dict) -> None:
-    """``phase_profile`` for the given {name: call}."""
+def profile_call(fn):
+    """(wall ms, {kernel: device ms}, kernels) of one call: the wall is the
+    host-clock median of five unprofiled calls after one, each ended by a
+    synchronise; the device times come from torch.profiler over one more
+    call, this package's kernels by name and the rest together.  An empty
+    dict: the profiler recorded no device events."""
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ours = re.search(r"pgt::(\w+?)_kernel", e.name)
+            key = ours.group(1) if ours else "torch kernels and copies"
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    return float(np.median(walls[1:])), by_name, n_kernels
+
+
+def profile_calls(card: str, what: str, calls: dict) -> None:
+    """``phase_profile`` for the given {name: call}."""
     for call, fn in calls.items():
-        walls = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
-        wall = float(np.median(walls[1:]))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name, n_kernels = {}, 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ours = re.search(r"pgt::(\w+?)_kernel", e.name)
-                key = ours.group(1) if ours else "torch kernels and copies"
-                by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
-                n_kernels += 1
+        wall, by_name, n_kernels = profile_call(fn)
         if not by_name:
             print(f"profile {call} {what}: the profiler recorded no device events; device time not measured")
             continue
@@ -1799,10 +1839,6 @@ def count_plain_plane_calls() -> None:
         setattr(plane, name, counting)
 
 
-def plane_threads(d: int, dtype) -> int:
-    return getattr(_cuda.load(), f"pgt_plane_scan_threads_d{d}_f{64 if dtype == torch.float64 else 32}")()
-
-
 def plane_rows(make, t, y, dtype):
     """Packed filtering rows of the kernel's model, smoothing rows from the
     plain filter's moments, and the state dimension, on the card."""
@@ -1865,25 +1901,94 @@ def phase_plane_kernels() -> None:
         if d == 3:  # the directions the path does not take
             rows64.update({("filter", True): filt64, ("smoother", False): smooth64})
         check_plane_case(f"{name} T={T_KERNEL}", d, rows64, rows32)
-        # One tile: the look-back does nothing, so this holds block_scan
-        # (the port of _local_scan_kernel) alone; and one step.
-        for T in (plane_threads(d, torch.float64), 1):
-            cut = {key: x[:, :T].contiguous() for key, x in rows64.items()}
-            check_plane_case(f"{name} T={T}", d, cut, None)
         del filt64, smooth64, filt32, smooth32
+    check_plane_edges()
     # The look-back's spin is bounded: with no polls allowed every tile after
-    # the first overruns, and the wrapper raises instead of hanging.
-    filt, _, _ = plane_rows(STRIP_CASES[2][1], t, y, torch.float32)
-    max_polls, plane.MAX_POLLS = plane.MAX_POLLS, 0
-    try:
-        plane.plane_scan(filt, 3, "filter")
-    except RuntimeError as err:
-        print(f"plane_scan with MAX_POLLS = 0 raised, as it must: {err}")
-    else:
-        raise AssertionError("plane_scan with MAX_POLLS = 0 did not raise")
-    finally:
-        plane.MAX_POLLS = max_polls
+    # the first overruns, and the wrapper raises instead of hanging; in a
+    # unit of each look-back (d = 3 filter rows: the warp's; d = 6: one
+    # thread's).
+    for name, make in (STRIP_CASES[2], STRIP_CASES[4]):
+        filt, _, d = plane_rows(make, t, y, torch.float32)
+        max_polls, plane.MAX_POLLS = plane.MAX_POLLS, 0
+        try:
+            plane.plane_scan(filt, d, "filter")
+        except RuntimeError as err:
+            print(f"plane_scan {name} with MAX_POLLS = 0 raised, as it must: {err}")
+        else:
+            raise AssertionError(f"plane_scan {name} with MAX_POLLS = 0 did not raise")
+        finally:
+            plane.MAX_POLLS = max_polls
+        del filt
     check_transpose_edges()
+
+
+# The plane scan at every state dimension: STRIP_CASES and the two RBF
+# orders between them.
+PLANE_EDGE_CASES = sorted(
+    STRIP_CASES + [
+        ("RBF d=5", lambda dtype: RBF(1.0, 0.05, order=5, dtype=dtype, device=DEV)),
+        ("RBF d=7", lambda dtype: RBF(1.0, 0.05, order=7, dtype=dtype, device=DEV)),
+    ],
+    key=lambda case: int(case[0].split("d=")[1]),
+)
+
+
+def plane_edge_lengths(tile: int) -> tuple:
+    """Where a scan of tiles of ``tile`` steps has its edges: one step, a tile
+    less one, one tile, one step more, and 33 tiles and a step, where a
+    tile's look-back reaches past a window of 32 predecessors unless it finds
+    an inclusive total first."""
+    return (1, tile - 1, tile, tile + 1, 33 * tile + 1)
+
+
+def check_plane_edges() -> None:
+    """plane_scan against plane_scan_plain at every d = 1..8, both kinds and
+    both directions, at plane_edge_lengths of the kernel's tile at that d
+    and dtype: float64 moments to the strip kernels' tolerances and every
+    row to ROW_RTOL64 of its magnitude, float32 moments against float64
+    truth by the 10× rule."""
+    t, y = make_data(33 * 4 * 128 + 1, SEED + 52)
+    directions = [(kind, reverse) for kind in plane.KINDS for reverse in (False, True)]
+    for name, make in PLANE_EDGE_CASES:
+        worst64, worst32, n, tiles = 0.0, 0.0, 0, {}
+        for dtype in (torch.float64, torch.float32):
+            threads, steps = plane.scan_tiling(int(name.split("d=")[1]), dtype)
+            tiles[dtype] = threads * steps
+            longest = plane_edge_lengths(tiles[dtype])[-1]
+            filt64, smooth64, d = plane_rows(make, t[:longest], y[:longest], torch.float64)
+            filt32, smooth32, _ = plane_rows(make, t[:longest], y[:longest], torch.float32)
+            rf, af, rs, as_ = strip_tolerances(d)
+            for T in plane_edge_lengths(tiles[dtype]):
+                for kind, reverse in directions:
+                    x64 = (filt64 if kind == "filter" else smooth64)[:, :T].contiguous()
+                    what = f"plane_scan {name} {kind}{' reverse' if reverse else ''} T={T}"
+                    with torch.no_grad():
+                        p64 = plane.plane_scan_plain(x64, d, kind, reverse)
+                        if dtype == torch.float64:
+                            k = plane.plane_scan(x64, d, kind, reverse)
+                        else:
+                            x32 = (filt32 if kind == "filter" else smooth32)[:, :T].contiguous()
+                            k, p32 = plane.plane_scan(x32, d, kind, reverse), plane.plane_scan_plain(x32, d, kind, reverse)
+                    torch.cuda.synchronize()
+                    n += 1
+                    check(bool(torch.isfinite(k).all()), f"{what} {dtype}: not finite")
+                    if dtype == torch.float64:
+                        rtol, atol = (rf, af) if kind == "filter" else (rs, as_)
+                        pairs = list(zip(moment_rows(k, d), moment_rows(p64, d)))
+                        worst64 = max([worst64] + [max_abs(a, b_) for a, b_ in pairs])
+                        check(all(allclose(a, b_, rtol, atol) for a, b_ in pairs), f"{what} f64 moments")
+                        check(row_err(k, p64) <= ROW_RTOL64, f"{what} f64 rows")
+                    else:
+                        for a, b_, c in zip(moment_rows(k, d), moment_rows(p32, d), moment_rows(p64, d)):
+                            ka, pa = rel_err(a, c), rel_err(b_, c)
+                            worst32 = max(worst32, ka / max(pa, F32_FLOOR / F32_FACTOR))
+                            check(ka <= max(F32_FACTOR * pa, F32_FLOOR), f"{what} f32: kernel {ka:.3e} vs plain {pa:.3e}")
+            del filt64, smooth64, filt32, smooth32
+        print(
+            f"plane_scan edges {name}: {n} scans (tiles of {tiles[torch.float32]} steps f32, {tiles[torch.float64]} f64; "
+            f"both kinds and directions); f64 |moments| max {worst64:.3e}, "
+            f"f32 kernel error over plain f32 error at most {worst32:.2f} (limit {F32_FACTOR:.0f})"
+        )
 
 
 # Widths of the transpose's checks: every d and d² of the plane path up to
@@ -2057,11 +2162,11 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
         print(
             f"plane_scan {kind} d=3 N={T} f32 [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
             f"({bound_by}); |kernel - plain| {err:.3e}; look-back {look_back['folded']} predecessors folded over "
-            f"{look_back['tiles']} tiles ({folds:.2f} a tile)"
+            f"{look_back['tiles']} tiles of {look_back['steps']} steps ({folds:.2f} a tile)"
         )
         out[kind] = {
             "at": f"{kind} rows d=3 N={T} f32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "look_back_folds_per_tile": folds,
+            "bound_by": bound_by, "library_ms": None, "look_back_folds_per_tile": folds, "tile_steps": look_back["steps"],
         }
     del filt, smooth
     torch.cuda.empty_cache()
@@ -2131,6 +2236,94 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
         {"name": "plane_transpose", "route": "cuda", "source": SOURCES["plane_transpose"], "replaces": REPLACES["plane_transpose"],
          "launches": counts["plane_transpose"], **fwd, "other_shapes": [v for v in tr.values() if v is not fwd]},
     ]
+
+
+def ab_timers(label: str) -> None:
+    """This script's timers alone, for comparing two trees in one call (the
+    module docstring): at N = 10M, Matern52, float32 — dt_smoother_apply on
+    the serving path's inputs and plane_scan on the time-first path's filter
+    and smoother rows, each as events around ten lone calls of its wrapper
+    (cuda_ms) and as device time in a profile of one call; the LML, one
+    predict_f request and one training step of the model, and the
+    time-first pkfs, each as events (cuda_ms, median of 9) and as device
+    time in a profile (profile_call).  plane_scan also on the same rows in
+    float64, and on RBF filter and smoother rows of d = 4..8 at
+    N = 1M float32.  One line a measurement, tagged with ``label``, the card
+    and the tree's look-back tiling where it reports one."""
+    card = phase_device()
+    so, _ = _cuda.build()
+    _cuda.load()
+    print(f"ab {label}: library {so.name}")
+
+    def report(what, events_ms, fn):
+        _, by_name, _ = profile_call(fn)
+        device = {k: round(v, 4) for k, v in by_name.items()}
+        print(f"ab {label} [{card}] {what}: events {events_ms:.3f} ms, device {sum(by_name.values()):.3f} ms {device}")
+
+    t, y = make_data(N_FULL, SEED)
+    query = np.random.RandomState(SEED + 2).rand(1000) * 1.4 - 0.2
+    model = StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, NOISE, dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        fam, co, sde, dts = dt._model_inputs(model.kernel, model.ts)
+        co, P0, H = co.detach(), sde.P0.detach(), sde.H.detach()
+        R = model.noise_variance.detach().reshape(1, 1)
+        b, C, _ = dt.strip_filter_dt(fam, co, P0, H, R, dts, model.ys)
+        pre_s = dt.exclusive_chunk_prefixes(dt.dt_smoother_scan(fam, co, P0, dts, b, C), 3, reverse=True)
+
+        def apply():
+            return dt.dt_smoother_apply(fam, co, P0, dts, b, C, pre_s)
+
+        report("dt_smoother_apply", cuda_ms(apply, reps=10), apply)
+        del b, C, pre_s
+
+        def lml():
+            return model.log_marginal_likelihood()
+
+        report("LML", cuda_ms(lml, reps=9), lml)
+        report("predict_f", cuda_ms(lambda: model.predict_f(query), reps=9), lambda: model.predict_f(query))
+    report("training step", cuda_ms(lambda: value_and_grad(model), reps=9), lambda: value_and_grad(model))
+    del model
+    torch.cuda.empty_cache()
+
+    kernel = Matern52(0.8, 0.4, dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        ts, yt = (torch.as_tensor(x, dtype=torch.float32, device=DEV) for x in (t, y))
+        views = kernel.get_ssm(ts, torch.full((1, 1), NOISE, dtype=torch.float32, device=DEV))
+        ssm = LGSSM(views.P0, views.Fs.contiguous(), views.Qs.contiguous(), views.H, views.R)
+        del views
+        planes = timelast.time_last_planes(ssm)
+        filt = strip._pack(timelast.make_filtering_elements_tl(ssm, yt, planes), N_FULL)
+        b, C = moment_rows(plane.plane_scan(filt, 3, "filter"), 3)
+        smooth = strip._pack(timelast._smoothing_elements_from_planes(*planes, b, C.reshape(3, 3, N_FULL)), N_FULL)
+        del planes, b, C
+
+        def scans(what, d, rows):
+            for kind, x in zip(plane.KINDS, rows):
+                def scan(x=x, kind=kind):
+                    return plane.plane_scan(x, d, kind, kind == "smoother")
+
+                ms = cuda_ms(scan, reps=10)
+                print(f"ab {label} plane_scan {kind}{what}: look-back {plane.LOOK_BACK}")
+                report(f"plane_scan {kind}{what}", ms, scan)
+
+        scans("", 3, (filt, smooth))
+        scans(f" d=3 N={N_FULL} f64", 3, (filt.double(), smooth.double()))
+        del filt, smooth
+        torch.cuda.empty_cache()
+        # Wider states, where a tile holds fewer steps a thread (d = 4, 5: 2,
+        # d ≥ 6: 1): RBF planes as in phase 11, at the strip path's length.
+        t_s, y_s = make_data(N_STRIP, SEED + 4)
+        for order in range(4, plane.MAX_KERNEL_D + 1):
+            make = lambda dtype, order=order: RBF(1.0, 0.05, order=order, dtype=dtype, device=DEV)
+            filt_r, smooth_r, d = plane_rows(make, t_s, y_s, torch.float32)
+            scans(f" d={d} N={N_STRIP} f32", d, (filt_r, smooth_r))
+            del filt_r, smooth_r
+            torch.cuda.empty_cache()
+
+        def api():
+            return pkfs(ssm, yt, engine="strip")
+
+        report("pkfs(LGSSM, strip)", cuda_ms(api, reps=9), api)
 
 
 def main() -> int:

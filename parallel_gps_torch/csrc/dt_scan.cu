@@ -24,9 +24,11 @@
 // walks its own chunk, so a warp's loads are strided by K and are not
 // coalesced; reads of one or two rows (dt, y) are served by L1, and the
 // passes that read b and C pay for it.  A warp's stores strided by K touch 32
-// partial sectors each: the filter's pass 2 stages its stores through shared
-// memory instead (scan_passes.cuh: filter_apply_staged), the other passes
-// do not yet.  Each kernel below notes which of the two bounds it.
+// partial sectors each.  The two pass-2 kernels therefore stage through
+// shared memory a warp at a time (scan_passes.cuh: ChunkStage): the filter's
+// stores (filter_apply_staged), the smoother's loads and stores
+// (smoother_apply_staged); the two pass-1 kernels still read b, C strided.
+// Each kernel below notes which of the two bounds it.
 #include <cuda_runtime.h>
 
 #include "scan_passes.cuh"
@@ -81,11 +83,17 @@ __global__ void __launch_bounds__(kThreads)
 // device time on an NVIDIA H100 80GB HBM3 at 700 W, against 0.26 ms for
 // pass 1's same fold and reads.  So each warp stages kR steps of its 32
 // chunks in shared memory and writes every row as whole 32-byte sectors
-// (filter_apply_staged; FilterStage<S, D>::kBytes of dynamic shared memory
-// a block, 54 KB at D = 3 float, above the 48 KB static limit, hence the
+// (filter_apply_staged; ChunkStage<S, D>::kBytes of dynamic shared memory a
+// block, 54 KB at D = 3 float, above the 48 KB static limit, hence the
 // opt-in in the launcher): 0.87 ms on the same card.
 // ---------------------------------------------------------------------------
 extern __shared__ __align__(16) unsigned char pgt_dt_smem[];
+
+// The calling warp's region of the staged kernels' dynamic shared memory.
+template <typename S, int D>
+__device__ __forceinline__ S* warp_stage() {
+  return reinterpret_cast<S*>(pgt_dt_smem) + (threadIdx.x / 32) * ChunkStage<S, D>::kWarp;
+}
 
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -93,23 +101,22 @@ __global__ void __launch_bounds__(kThreads)
                            const S* __restrict__ dt, const S* __restrict__ y, S* __restrict__ b_out,
                            S* __restrict__ C_out, S* __restrict__ ell_parts, long long T, int K, long long n_chunks) {
   const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  S* stage = reinterpret_cast<S*>(pgt_dt_smem) + (threadIdx.x / 32) * FilterStage<S, D>::kWarp;
   DtFilterSource<S, D> p;
   p.load(scal, degree);
   p.dt = dt;
-  const S ll = filter_apply_staged<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c, stage);
+  const S ll = filter_apply_staged<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c, warp_stage<S, D>());
   block_sum<S>(ll, ell_parts);
 }
 
-template <typename S, int D>
-int launch_dt_filter_apply(int degree, const void* scal, const void* prefix, const void* dt, const void* y, void* b,
-                           void* C, void* ell_parts, long long T, int K, long long n_chunks, cudaStream_t st) {
-  auto kern = dt_filter_apply_kernel<S, D>;
-  constexpr int bytes = FilterStage<S, D>::kBytes;
+// Launches a staged kernel with its ChunkStage<S, D>::kBytes of dynamic
+// shared memory a block, opted in first (above the 48 KB static limit);
+// returns the opt-in's error or the launch's.
+template <typename S, int D, typename Kern, typename... Args>
+int launch_staged(Kern kern, long long n_chunks, cudaStream_t st, Args... args) {
+  constexpr int bytes = ChunkStage<S, D>::kBytes;
   const cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return (int)rc;
-  kern<<<n_blocks(n_chunks), kThreads, bytes, st>>>((const S*)scal, degree, (const S*)prefix, (const S*)dt,
-                                                     (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, n_chunks);
+  kern<<<n_blocks(n_chunks), kThreads, bytes, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -138,8 +145,14 @@ __global__ void __launch_bounds__(kThreads)
 // Smoother pass 2.  Replaces pallas_dt.py _dt_smoother_apply_kernel (:589,
 // pallas_call :724): reverse re-fold seeded with the chunk's exclusive
 // suffix; writes the smoothed g and L.
-// Bound: strided loads of b, C and stores of g, L (24 values a step at
-// D = 3); measured 12.2 ms at T = 10M f32.
+// Bound: bytes, 0.302 ms at T = 10M f32, D = 3 (dt, b, C and the suffixes
+// in, g and L out).  Each thread walking its own chunk reads b, C and writes
+// g, L strided by K, 24 values a step at D = 3: 12.3 ms on an NVIDIA H100
+// 80GB HBM3 at 700 W.  So each warp stages kR steps of its 32 chunks:
+// b, C copied in as whole sectors, folded in place into g, L, copied out as
+// whole sectors (smoother_apply_staged; the filter's ChunkStage<S, D>::kBytes
+// of dynamic shared memory a block, opted in): 1.26 ms of device time on the
+// same card, 1.4–1.5 ms in events around its wrapper.
 // ---------------------------------------------------------------------------
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -147,11 +160,10 @@ __global__ void __launch_bounds__(kThreads)
                              const S* __restrict__ dt, const S* __restrict__ b, const S* __restrict__ C,
                              S* __restrict__ g_out, S* __restrict__ L_out, long long T, int K, long long n_chunks) {
   const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
   DtSmootherSource<S, D> p;
   p.load(scal, degree);
   p.dt = dt;
-  smoother_apply_chunk<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c);
+  smoother_apply_staged<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c, warp_stage<S, D>());
 }
 
 }  // namespace pgt
@@ -184,7 +196,7 @@ int pgt_dt_filter_scan(int is64, int d, int degree, const void* scal, const void
 // Dynamic shared memory a block of pgt_dt_filter_apply takes, in bytes.
 int pgt_dt_filter_apply_smem(int is64, int d) {
   int bytes = 0;
-#define PGT_LAUNCH(S, DD) bytes = pgt::FilterStage<S, DD>::kBytes
+#define PGT_LAUNCH(S, DD) bytes = pgt::ChunkStage<S, DD>::kBytes
   PGT_DISPATCH(is64, d, PGT_LAUNCH);
 #undef PGT_LAUNCH
   return bytes;
@@ -195,9 +207,12 @@ int pgt_dt_filter_apply(int is64, int d, int degree, const void* scal, const voi
   if (pgt::bad_shape(d, degree, T, K)) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
   int rc = 0;
-#define PGT_LAUNCH(S, DD)                                                                                    \
-  rc = pgt::launch_dt_filter_apply<S, DD>(degree, scal, prefix, dt, y, b, C, ell_parts, T, K, n_chunks, \
-                                          (cudaStream_t)stream)
+#define PGT_LAUNCH(S, DD)                                                                                        \
+  {                                                                                                              \
+    auto kern = pgt::dt_filter_apply_kernel<S, DD>;                                                              \
+    rc = pgt::launch_staged<S, DD>(kern, n_chunks, (cudaStream_t)stream, (const S*)scal, degree, (const S*)prefix, \
+                                   (const S*)dt, (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, n_chunks);      \
+  }
   PGT_DISPATCH(is64, d, PGT_LAUNCH);
 #undef PGT_LAUNCH
   return rc;
@@ -216,18 +231,23 @@ int pgt_dt_smoother_scan(int is64, int d, int degree, const void* scal, const vo
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory a block of pgt_dt_smoother_apply takes, in bytes.
+int pgt_dt_smoother_apply_smem(int is64, int d) { return pgt_dt_filter_apply_smem(is64, d); }
+
 int pgt_dt_smoother_apply(int is64, int d, int degree, const void* scal, const void* prefix, const void* dt,
                           const void* b, const void* C, void* g, void* L, long long T, int K, void* stream) {
   if (pgt::bad_shape(d, degree, T, K)) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
-  cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S, DD)                                                                          \
-  pgt::dt_smoother_apply_kernel<S, DD><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(         \
-      (const S*)scal, degree, (const S*)prefix, (const S*)dt, (const S*)b, (const S*)C, (S*)g, (S*)L, T, K, \
-      n_chunks)
+  int rc = 0;
+#define PGT_LAUNCH(S, DD)                                                                                        \
+  {                                                                                                              \
+    auto kern = pgt::dt_smoother_apply_kernel<S, DD>;                                                            \
+    rc = pgt::launch_staged<S, DD>(kern, n_chunks, (cudaStream_t)stream, (const S*)scal, degree, (const S*)prefix, \
+                                   (const S*)dt, (const S*)b, (const S*)C, (S*)g, (S*)L, T, K, n_chunks);        \
+  }
   PGT_DISPATCH(is64, d, PGT_LAUNCH);
 #undef PGT_LAUNCH
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 }  // extern "C"

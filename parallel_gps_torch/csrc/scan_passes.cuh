@@ -10,6 +10,7 @@
 // Each thread owns chunk c: the K consecutive steps [c·K, min(T, (c+1)·K)).
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "dt_launch.cuh"
@@ -27,9 +28,23 @@ __device__ __forceinline__ void filter_step(const Src& p, const S* y, long long 
   build_filtering<S, D>(F, Q, yc, observed ? S(1) : S(0), p.h, p.r, p.P0, t == 0, e);
 }
 
-// Smoothing element of step t: F, Q of step t+1 and the filtered (m, P) at t;
-// the global-last step is (E = 0, g = m, L = P).  ``bs`` and ``cs`` are the
-// plane strides of b and C (T for one series; B·T with a batch axis).
+// Smoothing element of step t from the filtered (m, P) at t: F, Q of step
+// t+1; the global-last step is (E = 0, g = m, L = P).
+template <typename S, int D, typename Src>
+__device__ __forceinline__ void smoothing_element(const Src& p, const S* m, const S* P, long long t, long long T,
+                                                  Smooth<S, D>& e) {
+  if (t == T - 1) {
+    build_smoothing_last<S, D>(m, P, e);
+  } else {
+    S Fn[D * D], Qn[D * D];
+    p.fq(t + 1, Fn, Qn);
+    build_smoothing<S, D>(Fn, Qn, m, P, e);
+  }
+}
+
+// Smoothing element of step t, its filtered (m, P) read from b and C.
+// ``bs`` and ``cs`` are the plane strides of b and C (T for one series; B·T
+// with a batch axis).
 template <typename S, int D, typename Src>
 __device__ __forceinline__ void smoother_step(const Src& p, const S* b, long long bs, const S* C, long long cs,
                                               long long t, long long T, Smooth<S, D>& e) {
@@ -38,13 +53,7 @@ __device__ __forceinline__ void smoother_step(const Src& p, const S* b, long lon
   for (int a = 0; a < D; ++a) m[a] = b[a * bs + t];
 #pragma unroll
   for (int q = 0; q < D * D; ++q) P[q] = C[q * cs + t];
-  if (t == T - 1) {
-    build_smoothing_last<S, D>(m, P, e);
-  } else {
-    S Fn[D * D], Qn[D * D];
-    p.fq(t + 1, Fn, Qn);
-    build_smoothing<S, D>(Fn, Qn, m, P, e);
-  }
+  smoothing_element<S, D>(p, m, P, t, T, e);
 }
 
 // log p(y_t | y_<t) of an observed step from its F, Q and the moments before
@@ -124,13 +133,15 @@ __device__ __forceinline__ S filter_apply_chunk(const Src& p, const S* prefix, c
   return ll;
 }
 
-// Shared memory of filter_apply_staged: each warp stages kR steps of its 32
-// chunks' kRows output rows (b, then C), a chunk's kR values of a row in a
-// slot of kR + 1 (the pad keeps the warp's writes, 32 slots kR+1 apart, on
-// distinct banks).  kR fills one 32-byte sector: 8 steps at float, 4 at
-// double.
+// Shared memory of the staged pass-2 bodies (filter_apply_staged,
+// smoother_apply_staged): each warp stages kR steps of its 32 chunks' kRows
+// moment rows — b then C, D + D² rows, the filter's outputs; the smoother's
+// inputs b, C and, in the same places, its outputs g, L — a chunk's kR values
+// of a row in a slot of kR + 1 (the pad keeps the warp's writes, 32 slots
+// kR+1 apart, on distinct banks).  kR fills one 32-byte sector: 8 steps at
+// float, 4 at double.
 template <typename S, int D>
-struct FilterStage {
+struct ChunkStage {
   static constexpr int kR = 32 / sizeof(S);
   static constexpr int kRows = D + D * D;
   static constexpr int kSlot = kR + 1;
@@ -139,17 +150,55 @@ struct FilterStage {
   static constexpr int kBytes = (kThreads / 32) * kWarp * (int)sizeof(S);
 };
 
+// One round's copy between the stage and device memory, rows ``first`` (D
+// rows) then ``second`` (D² rows) of T values: value i·32 + lane of a row is
+// step r0 + lane % kR of chunk c0 + i·(32/kR) + lane / kR, so each load or
+// store instruction covers 32/kR whole sectors, in place of 32 partial
+// sectors when each thread moves its own chunk's values.  Steps past a chunk
+// (r0 + s ≥ K) or past T are not moved.  In each lane it touches the same
+// stage values in every round, in either direction.  The copy in is
+// asynchronous (cp.async): every value of the lane's share is in flight at
+// once, and has landed when it returns (the caller synchronises the warp).
+template <typename S, int D, bool kToStage, typename P>
+__device__ __forceinline__ void stage_round(P first, P second, S* stage, long long c0, int K, long long T, int r0) {
+  typedef ChunkStage<S, D> G;
+  constexpr int R = G::kR;
+  const int lane = threadIdx.x & 31;
+  const int s = lane % R;
+#pragma unroll 1
+  for (int row = 0; row < G::kRows; ++row) {
+    P dev = row < D ? first + row * T : second + (row - D) * T;
+    S* sm = stage + row * G::kRow + s;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int j = i * (32 / R) + lane / R;
+      const long long t = (c0 + j) * K + r0 + s;
+      if (r0 + s < K && t < T) {
+        if constexpr (kToStage) {
+          __pipeline_memcpy_async(sm + j * G::kSlot, dev + t, sizeof(S));
+        } else {
+          dev[t] = sm[j * G::kSlot];
+        }
+      }
+    }
+  }
+  if constexpr (kToStage) {
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  }
+}
+
 // Filter pass 2 with coalesced stores: filter_apply_chunk's fold, in the same
 // order, with the moments staged through ``stage`` (the calling warp's
-// FilterStage<S, D>::kWarp values of shared memory).  The warp folds kR steps
+// ChunkStage<S, D>::kWarp values of shared memory).  The warp folds kR steps
 // of each of its 32 chunks into shared memory, synchronises, and writes each
-// output row as 32 full sectors, four chunks' sectors a store instruction, in
-// place of 32 partial sectors a store.  Every thread of the warp calls it,
-// chunk or not (c ≥ n_chunks); the round count is the warp's first chunk's.
+// output row as whole sectors (stage_round).  Every thread of the warp calls
+// it, chunk or not (c ≥ n_chunks); the round count is the warp's first
+// chunk's.
 template <typename S, int D, typename Src>
 __device__ __forceinline__ S filter_apply_staged(const Src& p, const S* prefix, const S* y, S* b_out, S* C_out,
                                                  long long T, int K, long long n_chunks, long long c, S* stage) {
-  typedef FilterStage<S, D> G;
+  typedef ChunkStage<S, D> G;
   constexpr int R = G::kR;
   const int lane = threadIdx.x & 31;
   const long long c0 = c - lane;  // the warp's first chunk
@@ -177,19 +226,7 @@ __device__ __forceinline__ S filter_apply_staged(const Src& p, const S* prefix, 
       for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.C[q];
     }
     __syncwarp();
-    // Value i·32 + lane of a row: step lane % R of chunk i·(32/R) + lane / R.
-    const int s = lane % R;
-#pragma unroll 1
-    for (int row = 0; row < G::kRows; ++row) {
-      S* out = row < D ? b_out + row * T : C_out + (row - D) * T;
-      const S* src = stage + row * G::kRow + s;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int j = i * (32 / R) + lane / R;
-        const long long t = (c0 + j) * K + r0 + s;
-        if (r0 + s < K && t < T) out[t] = src[j * G::kSlot];
-      }
-    }
+    stage_round<S, D, false>(b_out, C_out, stage, c0, K, T, r0);
     __syncwarp();
   }
   return ll;
@@ -241,6 +278,57 @@ __device__ __forceinline__ void smoother_apply_chunk(const Src& p, const S* pref
     for (int a = 0; a < D; ++a) g_out[a * T + t] = acc.g[a];
 #pragma unroll
     for (int q = 0; q < D * D; ++q) L_out[q * T + t] = acc.L[q];
+  }
+}
+
+// Smoother pass 2 with coalesced loads and stores: smoother_apply_chunk's
+// reverse fold, in the same order, through ``stage`` (the calling warp's
+// ChunkStage<S, D>::kWarp values of shared memory).  A round is kR steps of
+// each of the warp's 32 chunks, from the chunks' ends towards their starts:
+// the warp copies their b, C rows in as whole sectors, each thread folds its
+// kR steps backwards and overwrites each step's (m, P) in its slot with the
+// smoothed (g, L), and the warp copies the rows out as whole sectors.  Every
+// thread of the warp calls it, chunk or not (c ≥ n_chunks); the rounds are
+// the warp's first chunk's, and only the series' last chunk can be shorter
+// than K (its steps past T are masked).
+template <typename S, int D, typename Src>
+__device__ __forceinline__ void smoother_apply_staged(const Src& p, const S* prefix, const S* b, const S* C, S* g_out,
+                                                      S* L_out, long long T, int K, long long n_chunks, long long c,
+                                                      S* stage) {
+  typedef ChunkStage<S, D> G;
+  constexpr int R = G::kR;
+  const int lane = threadIdx.x & 31;
+  const long long c0 = c - lane;  // the warp's first chunk
+  const long long t0 = c * K;
+  const long long t1 = (c < n_chunks) ? ((t0 + K < T) ? t0 + K : T) : t0;
+  const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
+  Smooth<S, D> acc, e;
+  if (c < n_chunks) load_smooth<S, D>(prefix, n_chunks, c, acc);
+  S* slot = stage + lane * G::kSlot;
+#pragma unroll 1
+  for (int r0 = span > 0 ? (int)((span - 1) / R) * R : -1; r0 >= 0; r0 -= R) {
+    // The copy-out of the round before touched, in this lane, the stage
+    // values this copy-in writes: no barrier between them.
+    stage_round<S, D, true>(b, C, stage, c0, K, T, r0);
+    __syncwarp();
+#pragma unroll 1
+    for (int s = R - 1; s >= 0; --s) {
+      const long long t = t0 + r0 + s;
+      if (t >= t1) continue;
+      S m[D], P[D * D];
+#pragma unroll
+      for (int a = 0; a < D; ++a) m[a] = slot[a * G::kRow + s];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) P[q] = slot[(D + q) * G::kRow + s];
+      smoothing_element<S, D>(p, m, P, t, T, e);
+      acc = smooth_combine<S, D>(acc, e);
+#pragma unroll
+      for (int a = 0; a < D; ++a) slot[a * G::kRow + s] = acc.g[a];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.L[q];
+    }
+    __syncwarp();
+    stage_round<S, D, false>(g_out, L_out, stage, c0, K, T, r0);
   }
 }
 

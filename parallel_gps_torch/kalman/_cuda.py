@@ -113,6 +113,7 @@ def load():
         "pgt_dt_filter_apply_smem": [i, i],
         "pgt_dt_smoother_scan": [i, i, i, p, p, p, p, p, ll, i, p],
         "pgt_dt_smoother_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
+        "pgt_dt_smoother_apply_smem": [i, i],
         "pgt_dt_fisher": [i, i, i, p, p, ll, p, ll, p, p, p, p, p, p, p, ll, i, i, p],
         "pgt_dt_fisher_n_sums": [i],
         # csrc/probes.cu (parallel_gps_torch/probes/)
@@ -136,6 +137,7 @@ def load():
             # csrc/plane_scan.cu (kalman/plane.py)
             sigs[f"pgt_plane_scan_d{d}_f{bits}"] = [i, i, p, p, ll, p, p, p, p, ll, p]
             sigs[f"pgt_plane_scan_threads_d{d}_f{bits}"] = []
+            sigs[f"pgt_plane_scan_steps_d{d}_f{bits}"] = []
     for bits in (32, 64):
         sigs[f"pgt_plane_transpose_f{bits}"] = [p, p, ll, ll, p]
         sigs[f"pgt_plane_transpose_run_f{bits}"] = [ll, ll]

@@ -7,9 +7,10 @@ parallel_gps_tpu/kalman/pallas_scan.py, ``pallas_plane_scan`` and
 Elements are packed as (n, T) component rows in the JAX package's order —
 filtering [A | b | C | J | η] (n = 3d²+2d), smoothing [E | g | L]
 (n = 2d²+d) — by ``strip._pack``.  ``plane_scan`` is their inclusive
-associative scan along T in one launch: one step a CUDA thread, a
-Kogge–Stone scan of each tile in shared memory and a decoupled look-back
-across tiles (``csrc/plane_scan.cu``).  ``plane_transpose`` is the (r, c) →
+associative scan along T in one launch: a few steps a CUDA thread, a
+Kogge–Stone scan of each tile's thread totals in shared memory and a
+decoupled look-back across tiles, 32 predecessors at a time by a warp
+(``csrc/plane_scan.cu``).  ``plane_transpose`` is the (r, c) →
 (c, r) copy that every layout move of the path goes through.
 
 Each wrapper dispatches on the device of its tensor:
@@ -35,9 +36,10 @@ from parallel_gps_torch.kalman.timelast import (
 )
 
 LAUNCHES = {"plane_scan": 0, "plane_transpose": 0}
-# The last scan launch's tiles and the predecessors its look-backs folded
-# together (the decoupled look-back's work grows with their ratio).
-LOOK_BACK = {"tiles": 0, "folded": 0}
+# The last scan launch's tiles, the predecessors its look-backs folded
+# together (the decoupled look-back's work grows with their ratio) and the
+# steps a tile holds.
+LOOK_BACK = {"tiles": 0, "folded": 0, "steps": 0}
 
 MAX_KERNEL_D = 8
 KINDS = ("filter", "smoother")
@@ -118,7 +120,9 @@ def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False) -> Tens
     _require(max_polls >= 0, f"MAX_POLLS must be >= 0, got {max_polls}")
     dev, dtype, T = planes.device, planes.dtype, planes.shape[1]
     lib, tag = _cuda.load(), f"d{d}_f{_bits(planes)}"
-    n_tiles = -(-T // getattr(lib, f"pgt_plane_scan_threads_{tag}")())
+    threads, steps = scan_tiling(d, dtype)
+    tile = threads * steps
+    n_tiles = -(-T // tile)
     status = torch.zeros(3, dtype=torch.int32, device=dev)  # ticket, overrun, predecessors folded
     flags = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     # A tile's values are written before its flag is raised, and read after.
@@ -131,10 +135,20 @@ def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False) -> Tens
     )
     LAUNCHES["plane_scan"] += 1
     _, overrun, folded = status.tolist()
-    LOOK_BACK.update(tiles=n_tiles, folded=folded)
+    LOOK_BACK.update(tiles=n_tiles, folded=folded, steps=tile)
     if overrun == OVERRUN:
         raise RuntimeError(f"plane_scan: a look-back spin outlasted {max_polls} polls ({kind}, d = {d}, T = {T})")
     return out
+
+
+def scan_tiling(d: int, dtype) -> tuple:
+    """(threads a block, steps a thread) of the scan kernel at state
+    dimension d and ``dtype``: a tile is threads × steps steps
+    (csrc/plane_scan.cu: PlaneSteps)."""
+    from parallel_gps_torch.kalman import _cuda
+
+    lib, tag = _cuda.load(), f"d{d}_f{64 if dtype == torch.float64 else 32}"
+    return tuple(getattr(lib, f"pgt_plane_scan_{what}_{tag}")() for what in ("threads", "steps"))
 
 
 def transpose_run(rows: int, cols: int, dtype) -> int:

@@ -36,7 +36,8 @@ LAUNCHES = dict.fromkeys(
 
 # Threads per block of the chunk-pattern probes (the two-pass kernels'
 # block) and of the coalesced copies and tile probes (csrc/probes.cu:
-# kChunkThreads, kTileThreads; tests/test_torch_probes.py reads them there).
+# kChunkThreads, kTileThreads; tests/test_torch_probes_kernels.py reads them
+# there).
 CHUNK_THREADS = 128
 TILE_THREADS = 256
 

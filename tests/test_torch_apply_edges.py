@@ -79,7 +79,7 @@ def _chunked_filter(fam, co, P0, H, R, dts, y):
 def test_chunked_filter_passes_compose_to_the_plain_filter(T):
     """Chunk totals, exclusive prefixes and the seeded re-fold give the plain
     filter's moments and log-likelihood where the staged apply's warps and
-    blocks end, to the tolerances of test_torch_dt_engine.py's shorter
+    blocks end, to the tolerances of test_torch_dt_passes.py's shorter
     cases."""
     args = _inputs(*_data(T, 11))
     with torch.no_grad():

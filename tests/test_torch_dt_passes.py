@@ -1,14 +1,7 @@
 """PyTorch port vs the JAX package: the dt-engine filter and smoother
 (parallel_gps_torch.kalman.dt, plain versions on the CPU) against
 parallel_gps_tpu's dt kernels in interpret mode and its time-last engine,
-f64, same numpy inputs; and the CPU dispatch contract of the kernel
-wrappers."""
-import contextlib
-import json
-import subprocess
-import sys
-import textwrap
-
+and the four chunked passes composed; f64, same numpy inputs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,51 +13,12 @@ import parallel_gps_tpu.kernels as jk
 from parallel_gps_torch import kernels as tk
 from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_torch.kalman import timelast as ttl
-from parallel_gps_tpu.kalman.pallas_dt import (
-    _dts_from_ts,
-    strip_filter_dt,
-    strip_smoother_dt,
-)
+from parallel_gps_tpu.kalman.pallas_dt import _dts_from_ts, strip_filter_dt, strip_smoother_dt
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl, pks_from_tl
+from _torch_common import _no_compile_cache, _np
+from _torch_dt import _data, _torch_inputs
 
 torch.set_num_threads(1)
-
-
-@contextlib.contextmanager
-def _no_compile_cache():
-    """Interpret-mode programs segfault in the persistent compilation cache
-    (see test_model_interpret.py); disable it around them, and only there:
-    the jitted references keep the cache."""
-    from jax._src import compilation_cache as _cc
-
-    jax.config.update("jax_enable_compilation_cache", False)
-    _cc.reset_cache()
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_compilation_cache", True)
-        _cc.reset_cache()
-
-
-def _data(T, seed):
-    rng = np.random.RandomState(seed)
-    t = np.sort(rng.rand(T))
-    y = np.sin(12.0 * t) + 0.3 * rng.randn(T)
-    y[rng.choice(T, T // 9, replace=False)] = np.nan
-    return t, y
-
-
-def _torch_inputs(tkern, t, y):
-    with torch.no_grad():
-        family, coeffs = tkern.transition_coeffs()
-        sde = tkern.get_sde()
-    dts = tdt._dts_from_ts(torch.tensor(t))
-    R = torch.tensor([[0.1]], dtype=torch.float64)
-    return family, coeffs, sde.P0, sde.H, R, dts, torch.tensor(y)
-
-
-def _np(x):
-    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @jax.jit
@@ -168,92 +122,3 @@ def test_blocked_scan_matches_flat_scan():
         flat = ttl._kogge_stone_flat_tl(ttl.filtering_operator_tl, e, ident)
     npt.assert_allclose(_np(blocked.b), _np(flat.b), rtol=1e-10, atol=1e-12)
     npt.assert_allclose(_np(blocked.C), _np(flat.C), rtol=1e-10, atol=1e-12)
-
-
-@pytest.fixture(scope="module")
-def fresh_process_facts():
-    """Import the port and each of its modules (the probe programs too) in a
-    fresh interpreter, run the model once on the CPU at T = 70 (LML, a
-    gradient, predict_f, a step of each optimiser and a batched LML with its
-    gradient), and report which modules were loaded and which kernels
-    launched."""
-    code = textwrap.dedent(
-        """
-        import json, sys
-        import parallel_gps_torch as pgt
-        import parallel_gps_torch.inference.optim, parallel_gps_torch.models.params
-        import parallel_gps_torch.kalman.dt, parallel_gps_torch.kalman.timelast
-        import parallel_gps_torch.kalman.batched, parallel_gps_torch.inference.mcmc
-        import parallel_gps_torch.experiments.common
-        import parallel_gps_torch.probes.dma, parallel_gps_torch.probes.attrib, parallel_gps_torch.probes.grid
-        import numpy as np
-        import torch
-        from parallel_gps_torch.kalman import batched, dt
-        rng = np.random.RandomState(0)
-        t = np.sort(rng.rand(70)); y = np.sin(t); y[::7] = np.nan
-        m = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, 0.1, dtype=torch.float64, device="cpu")
-        m.log_marginal_likelihood().backward(); m.predict_f(rng.rand(5))
-        pgt.inference.fit_adam(m, n_iters=1); pgt.inference.fit_lbfgs(m, n_iters=1)
-        chains = pgt.StateSpaceGP.from_numpy(t, y, "Matern52", np.full(3, 0.8), np.full(3, 0.4), np.full(3, 0.1),
-                                             dtype=torch.float64, device="cpu")
-        chains.log_marginal_likelihood().sum().backward()
-        foreign = ("jax", "jaxlib", "flax", "optax", "parallel_gps_tpu")
-        print(json.dumps({
-            "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in foreign),
-            "launches": {**dt.LAUNCHES, **batched.LAUNCHES},
-            "cuda_loader_imported": "parallel_gps_torch.kalman._cuda" in sys.modules,
-        }))
-        """
-    )
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
-def test_port_imports_no_jax(fresh_process_facts):
-    """Importing and running the port (serving and training) leaves jax,
-    flax, optax and the JAX package unloaded."""
-    assert fresh_process_facts["jax_modules"] == []
-
-
-def test_cpu_dispatch_launches_no_kernel_and_loads_no_build_step(fresh_process_facts):
-    """On the CPU every wrapper takes its plain version: no launch counter
-    moves and the CUDA loader (kalman/_cuda.py) is never imported."""
-    assert set(fresh_process_facts["launches"].values()) == {0}
-    assert not fresh_process_facts["cuda_loader_imported"]
-
-
-def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
-    """A tensor on a device other than the CPU goes to the kernel wrapper,
-    which refuses what it cannot launch instead of falling back."""
-    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.Matern32(1.0, 0.5, dtype=torch.float64, device="cpu"), *_data(50, 1))
-    meta = [x.to("meta") for x in (co, P0, H, R, dts, ty)]
-    with pytest.raises(ValueError, match="CUDA device"):
-        tdt.strip_filter_dt(fam, *meta)
-    b, C = torch.zeros(2, 50, device="meta"), torch.zeros(2, 2, 50, device="meta")
-    with pytest.raises(ValueError, match="CUDA device"):
-        tdt.dt_smoother_scan(fam, meta[0], meta[1], meta[4], b, C)
-    with pytest.raises(ValueError, match="CUDA device"):
-        tdt.dt_fisher(fam, *meta, b, C, b, C)
-    assert set(tdt.LAUNCHES) == {"dt_filter_scan", "dt_filter_apply", "dt_smoother_scan", "dt_smoother_apply", "dt_fisher"}
-    assert set(tdt.LAUNCHES.values()) == {0}
-
-
-def test_lml_dt_gradient_is_the_fisher_backward():
-    """``lml_dt`` is differentiable: its backward (smoother + Fisher tail)
-    gives the gradient that autograd through the plain filter's scan gives,
-    rtol 1e-7 / atol 1e-10 (tests/test_torch_fisher.py holds it against the
-    JAX package)."""
-    t, y = _data(40, 2)
-    R = torch.tensor([[0.1]], dtype=torch.float64)
-    grads = []
-    for through_scan in (False, True):
-        k = tk.Matern32(1.0, 0.5, dtype=torch.float64, device="cpu")
-        if through_scan:
-            ell = ttl.pkf_from_tl(k.get_ssm_tl(torch.tensor(t), R), torch.tensor(y), True)[2]
-        else:
-            ell = tdt.lml_dt(k, torch.tensor(t), R, torch.tensor(y))
-        assert ell.requires_grad
-        ell.backward()
-        grads.append([k.raw_variance.grad.item(), k.raw_lengthscales.grad.item()])
-    npt.assert_allclose(grads[0], grads[1], rtol=1e-7, atol=1e-10)

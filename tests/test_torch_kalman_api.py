@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: the Kalman API on an explicit state-space
-model — the sequential oracle (kf / ks / kfs), the reference-literal generic
-engine and the dispatching pkf / pks / pkfs — through ``lgssm_from_numpy``;
+model — ``lgssm_from_numpy``, the sequential oracle (kf / ks / kfs), the
+reference-literal generic engine with two observation rows and its blocked
+scan, the dispatch's refusals — and the port's imports and documented drives;
 f64 on the CPU."""
 import jax
 import jax.numpy as jnp
@@ -15,41 +16,10 @@ from parallel_gps_torch.kalman import kf, kfs, ks, pkf, pkfs, pks
 from parallel_gps_tpu.kalman import parallel as jpar
 from parallel_gps_tpu.kalman import sequential as jseq
 from parallel_gps_tpu.types import LGSSM as JaxLGSSM
+from _torch_common import _np
+from _torch_kalman import FILTER_TOL, SMOOTHER_TOL, _port, m52, rbf4  # noqa: F401 (m52, rbf4: fixtures)
 
 torch.set_num_threads(1)
-
-FILTER_TOL = dict(rtol=1e-9, atol=1e-10)
-SMOOTHER_TOL = dict(rtol=1e-8, atol=1e-9)
-
-
-def _np(x):
-    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _port(ssm, time_last):
-    return lgssm_from_numpy(*(np.asarray(x) for x in ssm), time_last=time_last, dtype=torch.float64, device="cpu")
-
-
-def _problem(jkern, T, seed):
-    """JAX models in both layouts with observations (~11% NaN), and the
-    port's copies."""
-    rng = np.random.RandomState(seed)
-    t = np.sort(rng.rand(T))
-    y = np.sin(12.0 * t) + 0.3 * rng.randn(T)
-    y[rng.choice(T, T // 9, replace=False)] = np.nan
-    ts, R = jnp.asarray(t).reshape(-1, 1), jnp.asarray(0.1).reshape(1, 1)
-    tf, tl = jkern.get_ssm(ts, R), jkern.get_ssm_tl(ts, R)
-    return tf, tl, jnp.asarray(y).reshape(-1, 1), _port(tf, False), _port(tl, True), torch.tensor(y)
-
-
-@pytest.fixture(scope="module")
-def m52():
-    return _problem(jk.Matern52(0.8, 0.4), 150, 3)
-
-
-@pytest.fixture(scope="module")
-def rbf4():
-    return _problem(jk.RBF(variance=1.0, lengthscales=0.3, order=4, balancing_iter=5), 90, 5)
 
 
 @pytest.fixture(scope="module")
@@ -100,39 +70,6 @@ def test_sequential_engine_matches_jax(problem, request):
         npt.assert_allclose(_np(a), _np(ref), **FILTER_TOL)
     npt.assert_allclose(float(ell), float(ell_j), rtol=1e-10)
     for sms, sPs in (ks(tssm, fms, fPs, mps, Pps), kfs(tssm, ty)):
-        npt.assert_allclose(_np(sms), _np(sms_j), **SMOOTHER_TOL)
-        npt.assert_allclose(_np(sPs), _np(sPs_j), **SMOOTHER_TOL)
-
-
-# (problem, layout, port engine, JAX engine): every route of the dispatch.
-ROUTES = [
-    ("m52", "tf", "auto", "auto"),  # d ≤ 3: time-last engine under the hood
-    ("m52", "tf", "timelast", "timelast"),
-    ("m52", "tf", "generic", "generic"),
-    ("m52", "tl", "auto", "auto"),
-    ("m52", "tl", "timelast", "timelast"),
-    ("m52", "tl", "strip", "auto"),  # JAX "pallas" needs a TPU; same moments
-    ("rbf4", "tf", "auto", "auto"),  # d > 3: generic engine, LU solves
-    ("rbf4", "tf", "timelast", "timelast"),
-    ("rbf4", "tl", "auto", "auto"),
-    ("rbf4", "tl", "strip", "auto"),
-]
-
-
-@pytest.mark.parametrize("problem,layout,engine,jax_engine", ROUTES, ids=["-".join(r[:3]) for r in ROUTES])
-def test_parallel_engines_match_jax(problem, layout, engine, jax_engine, request):
-    """pkf (with likelihood), pks on its moments and pkfs, for both layouts
-    of the model; outputs are time-first in every case."""
-    tf, tl, ys, ttf, ttl_, ty = request.getfixturevalue(problem)
-    jssm, tssm = (tf, ttf) if layout == "tf" else (tl, ttl_)
-    fms_j, fPs_j, ell_j = jax.jit(lambda s, y: jpar.pkf(s, y, True, engine=jax_engine))(jssm, ys)
-    sms_j, sPs_j = jax.jit(lambda s, y: jpar.pkfs(s, y, engine=jax_engine))(jssm, ys)
-    fms, fPs, ell = pkf(tssm, ty, return_loglikelihood=True, engine=engine)
-    assert fms.shape == (ty.shape[0], tssm.P0.shape[0]) and len(pkf(tssm, ty, engine=engine)) == 2
-    npt.assert_allclose(_np(fms), _np(fms_j), **FILTER_TOL)
-    npt.assert_allclose(_np(fPs), _np(fPs_j), **FILTER_TOL)
-    npt.assert_allclose(float(ell), float(ell_j), rtol=1e-10)
-    for sms, sPs in (pks(tssm, fms, fPs, engine=engine), pkfs(tssm, ty, engine=engine)):
         npt.assert_allclose(_np(sms), _np(sms_j), **SMOOTHER_TOL)
         npt.assert_allclose(_np(sPs), _np(sPs_j), **SMOOTHER_TOL)
 
@@ -235,7 +172,7 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 def test_documented_drives_load_no_jax_and_launch_nothing_on_the_cpu():
     """The canonical drive (its optimiser step is the fresh-interpreter
-    drive of test_torch_dt_engine.py), the RBF model drive and the
+    drive of test_torch_dt_dispatch.py), the RBF model drive and the
     Kalman-API drive of the README, at T = 40, in a fresh interpreter on the
     CPU: jax and the JAX package
     stay unloaded, no launch counter moves and the CUDA loader is never

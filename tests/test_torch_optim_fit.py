@@ -1,7 +1,6 @@
 """PyTorch port vs the JAX package: the training path — model-level
-value_and_grad, ``fit_adam`` / ``fit_lbfgs`` (``inference.optim``),
-trainability masks and priors (models/params.py) — f64 on the CPU, same
-numpy data through both packages."""
+value_and_grad, ``fit_adam`` / ``fit_lbfgs`` (``inference.optim``) and
+frozen leaves — f64 on the CPU, same numpy data through both packages."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,32 +9,13 @@ import pytest
 import torch
 
 import parallel_gps_tpu.kernels as jk
-from parallel_gps_torch import StateSpaceGP
-from parallel_gps_torch.inference import fit_adam, fit_lbfgs, make_log_posterior, make_loss
-from parallel_gps_torch.models.params import log_prior, trainable_mask
+from parallel_gps_torch.inference import fit_adam, fit_lbfgs
 from parallel_gps_tpu.inference import fit_adam as jax_fit_adam
 from parallel_gps_tpu.models import StateSpaceGP as JaxStateSpaceGP
-from parallel_gps_tpu.models.params import log_prior as jax_log_prior
 from parallel_gps_tpu.toymodels import obs_noise, sinu
+from _torch_optim import _data, _model, _raw
 
 torch.set_num_threads(1)
-
-
-def _data(T, seed):
-    rng = np.random.RandomState(seed)
-    t = np.sort(rng.rand(T))
-    y = np.sin(12.0 * t) + 0.3 * rng.randn(T)
-    y[rng.rand(T) < 0.1] = np.nan
-    return t, y
-
-
-def _model(name, t, y, v, ell, noise):
-    return StateSpaceGP.from_numpy(t, y, name, v, ell, noise, dtype=torch.float64, device="cpu")
-
-
-def _raw(m):
-    """Unconstrained (variance, lengthscale, noise) of a port model."""
-    return np.array([m.kernel.raw_variance.item(), m.kernel.raw_lengthscales.item(), m.raw_noise_variance.item()])
 
 
 def _grad(m):
@@ -167,56 +147,3 @@ def test_trainable_freezes_the_named_leaf_bit_exactly(fit):
     assert not torch.equal(fitted.kernel.raw_variance, tm.kernel.raw_variance)
     assert not torch.equal(fitted.raw_noise_variance, tm.raw_noise_variance)
     assert float(history[-1]) < float(history[0])
-
-
-def test_trainable_mask_names_the_constrained_quantities():
-    t, y = _data(10, 0)
-    tm = _model("Matern32", t, y, 1.0, 0.5, 0.1)
-    mask = trainable_mask(tm, lambda name: name.endswith("variance"))
-    assert mask == {"raw_noise_variance": True, "kernel.raw_variance": True, "kernel.raw_lengthscales": False}
-
-
-@pytest.mark.parametrize("on", ["unconstrained", "constrained"])
-def test_log_prior_matches_jax(on):
-    """Both prior kinds on the same unconstrained values, rtol 1e-12; the
-    longest matching suffix wins."""
-    t, y = _data(10, 0)
-    tm = _model("Matern52", t, y, 0.7, 1.9, 0.25)
-    u = dict(zip(("variance", "lengthscales", "noise"), _raw(tm)))
-    tree = {"kernel": {"variance": jnp.asarray(u["variance"]), "lengthscales": jnp.asarray(u["lengthscales"])},
-            "noise_variance": jnp.asarray(u["noise"])}
-
-    def spec(logpdf):
-        return logpdf if on == "unconstrained" else (logpdf, "constrained")
-
-    priors = {
-        "variance": spec(lambda x: -0.5 * (x - 0.3) ** 2),  # noise_variance and, but for the longer one, kernel.variance
-        "kernel.variance": spec(lambda x: -2.0 * x * x),
-        "lengthscales": spec(lambda x: -1.5 * x),
-    }
-    got = log_prior(tm, priors)
-    npt.assert_allclose(float(got.detach()), float(jax_log_prior(tree, priors)), rtol=1e-12)
-    assert got.requires_grad
-    assert log_prior(tm, {"period": lambda x: x}) == 0.0
-
-
-def test_log_posterior_and_map_objective():
-    """``make_log_posterior`` = LML + log prior with frozen leaves pinned to
-    their initial values, and ``fit_adam(priors=...)`` starts from its
-    negative."""
-    t, y = _data(60, 4)
-    tm = _model("Matern32", t, y, 1.0, 0.5, 0.2)
-    priors = {"kernel.lengthscales": (lambda x: -3.0 * x, "constrained"), "noise_variance": lambda u: -0.5 * u * u}
-    loss, u0 = make_loss(tm)
-    assert set(u0) == {name for name, _ in tm.named_parameters()}
-    with torch.no_grad():
-        lml = float(tm.log_marginal_likelihood())
-        npt.assert_allclose(float(loss(u0)), -lml, rtol=1e-14)
-        log_post, u0 = make_log_posterior(tm, priors)
-        npt.assert_allclose(float(log_post(u0)), lml + float(log_prior(tm, priors)), rtol=1e-14)
-        pinned, _ = make_log_posterior(tm, priors, trainable=lambda name: name != "noise_variance")
-        moved = {**u0, "raw_noise_variance": u0["raw_noise_variance"] + 1.0}
-        assert float(pinned(moved)) == float(log_post(u0))
-        assert float(log_post(moved)) != float(log_post(u0))
-    _, history = fit_adam(tm, n_iters=1, priors=priors)
-    npt.assert_allclose(float(history[0]), -float(log_post(u0).detach()), rtol=1e-12)

@@ -58,7 +58,7 @@ def _np(x):
 
 def _problem(kernel, T, n_nan, seed):
     """A time-first LGSSM of ``kernel`` (a port kernel; its SDE is held
-    against the JAX package's in test_torch_sde.py / test_torch_rbf.py) with
+    against the JAX package's in test_torch_sde.py / test_torch_rbf_sde.py) with
     observations (``n_nan`` NaN), as the same numpy arrays in a JAX LGSSM
     and, through ``lgssm_from_numpy``, the port's."""
     rng = np.random.RandomState(seed)

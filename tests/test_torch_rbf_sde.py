@@ -1,31 +1,14 @@
-"""PyTorch port vs the JAX package: the RBF kernel's SDE, its spectral
-closed-form transitions, the discretised model and the dense covariance; f64
-on the CPU."""
-import jax.numpy as jnp
+"""PyTorch port vs the JAX package: the RBF kernel's SDE, its dense covariance
+and its balancing under autograd; f64 on the CPU."""
 import numpy as np
 import numpy.testing as npt
 import pytest
 import torch
 
-import parallel_gps_tpu.kernels as jk
 from parallel_gps_torch.kernels import RBF
+from _torch_rbf import ORDERS, _close, _pair
 
 torch.set_num_threads(1)
-
-ORDERS = [3, 4, 6, 8]
-
-
-def _pair(order, variance=1.3, lengthscale=0.37, balancing_iter=5):
-    jkern = jk.RBF(variance=variance, lengthscales=lengthscale, order=order, balancing_iter=balancing_iter)
-    tkern = RBF(variance, lengthscale, order=order, balancing_iter=balancing_iter, dtype=torch.float64, device="cpu")
-    return jkern, tkern
-
-
-def _close(a, ref, rtol=1e-9):
-    """rtol against each entry, with an absolute floor of rtol times the
-    tensor's largest entry (the matrices span many orders of magnitude)."""
-    ref = np.asarray(ref)
-    npt.assert_allclose(a.detach().numpy(), ref, rtol=rtol, atol=rtol * np.abs(ref).max())
 
 
 def test_rbf_sde_coefficients():
@@ -57,24 +40,6 @@ def test_get_sde_matches_jax(order):
     jkern, tkern = _pair(order)
     assert tkern.state_dim == order and tkern.transition_coeffs() is None
     for a, ref in zip(tkern.get_sde(), jkern.get_sde()):
-        _close(a, ref)
-
-
-@pytest.mark.parametrize("order", ORDERS)
-def test_transitions_and_discretised_models_match_jax(order):
-    """``transitions_m1_tl`` / ``transitions_m1`` (tiny and large gaps) and
-    both layouts of the discretised model."""
-    jkern, tkern = _pair(order)
-    rng = np.random.RandomState(order)
-    dts = np.concatenate([[0.0, 1e-9, 1e-5], rng.rand(40) * 0.2, [1.5]])
-    _close(tkern.transitions_m1_tl(torch.tensor(dts)), jkern.transitions_m1_tl(jnp.asarray(dts)))
-    _close(tkern.transitions_m1(torch.tensor(dts)), jkern.transitions_m1(jnp.asarray(dts)))
-    t = np.sort(rng.rand(50))
-    R = torch.tensor([[0.1]], dtype=torch.float64)
-    jts, jR = jnp.asarray(t).reshape(-1, 1), jnp.asarray(0.1).reshape(1, 1)
-    for a, ref in zip(tkern.get_ssm_tl(torch.tensor(t), R), jkern.get_ssm_tl(jts, jR)):
-        _close(a, ref)
-    for a, ref in zip(tkern.get_ssm(torch.tensor(t), R), jkern.get_ssm(jts, jR)):
         _close(a, ref)
 
 

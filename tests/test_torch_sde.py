@@ -1,6 +1,7 @@
-"""PyTorch port vs the JAX package: Matérn SDEs, transition coefficients and
-discretization (parallel_gps_torch.kernels / ops vs parallel_gps_tpu), f64
-on the CPU, same numpy inputs."""
+"""PyTorch port vs the JAX package: Matérn SDEs, transition coefficients,
+balancing, the Lyapunov solve and the softplus hyperparameters
+(parallel_gps_torch.kernels / ops vs parallel_gps_tpu), f64 on the CPU, same
+numpy inputs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,32 +9,16 @@ import numpy.testing as npt
 import pytest
 import torch
 
-import parallel_gps_tpu.kernels as jk
 from parallel_gps_torch import kernels as tk
-from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_torch.models.params import inv_softplus, softplus
 from parallel_gps_torch.ops.balance import balance_scale
 from parallel_gps_torch.ops.lyapunov import solve_lyap_vec
-from parallel_gps_tpu.kalman.pallas_dt import build_planes_tl as j_build_planes_tl
 from parallel_gps_tpu.ops.balance import balance_scale as j_balance_scale
 from parallel_gps_tpu.ops.lyapunov import solve_lyap_vec as j_solve_lyap_vec
+from _torch_common import _np
+from _torch_sde import IDS, KERNELS, _pair
 
 torch.set_num_threads(1)
-
-KERNELS = [
-    ("Matern12", 1.3, 0.7),
-    ("Matern32", 1.1, 0.5),
-    ("Matern52", 0.8, 0.4),
-]
-IDS = [k for k, _, _ in KERNELS]
-
-
-def _pair(name, v, ell):
-    return getattr(jk, name)(v, ell), getattr(tk, name)(v, ell, dtype=torch.float64, device="cpu")
-
-
-def _np(x):
-    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @pytest.mark.parametrize("name,v,ell", KERNELS, ids=IDS)
@@ -58,26 +43,6 @@ def test_transition_coeffs_and_build_match_jax(name, v, ell):
     for i in range(d):
         for j in range(d):
             npt.assert_allclose(_np(Am1[i, j]), _np(rows[i][j]), rtol=1e-12, atol=1e-14)
-
-
-@pytest.mark.parametrize("name,v,ell", KERNELS, ids=IDS)
-def test_discretization_matches_jax(name, v, ell):
-    """get_ssm_tl and build_planes_tl (the plain dt-engine planes) vs JAX."""
-    jkern, tkern = _pair(name, v, ell)
-    ts = np.sort(np.random.RandomState(1).rand(64))
-    j_ssm = jkern.get_ssm_tl(jnp.asarray(ts).reshape(-1, 1), jnp.asarray(0.05).reshape(1, 1))
-    t_ssm = tkern.get_ssm_tl(torch.tensor(ts), torch.tensor([[0.05]], dtype=torch.float64))
-    for field in ("P0", "Fs", "Qs", "H", "R"):
-        npt.assert_allclose(
-            _np(getattr(t_ssm, field)), _np(getattr(j_ssm, field)), rtol=1e-11, atol=1e-13, err_msg=field
-        )
-    j_coeffs, j_build = jkern.transition_coeffs()
-    dts = np.diff(ts, prepend=0.0)
-    jF, jQ, jP = j_build_planes_tl(j_build, j_coeffs, jkern.get_sde().P0, jnp.asarray(dts))
-    family, t_coeffs = tkern.transition_coeffs()
-    tF, tQ, tP = tdt.build_planes_tl(family, t_coeffs, tkern.get_sde().P0, torch.tensor(dts))
-    for a, b in ((jF, tF), (jQ, tQ), (jP, tP)):
-        npt.assert_allclose(_np(b), _np(a), rtol=1e-11, atol=1e-13)
 
 
 def test_balance_and_lyapunov_match_jax():

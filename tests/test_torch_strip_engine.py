@@ -2,8 +2,6 @@
 (kalman/strip.py) — its plain passes, which the CUDA kernels are held against
 on the card, against the JAX strip kernels in interpret mode and the JAX
 time-last engine — and ``lml_tl(strip=True)``; f64 on the CPU."""
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,28 +16,9 @@ from parallel_gps_torch.kalman import strip as tstrip
 from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_tpu.kalman.pallas_scan import strip_filter, strip_smoother
 from parallel_gps_tpu.kalman.timelast import lml_tl, pkf_from_tl, pks_from_tl
+from _torch_common import _no_compile_cache, _np
 
 torch.set_num_threads(1)
-
-
-@contextlib.contextmanager
-def _no_compile_cache():
-    """Interpret-mode programs segfault in the persistent compilation cache
-    (see test_model_interpret.py); disable it around them, and only there:
-    the jitted references keep the cache."""
-    from jax._src import compilation_cache as _cc
-
-    jax.config.update("jax_enable_compilation_cache", False)
-    _cc.reset_cache()
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_compilation_cache", True)
-        _cc.reset_cache()
-
-
-def _np(x):
-    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _model(jkern, T, seed):
@@ -140,18 +119,6 @@ def test_strip_engine_equals_the_plain_time_last_engine_at_chunk_edges(T):
     for a, ref in ((b, b0), (C, C0), (g, g0), (L, L0)):
         npt.assert_allclose(_np(a), _np(ref), rtol=1e-10, atol=1e-12)
     npt.assert_allclose(float(ell), float(ell0), rtol=1e-12)
-
-
-@pytest.mark.parametrize("d", range(1, 9), ids=lambda d: f"d{d}")
-def test_schur_inverse_matches_numpy(d):
-    """The any-d time-last inverse (closed forms for d ≤ 3, Schur recursion
-    above) on the I + PSD·PSD family the combine inverts, over a trailing
-    axis (counterpart of test_list_schur_inverse_matches_numpy)."""
-    rng = np.random.RandomState(d)
-    A = rng.randn(5, d, d)
-    M = np.eye(d) + 0.3 * A @ A.transpose(0, 2, 1)
-    got = ttl._inv(torch.tensor(M).permute(1, 2, 0)).permute(2, 0, 1)
-    npt.assert_allclose(got.numpy(), np.linalg.inv(M), rtol=1e-9, atol=1e-11)
 
 
 def test_lml_tl_strip_value_and_gradient():
