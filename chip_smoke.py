@@ -9,7 +9,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
 
   1. device: the card's name and power limit (nvidia-smi); a CUDA device is
      required;
-  2. build: compile every CUDA kernel from parallel_gps_torch/csrc;
+  2. build: compile every CUDA kernel from parallel_gps_torch/csrc; each
+     strip pass-2 unit's stage held against kalman/strip.py's mirror;
   3. kernels vs plain: for Matern12/32/52 at T = 65,537 with ~10% missing
      observations, the CUDA filter, smoother and Fisher tail of the dt-engine
      against their plain PyTorch versions, float64 to the JAX interpret-test
@@ -18,7 +19,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      and blocks (APPLY_EDGE_T); then the four
      plane-streaming strip kernels the same way at d = 1, 2, 3 (Matérn
      planes) and d = 4, 6, 8 (RBF planes), and at d = 3 the strip engine
-     against the dt-engine on the same data;
+     against the dt-engine on the same data; both strip pass-2 kernels at
+     every d = 1..8, float64 and float32, at the lengths where their staging
+     has ragged edges (strip_edge_lengths);
   4. the serving path at full size: StateSpaceGP(Matern52(0.8, 0.4), noise
      0.1), N = 10,000,000 float32 observations — one LML and three
      predict_f requests of 1,000 unsorted queries — with the launch counts
@@ -79,10 +82,15 @@ The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``ab_timers(label)`` runs this script's timers alone, on the Matern52 entry
-points, dt_smoother_apply, plane_scan and the time-first pkfs, so that two
-trees can be compared in one call (each with this file copied to its root):
+points, the dt applies, plane_scan, the two pkfs, the strip applies at every
+unit and the RBF(order=6) entry points, so that two trees can be compared in
+one call (each with this file copied to its root):
 
     python3 -c "import chip_smoke as c; c.ab_timers('parent')"
+
+``strip_apply_outputs(out_dir)`` saves both strip pass-2 kernels' moments at
+every unit, and ``compare_strip_apply_outputs(dir_a, dir_b)`` compares two
+trees' bit for bit.
 """
 from __future__ import annotations
 
@@ -507,6 +515,7 @@ def phase_build() -> None:
         smem = getattr(lib, f"pgt_{name}_smem")
         staged = {f"f{bits} D={d}": smem(int(bits == 64), d) for bits in (32, 64) for d in (1, 2, 3)}
         print(f"  dynamic smem a block: {name} {staged}")
+    phase_strip_stages(lib)
     for dtype in (torch.float32, torch.float64):
         tiling = {d: plane.scan_tiling(d, dtype) for d in range(1, plane.MAX_KERNEL_D + 1)}
         print(f"  plane_scan {dtype}, by D: threads x steps a thread " + ", ".join(
@@ -517,6 +526,28 @@ def phase_build() -> None:
         # The tile: w rows of L values, padded by one 16-byte vector a row.
         print(f"  dynamic smem a block: plane_transpose {dtype}, width w (run L): " + ", ".join(
             f"w={w} (L={L}) {w * (L + 16 // size) * size} B" for w, L in runs.items()))
+
+
+def phase_strip_stages(lib) -> None:
+    """Each strip pass-2 unit's stage as the library reports it (and as
+    _cuda.load() has held it against kalman/strip.py's mirror) — threads a
+    block, rows a warp stages (moments only, d + d², or the planes too),
+    dynamic shared memory a block, and the warps an SM holds (the occupancy
+    calculator) — held against the opt-in limit; with the warps an SM at
+    N = N_STRIP."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    path_warps = -(-strip.n_chunks(N_STRIP) // 32)
+    for (d, dtype, kind), (threads, rows, smem) in _cuda.strip_apply_stages(lib).items():
+        blocks = getattr(lib, f"pgt_strip_apply_blocks_per_sm_d{d}")(int(dtype == torch.float64), int(kind == "smoother"))
+        static = 0 if kind == "smoother" else threads * (torch.finfo(dtype).bits // 8)  # block_sum's values
+        check(smem + static <= strip.SMEM_LIMIT, f"strip {kind} apply d={d} {dtype}: {smem} + {static} B a block")
+        check(blocks > 0, f"strip {kind} apply d={d} {dtype}: occupancy calculator returned {blocks}")
+        resident = blocks * threads // 32
+        print(
+            f"  strip_{kind}_apply d={d} {dtype}: stages {'planes' if rows != d + d * d else 'moments'} ({rows} rows a warp), "
+            f"{threads} threads and {smem} B dynamic smem a block, {resident} warps an SM; at N={N_STRIP} "
+            f"{min(resident, -(-path_warps // sms))} warps an SM ({path_warps} warps on {sms} SMs)"
+        )
 
 
 FISHER_OUTPUTS = ("d_coeffs", "d_P0", "d_H", "d_R", "d_dts", "d_y")
@@ -583,6 +614,7 @@ def phase_kernels() -> None:
             check(a <= max(F32_FACTOR * b, floor), f"{name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
     check_apply_edges(cases)
     check_strip_kernels(t, y)
+    check_strip_apply_edges()
 
 
 # The edges of the staged pass-2 kernels, dt_filter_apply and
@@ -716,6 +748,88 @@ def check_strip_kernels(t, y) -> None:
         print(f"strip {name} f32 vs f64 truth (kernel / plain f32): " + " ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in errs.items()))
         for k, (a, b) in errs.items():
             check(a <= max(F32_FACTOR * b, F32_FLOOR), f"strip {name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
+
+
+def strip_edge_lengths(threads: int) -> tuple:
+    """The lengths where a strip pass-2 kernel's stage has ragged edges (a
+    warp stages 8 (f32) or 4 (f64) steps of its 32 chunks of 64, a block is
+    ``threads`` chunks): one step; a chunk less one, a chunk and a step past
+    it; a warp's chunks, a step and a chunk past them; a step short of the
+    unit's block of chunks, the block and a 5-step chunk past it."""
+    chunk, warp, block = strip.CHUNK, 32 * strip.CHUNK, threads * strip.CHUNK
+    return tuple(sorted({1, chunk - 1, chunk, chunk + 1, warp, warp + 1, warp + chunk, block - 1, block, block + 5}))
+
+
+def strip_edge_kernel(d: int, dtype):
+    """Matérn planes at d ≤ 3, RBF(order=d) above (as STRIP_CASES)."""
+    if d <= 3:
+        kcls, params = {1: (Matern12, (1.2, 0.6)), 2: (Matern32, (1.0, 0.5)), 3: (Matern52, (0.8, 0.4))}[d]
+        return kcls(*params, dtype=dtype, device=DEV)
+    return RBF(1.0, 0.05, order=d, dtype=dtype, device=DEV)
+
+
+def check_strip_apply_edges() -> None:
+    """Both strip pass-2 kernels (through ``strip_filter`` / ``strip_smoother``)
+    against their plain versions at every d = 1..8, float64 and float32, at
+    each unit's strip_edge_lengths (the unit's threads a block as the library
+    reports them): float64 to strip_tolerances, float32 against float64 truth
+    by the 10× rule.  The smoothers run on the plain filter's moments; the
+    float32 smoothers' truth is the float64 plain smoother on the same
+    float32 moments and the float64 planes.  One line a (d, scalar type) with
+    the worst error of each length."""
+    lib = _cuda.load()
+    for d in range(1, strip.MAX_KERNEL_D + 1):
+        for dtype in (torch.float64, torch.float32):
+            is64 = int(dtype == torch.float64)
+            threads = {
+                kind: getattr(lib, f"pgt_strip_apply_threads_d{d}")(is64, int(kind == "smoother"))
+                for kind in ("filter", "smoother")
+            }
+            lengths = sorted(set(strip_edge_lengths(threads["filter"]) + strip_edge_lengths(threads["smoother"])))
+            worst = {}
+            for T in lengths:
+                t, y = make_data(T, SEED + 8)
+                what = f"strip apply edges d={d} T={T}"
+                with torch.no_grad():
+                    Fs, Qs, P0, H, R, yt = strip_inputs(strip_edge_kernel(d, torch.float64), t, y, torch.float64)
+                    b_p, C_p, ell_p = strip.strip_filter_plain(Fs, Qs, P0, H, R, yt)
+                    g_p, L_p = strip.strip_smoother_plain(Fs, Qs, b_p, C_p)
+                    if dtype == torch.float64:
+                        strip.reset_launch_counts()
+                        b_k, C_k, ell_k = strip.strip_filter(Fs, Qs, P0, H, R, yt)
+                        g_k, L_k = strip.strip_smoother(Fs, Qs, b_p, C_p)
+                        torch.cuda.synchronize()
+                        check(strip.LAUNCHES == STRIP_ALL_LAUNCHES, f"{what}: launches {strip.LAUNCHES}")
+                        rf, af, rs, as_ = strip_tolerances(d)
+                        check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"{what} f64 filter moments")
+                        check(abs(float(ell_k - ell_p)) <= rf * abs(float(ell_p)), f"{what} f64 LML {float(ell_k)} vs {float(ell_p)}")
+                        check(allclose(g_k, g_p, rs, as_) and allclose(L_k, L_p, rs, as_), f"{what} f64 smoother moments")
+                        worst[T] = max(max_abs(b_k, b_p), max_abs(C_k, C_p), max_abs(g_k, g_p), max_abs(L_k, L_p))
+                        continue
+                    Fs32, Qs32, P032, H32, R32, y32 = strip_inputs(strip_edge_kernel(d, dtype), t, y, dtype)
+                    b_k, C_k, ell_k = strip.strip_filter(Fs32, Qs32, P032, H32, R32, y32)
+                    b_q, C_q, ell_q = strip.strip_filter_plain(Fs32, Qs32, P032, H32, R32, y32)
+                    g_k, L_k = strip.strip_smoother(Fs32, Qs32, b_q, C_q)
+                    g_q, L_q = strip.strip_smoother_plain(Fs32, Qs32, b_q, C_q)
+                    g_t, L_t = strip.strip_smoother_plain(Fs, Qs, b_q.double(), C_q.double())
+                    torch.cuda.synchronize()
+                scale = max(abs(float(ell_p)), 1e-300)
+                errs = {
+                    "b": (rel_err(b_k, b_p), rel_err(b_q, b_p)),
+                    "C": (rel_err(C_k, C_p), rel_err(C_q, C_p)),
+                    "ell": (abs(float(ell_k) - float(ell_p)) / scale, abs(float(ell_q) - float(ell_p)) / scale),
+                    "g": (rel_err(g_k, g_t), rel_err(g_q, g_t)),
+                    "L": (rel_err(L_k, L_t), rel_err(L_q, L_t)),
+                }
+                for k, (a, b_) in errs.items():
+                    check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} f32 {k}: kernel {a:.3e} vs plain {b_:.3e}")
+                worst[T] = max(a / max(b_, F32_FLOOR / F32_FACTOR) for a, b_ in errs.values())
+            unit = f"filter {threads['filter']} / smoother {threads['smoother']} threads a block"
+            if dtype == torch.float64:
+                print(f"strip apply edges d={d} f64 ({unit}), worst |kernel - plain| by T: " + ", ".join(f"{T}: {e:.2e}" for T, e in worst.items()))
+            else:
+                print(f"strip apply edges d={d} f32 ({unit}), worst kernel error over plain f32 error by T (limit {F32_FACTOR:.0f}): "
+                      + ", ".join(f"{T}: {e:.2f}" for T, e in worst.items()))
 
 
 # --------------------------------------------------------------------------
@@ -2240,16 +2354,20 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
 
 def ab_timers(label: str) -> None:
     """This script's timers alone, for comparing two trees in one call (the
-    module docstring): at N = 10M, Matern52, float32 — dt_smoother_apply on
-    the serving path's inputs and plane_scan on the time-first path's filter
-    and smoother rows, each as events around ten lone calls of its wrapper
-    (cuda_ms) and as device time in a profile of one call; the LML, one
-    predict_f request and one training step of the model, and the
-    time-first pkfs, each as events (cuda_ms, median of 9) and as device
-    time in a profile (profile_call).  plane_scan also on the same rows in
-    float64, and on RBF filter and smoother rows of d = 4..8 at
-    N = 1M float32.  One line a measurement, tagged with ``label``, the card
-    and the tree's look-back tiling where it reports one."""
+    module docstring): at N = 10M, Matern52, float32 — dt_smoother_apply and
+    dt_filter_apply on the serving path's inputs and plane_scan on the
+    time-first path's filter and smoother rows, each as events around ten
+    lone calls of its wrapper (cuda_ms) and as device time in a profile of
+    one call; the LML, one predict_f request and one training step of the
+    model, and the time-first pkfs and pkfs(LGSSMTL, "strip"), each as
+    events (cuda_ms, median of 9) and as device time in a profile
+    (profile_call).  plane_scan also on the same rows in float64, and on RBF
+    filter and smoother rows of d = 4..8 at N = 1M float32.  The two strip
+    pass-2 kernels on the Matern52 planes (d = 3, N = 10M float32) and at
+    every d = 1..8 at N = 1M, float32 and float64; the RBF(order=6) N = 1M
+    LML, predict_f and training step.  One line a measurement, tagged with
+    ``label``, the card and the tree's look-back tiling and strip stages
+    where it reports them."""
     card = phase_device()
     so, _ = _cuda.build()
     _cuda.load()
@@ -2274,7 +2392,13 @@ def ab_timers(label: str) -> None:
             return dt.dt_smoother_apply(fam, co, P0, dts, b, C, pre_s)
 
         report("dt_smoother_apply", cuda_ms(apply, reps=10), apply)
-        del b, C, pre_s
+        pre_f = dt.exclusive_chunk_prefixes(dt.dt_filter_scan(fam, co, P0, H, R, dts, model.ys), 3, reverse=False)
+
+        def filter_apply():
+            return dt.dt_filter_apply(fam, co, P0, H, R, dts, model.ys, pre_f)
+
+        report("dt_filter_apply", cuda_ms(filter_apply, reps=10), filter_apply)
+        del b, C, pre_s, pre_f
 
         def lml():
             return model.log_marginal_likelihood()
@@ -2311,7 +2435,8 @@ def ab_timers(label: str) -> None:
         del filt, smooth
         torch.cuda.empty_cache()
         # Wider states, where a tile holds fewer steps a thread (d = 4, 5: 2,
-        # d ≥ 6: 1): RBF planes as in phase 11, at the strip path's length.
+        # d ≥ 6: 1): RBF planes as in phase 11, at the strip path's length
+        # (the RBF(order=6) model's data).
         t_s, y_s = make_data(N_STRIP, SEED + 4)
         for order in range(4, plane.MAX_KERNEL_D + 1):
             make = lambda dtype, order=order: RBF(1.0, 0.05, order=order, dtype=dtype, device=DEV)
@@ -2324,6 +2449,96 @@ def ab_timers(label: str) -> None:
             return pkfs(ssm, yt, engine="strip")
 
         report("pkfs(LGSSM, strip)", cuda_ms(api, reps=9), api)
+        del ssm
+        ssm_tl = kernel.get_ssm_tl(ts, torch.full((1, 1), NOISE, dtype=torch.float32, device=DEV))
+
+        def api_tl():
+            return pkfs(ssm_tl, yt, engine="strip")
+
+        report("pkfs(LGSSMTL, strip)", cuda_ms(api_tl, reps=9), api_tl)
+        del ssm_tl
+        torch.cuda.empty_cache()
+        # The strip pass-2 kernels: d = 3 on that model's planes (the
+        # pkfs(LGSSMTL, "strip") path's), and every unit, d = 1..8 in float32
+        # and float64, at the strip path's length (strip_edge_kernel's planes).
+        strip_apply_timers(report, label, "Matern52", strip_inputs(kernel, t, y, torch.float32))
+        for dtype in (torch.float32, torch.float64):
+            for d in range(1, strip.MAX_KERNEL_D + 1):
+                strip_apply_timers(report, label, "", strip_inputs(strip_edge_kernel(d, dtype), t_s, y_s, dtype))
+                torch.cuda.empty_cache()
+
+    # The strip path's entry points: the RBF(order=6) model at N = N_STRIP.
+    rbf = rbf_model(t_s, y_s, torch.float32)
+    queries = np.random.RandomState(SEED + 5).rand(1000) * 1.4 - 0.2
+    with torch.no_grad():
+        report(f"strip LML RBF(order=6) N={N_STRIP}", cuda_ms(rbf.log_marginal_likelihood, reps=9), rbf.log_marginal_likelihood)
+        report(f"strip predict_f RBF(order=6) N={N_STRIP}", cuda_ms(lambda: rbf.predict_f(queries), reps=9), lambda: rbf.predict_f(queries))
+    report(f"strip training step RBF(order=6) N={N_STRIP}", cuda_ms(lambda: value_and_grad(rbf), reps=9), lambda: value_and_grad(rbf))
+
+
+def strip_apply_timers(report, label: str, what: str, planes) -> None:
+    """Both strip pass-2 kernels on the given (Fs, Qs, P0, H, R, y) planes,
+    through ``report`` (events around ten lone calls, device time in a
+    profile), each with the tree's stage where it reports one."""
+    Fs, Qs, P0, H, R, y = planes
+    d, T = P0.shape[0], y.shape[0]
+    with torch.no_grad():
+        pre_f = strip.exclusive_chunk_prefixes(strip.strip_filter_scan(Fs, Qs, P0, H, R, y), d, reverse=False)
+        b, C, _ = strip.strip_filter_apply(Fs, Qs, P0, H, R, y, pre_f)
+        pre_s = strip.exclusive_chunk_prefixes(strip.strip_smoother_scan(Fs, Qs, b, C), d, reverse=True)
+        calls = {
+            "filter": lambda: strip.strip_filter_apply(Fs, Qs, P0, H, R, y, pre_f),
+            "smoother": lambda: strip.strip_smoother_apply(Fs, Qs, b, C, pre_s),
+        }
+        for kind, fn in calls.items():
+            # The parent's tree has no per-unit stage.
+            stage = strip.apply_stage(d, Fs.dtype, kind) if hasattr(strip, "apply_stage") else "unstaged, 128 threads"
+            ms = cuda_ms(fn, reps=10)
+            print(f"ab {label} strip_{kind}_apply d={d} N={T} {Fs.dtype} {what}".rstrip() + f": stage (threads, rows, bytes) {stage}")
+            report(f"strip_{kind}_apply d={d} N={T} {Fs.dtype} {what}".rstrip(), ms, fn)
+
+
+def strip_apply_outputs(out_dir: str, T: int = 100_003) -> None:
+    """The moments of both strip pass-2 kernels at every d = 1..8, float32 and
+    float64, on planes made from the seed at T steps (by default a ragged
+    chunk, warp and block), saved in ``out_dir`` one file a unit, for
+    compare_strip_apply_outputs.  The smoother runs on the filter's moments,
+    so its inputs agree between two trees where the filter's outputs do."""
+    phase_device()
+    _cuda.build()
+    os.makedirs(out_dir, exist_ok=True)
+    t, y = make_data(T, SEED + 4)
+    for dtype in (torch.float32, torch.float64):
+        for d in range(1, strip.MAX_KERNEL_D + 1):
+            Fs, Qs, P0, H, R, yt = strip_inputs(strip_edge_kernel(d, dtype), t, y, dtype)
+            with torch.no_grad():
+                pre_f = strip.exclusive_chunk_prefixes(strip.strip_filter_scan(Fs, Qs, P0, H, R, yt), d, reverse=False)
+                b, C, _ = strip.strip_filter_apply(Fs, Qs, P0, H, R, yt, pre_f)
+                pre_s = strip.exclusive_chunk_prefixes(strip.strip_smoother_scan(Fs, Qs, b, C), d, reverse=True)
+                g, L = strip.strip_smoother_apply(Fs, Qs, b, C, pre_s)
+            moments = {"b": b, "C": C, "g": g, "L": L}
+            torch.save({k: v.cpu() for k, v in moments.items()}, os.path.join(out_dir, f"d{d}_{dtype}.pt"))
+    print(f"strip apply outputs: T={T}, {len(os.listdir(out_dir))} units in {out_dir}")
+
+
+def compare_strip_apply_outputs(dir_a: str, dir_b: str) -> bool:
+    """Each unit's moments from two strip_apply_outputs runs, compared bit for
+    bit (the values' bit patterns); where they differ, the largest difference
+    and the share of values that differ.  True where every unit agrees."""
+    same = True
+    for name in sorted(os.listdir(dir_a)):
+        a, b = (torch.load(os.path.join(x, name)) for x in (dir_a, dir_b))
+        for k in a:
+            bits = torch.int64 if a[k].dtype == torch.float64 else torch.int32
+            differ = a[k].view(bits) != b[k].view(bits)
+            if differ.any():
+                same = False
+                print(f"strip apply outputs {name} {k}: differ, {float(differ.double().mean()):.3e} of the values, "
+                      f"max abs {max_abs(a[k], b[k]):.3e}")
+            else:
+                print(f"strip apply outputs {name} {k}: bit for bit")
+    print(f"strip apply outputs: {'every unit bit for bit' if same else 'not bit for bit'}")
+    return same
 
 
 def main() -> int:

@@ -12,7 +12,10 @@
 // an element lives in registers as far as they reach: a filtering element is
 // 3D²+2D values (33 at D=3, 120 at D=6, 208 at D=8), a smoothing element
 // 2D²+D; beyond about D=4 the compiler spills part of it to local memory.
-// Matrices are row-major arrays of D*D values.
+// Matrices are row-major arrays of D*D values.  The functions that read F and
+// Q (and the products they feed) take any indexable matrix: an array, or a
+// Strided view of a matrix staged in shared memory (scan_passes.cuh), read
+// where it is used rather than held in registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,8 +74,8 @@ struct TileThreads {
 // Small-matrix helpers
 // ---------------------------------------------------------------------------
 
-template <typename S, int D>
-__device__ __forceinline__ void mm(const S* a, const S* b, S* out) {
+template <typename S, int D, typename MA, typename MB>
+__device__ __forceinline__ void mm(const MA& a, const MB& b, S* out) {
 #pragma unroll
   for (int i = 0; i < D; ++i)
 #pragma unroll
@@ -97,8 +100,8 @@ __device__ __forceinline__ void mv(const S* a, const S* v, S* out) {
 
 // out = a · btᵀ + add for a product that is symmetric in exact arithmetic:
 // only the upper triangle is computed and mirrored (pallas_scan._mm_symout).
-template <typename S, int D>
-__device__ __forceinline__ void mm_symout(const S* a, const S* bt, const S* add, S* out) {
+template <typename S, int D, typename MA, typename MB, typename MC>
+__device__ __forceinline__ void mm_symout(const MA& a, const MB& bt, const MC& add, S* out) {
 #pragma unroll
   for (int i = 0; i < D; ++i)
 #pragma unroll
@@ -334,8 +337,8 @@ __device__ __forceinline__ void build_fq_vjp(const S* c, int degree, const S* P0
 // Element of step t from its F, Q and observation.  mask is 1 for an observed
 // step and 0 for a missing one (then K = 0: A=F, C=Q, b=η=J=0).  is_first
 // marks global t = 0, which updates against (m0 = 0, P0).
-template <typename S, int D>
-__device__ __forceinline__ void build_filtering(const S* F, const S* Q, S y, S mask, const S* h, S r,
+template <typename S, int D, typename M>
+__device__ __forceinline__ void build_filtering(const M& F, const M& Q, S y, S mask, const S* h, S r,
                                                 const S* P0, bool is_first, Filt<S, D>& e) {
   S HQ[D], HF[D];
 #pragma unroll
@@ -440,8 +443,8 @@ __device__ __forceinline__ Filt<S, D> filt_combine(const Filt<S, D>& e1, const F
 
 // Element of step t < T−1 from the next step's Fn, Qn and the filtered
 // moments (m, P) at t.
-template <typename S, int D>
-__device__ __forceinline__ void build_smoothing(const S* Fn, const S* Qn, const S* m, const S* P, Smooth<S, D>& e) {
+template <typename S, int D, typename M>
+__device__ __forceinline__ void build_smoothing(const M& Fn, const M& Qn, const S* m, const S* P, Smooth<S, D>& e) {
   S FP[D * D], Pp[D * D], Pinv[D * D], T1[D * D];
   mm<S, D>(Fn, P, FP);
   mm_symout<S, D>(FP, Fn, Qn, Pp);

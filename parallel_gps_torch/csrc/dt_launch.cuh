@@ -1,6 +1,7 @@
-// What the dt-engine kernel sources share on the launch side: the block
-// size, the scalar tables a kernel reads its model from, the argument check
-// and the dispatch on scalar type and state dimension.
+// What the two-pass kernel sources share on the launch side: the block size,
+// the scalar tables a dt kernel reads its model from, the argument check, the
+// dispatch on scalar type and state dimension, and the launch with opted-in
+// shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,7 +54,21 @@ inline bool bad_shape(int d, int degree, long long T, int K) {
   return d < 1 || d > 3 || degree < 0 || degree > d - 1 || T < 1 || K < 1;
 }
 
-inline unsigned int n_blocks(long long n_chunks) { return (unsigned int)((n_chunks + kThreads - 1) / kThreads); }
+inline unsigned int n_blocks(long long n_chunks, int threads = kThreads) {
+  return (unsigned int)((n_chunks + threads - 1) / threads);
+}
+
+// Launches ``kern`` on ``blocks`` blocks of ``threads`` threads with ``bytes``
+// of dynamic shared memory a block, opted in first (above the 48 KB default;
+// up to 227 KB a block on an H100, static shared memory included); returns
+// the opt-in's error or the launch's, so that a refused launch is reported.
+template <typename Kern, typename... Args>
+int launch_opted_in(Kern kern, unsigned int blocks, int threads, int bytes, cudaStream_t st, Args... args) {
+  const cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  kern<<<blocks, threads, bytes, st>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace pgt
 

@@ -109,15 +109,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Launches a staged kernel with its ChunkStage<S, D>::kBytes of dynamic
-// shared memory a block, opted in first (above the 48 KB static limit);
-// returns the opt-in's error or the launch's.
+// shared memory a block (dt_launch.cuh: launch_opted_in).
 template <typename S, int D, typename Kern, typename... Args>
 int launch_staged(Kern kern, long long n_chunks, cudaStream_t st, Args... args) {
-  constexpr int bytes = ChunkStage<S, D>::kBytes;
-  const cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (rc != cudaSuccess) return (int)rc;
-  kern<<<n_blocks(n_chunks), kThreads, bytes, st>>>(args...);
-  return (int)cudaGetLastError();
+  return launch_opted_in(kern, n_blocks(n_chunks), kThreads, ChunkStage<S, D>::kBytes, st, args...);
 }
 
 // ---------------------------------------------------------------------------

@@ -8,6 +8,12 @@
 // a smoother source provides fq alone.
 //
 // Each thread owns chunk c: the K consecutive steps [c·K, min(T, (c+1)·K)).
+//
+// The pass-2 bodies stage their rows through shared memory a warp at a time
+// (ChunkStage): filter_apply_staged its outputs, smoother_apply_staged its
+// moments in and out, and filter_apply_planes / smoother_apply_planes the F
+// and Q planes too (the strip filter, and the strip smoother's units where
+// that stage fits and measured faster).
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -58,8 +64,8 @@ __device__ __forceinline__ void smoother_step(const Src& p, const S* b, long lon
 
 // log p(y_t | y_<t) of an observed step from its F, Q and the moments before
 // it: the prefix-included element before step t, or (0, P0) at global t = 0.
-template <typename S, int D, typename Src>
-__device__ __forceinline__ S step_loglik(const Src& p, const S* F, const S* Q, S yc, const Filt<S, D>& acc,
+template <typename S, int D, typename Src, typename M>
+__device__ __forceinline__ S step_loglik(const Src& p, const M& F, const M& Q, S yc, const Filt<S, D>& acc,
                                          bool is_first) {
   const S log2pi = S(1.8378770664093454835606594728112);  // log(2π)
   S mprev[D], Pprev[D * D];
@@ -109,65 +115,89 @@ __device__ __forceinline__ void filter_scan_chunk(const Src& p, const S* y, S* t
   store_filt<S, D>(totals, n_chunks, c, acc);
 }
 
-// Filter pass 2: re-fold chunk c seeded with its exclusive prefix, write the
-// filtered moments, and return the chunk's share of the log-likelihood.
-template <typename S, int D, typename Src>
-__device__ __forceinline__ S filter_apply_chunk(const Src& p, const S* prefix, const S* y, S* b_out, S* C_out,
-                                                long long T, int K, long long n_chunks, long long c) {
-  const long long t0 = c * K;
-  const long long t1 = (t0 + K < T) ? t0 + K : T;
-  S ll = S(0);
-  Filt<S, D> acc, e;
-  load_filt<S, D>(prefix, n_chunks, c, acc);
-  for (long long t = t0; t < t1; ++t) {
-    S F[D * D], Q[D * D], yc;
-    bool observed;
-    filter_step<S, D>(p, y, t, F, Q, yc, observed, e);
-    if (observed) ll += step_loglik<S, D>(p, F, Q, yc, acc, t == 0);
-    acc = filt_combine<S, D>(acc, e);
-#pragma unroll
-    for (int a = 0; a < D; ++a) b_out[a * T + t] = acc.b[a];
-#pragma unroll
-    for (int q = 0; q < D * D; ++q) C_out[q * T + t] = acc.C[q];
-  }
-  return ll;
-}
-
-// Shared memory of the staged pass-2 bodies (filter_apply_staged,
-// smoother_apply_staged): each warp stages kR steps of its 32 chunks' kRows
-// moment rows — b then C, D + D² rows, the filter's outputs; the smoother's
-// inputs b, C and, in the same places, its outputs g, L — a chunk's kR values
-// of a row in a slot of kR + 1 (the pad keeps the warp's writes, 32 slots
-// kR+1 apart, on distinct banks).  kR fills one 32-byte sector: 8 steps at
-// float, 4 at double.
-template <typename S, int D>
+// Shared memory of the staged pass-2 bodies: each warp stages kR steps of its
+// 32 chunks' kRows rows — by default b then C, D + D² rows, the filter's
+// outputs, the smoother's inputs b, C and, in the same places, its outputs
+// g, L — a chunk's kR values of a row in a slot of kR + 1 (the pad keeps the
+// warp's writes, 32 slots kR+1 apart, on distinct banks; the smoother that
+// stages its planes keeps the step after a round there).  kR fills one
+// 32-byte sector: 8 steps at float, 4 at double.  A block is kWarps warps.
+template <typename S, int D, int Rows = D + D * D, int Warps = kThreads / 32>
 struct ChunkStage {
   static constexpr int kR = 32 / sizeof(S);
-  static constexpr int kRows = D + D * D;
+  static constexpr int kRows = Rows;
   static constexpr int kSlot = kR + 1;
   static constexpr int kRow = 32 * kSlot;  // one row of a warp's region
   static constexpr int kWarp = kRows * kRow;
-  static constexpr int kBytes = (kThreads / 32) * kWarp * (int)sizeof(S);
+  static constexpr int kWarps = Warps;
+  static constexpr int kThreads = 32 * Warps;
+  static constexpr int kBytes = Warps * kWarp * (int)sizeof(S);
 };
 
-// One round's copy between the stage and device memory, rows ``first`` (D
-// rows) then ``second`` (D² rows) of T values: value i·32 + lane of a row is
+// Row i of a warp's region read as row i of a D×D matrix: a matrix of one
+// step staged in shared memory, read by the algebra where it is used.
+template <typename S, int kStride>
+struct Strided {
+  const S* p;
+  __device__ __forceinline__ S operator[](int i) const { return p[i * kStride]; }
+};
+
+// The rows a stage copy moves: row i < kN is at(i, T), T values in device
+// memory.  MomentRows: b (D rows) then C (D²).
+template <typename P, int D>
+struct MomentRows {
+  static constexpr int kN = D + D * D;
+  P b, C;
+  __device__ __forceinline__ P at(int row, long long T) const { return row < D ? b + row * T : C + (row - D) * T; }
+};
+
+// The filter's inputs: F (D² rows), Q (D²), y.
+template <typename S, int D>
+struct FilterPlaneRows {
+  static constexpr int kN = 2 * D * D + 1;
+  const S* Fs;
+  const S* Qs;
+  const S* y;
+  __device__ __forceinline__ const S* at(int row, long long T) const {
+    return row < D * D ? Fs + row * T : (row < 2 * D * D ? Qs + (row - D * D) * T : y);
+  }
+};
+
+// The smoother's inputs: b (D rows), C (D²), F (D²), Q (D²).
+template <typename S, int D>
+struct SmootherPlaneRows {
+  static constexpr int kN = 3 * D * D + D;
+  const S* b;
+  const S* C;
+  const S* Fs;
+  const S* Qs;
+  __device__ __forceinline__ const S* at(int row, long long T) const {
+    if (row < D) return b + row * T;
+    if (row < D + D * D) return C + (row - D) * T;
+    if (row < D + 2 * D * D) return Fs + (row - D - D * D) * T;
+    return Qs + (row - D - 2 * D * D) * T;
+  }
+};
+
+// One round's copy between the stage and device memory of the rows ``rows``
+// (the first Rows::kN rows of the region): value i·32 + lane of a row is
 // step r0 + lane % kR of chunk c0 + i·(32/kR) + lane / kR, so each load or
 // store instruction covers 32/kR whole sectors, in place of 32 partial
 // sectors when each thread moves its own chunk's values.  Steps past a chunk
 // (r0 + s ≥ K) or past T are not moved.  In each lane it touches the same
-// stage values in every round, in either direction.  The copy in is
-// asynchronous (cp.async): every value of the lane's share is in flight at
-// once, and has landed when it returns (the caller synchronises the warp).
-template <typename S, int D, bool kToStage, typename P>
-__device__ __forceinline__ void stage_round(P first, P second, S* stage, long long c0, int K, long long T, int r0) {
-  typedef ChunkStage<S, D> G;
+// stage values in every round and every row, in either direction.  The copy
+// in is asynchronous (cp.async): every value of the lane's share is in
+// flight at once, and has landed when it returns (the caller synchronises
+// the warp).
+template <typename S, bool kToStage, typename Rows>
+__device__ __forceinline__ void stage_rows(const Rows& rows, S* stage, long long c0, int K, long long T, int r0) {
+  typedef ChunkStage<S, 1> G;  // kR, kSlot and kRow do not depend on D
   constexpr int R = G::kR;
   const int lane = threadIdx.x & 31;
   const int s = lane % R;
 #pragma unroll 1
-  for (int row = 0; row < G::kRows; ++row) {
-    P dev = row < D ? first + row * T : second + (row - D) * T;
+  for (int row = 0; row < Rows::kN; ++row) {
+    const auto dev = rows.at(row, T);
     S* sm = stage + row * G::kRow + s;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -188,11 +218,12 @@ __device__ __forceinline__ void stage_round(P first, P second, S* stage, long lo
   }
 }
 
-// Filter pass 2 with coalesced stores: filter_apply_chunk's fold, in the same
-// order, with the moments staged through ``stage`` (the calling warp's
+// Filter pass 2: re-fold chunk c seeded with its exclusive prefix, step by
+// step in order, write the filtered moments, and return the chunk's share of
+// the log-likelihood.  Its stores are staged through ``stage`` (the calling warp's
 // ChunkStage<S, D>::kWarp values of shared memory).  The warp folds kR steps
 // of each of its 32 chunks into shared memory, synchronises, and writes each
-// output row as whole sectors (stage_round).  Every thread of the warp calls
+// output row as whole sectors (stage_rows).  Every thread of the warp calls
 // it, chunk or not (c ≥ n_chunks); the round count is the warp's first
 // chunk's.
 template <typename S, int D, typename Src>
@@ -226,21 +257,76 @@ __device__ __forceinline__ S filter_apply_staged(const Src& p, const S* prefix, 
       for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.C[q];
     }
     __syncwarp();
-    stage_round<S, D, false>(b_out, C_out, stage, c0, K, T, r0);
+    stage_rows<S, false>(MomentRows<S*, D>{b_out, C_out}, stage, c0, K, T, r0);
     __syncwarp();
   }
   return ll;
 }
 
-// Sum of one value per thread over the block, in a fixed tree (no atomics);
-// thread 0 writes it to parts[blockIdx.x].  Every thread of the block calls it.
-template <typename S>
+// Filter pass 2 with its loads and stores staged: filter_apply_staged's fold,
+// in the same order, through ``stage`` (the calling warp's
+// ChunkStage<S, D, 2D² + 1>::kWarp values).  A round copies kR steps of the
+// warp's 32 chunks' F, Q and y rows in as whole sectors (stage_rows); each
+// thread folds its kR steps, the algebra reading F and Q where it uses them
+// (Strided), and writes each step's b, C over the first D + D² stage rows of
+// that step, which it has consumed; the warp copies them out as whole
+// sectors.  Every thread of the warp calls it, chunk or not; the rounds are
+// the warp's first chunk's.
+template <typename S, int D, typename Src>
+__device__ __forceinline__ S filter_apply_planes(const Src& p, const S* prefix, const S* Fs, const S* Qs, const S* y,
+                                                 S* b_out, S* C_out, long long T, int K, long long n_chunks,
+                                                 long long c, S* stage) {
+  typedef ChunkStage<S, D> G;
+  constexpr int R = G::kR;
+  constexpr int kQ = D * D * G::kRow;  // the Q rows; the y row at 2·kQ
+  const int lane = threadIdx.x & 31;
+  const long long c0 = c - lane;  // the warp's first chunk
+  const long long t0 = c * K;
+  const long long t1 = (c < n_chunks) ? ((t0 + K < T) ? t0 + K : T) : t0;
+  const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
+  S ll = S(0);
+  Filt<S, D> acc, e;
+  if (c < n_chunks) load_filt<S, D>(prefix, n_chunks, c, acc);
+  S* slot = stage + lane * G::kSlot;
+  const FilterPlaneRows<S, D> in{Fs, Qs, y};
+#pragma unroll 1
+  for (int r0 = 0; r0 < span; r0 += R) {
+    // The copy-out of the round before read, in this lane, the stage values
+    // this copy-in writes: no barrier between them.
+    stage_rows<S, true>(in, stage, c0, K, T, r0);
+    __syncwarp();
+#pragma unroll 1
+    for (int s = 0; s < R; ++s) {
+      const long long t = t0 + r0 + s;
+      if (t >= t1) break;
+      const Strided<S, G::kRow> F{slot + s}, Q{slot + kQ + s};
+      const S yv = slot[2 * kQ + s];
+      const bool observed = !(yv != yv);  // NaN marks a missing observation
+      const S yc = observed ? yv : S(0);
+      build_filtering<S, D>(F, Q, yc, observed ? S(1) : S(0), p.h, p.r, p.P0, t == 0, e);
+      if (observed) ll += step_loglik<S, D>(p, F, Q, yc, acc, t == 0);
+      acc = filt_combine<S, D>(acc, e);
+#pragma unroll
+      for (int a = 0; a < D; ++a) slot[a * G::kRow + s] = acc.b[a];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.C[q];
+    }
+    __syncwarp();
+    stage_rows<S, false>(MomentRows<S*, D>{b_out, C_out}, stage, c0, K, T, r0);
+  }
+  return ll;
+}
+
+// Sum of one value per thread over the block of N threads (a power of two),
+// in a fixed tree (no atomics); thread 0 writes it to parts[blockIdx.x].
+// Every thread of the block calls it.
+template <typename S, int N = kThreads>
 __device__ __forceinline__ void block_sum(S value, S* parts) {
-  __shared__ S red[kThreads];
+  __shared__ S red[N];
   red[threadIdx.x] = value;
   __syncthreads();
 #pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
+  for (int s = N / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
@@ -263,26 +349,8 @@ __device__ __forceinline__ void smoother_scan_chunk(const Src& p, const S* b, co
 }
 
 // Smoother pass 2: reverse re-fold of chunk c seeded with its exclusive
-// suffix; writes the smoothed moments.
-template <typename S, int D, typename Src>
-__device__ __forceinline__ void smoother_apply_chunk(const Src& p, const S* prefix, const S* b, const S* C, S* g_out,
-                                                     S* L_out, long long T, int K, long long n_chunks, long long c) {
-  const long long t0 = c * K;
-  const long long t1 = (t0 + K < T) ? t0 + K : T;
-  Smooth<S, D> acc, e;
-  load_smooth<S, D>(prefix, n_chunks, c, acc);
-  for (long long t = t1 - 1; t >= t0; --t) {
-    smoother_step<S, D>(p, b, T, C, T, t, T, e);
-    acc = smooth_combine<S, D>(acc, e);
-#pragma unroll
-    for (int a = 0; a < D; ++a) g_out[a * T + t] = acc.g[a];
-#pragma unroll
-    for (int q = 0; q < D * D; ++q) L_out[q * T + t] = acc.L[q];
-  }
-}
-
-// Smoother pass 2 with coalesced loads and stores: smoother_apply_chunk's
-// reverse fold, in the same order, through ``stage`` (the calling warp's
+// suffix, step by step from its end; writes the smoothed moments.  Its loads
+// and stores go through ``stage`` (the calling warp's
 // ChunkStage<S, D>::kWarp values of shared memory).  A round is kR steps of
 // each of the warp's 32 chunks, from the chunks' ends towards their starts:
 // the warp copies their b, C rows in as whole sectors, each thread folds its
@@ -309,7 +377,7 @@ __device__ __forceinline__ void smoother_apply_staged(const Src& p, const S* pre
   for (int r0 = span > 0 ? (int)((span - 1) / R) * R : -1; r0 >= 0; r0 -= R) {
     // The copy-out of the round before touched, in this lane, the stage
     // values this copy-in writes: no barrier between them.
-    stage_round<S, D, true>(b, C, stage, c0, K, T, r0);
+    stage_rows<S, true>(MomentRows<const S*, D>{b, C}, stage, c0, K, T, r0);
     __syncwarp();
 #pragma unroll 1
     for (int s = R - 1; s >= 0; --s) {
@@ -328,7 +396,78 @@ __device__ __forceinline__ void smoother_apply_staged(const Src& p, const S* pre
       for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.L[q];
     }
     __syncwarp();
-    stage_round<S, D, false>(g_out, L_out, stage, c0, K, T, r0);
+    stage_rows<S, false>(MomentRows<S*, D>{g_out, L_out}, stage, c0, K, T, r0);
+  }
+}
+
+// Smoother pass 2 with its planes staged too: smoother_apply_staged's
+// reverse fold, in the same order, through ``stage`` (the calling warp's
+// ChunkStage<S, D, 3D² + D>::kWarp values): each round copies in the b, C
+// rows and the F, Q rows of the round's kR steps.  A step reads F, Q of the
+// step after it (smoothing_element): for the round's last step that is the
+// step after the round, which each lane keeps in the pad of its F, Q slots —
+// for the chunk's last round the next chunk's first step (another lane's
+// chunk: read once, directly), then, as the rounds walk back, the first step
+// of the round just folded.  The chunk length K is a multiple of kR.
+template <typename S, int D>
+__device__ __forceinline__ void smoother_apply_planes(const S* prefix, const S* b, const S* C, const S* Fs,
+                                                      const S* Qs, S* g_out, S* L_out, long long T, int K,
+                                                      long long n_chunks, long long c, S* stage) {
+  typedef ChunkStage<S, D> G;
+  constexpr int R = G::kR;
+  constexpr int kF = (D + D * D) * G::kRow;  // the F rows
+  constexpr int kQ = kF + D * D * G::kRow;   // the Q rows
+  const int lane = threadIdx.x & 31;
+  const long long c0 = c - lane;  // the warp's first chunk
+  const long long t0 = c * K;
+  const long long t1 = (c < n_chunks) ? ((t0 + K < T) ? t0 + K : T) : t0;
+  const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
+  Smooth<S, D> acc, e;
+  if (c < n_chunks) load_smooth<S, D>(prefix, n_chunks, c, acc);
+  S* slot = stage + lane * G::kSlot;
+  if (t1 < T) {  // a chunk with a step after it
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) {
+      slot[kF + q * G::kRow + R] = Fs[q * T + t1];
+      slot[kQ + q * G::kRow + R] = Qs[q * T + t1];
+    }
+  }
+  const SmootherPlaneRows<S, D> in{b, C, Fs, Qs};
+#pragma unroll 1
+  for (int r0 = span > 0 ? (int)((span - 1) / R) * R : -1; r0 >= 0; r0 -= R) {
+    // The copy-out of the round before touched, in this lane, the stage
+    // values this copy-in writes: no barrier between them.
+    stage_rows<S, true>(in, stage, c0, K, T, r0);
+    __syncwarp();
+#pragma unroll 1
+    for (int s = R - 1; s >= 0; --s) {
+      const long long t = t0 + r0 + s;
+      if (t >= t1) continue;
+      S m[D], P[D * D];
+#pragma unroll
+      for (int a = 0; a < D; ++a) m[a] = slot[a * G::kRow + s];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) P[q] = slot[(D + q) * G::kRow + s];
+      if (t == T - 1) {
+        build_smoothing_last<S, D>(m, P, e);
+      } else {
+        const Strided<S, G::kRow> Fn{slot + kF + s + 1}, Qn{slot + kQ + s + 1};
+        build_smoothing<S, D>(Fn, Qn, m, P, e);
+      }
+      acc = smooth_combine<S, D>(acc, e);
+#pragma unroll
+      for (int a = 0; a < D; ++a) slot[a * G::kRow + s] = acc.g[a];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.L[q];
+    }
+    // The round's first step is the step after the next round's last.
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) {
+      slot[kF + q * G::kRow + R] = slot[kF + q * G::kRow];
+      slot[kQ + q * G::kRow + R] = slot[kQ + q * G::kRow];
+    }
+    __syncwarp();
+    stage_rows<S, false>(MomentRows<S*, D>{g_out, L_out}, stage, c0, K, T, r0);
   }
 }
 

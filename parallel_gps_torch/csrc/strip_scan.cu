@@ -25,7 +25,10 @@
 // 2·D² more loads a step than the dt kernels.  From about D = 5 (float) or
 // D = 4 (double) two elements and the combine's temporaries no longer fit in
 // 255 registers and spill to local memory; the spills are accepted and
-// reported by ptxas (-Xptxas -v).
+// reported by ptxas (-Xptxas -v).  The two pass-2 kernels stage their rows
+// through shared memory a warp at a time (scan_passes.cuh: ChunkStage), each
+// unit by its own budget (ApplyStage below); the pass-1 kernels still load
+// strided.
 //
 // One translation unit per state dimension: compile with -DPGT_D=<1..8>, so
 // that the eight fully unrolled instantiations build side by side
@@ -110,29 +113,91 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// The pass-2 kernels' shared-memory budget, one fixed choice a unit (state
+// dimension, scalar type), mirrored by kalman/strip.py (apply_stage) and
+// checked against it when the library loads (kalman/_cuda.py).
+//
+// Each warp stages kR steps of its 32 chunks (ChunkStage).  The filter
+// stages its F, Q and y rows, and writes b and C over the consumed F, Q
+// (2D² + 1 rows).  The smoother stages either its b, C, F and Q rows, g and
+// L written over b and C (3D² + D rows), or its moments alone, b and C in and
+// g and L out in the same places (D + D² rows), F and Q loaded strided.  A
+// block is 4, 2 or 1 warps, whichever leaves an SM the most warps by shared
+// memory (the larger block on a tie), within the 232,448 bytes a block may
+// opt in to.  The smoother's whole stage costs warps an SM (at D = 6 float:
+// 1 in place of 4), so where it is taken is a measured choice (PERF.md §6),
+// not the largest stage that fits; it does not fit at D = 8 double (256,000
+// bytes a warp).
+// ---------------------------------------------------------------------------
+constexpr int kSmemLimit = 232448;    // a block's opt-in limit, bytes
+constexpr int kSmemPerSM = 233472;    // an SM's shared memory, bytes
+constexpr int kSmemReserved = 1024;   // the runtime's share of it for each block
+
+// Warps a block of a stage of kBytesPerWarp bytes a warp: of 1, 2, 4, the
+// count whose blocks leave an SM the most warps by shared memory (kRes*),
+// the larger on a tie, among those within a block's limit.  (Static members,
+// not a constexpr function: nvcc keeps host functions out of device code.)
+template <int kBytesPerWarp>
+struct BlockWarps {
+  static constexpr int kRes1 = kSmemPerSM / (kBytesPerWarp + kSmemReserved);
+  static constexpr int kRes2 = 2 * kBytesPerWarp <= kSmemLimit ? 2 * (kSmemPerSM / (2 * kBytesPerWarp + kSmemReserved)) : 0;
+  static constexpr int kRes4 = 4 * kBytesPerWarp <= kSmemLimit ? 4 * (kSmemPerSM / (4 * kBytesPerWarp + kSmemReserved)) : 0;
+  static constexpr int kN = (kRes4 >= kRes2 && kRes4 >= kRes1) ? 4 : (kRes2 >= kRes1 ? 2 : 1);
+};
+
+// Smoother units that stage their planes: bit D − 1, where that stage
+// measured faster than the moments alone on an H100 (PERF.md §6, row 9): D ≤ 6
+// in float, D = 1, 3..6 in double (at D = 2 double and D = 7, 8 the
+// moments-only stage was faster, and at D = 8 double the planes do not fit).
+constexpr unsigned kSmootherPlanesF32 = 0x3Fu;
+constexpr unsigned kSmootherPlanesF64 = 0x3Du;
+
+template <typename S, int D, bool kSmoother>
+struct ApplyStage {
+  static constexpr unsigned kMask = sizeof(S) == 8 ? kSmootherPlanesF64 : kSmootherPlanesF32;
+  static constexpr bool kPlanes = !kSmoother || ((kMask >> (D - 1)) & 1u);
+  static constexpr int kRows = !kPlanes ? D + D * D : (kSmoother ? 3 * D * D + D : 2 * D * D + 1);
+  // Bytes a warp: its region, and the filter's block_sum values.
+  static constexpr int kWarpBytes =
+      ChunkStage<S, D, kRows, 1>::kBytes + (kSmoother ? 0 : 32 * (int)sizeof(S));
+  static constexpr int kWarps = BlockWarps<kWarpBytes>::kN;
+  static_assert(kWarpBytes <= kSmemLimit, "a pass-2 unit's stage does not fit one warp a block");
+  typedef ChunkStage<S, D, kRows, kWarps> G;
+  static constexpr int kThreads = G::kThreads;
+  static constexpr int kBytes = G::kBytes;  // dynamic shared memory a block
+};
+
+extern __shared__ __align__(16) unsigned char pgt_strip_smem[];
+
+// The calling warp's region of a pass-2 kernel's dynamic shared memory.
+template <typename A, typename S>
+__device__ __forceinline__ S* apply_stage_warp() {
+  return reinterpret_cast<S*>(pgt_strip_smem) + (threadIdx.x / 32) * A::G::kWarp;
+}
+
+// ---------------------------------------------------------------------------
 // Filter pass 2.  Replaces pallas_scan.py _strip_filter_apply_kernel (:798,
 // pallas_call :1036): re-fold seeded with the prefix, the filtered b and C,
 // and the streamed log p(y_t | y_<t) from the previous moments
 // (pallas_scan.py:851-896), summed per block in a fixed order (no atomics).
-// Bound: bytes — (3D²+D+1) values a step, strided loads and stores.
+// Bound: bytes — (3D²+D+1) values a step.  A thread walking its own chunk
+// loads and stores them strided by K, 32 partial sectors an instruction; so
+// each warp stages them (ApplyStage): its F, Q and y rows copied in and its
+// b, C rows copied out as whole sectors (filter_apply_planes).
 // ---------------------------------------------------------------------------
 template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__((ApplyStage<S, D, false>::kThreads))
     strip_filter_apply_kernel(const S* __restrict__ scal, const S* __restrict__ prefix, const S* __restrict__ Fs,
                               const S* __restrict__ Qs, const S* __restrict__ y, S* __restrict__ b_out,
                               S* __restrict__ C_out, S* __restrict__ ell_parts, long long T, int K,
                               long long n_chunks) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  S ll = S(0);
-  if (c < n_chunks) {
-    PlaneFilterSource<S, D> p;
-    p.load(scal);
-    p.Fs = Fs;
-    p.Qs = Qs;
-    p.T = T;
-    ll = filter_apply_chunk<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c);
-  }
-  block_sum<S>(ll, ell_parts);
+  typedef ApplyStage<S, D, false> A;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  PlaneFilterSource<S, D> p;  // its P0, h and r; F and Q come from the stage
+  p.load(scal);
+  const S ll =
+      filter_apply_planes<S, D>(p, prefix, Fs, Qs, y, b_out, C_out, T, K, n_chunks, c, apply_stage_warp<A, S>());
+  block_sum<S, A::kThreads>(ll, ell_parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -156,17 +221,25 @@ __global__ void __launch_bounds__(kThreads)
 // Smoother pass 2.  Replaces pallas_scan.py _strip_smoother_apply_kernel
 // (:1840, pallas_call :1977): reverse re-fold seeded with the chunk's
 // exclusive suffix; writes the smoothed g and L.
-// Bound: bytes — (4D²+2D) values a step, strided loads and stores.
+// Bound: bytes — (4D²+2D) values a step, strided by K when a thread walks its
+// own chunk; so each warp stages them (ApplyStage): b, C, F and Q copied in
+// and g, L copied out as whole sectors (smoother_apply_planes), or b, C in
+// and g, L out alone, F and Q loaded strided (smoother_apply_staged).
 // ---------------------------------------------------------------------------
 template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__((ApplyStage<S, D, true>::kThreads))
     strip_smoother_apply_kernel(const S* __restrict__ prefix, const S* __restrict__ Fs, const S* __restrict__ Qs,
                                 const S* __restrict__ b, const S* __restrict__ C, S* __restrict__ g_out,
                                 S* __restrict__ L_out, long long T, int K, long long n_chunks) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
-  PlaneSmootherSource<S, D> p{Fs, Qs, T};
-  smoother_apply_chunk<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c);
+  typedef ApplyStage<S, D, true> A;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  S* stage = apply_stage_warp<A, S>();
+  if constexpr (A::kPlanes) {
+    smoother_apply_planes<S, D>(prefix, b, C, Fs, Qs, g_out, L_out, T, K, n_chunks, c, stage);
+  } else {
+    PlaneSmootherSource<S, D> p{Fs, Qs, T};
+    smoother_apply_staged<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c, stage);
+  }
 }
 
 }  // namespace pgt
@@ -204,19 +277,58 @@ int PGT_ENTRY(pgt_strip_filter_scan)(int is64, const void* scal, const void* Fs,
   return (int)cudaGetLastError();
 }
 
+// The pass-2 kernels' budget (ApplyStage) of this unit, for the filter
+// (smoother = 0) or the smoother: threads a block, rows a warp stages, and
+// dynamic shared memory a block in bytes.
+#define PGT_APPLY_STAGE(FIELD)                                                                    \
+  (is64 ? (smoother ? pgt::ApplyStage<double, PGT_D, true>::FIELD : pgt::ApplyStage<double, PGT_D, false>::FIELD) \
+        : (smoother ? pgt::ApplyStage<float, PGT_D, true>::FIELD : pgt::ApplyStage<float, PGT_D, false>::FIELD))
+
+int PGT_ENTRY(pgt_strip_apply_threads)(int is64, int smoother) { return PGT_APPLY_STAGE(kThreads); }
+int PGT_ENTRY(pgt_strip_apply_rows)(int is64, int smoother) { return PGT_APPLY_STAGE(kRows); }
+int PGT_ENTRY(pgt_strip_apply_smem)(int is64, int smoother) { return PGT_APPLY_STAGE(kBytes); }
+#undef PGT_APPLY_STAGE
+
+// Blocks of the pass-2 kernel an SM holds at once (the CUDA occupancy
+// calculator: registers, shared memory, threads), or minus the error code.
+int PGT_ENTRY(pgt_strip_apply_blocks_per_sm)(int is64, int smoother) {
+  int blocks = 0;
+  cudaError_t rc = cudaSuccess;
+#define PGT_OCCUPANCY(S, KERN, SMOOTHER)                                                                \
+  {                                                                                                     \
+    typedef pgt::ApplyStage<S, PGT_D, SMOOTHER> A;                                                      \
+    rc = cudaFuncSetAttribute(KERN<S, PGT_D>, cudaFuncAttributeMaxDynamicSharedMemorySize, A::kBytes);  \
+    if (rc == cudaSuccess)                                                                              \
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, KERN<S, PGT_D>, A::kThreads, A::kBytes); \
+  }
+  if (is64) {
+    if (smoother) PGT_OCCUPANCY(double, pgt::strip_smoother_apply_kernel, true)
+    else PGT_OCCUPANCY(double, pgt::strip_filter_apply_kernel, false)
+  } else {
+    if (smoother) PGT_OCCUPANCY(float, pgt::strip_smoother_apply_kernel, true)
+    else PGT_OCCUPANCY(float, pgt::strip_filter_apply_kernel, false)
+  }
+#undef PGT_OCCUPANCY
+  return rc == cudaSuccess ? blocks : -(int)rc;
+}
+
 int PGT_ENTRY(pgt_strip_filter_apply)(int is64, const void* scal, const void* prefix, const void* Fs, const void* Qs,
                                       const void* y, void* b, void* C, void* ell_parts, long long T, int K,
                                       void* stream) {
   if (T < 1 || K < 1) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
-  cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S)                                                                               \
-  pgt::strip_filter_apply_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(      \
-      (const S*)scal, (const S*)prefix, (const S*)Fs, (const S*)Qs, (const S*)y, (S*)b, (S*)C,      \
-      (S*)ell_parts, T, K, n_chunks)
+  int rc = 0;
+#define PGT_LAUNCH(S)                                                                                     \
+  {                                                                                                       \
+    typedef pgt::ApplyStage<S, PGT_D, false> A;                                                           \
+    rc = pgt::launch_opted_in(pgt::strip_filter_apply_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)scal, (const S*)prefix, \
+                              (const S*)Fs, (const S*)Qs, (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K,   \
+                              n_chunks);                                                                  \
+  }
   PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 int PGT_ENTRY(pgt_strip_smoother_scan)(int is64, const void* Fs, const void* Qs, const void* b, const void* C,
@@ -236,14 +348,19 @@ int PGT_ENTRY(pgt_strip_smoother_apply)(int is64, const void* prefix, const void
                                         const void* C, void* g, void* L, long long T, int K, void* stream) {
   if (T < 1 || K < 1) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
-  cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S)                                                                               \
-  pgt::strip_smoother_apply_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(    \
-      (const S*)prefix, (const S*)Fs, (const S*)Qs, (const S*)b, (const S*)C, (S*)g, (S*)L, T, K,   \
-      n_chunks)
+  int rc = 0;
+#define PGT_LAUNCH(S)                                                                                       \
+  {                                                                                                         \
+    typedef pgt::ApplyStage<S, PGT_D, true> A;                                                              \
+    /* smoother_apply_planes keeps the step after a round in its pad */                                     \
+    if (A::kPlanes && K % A::G::kR != 0) return pgt::kBadArgs;                                              \
+    rc = pgt::launch_opted_in(pgt::strip_smoother_apply_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)prefix, (const S*)Fs,   \
+                              (const S*)Qs, (const S*)b, (const S*)C, (S*)g, (S*)L, T, K, n_chunks);         \
+  }
   PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 }  // extern "C"

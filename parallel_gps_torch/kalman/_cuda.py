@@ -131,6 +131,8 @@ def load():
         sigs[f"pgt_strip_filter_apply_d{d}"] = [i, p, p, p, p, p, p, p, p, ll, i, p]
         sigs[f"pgt_strip_smoother_scan_d{d}"] = [i, p, p, p, p, p, ll, i, p]
         sigs[f"pgt_strip_smoother_apply_d{d}"] = [i, p, p, p, p, p, p, p, ll, i, p]
+        for field in ("threads", "rows", "smem", "blocks_per_sm"):
+            sigs[f"pgt_strip_apply_{field}_d{d}"] = [i, i]
         for bits in (32, 64):
             sigs[f"pgt_batched_filter_d{d}_f{bits}"] = [p, p, ll, ll, p, ll, ll, p, ll, p, p, p, ll, i, i, p]
             sigs[f"pgt_batched_smoother_d{d}_f{bits}"] = [i, p, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p, p, ll, i, i, p]
@@ -151,8 +153,33 @@ def load():
     lib.pgt_threads_per_block.restype = ctypes.c_int
     if lib.pgt_threads_per_block() != THREADS:
         raise RuntimeError("csrc/dt_launch.cuh and kalman/_cuda.py disagree on threads per block")
+    from parallel_gps_torch.kalman import strip
+
+    for (d, dtype, kind), got in strip_apply_stages(lib).items():
+        if got != strip.apply_stage(d, dtype, kind):
+            raise RuntimeError(
+                f"csrc/strip_scan.cu and kalman/strip.py disagree on the {kind} pass 2's stage at d = {d} {dtype}: "
+                f"(threads, rows, bytes) {got} against {strip.apply_stage(d, dtype, kind)}"
+            )
     _LIB = lib
     return lib
+
+
+def strip_apply_stages(lib) -> dict:
+    """{(d, dtype, kind): (threads a block, rows a warp stages, dynamic shared
+    memory a block in bytes)} of the strip pass-2 kernels, as the library
+    ``lib`` was built."""
+    import torch
+
+    return {
+        (d, dtype, kind): tuple(
+            getattr(lib, f"pgt_strip_apply_{field}_d{d}")(int(dtype == torch.float64), int(kind == "smoother"))
+            for field in ("threads", "rows", "smem")
+        )
+        for d in STRIP_DIMS
+        for dtype in (torch.float32, torch.float64)
+        for kind in ("filter", "smoother")
+    }
 
 
 def launch(name: str, fn, *args) -> None:

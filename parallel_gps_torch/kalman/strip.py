@@ -15,8 +15,9 @@ streams the log-likelihood).  Each pass is a wrapper that dispatches on the
 device of its tensors:
 
   - CUDA, d ≤ 8, float32 or float64: the hand-written kernel of
-    ``csrc/strip_scan.cu`` (one thread per chunk); anything else on CUDA
-    raises;
+    ``csrc/strip_scan.cu`` (one thread per chunk; the pass-2 kernels stage
+    their rows through shared memory a warp at a time, each unit by its
+    budget, ``apply_stage``); anything else on CUDA raises;
   - CPU: the plain PyTorch version of the same pass (``*_plain``).
 
 The dt-engine (``kalman/dt.py``) runs the same algorithm with F and Q rebuilt
@@ -50,6 +51,23 @@ LAUNCHES = {"strip_filter_scan": 0, "strip_filter_apply": 0, "strip_smoother_sca
 CHUNK = 64
 MAX_KERNEL_D = 8
 
+# The pass-2 kernels' shared-memory budget (csrc/strip_scan.cu: ApplyStage),
+# mirrored here and checked against the library when it loads
+# (kalman/_cuda.py).  A warp stages 32 / itemsize steps of its 32 chunks, a
+# chunk's steps of a row in a slot of one more value.  The filter stages its
+# F, Q and y rows (2d² + 1, b and C written in place); the smoother either
+# its b, C, F and Q rows (3d² + d) or the moments alone (d + d² rows, g and L
+# written in place, F and Q loaded strided).  A block is 4, 2 or 1 warps,
+# whichever leaves an SM the most warps by shared memory (the larger block on
+# a tie), the filter's per-thread block sum included, within SMEM_LIMIT.
+SMEM_LIMIT = 232_448  # shared memory a block may opt in to on an H100, bytes
+SMEM_PER_SM = 233_472  # an H100 SM's shared memory, bytes
+SMEM_RESERVED = 1_024  # the CUDA runtime's share of it for each block
+# The state dimensions whose smoother pass 2 stages its F, Q planes, by scalar
+# type, where that measured faster on an H100 (PERF.md §6); the rest stage
+# their moments alone.
+SMOOTHER_PLANES = {torch.float32: frozenset(range(1, 7)), torch.float64: frozenset({1, 3, 4, 5, 6})}
+
 
 def filt_rows(d: int) -> int:
     """Components of a filtering element: A (d²), b (d), C (d²), J (d²), η (d)."""
@@ -63,6 +81,30 @@ def smooth_rows(d: int) -> int:
 
 def n_chunks(T: int) -> int:
     return -(-T // CHUNK)
+
+
+def apply_stage(d: int, dtype, kind: str) -> tuple[int, int, int]:
+    """(threads a block, rows a warp stages, dynamic shared memory a block in
+    bytes) of the ``kind`` ("filter" or "smoother") pass-2 kernel at state
+    dimension ``d`` and scalar type ``dtype``."""
+    size = torch.finfo(dtype).bits // 8
+    if kind == "filter":
+        rows = 2 * d * d + 1
+    elif d in SMOOTHER_PLANES[dtype]:
+        rows = 3 * d * d + d
+    else:
+        rows = d + d * d
+    region = rows * 32 * (32 // size + 1) * size
+    per_warp = region + (0 if kind == "smoother" else 32 * size)
+    fits = [w for w in (4, 2, 1) if w * per_warp <= SMEM_LIMIT]
+    warps = max(fits, key=lambda w: resident_warps(w, per_warp))  # the first, the largest, on a tie
+    return 32 * warps, rows, warps * region
+
+
+def resident_warps(warps: int, bytes_per_warp: int) -> int:
+    """Warps an SM holds, by shared memory, in blocks of ``warps`` warps of
+    ``bytes_per_warp`` each."""
+    return warps * (SMEM_PER_SM // (warps * bytes_per_warp + SMEM_RESERVED))
 
 
 def reset_launch_counts() -> None:
@@ -259,13 +301,12 @@ def strip_filter_apply(Fs_tl, Qs_tl, P0, H, R, y, prefix):
     """Filter pass 2: (b (d, T), C (d, d, T), ell) from the chunk prefixes."""
     if Fs_tl.device.type == "cpu":
         return strip_filter_apply_plain(Fs_tl, Qs_tl, P0, H, R, y, prefix)
-    from parallel_gps_torch.kalman import _cuda
-
     d, T = _check(Fs_tl, _named(Qs=Qs_tl, P0=P0, H=H, R=R, y=y, filter_prefix=prefix))
     dev, dtype = Fs_tl.device, Fs_tl.dtype
     b = torch.empty((d, T), dtype=dtype, device=dev)
     C = torch.empty((d, d, T), dtype=dtype, device=dev)
-    parts = torch.empty((-(-n_chunks(T) // _cuda.THREADS),), dtype=dtype, device=dev)
+    threads = apply_stage(d, dtype, "filter")[0]  # the library's, checked when it loads
+    parts = torch.empty((-(-n_chunks(T) // threads),), dtype=dtype, device=dev)
     _launch(
         "strip_filter_apply", d, int(dtype == torch.float64), _filter_scalars(P0, H, R), prefix, Fs_tl, Qs_tl, y,
         b, C, parts, T, CHUNK, dev,
