@@ -21,7 +21,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      planes) and d = 4, 6, 8 (RBF planes), and at d = 3 the strip engine
      against the dt-engine on the same data; both strip pass-2 kernels at
      every d = 1..8, float64 and float32, at the lengths where their staging
-     has ragged edges (strip_edge_lengths);
+     has ragged edges (strip_edge_lengths); then every spectral dt unit (RBF's
+     transition family, d = 1..8, float64 and float32: filter, smoother and
+     Fisher tail) against its plain version at T = 65,537, and its staged
+     pass 2 at its ragged lengths; and the exponential polynomial's dt units
+     bit for bit against the tree before the spectral family
+     (PARENT_DT_DIGESTS, dt_outputs);
   4. the serving path at full size: StateSpaceGP(Matern52(0.8, 0.4), noise
      0.1), N = 10,000,000 float32 observations — one LML and three
      predict_f requests of 1,000 unsorted queries — with the launch counts
@@ -38,8 +43,13 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      one training step;
   7. profile (torch.profiler): device time by kernel and the device's idle
      share for one LML, one predict_f request and one training step;
-  8. the strip path the same way (phases 4–7): the RBF(order=6) model at
-     N = 1,000,000 and pkfs(engine="strip") on an explicit model at N = 10M;
+  8. the RBF(order=6) model at N = 1,000,000 on the dt engine (the spectral
+     kernels) the same way (phases 4–7), with every spectral unit d = 1..8
+     timed at that length, and the model's LML, predict_f and training step
+     on the dt route beside the same entry points on the strip route (the
+     Kalman API on the model's planes) at orders 4..8; then the strip path:
+     the RBF(order=6) model's planes through the Kalman API and
+     pkfs(engine="strip") on an explicit model at N = 10M;
   9. the batched path: the two single-pass batched kernels and the Fisher
      tail with a batch axis against their plain versions (B = 5 and 64 series
      of T = 65,537, d = 1, 2, 3, 6 and 8; stride-0 shared operands; B = 1 bit
@@ -94,6 +104,7 @@ trees' bit for bit.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -121,7 +132,10 @@ from parallel_gps_torch.inference import (  # noqa: E402
 from parallel_gps_torch.kalman import _cuda  # noqa: E402
 from parallel_gps_torch.kalman import batched, dt, plane, strip, timelast  # noqa: E402
 from parallel_gps_torch.kalman.parallel import pkf, pkfs, pks  # noqa: E402
+from parallel_gps_torch.models.ssgp import merge_sorted  # noqa: E402
 from parallel_gps_torch.kernels import RBF, Matern12, Matern32, Matern52  # noqa: E402
+from parallel_gps_torch.kernels.matern import EXPPOLY  # noqa: E402
+from parallel_gps_torch.kernels.rbf import SPECTRAL  # noqa: E402
 from parallel_gps_torch.probes import attrib as probe_attrib  # noqa: E402
 from parallel_gps_torch.probes import common as probe_common  # noqa: E402
 from parallel_gps_torch.probes import dma as probe_dma  # noqa: E402
@@ -142,6 +156,11 @@ SOURCES = {
     "dt_smoother_scan": "parallel_gps_torch/csrc/dt_scan.cu",
     "dt_smoother_apply": "parallel_gps_torch/csrc/dt_scan.cu",
     "dt_fisher": "parallel_gps_torch/csrc/dt_fisher.cu",
+    "dt_filter_scan_spectral": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_filter_apply_spectral": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_smoother_scan_spectral": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_smoother_apply_spectral": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_fisher_spectral": "parallel_gps_torch/csrc/dt_fisher.cu",
     "strip_filter_scan": "parallel_gps_torch/csrc/strip_scan.cu",
     "strip_filter_apply": "parallel_gps_torch/csrc/strip_scan.cu",
     "strip_smoother_scan": "parallel_gps_torch/csrc/strip_scan.cu",
@@ -152,7 +171,10 @@ SOURCES = {
     "plane_scan": "parallel_gps_torch/csrc/plane_scan.cu",
     "plane_transpose": "parallel_gps_torch/csrc/plane_scan.cu",
 }
-DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_"))
+# The dt kernels of the exponential polynomial (the Matérn kernels) and of
+# the spectral family (RBF): one wrapper each, a kernel a family.
+DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_") and not k.endswith("_spectral"))
+SPECTRAL_KERNELS = tuple(f"{k}_spectral" for k in DT_KERNELS)
 STRIP_KERNELS = tuple(k for k in SOURCES if k.startswith("strip_"))
 REPLACES = {
     "dt_filter_scan": "parallel_gps_tpu/kalman/pallas_dt.py:179",
@@ -160,6 +182,13 @@ REPLACES = {
     "dt_smoother_scan": "parallel_gps_tpu/kalman/pallas_dt.py:553",
     "dt_smoother_apply": "parallel_gps_tpu/kalman/pallas_dt.py:589",
     "dt_fisher": "parallel_gps_tpu/kalman/pallas_dt.py:839",
+    # The same five TPU kernels with RBF's spectral build closure
+    # (parallel_gps_tpu/kernels/rbf.py:267) traced into them.
+    "dt_filter_scan_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:179",
+    "dt_filter_apply_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:208",
+    "dt_smoother_scan_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:553",
+    "dt_smoother_apply_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:589",
+    "dt_fisher_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:839",
     "strip_filter_scan": "parallel_gps_tpu/kalman/pallas_scan.py:766",
     "strip_filter_apply": "parallel_gps_tpu/kalman/pallas_scan.py:798",
     "strip_smoother_scan": "parallel_gps_tpu/kalman/pallas_scan.py:1795",
@@ -193,13 +222,20 @@ EXPECTED_LAUNCHES = {
     "dt_smoother_scan": N_REQUESTS,
     "dt_smoother_apply": N_REQUESTS,
     "dt_fisher": 0,
+    **dict.fromkeys(SPECTRAL_KERNELS, 0),
 }
-LML_LAUNCHES = {"dt_filter_scan": 1, "dt_filter_apply": 1, "dt_smoother_scan": 0, "dt_smoother_apply": 0, "dt_fisher": 0}
+LML_LAUNCHES = {**dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan": 1, "dt_filter_apply": 1}
 # One training step (LML + backward) launches each of the five kernels once.
-STEP_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 1)
-# The strip path's model: an LML is the strip filter; a predict_f request and
-# a training step (strip filter forward, strip smoother backward) are all four.
+STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 1), **dict.fromkeys(SPECTRAL_KERNELS, 0)}
+# The RBF model on the dt engine (its spectral family): an LML is the filter;
+# a predict_f request the filter and the smoother; a training step all five.
 RBF_MODEL = dict(kernel="RBF", variance=0.8, lengthscales=0.05, noise_variance=NOISE, order=6)
+RBF_LML_LAUNCHES = {**dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan_spectral": 1, "dt_filter_apply_spectral": 1}
+RBF_PREDICT_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1), "dt_fisher_spectral": 0}
+RBF_STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1)}
+# The strip path on the same model's planes, through the Kalman API: an LML
+# is the strip filter; a predict_f request and a training step (strip filter
+# forward, strip smoother backward) are all four.
 STRIP_LML_LAUNCHES = {"strip_filter_scan": 1, "strip_filter_apply": 1, "strip_smoother_scan": 0, "strip_smoother_apply": 0}
 STRIP_ALL_LAUNCHES = dict.fromkeys(STRIP_KERNELS, 1)
 N_ADAM = 5
@@ -279,8 +315,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 def engine_inputs(kernel_cls, params, t, y, dtype):
     """(family, coeffs, P0, H, R, dts, y) on the card, no autograd."""
+    return kernel_inputs(kernel_cls(*params, dtype=dtype, device=DEV), t, y, dtype)
+
+
+def kernel_inputs(k, t, y, dtype):
+    """``engine_inputs`` of the kernel ``k``."""
     with torch.no_grad():
-        k = kernel_cls(*params, dtype=dtype, device=DEV)
         family, coeffs = k.transition_coeffs()
         sde = k.get_sde()
         dts = dt._dts_from_ts(torch.as_tensor(t, dtype=dtype, device=DEV))
@@ -374,20 +414,35 @@ def _inv_flops(d: int) -> int:
     return _inv_flops(k) + _inv_flops(m) + products + m * m + k * k
 
 
-def flops_per_step(d: int, degree: int) -> dict:
+def flops_per_step(d: int, degree: int, family: str = EXPPOLY) -> dict:
     """Floating-point operations of one time step of each kernel, counted
     from csrc/dt_elements.cuh (a multiply, an add, a divide and a
     transcendental one each); ``*_obs`` parts run at observed steps only.
-    The strip kernels load F and Q where the dt kernels rebuild them."""
+    The strip kernels load F and Q where the dt kernels rebuild them, from
+    the exponential polynomial of ``degree`` or (``family`` SPECTRAL) RBF's
+    spectral family: (d+1)/2 blocks, each 5 transcendentals, 8 scalar
+    operations and 2·d² multiply-adds a step."""
     tri = d * (d + 1) // 2
     inv = _inv_flops(d)
-    build_fq = 4 + degree * (2 * d * d + 2) + d + _mm(d) + tri * (2 * d + 2)
+    blocks = (d + 1) // 2
+    fq_from_am1 = d + _mm(d) + tri * (2 * d + 2)
+    if family == SPECTRAL:
+        build_fq = 1 + blocks * (13 + 4 * d * d) + fq_from_am1
+    else:
+        build_fq = 4 + degree * (2 * d * d + 2) + fq_from_am1
     build_filtering = 2 * _mv(d) + 2 * d + 2 + d * (3 + 6 * d)
     filt_combine = 5 * _mm(d) + 2 * _symout(d) + inv + 4 * _mv(d) + 5 * d
     loglik_obs = 2 * _mv(d) + _mv(d) + 6 * d + 10
     build_smoothing = 4 * _mm(d) + _symout(d) + inv + _mv(d) + d + tri * 2 * d
     smooth_combine = 2 * _mm(d) + _mv(d) + d + _symout(d)
-    fq_vjp = tri * (2 + 4 * d) + 2 * _mm(d) + d * d + d + 6 + degree * (4 * d * d + 5)
+    am1_vjp = tri * (2 + 4 * d) + 2 * _mm(d) + d * d
+    if family == SPECTRAL:
+        # Per block: sincos and exp, 10 scalar operations, two d² dot
+        # products; then the coefficients' cotangents w·dA (2 blocks·d²
+        # multiply-adds) and the sums of d c[0], d_P0, d_H and d_R.
+        fq_vjp = am1_vjp + 2 + blocks * (13 + 4 * d * d) + 4 * blocks * d * d + d * d + d + 2
+    else:
+        fq_vjp = am1_vjp + d + 6 + degree * (4 * d * d + 5)
     fisher = (
         build_fq + 5 * _mm(d) + _symout(d) + inv + 3 * _mv(d) + d + 4 * d * d + d * d * (2 * d + 1)
         + fq_vjp + (1 + d * d) + d * d
@@ -399,6 +454,11 @@ def flops_per_step(d: int, degree: int) -> dict:
         "dt_filter_scan": (build_fq + filt, 0), "dt_filter_apply": (build_fq + filt, loglik_obs),
         "dt_smoother_scan": (build_fq + smooth, 0), "dt_smoother_apply": (build_fq + smooth, 0),
         "dt_fisher": (fisher, fisher_obs),
+        **{f"{k}_spectral": v for k, v in (
+            ("dt_filter_scan", (build_fq + filt, 0)), ("dt_filter_apply", (build_fq + filt, loglik_obs)),
+            ("dt_smoother_scan", (build_fq + smooth, 0)), ("dt_smoother_apply", (build_fq + smooth, 0)),
+            ("dt_fisher", (fisher, fisher_obs)),
+        )},
         "strip_filter_scan": (filt, 0), "strip_filter_apply": (filt, loglik_obs),
         "strip_smoother_scan": (smooth, 0), "strip_smoother_apply": (smooth, 0),
         # One element and one combine a step: what the function needs, not the
@@ -450,6 +510,8 @@ def kernel_bound(
     nc = dt.n_chunks(T)
     mom = (d + d * d) * T
     planes = 2 * d * d * T
+    family = SPECTRAL if name.endswith("_spectral") else EXPPOLY
+    name = name.removesuffix("_spectral") if family == SPECTRAL else name
     values = {
         "dt_filter_scan": 2 * T + dt.filt_rows(d) * nc,
         "dt_filter_apply": 2 * T + dt.filt_rows(d) * nc + mom,
@@ -461,7 +523,7 @@ def kernel_bound(
         "strip_smoother_scan": planes + mom + dt.smooth_rows(d) * nc,
         "strip_smoother_apply": planes + mom + dt.smooth_rows(d) * nc + mom,
     }[name]
-    every, observed = flops_per_step(d, degree)[name]
+    every, observed = flops_per_step(d, degree, family)[name]
     bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
     ops_ms = 1e3 * (every * T + observed * n_obs) / PEAK_F32_FLOPS
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
@@ -509,12 +571,19 @@ def phase_build() -> None:
                 f"{frame.get('spill stores', '?')} B spill stores, {frame.get('spill loads', '?')} B spill loads"
             )
             entry = None
-    # The dynamic shared memory of the kernels that stage through it.
+    # The dynamic shared memory of the kernels that stage through it: the dt
+    # pass-2 units of each family (threads and bytes a block).
     lib = _cuda.load()
-    for name in ("dt_filter_apply", "dt_smoother_apply"):
-        smem = getattr(lib, f"pgt_{name}_smem")
-        staged = {f"f{bits} D={d}": smem(int(bits == 64), d) for bits in (32, 64) for d in (1, 2, 3)}
-        print(f"  dynamic smem a block: {name} {staged}")
+    for family, top in dt.MAX_KERNEL_D.items():
+        for smoother, name in enumerate(("dt_filter_apply", "dt_smoother_apply")):
+            staged = {}
+            for bits in (32, 64):
+                for d in range(1, top + 1):
+                    args = (int(bits == 64), dt.FAMILY_IDS[family], smoother)
+                    threads, smem = (getattr(lib, f"pgt_dt_apply_{f}_d{d}")(*args) for f in ("threads", "smem"))
+                    check(0 < smem <= strip.SMEM_LIMIT, f"{name} {family} d={d} f{bits}: {smem} B a block")
+                    staged[f"f{bits} D={d}"] = f"{threads}x{smem} B"
+            print(f"  threads x dynamic smem a block: {name} {family} {staged}")
     phase_strip_stages(lib)
     for dtype in (torch.float32, torch.float64):
         tiling = {d: plane.scan_tiling(d, dtype) for d in range(1, plane.MAX_KERNEL_D + 1)}
@@ -615,6 +684,133 @@ def phase_kernels() -> None:
     check_apply_edges(cases)
     check_strip_kernels(t, y)
     check_strip_apply_edges()
+
+
+# The spectral dt units' cases: RBF(1.0, 0.05, order=d), the strip checks'
+# RBF kernels (STRIP_CASES), at every d = 1..8.
+SPECTRAL_DIMS = tuple(range(1, dt.MAX_KERNEL_D[SPECTRAL] + 1))
+
+
+def spectral_kernel(d: int, dtype):
+    return RBF(1.0, 0.05, order=d, dtype=dtype, device=DEV)
+
+
+def fisher_close(a, b) -> bool:
+    """The float64 Fisher tail against its plain version: rtol 1e-7 (the JAX
+    gradient tests', test_pallas_dt.py:207) and an absolute tolerance of
+    1e-9 of the output's largest value (at least 1e-10): an output that is a
+    sum over T steps carries the summation order's rounding at that scale."""
+    return a.shape == b.shape and allclose(a, b, 1e-7, max(1e-10, 1e-9 * float(b.double().abs().max())))
+
+
+def check_spectral_kernels() -> None:
+    """Every spectral dt unit, d = 1..8, float64 and float32: the filter
+    (scan and apply), the smoother (scan and apply, on the plain filter's
+    moments) and the Fisher tail through the kernels, each launched once,
+    against their plain versions at T = T_KERNEL with ~10% missing
+    observations.  float64 to the JAX interpret tests' tolerances
+    (strip_tolerances: the dt Matérn checks' at d ≤ 3, test_pallas_scan.py's
+    RBF cases above; fisher_close); float32 against float64 truth by the 10×
+    rule, as the Matérn units."""
+    t, y = make_data(T_KERNEL, SEED + 1)
+    one_each = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1)}
+    for d in SPECTRAL_DIMS:
+        rf, af, rs, as_ = strip_tolerances(d)
+        name = f"RBF d={d} spectral"
+        with torch.no_grad():
+            fam, co, P0, H, R, dts, yt = kernel_inputs(spectral_kernel(d, torch.float64), t, y, torch.float64)
+            dt.reset_launch_counts()
+            b_k, C_k, ell_k = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+            b_p, C_p, ell_p = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+            g_k, L_k = dt.strip_smoother_dt(fam, co, P0, dts, b_p, C_p)
+            g_p, L_p = dt.strip_smoother_dt_plain(fam, co, P0, dts, b_p, C_p)
+            mom = [x.contiguous() for x in (b_p, C_p, g_p, L_p)]
+            f_k = dt.dt_fisher(fam, co, P0, H, R, dts, yt, *mom)
+            f_p = dt.dt_fisher_plain(fam, co, P0, H, R, dts, yt, *mom)
+            torch.cuda.synchronize()
+        check(dt.LAUNCHES == one_each, f"{name}: launches {dt.LAUNCHES}")
+        print(
+            f"{name} f64 T={T_KERNEL}: |b| {max_abs(b_k, b_p):.3e} |C| {max_abs(C_k, C_p):.3e} "
+            f"ell {float(ell_k):.12f} vs {float(ell_p):.12f} |g| {max_abs(g_k, g_p):.3e} |L| {max_abs(L_k, L_p):.3e}; fisher "
+            + " ".join(f"|{n}| {max_abs(a, b):.3e} (of {float(b.abs().max()):.3e})" for n, a, b in zip(FISHER_OUTPUTS, f_k, f_p))
+        )
+        check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"{name} f64 filter moments")
+        check(abs(float(ell_k - ell_p)) <= 1e-9 * abs(float(ell_p)), f"{name} f64 LML")
+        check(allclose(g_k, g_p, rs, as_) and allclose(L_k, L_p, rs, as_), f"{name} f64 smoother moments")
+        for n, a, b in zip(FISHER_OUTPUTS, f_k, f_p):
+            check(fisher_close(a, b), f"{name} f64 fisher {n}")
+
+        # float32 against float64 truth, beside the plain float32 engine.
+        with torch.no_grad():
+            fam, co, P0, H, R, dts, yt = kernel_inputs(spectral_kernel(d, torch.float32), t, y, torch.float32)
+            b_k, C_k, ell_k32 = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+            b_q, C_q, ell_q32 = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+            g_k, L_k = dt.strip_smoother_dt(fam, co, P0, dts, b_q, C_q)
+            g_q, L_q = dt.strip_smoother_dt_plain(fam, co, P0, dts, b_q, C_q)
+            g_t, L_t = dt.strip_smoother_dt_plain(fam, co.double(), P0.double(), dts.double(), b_q.double(), C_q.double())
+            in32 = [co, P0, H, R, dts, yt] + [x.contiguous() for x in (b_q, C_q, g_q, L_q)]
+            f_k = dt.dt_fisher(fam, *in32)
+            f_q = dt.dt_fisher_plain(fam, *in32)
+            f_t = dt.dt_fisher_plain(fam, *(x.double() for x in in32))
+            torch.cuda.synchronize()
+        errs = {
+            "b": (rel_err(b_k, b_p), rel_err(b_q, b_p)),
+            "C": (rel_err(C_k, C_p), rel_err(C_q, C_p)),
+            "ell": (abs(float(ell_k32) - float(ell_p)) / abs(float(ell_p)), abs(float(ell_q32) - float(ell_p)) / abs(float(ell_p))),
+            "g": (rel_err(g_k, g_t), rel_err(g_q, g_t)),
+            "L": (rel_err(L_k, L_t), rel_err(L_q, L_t)),
+            **{n: (rel_err(a, c), rel_err(b, c)) for n, a, b, c in zip(FISHER_OUTPUTS, f_k, f_q, f_t)},
+        }
+        print(f"{name} f32 vs f64 truth (kernel / plain f32): " + " ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in errs.items()))
+        for k, (a, b) in errs.items():
+            floor = f32_sum_floor(T_KERNEL) if k in FISHER_OUTPUTS[:4] else F32_FLOOR
+            check(a <= max(F32_FACTOR * b, floor), f"{name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
+    check_spectral_apply_edges()
+
+
+def check_spectral_apply_edges() -> None:
+    """Each spectral unit's staged pass 2, filter and smoother, d = 1..8,
+    float64 and float32, at the lengths where its stage has ragged edges
+    (strip_edge_lengths of the unit's block, pgt_dt_apply_threads_d<d>):
+    float64 to strip_tolerances, float32 by the 10× rule.  The smoothers run
+    on the plain filter's moments."""
+    lib = _cuda.load()
+    n = 0
+    for dtype in (torch.float64, torch.float32):
+        is64 = int(dtype == torch.float64)
+        for d in SPECTRAL_DIMS:
+            rf, af, rs, as_ = strip_tolerances(d)
+            threads = {getattr(lib, f"pgt_dt_apply_threads_d{d}")(is64, dt.FAMILY_IDS[SPECTRAL], k) for k in (0, 1)}
+            lengths = sorted(set().union(*(strip_edge_lengths(w) for w in threads)))
+            for T in lengths:
+                t, y = make_data(T, SEED + 7)
+                what = f"spectral d={d} {dtype} T={T} (blocks of {sorted(threads)} threads)"
+                with torch.no_grad():
+                    fam, co, P0, H, R, dts, yt = kernel_inputs(spectral_kernel(d, dtype), t, y, dtype)
+                    b_k, C_k, ell_k = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+                    b_p, C_p, ell_p = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+                    g_k, L_k = dt.strip_smoother_dt(fam, co, P0, dts, b_p, C_p)
+                    g_p, L_p = dt.strip_smoother_dt_plain(fam, co, P0, dts, b_p, C_p)
+                    if dtype == torch.float32:
+                        args64 = [x.double() for x in (co, P0, H, R, dts, yt)]
+                        b_t, C_t, ell_t = dt.strip_filter_dt_plain(fam, *args64)
+                        g_t, L_t = dt.strip_smoother_dt_plain(fam, args64[0], args64[1], args64[4], b_p.double(), C_p.double())
+                    torch.cuda.synchronize()
+                n += 1
+                if dtype == torch.float64:
+                    check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"{what}: filter moments")
+                    check(abs(float(ell_k - ell_p)) <= 1e-9 * max(abs(float(ell_p)), 1e-300), f"{what}: LML")
+                    check(allclose(g_k, g_p, rs, as_) and allclose(L_k, L_p, rs, as_), f"{what}: smoother moments")
+                    continue
+                scale = max(abs(float(ell_t)), 1e-300)
+                errs = {
+                    "b": (rel_err(b_k, b_t), rel_err(b_p, b_t)), "C": (rel_err(C_k, C_t), rel_err(C_p, C_t)),
+                    "ell": (abs(float(ell_k) - float(ell_t)) / scale, abs(float(ell_p) - float(ell_t)) / scale),
+                    "g": (rel_err(g_k, g_t), rel_err(g_p, g_t)), "L": (rel_err(L_k, L_t), rel_err(L_p, L_t)),
+                }
+                for k, (a, b_) in errs.items():
+                    check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} {k}: kernel {a:.3e} vs plain {b_:.3e}")
+    print(f"spectral dt pass-2 units at their stage's ragged lengths: {n} cases, d = 1..8, f64 and f32, all within tolerance")
 
 
 # The edges of the staged pass-2 kernels, dt_filter_apply and
@@ -1033,7 +1229,9 @@ CHAIN_PRIORS = {k: (lambda u: -0.5 * u * u) for k in ("kernel.variance", "kernel
 TWO_PASS_KERNELS = tuple(k for k in DT_KERNELS + STRIP_KERNELS if k.endswith(("_scan", "_apply")))
 # One batched log posterior with its gradient: one launch each of the
 # batched filter, the batched smoother and the Fisher tail, and nothing else.
-BATCHED_STEP_LAUNCHES = {"batched_filter": 1, "batched_smoother": 1, "dt_fisher": 1, **dict.fromkeys(TWO_PASS_KERNELS, 0)}
+BATCHED_STEP_LAUNCHES = {
+    "batched_filter": 1, "batched_smoother": 1, "dt_fisher": 1, **dict.fromkeys(TWO_PASS_KERNELS + SPECTRAL_KERNELS, 0),
+}
 PREFIX_CALLS = [0]
 
 
@@ -1166,7 +1364,7 @@ def phase_batched_slice():
         f"steps median {float(eps_w.median()):.4g}; NUTS (max_depth=3) tested its masks {first['nuts_mask_tests'] / N_NUTS:.1f} times a step"
     )
     print(f"  launches of the batched path (one run of the samplers included) {counts}, plain prefixes {PREFIX_CALLS[0]}")
-    check(not any(counts[k] for k in TWO_PASS_KERNELS) and PREFIX_CALLS[0] == 0, f"the samplers left the batched path: {counts}")
+    check(not any(counts[k] for k in TWO_PASS_KERNELS + SPECTRAL_KERNELS) and PREFIX_CALLS[0] == 0, f"the samplers left the batched path: {counts}")
     check(counts["batched_filter"] >= counts["batched_smoother"] == counts["dt_fisher"] > N_HMC * 10, f"sampler launches {counts}")
     del first, second
     torch.cuda.empty_cache()
@@ -1379,56 +1577,105 @@ def phase_slice():
     return m32, (t_full, y_full), queries, counts32
 
 
-def rbf_model(t, y, dtype, device=None):
-    return StateSpaceGP.from_numpy(t, y, dtype=dtype, device=device or DEV, **RBF_MODEL)
+def rbf_model(t, y, dtype, device=None, order=None):
+    opts = {**RBF_MODEL, **({"order": order} if order else {})}
+    return StateSpaceGP.from_numpy(t, y, dtype=dtype, device=device or DEV, **opts)
 
 
-def phase_strip_slice():
-    """The strip path at full width: the RBF(order=6) model, and the Kalman
-    API on an explicit model.  Returns the f32 model, its queries, the planes
-    of the explicit model and the launch counts of the path."""
-    # (a) the model whose kernel has no transition coefficients.
+# The strip route of a model's entry points, through the Kalman API on the
+# model's planes (kernel.get_ssm_tl): the LML and its gradient by lml_tl
+# (strip filter forward, strip smoother and the plain Fisher tail backward),
+# prediction by pkfs_from_tl on the merged series, as predict_f merges it.
+def strip_lml(model):
+    return timelast.lml_tl(model.kernel.get_ssm_tl(model.ts, model.noise_variance.reshape(1, 1)), model.ys, strip=True)
+
+
+def strip_value_and_grad(model):
+    """``value_and_grad`` with the LML on the strip route."""
+    model.zero_grad(set_to_none=True)
+    loss = -strip_lml(model)
+    loss.backward()
+    return loss.detach(), torch.stack([p.grad.reshape(()) for p in hyper_params(model)])
+
+
+@torch.no_grad()
+def strip_predict(model, Xnew):
+    """``model.predict_f(Xnew)`` with the merged series smoothed on the strip
+    route."""
+    X = torch.as_tensor(np.asarray(Xnew), dtype=model.ts.dtype, device=model.ts.device)
+    order = torch.argsort(X)
+    nan = torch.full((X.shape[0],), float("nan"), dtype=model.ys.dtype, device=model.ys.device)
+    all_ts, (all_ys,), q_idx = merge_sorted(model.ts, X[order], (model.ys,), (nan,))
+    ssm = model.kernel.get_ssm_tl(all_ts, model.noise_variance.reshape(1, 1))
+    g, L = timelast.pkfs_from_tl(ssm, all_ys, strip=True, time_first_out=False)
+    h, back = ssm.H[0], torch.argsort(order)
+    return (h @ g[:, q_idx])[back][:, None], torch.einsum("i,ijm,j->m", h, L[:, :, q_idx], h)[back][:, None]
+
+
+# The two routes of the RBF(order=6) model's entry points: (LML, predict_f,
+# value and gradient, the same step through the plain versions only, the
+# counters the route's kernels add to, and the launches of an LML, a
+# predict_f request and a training step).
+RBF_ROUTES = {
+    "dt": (
+        lambda m: m.log_marginal_likelihood(), lambda m, q: m.predict_f(q), value_and_grad, plain_value_and_grad,
+        dt.LAUNCHES, (RBF_LML_LAUNCHES, RBF_PREDICT_LAUNCHES, RBF_STEP_LAUNCHES),
+    ),
+    "strip": (
+        strip_lml, strip_predict, strip_value_and_grad, plain_strip_value_and_grad,
+        strip.LAUNCHES, (STRIP_LML_LAUNCHES, STRIP_ALL_LAUNCHES, STRIP_ALL_LAUNCHES),
+    ),
+}
+
+
+def drive_rbf_route(route: str):
+    """The RBF(order=6) model at N = N_STRIP float32 on one route
+    (RBF_ROUTES): one LML, one predict_f request of 1,000 unsorted queries
+    and one training step, each with the launches it requires and none of
+    another engine's; the same in float64 beside it; and at N = N_CHECK
+    float64 the kernels against the plain path on the card and the same
+    model on the CPU.  Returns the float32 model, its queries and the
+    route's launch counts."""
+    lml, predict, step, plain_step, counter, (want_lml, want_predict, want_step) = RBF_ROUTES[route]
     t, y = make_data(N_STRIP, SEED + 4)
     queries = np.random.RandomState(SEED + 5).rand(1000) * 1.4 - 0.2  # unsorted, some outside [0, 1)
     model = rbf_model(t, y, torch.float32)
-    check(model.engine()[0] == "strip", f"the RBF model runs the {model.engine()[0]} engine")
     torch.cuda.synchronize()
-    strip.reset_launch_counts()
-    dt.reset_launch_counts()
+    counts = []
+    reset_all_launches()
     with torch.no_grad():
-        ell = model.log_marginal_likelihood()
-        after_lml = dict(strip.LAUNCHES)
-        strip.reset_launch_counts()
-        mean, var = model.predict_f(queries)
-        after_predict = dict(strip.LAUNCHES)
-    strip.reset_launch_counts()
-    loss, grad = value_and_grad(model)
-    after_step = dict(strip.LAUNCHES)
+        ell = lml(model)
+        counts.append(dict(counter))
+        reset_all_launches()
+        mean, var = predict(model, queries)
+        counts.append(dict(counter))
+    reset_all_launches()
+    loss, grad = step(model)
+    counts.append(dict(counter))
+    others = {k: v for k, v in all_launches().items() if k not in counter}
     torch.cuda.synchronize()
+    tag = f"rbf {route} route"
     print(
-        f"strip slice f32 RBF(order=6) N={N_STRIP}: LML {float(ell):.6f}; query variance min {float(var.min()):.3e} "
-        f"max {float(var.max()):.3e}; gradient (variance, lengthscale, noise) {grad.tolist()}"
+        f"{tag} f32 RBF(order=6) N={N_STRIP} (the model on the {model.engine()[0]} engine): LML {float(ell):.6f}; query "
+        f"variance min {float(var.min()):.3e} max {float(var.max()):.3e}; gradient (variance, lengthscale, noise) {grad.tolist()}"
     )
-    print(f"  launches: LML {after_lml}, predict_f {after_predict}, training step {after_step}; dt kernels {dt.LAUNCHES}")
-    check(after_lml == STRIP_LML_LAUNCHES, f"strip LML launches {after_lml}")
-    check(after_predict == STRIP_ALL_LAUNCHES, f"strip predict_f launches {after_predict}")
-    check(after_step == STRIP_ALL_LAUNCHES, f"strip training-step launches {after_step}")
-    check(not any(dt.LAUNCHES.values()), f"the strip path launched a dt kernel: {dt.LAUNCHES}")
-    check(bool(torch.isfinite(ell)) and bool(loss == -ell), "strip f32 LML not finite, or the loss is not its negative")
-    check(mean.shape == (1000, 1) and var.shape == (1000, 1) and bool(torch.isfinite(mean).all()), "strip predict_f means")
-    check(bool((var > 0).all()), "strip predict_f variances not positive")
-    check(bool(torch.isfinite(grad).all()), "strip f32 gradient not finite")
-    counts = {k: after_lml[k] + after_predict[k] + after_step[k] for k in STRIP_KERNELS}
+    print(f"  launches: LML {counts[0]}, predict_f {counts[1]}, training step {counts[2]}")
+    for got, want, call in zip(counts, (want_lml, want_predict, want_step), ("LML", "predict_f", "training-step")):
+        check(got == want, f"{tag} {call} launches {got}, expected {want}")
+    check(not any(others.values()), f"{tag} launched another engine's kernel: {others}")
+    check(bool(torch.isfinite(ell)) and bool(loss == -ell), f"{tag} f32 LML not finite, or the loss is not its negative")
+    check(mean.shape == (1000, 1) and var.shape == (1000, 1) and bool(torch.isfinite(mean).all()), f"{tag} predict_f means")
+    check(bool((var > 0).all()), f"{tag} predict_f variances not positive")
+    check(bool(torch.isfinite(grad).all()), f"{tag} f32 gradient not finite")
     model.zero_grad(set_to_none=True)
 
-    # float32 beside float64 at this size.
     m64 = rbf_model(t, y, torch.float64)
     with torch.no_grad():
-        ell64 = m64.log_marginal_likelihood()
-        mean64, var64 = m64.predict_f(queries)
-    _, grad64 = value_and_grad(m64)
+        ell64 = lml(m64)
+        mean64, var64 = predict(m64, queries)
+    _, grad64 = step(m64)
     print(
-        f"strip slice f32 vs f64 N={N_STRIP}: LML rel {abs(float(ell) - float(ell64)) / abs(float(ell64)):.3e}, mean max abs "
+        f"{tag} f32 vs f64 N={N_STRIP}: LML rel {abs(float(ell) - float(ell64)) / abs(float(ell64)):.3e}, mean max abs "
         f"{max_abs(mean, mean64):.3e}, var max rel {rel_err(var, var64):.3e}, var min f64 {float(var64.min()):.3e}; "
         f"f64 gradient {grad64.tolist()}, f32 gradient per component "
         f"{((grad.double() - grad64).abs() / grad64.abs()).tolist()}"
@@ -1436,26 +1683,43 @@ def phase_strip_slice():
     del m64, mean64, var64
     torch.cuda.empty_cache()
 
-    # Reference on a smaller input, f64: the kernels against the plain path on
-    # the card and against the same model on the CPU.
     tc, yc = make_data(N_CHECK, SEED + 6)
     m_k, m_c = rbf_model(tc, yc, torch.float64), rbf_model(tc, yc, torch.float64, device="cpu")
-    (loss_k, grad_k), (loss_p, grad_p), (loss_c, grad_c) = value_and_grad(m_k), plain_strip_value_and_grad(m_k), value_and_grad(m_c)
+    (loss_k, grad_k), (loss_p, grad_p), (loss_c, grad_c) = step(m_k), plain_step(m_k), step(m_c)
     with torch.no_grad():
-        mean_k, var_k = m_k.predict_f(queries)
-        mean_c, var_c = m_c.predict_f(queries)
+        mean_k, var_k = predict(m_k, queries)
+        mean_c, var_c = predict(m_c, queries)
     print(
-        f"strip check f64 N={N_CHECK}: loss kernels {float(loss_k):.10f} plain {float(loss_p):.10f} cpu {float(loss_c):.10f}; "
+        f"{tag} check f64 N={N_CHECK}: loss kernels {float(loss_k):.10f} plain {float(loss_p):.10f} cpu {float(loss_c):.10f}; "
         f"gradient kernels {grad_k.tolist()} plain {grad_p.tolist()} cpu {grad_c.tolist()}; "
         f"predict_f vs cpu: mean {max_abs(mean_k, mean_c):.2e} var {max_abs(var_k, var_c):.2e}"
     )
-    check(abs(float(loss_k - loss_p)) <= 1e-9 * abs(float(loss_p)), "strip f64 LML, kernels vs plain")
-    check(abs(float(loss_k) - float(loss_c)) <= 1e-9 * abs(float(loss_c)), "strip f64 LML, card vs CPU")
-    check(allclose(grad_k, grad_p, 1e-7, 1e-10), "strip f64 gradient, kernels vs plain")
-    check(allclose(grad_k, grad_c, 1e-7, 1e-10), "strip f64 gradient, card vs CPU")
-    check(allclose(mean_k.cpu(), mean_c, 1e-7, 1e-9) and allclose(var_k.cpu(), var_c, 1e-7, 1e-9), "strip f64 predict_f, card vs CPU")
+    check(abs(float(loss_k - loss_p)) <= 1e-9 * abs(float(loss_p)), f"{tag} f64 LML, kernels vs plain")
+    check(abs(float(loss_k) - float(loss_c)) <= 1e-9 * abs(float(loss_c)), f"{tag} f64 LML, card vs CPU")
+    check(allclose(grad_k, grad_p, 1e-7, 1e-10), f"{tag} f64 gradient, kernels vs plain")
+    check(allclose(grad_k, grad_c, 1e-7, 1e-10), f"{tag} f64 gradient, card vs CPU")
+    check(allclose(mean_k.cpu(), mean_c, 1e-7, 1e-9) and allclose(var_k.cpu(), var_c, 1e-7, 1e-9), f"{tag} f64 predict_f, card vs CPU")
     del m_k, m_c
     torch.cuda.empty_cache()
+    return model, queries, {k: sum(c[k] for c in counts) for k in counter}
+
+
+def phase_rbf_slice():
+    """The RBF(order=6) model on the dt engine (its spectral family): the
+    model's entry points (drive_rbf_route)."""
+    model, queries, counts = drive_rbf_route("dt")
+    check(model.engine()[0] == "dt", f"the RBF model runs the {model.engine()[0]} engine")
+    return model, queries, counts
+
+
+def phase_strip_slice():
+    """The strip path at full width: the RBF(order=6) model's planes through
+    the Kalman API (the model itself runs the dt engine, phase_rbf_slice),
+    and the Kalman API on an explicit model.  Returns the f32 model, its
+    queries, the planes of the explicit model and the launch counts of the
+    path."""
+    # (a) the RBF(order=6) model's planes: its entry points on the strip route.
+    model, queries, counts = drive_rbf_route("strip")
 
     # (b) the Kalman API on an explicit model: the caller's planes.
     t, y = make_data(N_FULL, SEED)
@@ -1524,7 +1788,10 @@ def phase_training(model, data) -> dict:
     check(adam_counts == want, f"launches after Adam {adam_counts}, expected {want}")
     # Every L-BFGS evaluation is one training step too: the five counts stay
     # equal, and each of its steps makes at least one.
-    check(len(set(counts.values())) == 1 and counts["dt_fisher"] >= 1 + N_ADAM + N_LBFGS, f"launches after L-BFGS {counts}")
+    check(
+        len({counts[k] for k in DT_KERNELS}) == 1 and not any(counts[k] for k in SPECTRAL_KERNELS)
+        and counts["dt_fisher"] >= 1 + N_ADAM + N_LBFGS, f"launches after L-BFGS {counts}",
+    )
     with torch.no_grad():
         after_adam = fitted.training_loss()
         after_lbfgs = lbfgs_fitted.training_loss()
@@ -1707,10 +1974,11 @@ def time_strip_kernels(card: str, what: str, planes) -> dict:
     return out
 
 
-def phase_strip_times(card: str, model, queries, planes, counts) -> list:
+def phase_strip_times(card: str, model, planes, counts) -> list:
     """The strip kernels at the two shapes the strip path gives them — the
     RBF(order=6) model's planes (d = 6, N = 1M) and the explicit Matern52
-    model's (d = 3, N = 10M) — and the entry points of that path."""
+    model's (d = 3, N = 10M) — and pkfs on the explicit model (the RBF
+    model's entry points on the strip route are timed by phase_rbf_routes)."""
     at_d3 = time_strip_kernels(card, f"d=3 N={N_FULL}", planes)
     del planes
     torch.cuda.empty_cache()
@@ -1739,26 +2007,128 @@ def phase_strip_times(card: str, model, queries, planes, counts) -> list:
         build_ms = cuda_ms(lambda: kernel.get_ssm_tl(t_full, R), reps=3)
         del ssm
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        lml_ms = cuda_ms(model.log_marginal_likelihood, reps=5)
-        lml_peak = torch.cuda.max_memory_allocated() / 2**30
         planes_ms = cuda_ms(lambda: model.kernel.get_ssm_tl(model.ts, R), reps=3)
-        torch.cuda.reset_peak_memory_stats()
-        pred_ms = cuda_ms(lambda: model.predict_f(queries), reps=5)
-        pred_peak = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = cuda_ms(lambda: value_and_grad(model), reps=5)
-    step_peak = torch.cuda.max_memory_allocated() / 2**30
-    model.zero_grad(set_to_none=True)
     print(
         f"pkfs(engine='strip') Matern52 N={N_FULL} f32 [{card}]: {api_ms:.3f} ms on given planes (peak {api_peak:.2f} GiB, "
         f"planes included); building the planes (get_ssm_tl) {build_ms:.3f} ms; pkfs_dt on the same data {api_dt_ms:.3f} ms"
     )
     print(f"RBF(order=6) planes N={N_STRIP} f32: {plane_mb:.0f} MB (F and Q); get_ssm_tl {planes_ms:.3f} ms")
-    print(f"strip LML RBF(order=6) N={N_STRIP} f32 [{card}]: {lml_ms:.3f} ms (peak {lml_peak:.2f} GiB)")
-    print(f"strip predict_f 1000 queries RBF(order=6) N={N_STRIP} f32 [{card}]: {pred_ms:.3f} ms (peak {pred_peak:.2f} GiB)")
-    print(f"strip training step (LML + backward) RBF(order=6) N={N_STRIP} f32 [{card}]: {step_ms:.3f} ms (peak {step_peak:.2f} GiB)")
     return records
+
+
+def spectral_passes(model):
+    """{kernel: (wrapper, plain version, arguments)} of the five spectral dt
+    kernels on ``model``'s inputs, no autograd: each pass on the outputs of
+    the kernels before it."""
+    fam, co, sde, dts = dt._model_inputs(model.kernel, model.ts)
+    co, P0, H = co.detach(), sde.P0.detach(), sde.H.detach()
+    R = model.noise_variance.detach().reshape(1, 1)
+    y, d = model.ys, P0.shape[0]
+    tot_f = dt.dt_filter_scan(fam, co, P0, H, R, dts, y)
+    pre_f = dt.exclusive_chunk_prefixes(tot_f, d, reverse=False)
+    b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, y, pre_f)
+    pre_s = dt.exclusive_chunk_prefixes(dt.dt_smoother_scan(fam, co, P0, dts, b, C), d, reverse=True)
+    g, L = dt.dt_smoother_apply(fam, co, P0, dts, b, C, pre_s)
+    return {
+        "dt_filter_scan_spectral": (dt.dt_filter_scan, dt.dt_filter_scan_plain, (fam, co, P0, H, R, dts, y)),
+        "dt_filter_apply_spectral": (dt.dt_filter_apply, dt.dt_filter_apply_plain, (fam, co, P0, H, R, dts, y, pre_f)),
+        "dt_smoother_scan_spectral": (dt.dt_smoother_scan, dt.dt_smoother_scan_plain, (fam, co, P0, dts, b, C)),
+        "dt_smoother_apply_spectral": (dt.dt_smoother_apply, dt.dt_smoother_apply_plain, (fam, co, P0, dts, b, C, pre_s)),
+        "dt_fisher_spectral": (dt.dt_fisher, dt.dt_fisher_plain, (fam, co, P0, H, R, dts, y, b, C, g, L)),
+    }
+
+
+ENTRY_ORDERS = tuple(range(4, dt.MAX_KERNEL_D[SPECTRAL] + 1))  # the RBF orders of the dt-versus-strip table
+
+
+def phase_rbf_times(card: str, model, queries, counts) -> list:
+    """The spectral dt kernels on the RBF(order=6) model at N = N_STRIP
+    float32 — each against its plain version, float64 truth and its bound —
+    and every unit, d = 1..8, on RBF(order=d) models of the same data
+    (events, beside its bound); then the model's three entry points on the dt
+    route beside the same entry points on the strip route (the Kalman API on
+    the model's planes), events and the profiler's device time, at every
+    order in ENTRY_ORDERS.  Returns the spectral kernels' records."""
+    records = []
+    T = model.ts.shape[0]
+    n_obs = int((~torch.isnan(model.ys)).sum())
+    with torch.no_grad():
+        passes = spectral_passes(model)
+        for name, (kern, plain, args) in passes.items():
+            as64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+            out_k, out_p, out_t = kern(*args), plain(*args), plain(*as64)
+            torch.cuda.synchronize()
+            out_k, out_p, out_t = ([o] if isinstance(o, torch.Tensor) else list(o) for o in (out_k, out_p, out_t))
+            err = max(max_abs(a, b) for a, b in zip(out_k, out_p))
+            rks = [rel_err(a, c) for a, c in zip(out_k, out_t)]
+            rps = [rel_err(a, c) for a, c in zip(out_p, out_t)]
+            del out_k, out_p, out_t, as64
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: kern(*args), reps=10)
+            plain_ms = cuda_ms(lambda: plain(*args), reps=3)
+            torch.cuda.empty_cache()
+            bound_ms, bound_by = kernel_bound(name, 6, 0, T, n_obs, 4)
+            print(
+                f"{name} RBF(order=6) N={T} f32 [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                f"({bound_by}); |kernel - plain| {err:.3e}; vs f64 truth kernel {max(rks):.2e} plain {max(rps):.2e}"
+            )
+            floors = [f32_sum_floor(T)] * 4 + [F32_FLOOR] * 2 if name == "dt_fisher_spectral" else [F32_FLOOR] * len(rks)
+            for a, b, floor in zip(rks, rps, floors):
+                check(a <= max(F32_FACTOR * b, floor), f"{name}: f32 kernel {rks} vs plain {rps}")
+            # No single PyTorch call computes any of these functions.
+            records.append({
+                "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+                "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "at": f"RBF(order=6) N={T} f32",
+                "units": [],
+            })
+        del passes
+        torch.cuda.empty_cache()
+        # Every unit at this length: its kernels on RBF(order=d) of the same data.
+        t_np, y_np = model.ts.double().cpu().numpy(), model.ys.double().cpu().numpy()
+        for d in SPECTRAL_DIMS:
+            passes = spectral_passes(rbf_model(t_np, y_np, torch.float32, order=d))
+            line = []
+            for rec in records:
+                kern, _, args = passes[rec["name"]]
+                ms = cuda_ms(lambda: kern(*args), reps=5)
+                bound_ms, bound_by = kernel_bound(rec["name"], d, 0, T, n_obs, 4)
+                rec["units"].append({"d": d, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                line.append(f"{rec['name'].removesuffix('_spectral')} {ms:.3f} (bound {bound_ms:.3f})")
+            print(f"spectral units d={d} N={T} f32 [{card}], ms: " + ", ".join(line))
+            del passes
+            torch.cuda.empty_cache()
+    phase_rbf_routes(card, t_np, y_np, queries)
+    return records
+
+
+def phase_rbf_routes(card: str, t, y, queries) -> None:
+    """The RBF(order=k) model's LML, one predict_f request and one training
+    step on the dt route (the model's entry points) and on the strip route
+    (strip_lml, strip_predict, strip_value_and_grad), k in ENTRY_ORDERS,
+    float32: events (cuda_ms, median of 5) and the device time of one
+    profiled call (profile_call)."""
+    for order in ENTRY_ORDERS:
+        m = rbf_model(t, y, torch.float32, order=order)
+        routes = {
+            "dt": {"LML": m.log_marginal_likelihood, "predict_f": lambda: m.predict_f(queries), "training step": lambda: value_and_grad(m)},
+            "strip": {"LML": lambda: strip_lml(m), "predict_f": lambda: strip_predict(m, queries), "training step": lambda: strip_value_and_grad(m)},
+        }
+        for route, calls in routes.items():
+            for call, fn in calls.items():
+                grad = call == "training step"
+                with torch.set_grad_enabled(grad):
+                    ms = cuda_ms(fn, reps=5)
+                    _, by_name, _ = profile_call(fn)
+                device = sum(by_name.values()) if by_name else float("nan")
+                ours = {k: round(v, 3) for k, v in by_name.items() if k != "torch kernels and copies"}
+                print(
+                    f"RBF(order={order}) N={len(t)} f32 {route} route {call} [{card}]: {ms:.3f} ms events, device {device:.3f} ms "
+                    f"(torch {by_name.get('torch kernels and copies', float('nan')):.3f}; {ours})"
+                )
+        m.zero_grad(set_to_none=True)
+        del m, routes
+        torch.cuda.empty_cache()
 
 
 def phase_sequential_time(card: str) -> None:
@@ -2365,7 +2735,7 @@ def ab_timers(label: str) -> None:
     filter and smoother rows of d = 4..8 at N = 1M float32.  The two strip
     pass-2 kernels on the Matern52 planes (d = 3, N = 10M float32) and at
     every d = 1..8 at N = 1M, float32 and float64; the RBF(order=6) N = 1M
-    LML, predict_f and training step.  One line a measurement, tagged with
+    LML, predict_f and training step on the engine the model takes.  One line a measurement, tagged with
     ``label``, the card and the tree's look-back tiling and strip stages
     where it reports them."""
     card = phase_device()
@@ -2467,13 +2837,15 @@ def ab_timers(label: str) -> None:
                 strip_apply_timers(report, label, "", strip_inputs(strip_edge_kernel(d, dtype), t_s, y_s, dtype))
                 torch.cuda.empty_cache()
 
-    # The strip path's entry points: the RBF(order=6) model at N = N_STRIP.
+    # The RBF(order=6) model at N = N_STRIP: its entry points on the engine it
+    # takes in this tree (strip before the spectral family, dt after).
     rbf = rbf_model(t_s, y_s, torch.float32)
     queries = np.random.RandomState(SEED + 5).rand(1000) * 1.4 - 0.2
+    what = f"RBF(order=6) N={N_STRIP} on its {rbf.engine()[0]} engine"
     with torch.no_grad():
-        report(f"strip LML RBF(order=6) N={N_STRIP}", cuda_ms(rbf.log_marginal_likelihood, reps=9), rbf.log_marginal_likelihood)
-        report(f"strip predict_f RBF(order=6) N={N_STRIP}", cuda_ms(lambda: rbf.predict_f(queries), reps=9), lambda: rbf.predict_f(queries))
-    report(f"strip training step RBF(order=6) N={N_STRIP}", cuda_ms(lambda: value_and_grad(rbf), reps=9), lambda: value_and_grad(rbf))
+        report(f"LML {what}", cuda_ms(rbf.log_marginal_likelihood, reps=9), rbf.log_marginal_likelihood)
+        report(f"predict_f {what}", cuda_ms(lambda: rbf.predict_f(queries), reps=9), lambda: rbf.predict_f(queries))
+    report(f"training step {what}", cuda_ms(lambda: value_and_grad(rbf), reps=9), lambda: value_and_grad(rbf))
 
 
 def strip_apply_timers(report, label: str, what: str, planes) -> None:
@@ -2496,6 +2868,75 @@ def strip_apply_timers(report, label: str, what: str, planes) -> None:
             ms = cuda_ms(fn, reps=10)
             print(f"ab {label} strip_{kind}_apply d={d} N={T} {Fs.dtype} {what}".rstrip() + f": stage (threads, rows, bytes) {stage}")
             report(f"strip_{kind}_apply d={d} N={T} {Fs.dtype} {what}".rstrip(), ms, fn)
+
+
+# The exponential polynomial's dt units' output digests (dt_outputs) on the
+# tree before the spectral family was added (commit 0d1c238), run on an
+# NVIDIA H100 80GB HBM3 at 700 W: phase_dt_digests holds this tree's against
+# them, bit for bit.
+PARENT_DT_DIGESTS = {
+    "Matern12 float64": "4746bad9037fc06b", "Matern12 float32": "bbeb8585cf83cfc7",
+    "Matern32 float64": "7bba88a1548c3ed2", "Matern32 float32": "706d37a588641768",
+    "Matern52 float64": "f628ceea7d6ab848", "Matern52 float32": "06e2c7a3be7b16b3",
+    "inputs": "89ccdce5e6791b7f",
+}
+
+
+def dt_outputs(T: int = 100_003) -> dict:
+    """The exponential polynomial's five dt kernels (the Matérn units, d = 1,
+    2, 3, float32 and float64) on inputs made on the CPU from the seed and
+    rounded to multiples of 2⁻²⁰, so that no library's last bit reaches them;
+    each pass is fed the kernels' own outputs — the filter apply the filter
+    scan's totals as its prefixes, the smoothers the filter apply's moments,
+    the smoother apply the smoother scan's totals, the Fisher tail all four
+    moments — so that nothing else computes on the card.  Returns {unit:
+    sha256 of its outputs' bytes} and the inputs' digest under "inputs".
+    Uses only entry points that the tree before the spectral family has."""
+    t, y = make_data(T, SEED + 8)
+    out, h_in = {}, hashlib.sha256()
+
+    def q(x):
+        return torch.round(x * 2.0**20) / 2.0**20
+
+    for kcls, params in ((Matern12, (1.2, 0.6)), (Matern32, (1.0, 0.5)), (Matern52, (0.8, 0.4))):
+        with torch.no_grad():
+            k = kcls(*params, dtype=torch.float64, device="cpu")
+            fam, co = k.transition_coeffs()
+            sde = k.get_sde()
+            R = torch.full((1, 1), NOISE, dtype=torch.float64)
+            base = [q(co), q(sde.P0), q(sde.H), R, q(dt._dts_from_ts(torch.tensor(t))), q(torch.tensor(y))]
+            for dtype in (torch.float64, torch.float32):
+                co_, P0, H, R_, dts, yt = (x.to(dtype).contiguous() for x in base)
+                for x in (co_, P0, H, R_, dts, yt):
+                    h_in.update(x.numpy().tobytes())
+                co_, P0, H, R_, dts, yt = (x.to(DEV) for x in (co_, P0, H, R_, dts, yt))
+                tot = dt.dt_filter_scan(fam, co_, P0, H, R_, dts, yt)
+                b, C, ell = dt.dt_filter_apply(fam, co_, P0, H, R_, dts, yt, tot)
+                tot_s = dt.dt_smoother_scan(fam, co_, P0, dts, b, C)
+                g, L = dt.dt_smoother_apply(fam, co_, P0, dts, b, C, tot_s)
+                fisher = dt.dt_fisher(fam, co_, P0, H, R_, dts, yt, b, C, g, L)
+                h = hashlib.sha256()
+                for x in (tot, b, C, ell, tot_s, g, L, *fisher):
+                    h.update(x.detach().cpu().contiguous().numpy().tobytes())
+                out[f"{kcls.__name__} {str(dtype).replace('torch.', '')}"] = h.hexdigest()[:16]
+    out["inputs"] = h_in.hexdigest()[:16]
+    return out
+
+
+def phase_dt_digests() -> None:
+    """The exponential polynomial's dt units bit for bit against the tree
+    before the spectral family (PARENT_DT_DIGESTS, dt_outputs)."""
+    got = dt_outputs()
+    print(f"dt units' output digests (exponential polynomial): {got}")
+    if PARENT_DT_DIGESTS is None:
+        print("  no parent digests recorded: not compared")
+        return
+    if got["inputs"] != PARENT_DT_DIGESTS["inputs"]:
+        print(f"  the inputs differ from the recorded run's ({got['inputs']} vs {PARENT_DT_DIGESTS['inputs']}): not compared")
+        return
+    for unit, digest in PARENT_DT_DIGESTS.items():
+        check(got[unit] == digest, f"dt unit {unit}: outputs differ from the parent's ({got[unit]} vs {digest})")
+    print(f"  the {len(PARENT_DT_DIGESTS) - 1} exponential-polynomial units' outputs are bit for bit the parent's")
 
 
 def strip_apply_outputs(out_dir: str, T: int = 100_003) -> None:
@@ -2546,6 +2987,8 @@ def main() -> int:
     phase_build()
     count_prefix_calls()
     phase_kernels()
+    check_spectral_kernels()
+    phase_dt_digests()
     phase_batched_kernels()
     model, data, queries, serving = phase_slice()
     training = phase_training(model, data)
@@ -2557,14 +3000,20 @@ def main() -> int:
     phase_profile(card, f"Matern52 N={N_FULL}", model, queries[0])
     del model, data
     torch.cuda.empty_cache()
-    rbf, rbf_queries, planes, strip_counts = phase_strip_slice()
+    rbf, rbf_queries, rbf_counts = phase_rbf_slice()
+    print(f"launches: RBF dt path {rbf_counts}")
+    for name in SPECTRAL_KERNELS:
+        check(rbf_counts[name] > 0, f"{name} was never launched on the RBF dt path")
+    records += phase_rbf_times(card, rbf, rbf_queries, rbf_counts)
+    phase_profile(card, f"RBF(order=6) N={N_STRIP}", rbf, rbf_queries)
+    del rbf
+    torch.cuda.empty_cache()
+    rbf, _, planes, strip_counts = phase_strip_slice()
     print(f"launches: strip path {strip_counts}")
     for name in STRIP_KERNELS:
         check(strip_counts[name] > 0, f"{name} was never launched on the strip path")
-    records += phase_strip_times(card, rbf, rbf_queries, planes, strip_counts)
-    del planes
-    phase_profile(card, f"RBF(order=6) N={N_STRIP}", rbf, rbf_queries)
-    del rbf
+    records += phase_strip_times(card, rbf, planes, strip_counts)
+    del planes, rbf
     torch.cuda.empty_cache()
     phase_sequential_time(card)
     chains, batched_counts = phase_batched_slice()

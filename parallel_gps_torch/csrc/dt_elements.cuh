@@ -4,11 +4,14 @@
 // (_build_filtering_rows :309, _filt_combine_rows :225, _build_smoothing_rows
 // :356, _smooth_combine_rows :290, the Schur-recursed _inv :132) and of the
 // in-register F/Q rebuild in kalman/pallas_dt.py (_build_fq_pure :104) for the
-// exponential-polynomial transition family of kernels/matern.py, with its
-// chain rule (build_fq_vjp) for the Fisher-tail kernel.
+// two transition families of the port — the exponential polynomial of
+// kernels/matern.py and RBF's spectral closed form of kernels/rbf.py (the
+// build closure of parallel_gps_tpu/kernels/rbf.py:267) — with their chain
+// rules (build_fq_vjp, spectral_vjp) for the Fisher-tail kernel.
 //
 // Everything is templated on the scalar type S and the state dimension D
-// (1..8; the dt kernels instantiate 1..3), with every loop fully unrolled, so
+// (1..8; the dt kernels instantiate the exponential polynomial at 1..3 and
+// the spectral family at 1..8), with every loop fully unrolled, so
 // an element lives in registers as far as they reach: a filtering element is
 // 3D²+2D values (33 at D=3, 120 at D=6, 208 at D=8), a smoothing element
 // 2D²+D; beyond about D=4 the compiler spills part of it to local memory.
@@ -28,12 +31,31 @@ __device__ __forceinline__ float dexpm1(float x) { return expm1f(x); }
 __device__ __forceinline__ double dexpm1(double x) { return expm1(x); }
 __device__ __forceinline__ float dlog(float x) { return logf(x); }
 __device__ __forceinline__ double dlog(double x) { return log(x); }
+__device__ __forceinline__ void dsincos(float x, float* s, float* c) { sincosf(x, s, c); }
+__device__ __forceinline__ void dsincos(double x, double* s, double* c) { sincos(x, s, c); }
+__device__ __forceinline__ float dsin(float x) { return sinf(x); }
+__device__ __forceinline__ double dsin(double x) { return sin(x); }
 
 // Coefficients of the exponential-polynomial family: [λ | N₁ | … | N_deg],
 // degree ≤ D−1 (the Matérn kernels have degree D−1).
 template <int D>
 struct Exppoly {
   static constexpr int kMaxCoef = 1 + (D - 1) * D * D;
+};
+
+// The spectral family of the order-D RBF kernel (kernels/rbf.py), as the
+// kernels read it: kBlocks eigenvalue blocks of the unit-lengthscale
+// companion, each with a G and an S coefficient matrix, laid out
+// [1/ℓ | G_1 | S_1 | … | G_kBlocks | S_kBlocks] (kCoef values), then the block
+// table [a_1, β_1, …] (a = −α > 0).  A real root is the block with β = 0 and
+// S = 0: its factors below reduce exactly to expm1(−a·u) and 0, so one code
+// path serves both kinds of block.  The wrapper (kalman/dt.py) pads the
+// model's coefficients, which hold no S for a real root, to this layout.
+template <int D>
+struct Spectral {
+  static constexpr int kBlocks = (D + 1) / 2;
+  static constexpr int kCoef = 1 + 2 * kBlocks * D * D;
+  static constexpr int kTable = kCoef + 2 * kBlocks;
 };
 
 // Filtering element (A, b, C, J, η); packed component order A, b, C, J, η.
@@ -204,7 +226,28 @@ __device__ __forceinline__ void inv(const S* M, S* out) {
 // Transition and noise from dt (pallas_dt._build_fq_pure, matern.py:85-101)
 // ---------------------------------------------------------------------------
 
-// F = I + Am1 and Q = −(M + Mᵀ + M·Am1ᵀ), M = Am1·P0, with
+// F = I + Am1 and Q = −(M + Mᵀ + M·Am1ᵀ), M = Am1·P0, from Am1 = expm(dt·F) − I
+// of either family.
+template <typename S, int D>
+__device__ __forceinline__ void fq_from_am1(const S* Am1, const S* P0, S* M, S* F, S* Q) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) F[i * D + j] = (i == j) ? S(1) + Am1[i * D + j] : Am1[i * D + j];
+  mm<S, D>(Am1, P0, M);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      S s = M[i * D + j] + M[j * D + i];
+#pragma unroll
+      for (int k = 0; k < D; ++k) s += M[i * D + k] * Am1[j * D + k];
+      Q[i * D + j] = -s;
+      Q[j * D + i] = -s;
+    }
+}
+
+// The exponential polynomial's F and Q, with
 // Am1 = expm1(−λdt)·I + e^{−λdt} Σ_p dt^p/p! N_p.  Also returns Am1 and M,
 // which the chain rule below reads.
 template <typename S, int D>
@@ -227,21 +270,7 @@ __device__ __forceinline__ void build_fq_parts(const S* c, int degree, const S* 
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) F[i * D + j] = (i == j) ? S(1) + Am1[i * D + j] : Am1[i * D + j];
-  mm<S, D>(Am1, P0, M);
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = i; j < D; ++j) {
-      S s = M[i * D + j] + M[j * D + i];
-#pragma unroll
-      for (int k = 0; k < D; ++k) s += M[i * D + k] * Am1[j * D + k];
-      Q[i * D + j] = -s;
-      Q[j * D + i] = -s;
-    }
+  fq_from_am1<S, D>(Am1, P0, M, F, Q);
 }
 
 template <typename S, int D>
@@ -250,25 +279,20 @@ __device__ __forceinline__ void build_fq(const S* c, int degree, const S* P0, S 
   build_fq_parts<S, D>(c, degree, P0, dt, Am1, M, F, Q);
 }
 
-// Chain rule of build_fq_parts, written out by hand (the TPU kernel takes
+// Chain rule of fq_from_am1, written out by hand (the TPU kernel takes
 // jax.vjp of _build_fq_pure inside its body, pallas_dt.py:927/:979): from the
-// cotangents dF and dQ of one step to d_c (kMaxCoef values, zero beyond the
-// degree), d_P0 (D², for P0 as build_fq reads it: unsymmetrised) and d_dt.
+// cotangents dF and dQ of one step to dA = ∂ℓ/∂Am1 and d_P0 (D², for P0 as
+// the build reads it: unsymmetrised).
 //
 // Q's upper triangle is written to [i][j] and [j][i] from one value, so its
 // cotangent is G_ij = dQ_ij + dQ_ji (dQ_ii on the diagonal).  With
 // Q_ij = −(M_ij + M_ji + Σ_k M_ik Am1_jk):
 //   dM_ij −= G_ij, dM_ji −= G_ij, dM_ik −= G_ij Am1_jk, dAm1_jk −= G_ij M_ik;
-// through M = Am1·P0: dAm1 += dM·P0ᵀ, dP0 = Am1ᵀ·dM; through F: dAm1 += dF;
-// and through Am1 = em1·I + Σ_p τ_p N_p with em1 = expm1(−λdt),
-// τ_p = e^{−λdt} dt^p/p! (τ_0 = e^{−λdt}):
-//   dN_p = τ_p dAm1,  dτ_p = ⟨dAm1, N_p⟩,  dem1 = tr dAm1,
-//   ∂em1/∂λ = −dt τ_0, ∂em1/∂dt = −λ τ_0,
-//   ∂τ_p/∂λ = −dt τ_p, ∂τ_p/∂dt = τ_{p−1} − λ τ_p.
+// through M = Am1·P0: dAm1 += dM·P0ᵀ, dP0 = Am1ᵀ·dM; through F: dAm1 += dF.
 template <typename S, int D>
-__device__ __forceinline__ void build_fq_vjp(const S* c, int degree, const S* P0, S dt, const S* Am1, const S* M,
-                                             const S* dF, const S* dQ, S* d_c, S* d_P0, S& d_dt) {
-  S dM[D * D], dA[D * D];
+__device__ __forceinline__ void am1_vjp(const S* P0, const S* Am1, const S* M, const S* dF, const S* dQ, S* dA,
+                                        S* d_P0) {
+  S dM[D * D];
 #pragma unroll
   for (int q = 0; q < D * D; ++q) {
     dM[q] = S(0);
@@ -301,6 +325,20 @@ __device__ __forceinline__ void build_fq_vjp(const S* c, int degree, const S* P0
       dA[i * D + j] += sa;
       d_P0[i * D + j] = sp;
     }
+}
+
+// Chain rule of build_fq_parts: from dF and dQ of one step to d_c (kMaxCoef
+// values, zero beyond the degree), d_P0 and d_dt (am1_vjp, then through
+// Am1 = em1·I + Σ_p τ_p N_p with em1 = expm1(−λdt), τ_p = e^{−λdt} dt^p/p!
+// (τ_0 = e^{−λdt}):
+//   dN_p = τ_p dAm1,  dτ_p = ⟨dAm1, N_p⟩,  dem1 = tr dAm1,
+//   ∂em1/∂λ = −dt τ_0, ∂em1/∂dt = −λ τ_0,
+//   ∂τ_p/∂λ = −dt τ_p, ∂τ_p/∂dt = τ_{p−1} − λ τ_p.
+template <typename S, int D>
+__device__ __forceinline__ void build_fq_vjp(const S* c, int degree, const S* P0, S dt, const S* Am1, const S* M,
+                                             const S* dF, const S* dQ, S* d_c, S* d_P0, S& d_dt) {
+  S dA[D * D];
+  am1_vjp<S, D>(P0, Am1, M, dF, dQ, dA, d_P0);
   const S lam = c[0];
   const S e = dexp(-lam * dt);
   S d_em1 = dA[0];
@@ -328,6 +366,71 @@ __device__ __forceinline__ void build_fq_vjp(const S* c, int degree, const S* P0
     }
   }
   d_c[0] = d_lam;
+}
+
+// The spectral family's Am1 (kernels/rbf.py::spectral_transitions_m1), from
+// the table ``c`` (Spectral<D>: coefficients, then the block table): with
+// u = dt·c[0], each block adds em1·G + es·S, em1 = expm1(−a·u)·cos(βu) −
+// 2 sin²(βu/2) and es = e^{−a·u} sin(βu).  ``w``, if given, receives the
+// block's (em1, es), the weights of its G and S in Am1.  The loop over the
+// blocks stays rolled: unrolled, ptxas gave the f32 D = 8 filter scan 32
+// registers and 29 KB of spills (16 ms at N = 1M on an H100), rolled 255
+// registers and 3.2 KB.
+template <typename S, int D>
+__device__ __forceinline__ void spectral_am1(const S* c, S dt, S* Am1, S* w = nullptr) {
+  typedef Spectral<D> Sp;
+  const S u = dt * c[0];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) Am1[q] = S(0);
+#pragma unroll 1
+  for (int k = 0; k < Sp::kBlocks; ++k) {
+    const S a = c[Sp::kCoef + 2 * k], beta = c[Sp::kCoef + 2 * k + 1];
+    S sn, cs;
+    dsincos(beta * u, &sn, &cs);
+    const S sh = dsin(S(0.5) * beta * u);
+    const S em1 = dexpm1(-a * u) * cs - S(2) * sh * sh;
+    const S es = dexp(-a * u) * sn;
+    const S* G = c + 1 + 2 * k * D * D;
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) Am1[q] = Am1[q] + em1 * G[q] + es * G[D * D + q];
+    if (w) {
+      w[2 * k] = em1;
+      w[2 * k + 1] = es;
+    }
+  }
+}
+
+// Chain rule of the spectral Am1 from dA = ∂ℓ/∂Am1 of one step: the
+// cotangents of block k's matrices are w_{2k}·dA (G) and w_{2k+1}·dA (S),
+// left to the caller, which sums them over the steps (dt_fisher.cu); this
+// returns ∂ℓ/∂u = Σ_k em1′⟨dA, G_k⟩ + es′⟨dA, S_k⟩ with
+//   em1′ = −a·e^{−au} cos(βu) − β·e^{−au} sin(βu),  es′ = −a·es + β·e^{−au} cos(βu),
+// so that d c[0] = dt·∂ℓ/∂u and d dt = c[0]·∂ℓ/∂u.  At dt = 0 every one of
+// these is exactly 0 (em1 = es = 0 and u = 0).
+template <typename S, int D>
+__device__ __forceinline__ S spectral_vjp(const S* c, S dt, const S* dA) {
+  typedef Spectral<D> Sp;
+  const S u = dt * c[0];
+  S d_u = S(0);
+#pragma unroll 1
+  for (int k = 0; k < Sp::kBlocks; ++k) {
+    const S a = c[Sp::kCoef + 2 * k], beta = c[Sp::kCoef + 2 * k + 1];
+    S sn, cs;
+    dsincos(beta * u, &sn, &cs);
+    const S e = dexp(-a * u);
+    const S es = e * sn;
+    const S d_em1 = -a * e * cs - beta * es;
+    const S d_es = -a * es + beta * e * cs;
+    const S* G = c + 1 + 2 * k * D * D;
+    S pg = S(0), ps = S(0);
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) {
+      pg += dA[q] * G[q];
+      ps += dA[q] * G[D * D + q];
+    }
+    d_u += d_em1 * pg + d_es * ps;
+  }
+  return d_u;
 }
 
 // ---------------------------------------------------------------------------

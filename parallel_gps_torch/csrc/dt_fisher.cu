@@ -36,9 +36,33 @@
 //
 // Bound on an H100: bytes.  A step reads 2 + 2(D + D²) values and writes 2
 // (104 bytes at D = 3 in float32) for a few hundred flops.
+//
+// The spectral family (RBF, D = 1..8; dt_fisher_spectral_kernel) has up to
+// 513 coefficients, and its row of sums up to 586 values at D = 8: they fit
+// neither a thread's registers nor, a copy per thread, a block's shared
+// memory.  But a step's coefficient cotangents factor: block k's G and S
+// receive em1_k·dA and es_k·dA, dA = ∂ℓ/∂Am1 of the step (dt_elements.cuh:
+// spectral_vjp), so a block sums them a tile at a time as a small product.
+// Each of its threads writes its step's dA (D²), weights (em1_k, es_k) and
+// its other terms (d c[0], d_P0, d_H, d_R) as one column of a tile in shared
+// memory; after a barrier, each thread sums, over the tile's kThreads steps
+// in a fixed order, the few outputs it owns (Σ_s w_m[s]·dA_q[s], or Σ_s of a
+// column's row), carried in registers from tile to tile.  The tile is
+// (2D² + (D+1)/2·2 + D + 2) rows of kThreads + 1 values (the pad keeps a
+// warp's reads of one step on distinct banks): 150,672 bytes at D = 8 in
+// double, within a block's 232,448.  No atomics: two runs give the same bits.
+// Scalars: the rows of [P0 (D²) | h (D) | r | c], c the Spectral<D> table,
+// copied to shared memory once a block (SpectralScalars).
+//
+// One translation unit per state dimension (kalman/_cuda.py: VARIANTS):
+// compile with -DPGT_D=<1..8>.
 #include <cuda_runtime.h>
 
 #include "dt_launch.cuh"
+
+#ifndef PGT_D
+#error "compile with -DPGT_D=<state dimension, 1..8>"
+#endif
 
 namespace pgt {
 
@@ -51,8 +75,136 @@ struct FisherSums {
   static constexpr int kN = kR + 1;
 };
 
-// Step t: adds its share to the sums and returns ∂ℓ/∂dt_t and ∂ℓ/∂y_t.
+// The Fisher terms of step t that do not depend on the family, from its F
+// and Q: loads the smoothed (m̂, P̂) of step t into mhat, Phat and returns
+// the cotangents dF and dQ, adding the first step's F₀ᵀ ∇Q₀ F₀ to acc_P0.
 // ``ms`` is the plane stride of the moments (T for one series, B·T batched).
+template <typename S, int D>
+__device__ __forceinline__ void fisher_dfdq(const S* P0, const S* F, const S* Q, const S* b, const S* C, const S* g,
+                                            const S* L, long long t, long long ms, S* mhat, S* Phat, S* dF, S* dQ,
+                                            S* acc_P0) {
+  const bool first = (t == 0);
+  const long long tp = first ? 0 : t - 1;
+  S m_prev[D], P_prev[D * D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    const S v = b[a * ms + tp];
+    m_prev[a] = first ? S(0) : v;
+    mhat[a] = g[a * ms + t];
+  }
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) {
+    const S v = C[q * ms + tp];
+    P_prev[q] = first ? P0[q] : v;
+    Phat[q] = L[q * ms + t];
+  }
+
+  // Predicted moments and the only inverse: Pp = F P_prev Fᵀ + Q.
+  S FP[D * D], Pp[D * D], Pi[D * D];
+  mm<S, D>(F, P_prev, FP);
+  mm_symout<S, D>(FP, F, Q, Pp);
+  inv<S, D>(Pp, Pi);
+  S mp[D], delta[D], rk[D];
+  mv<S, D>(F, m_prev, mp);
+#pragma unroll
+  for (int a = 0; a < D; ++a) delta[a] = mhat[a] - mp[a];
+  mv<S, D>(Pi, delta, rk);
+
+  S Dk[D * D], PiD[D * D], PiDPi[D * D];
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) Dk[q] = Phat[q] - Pp[q];
+  mm<S, D>(Pi, Dk, PiD);
+  mm<S, D>(PiD, Pi, PiDPi);
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int c = 0; c < D; ++c) dQ[a * D + c] = S(0.5) * (PiDPi[a * D + c] + rk[a] * rk[c]);
+
+  // E_prev = P_prev Fᵀ Pp⁻¹; at t = 0 it is the pre-initial gain E₋₁.
+  S PFt[D * D], E[D * D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = P_prev[i * D] * F[j * D];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += P_prev[i * D + k] * F[j * D + k];
+      PFt[i * D + j] = s;
+    }
+  mm<S, D>(PFt, Pi, E);
+  S Em[D], mh_prev[D];
+  mv<S, D>(E, mhat, Em);
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    const S v = g[a * ms + tp];
+    mh_prev[a] = first ? Em[a] : v;
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      S s = rk[a] * mh_prev[c];
+#pragma unroll
+      for (int k = 0; k < D; ++k) s += PiD[a * D + k] * E[c * D + k];
+      dF[a * D + c] = s;
+    }
+
+  // The first step's closed-form term F₀ᵀ ∇Q₀ F₀ of ∇P0.
+  if (first) {
+    S QF[D * D];
+    mm<S, D>(dQ, F, QF);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        S s = F[i] * QF[j];
+#pragma unroll
+        for (int k = 1; k < D; ++k) s += F[k * D + i] * QF[k * D + j];
+        acc_P0[i * D + j] += s;
+      }
+  }
+}
+
+// The observation terms of a step with observation yv (NaN marks a missing
+// one, which adds nothing): adds to acc_H (D; divided by r at the end) and
+// acc_R and returns ∂ℓ/∂y in d_y.
+template <typename S, int D>
+__device__ __forceinline__ void fisher_obs(const S* h, S r, S yv, const S* mhat, const S* Phat, S* acc_H, S& acc_R,
+                                           S& d_y) {
+  const bool observed = !(yv != yv);
+  d_y = S(0);
+  if (observed) {
+    S HPhat[D];
+    S Hm = h[0] * mhat[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) Hm += h[k] * mhat[k];
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      S s = h[0] * Phat[c];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s += h[k] * Phat[k * D + c];
+      HPhat[c] = s;
+    }
+    S HPH = h[0] * HPhat[0];
+#pragma unroll
+    for (int c = 1; c < D; ++c) HPH += h[c] * HPhat[c];
+    const S resid = yv - Hm;
+    const S rinv = S(1) / r;
+    // ∇H = R⁻¹ Σ [(y − Hm̂) m̂ᵀ − H P̂]; the sums are divided by R at the end.
+#pragma unroll
+    for (int a = 0; a < D; ++a) acc_H[a] += resid * mhat[a] - HPhat[a];
+    // ∇R = ½ Σ [R⁻¹ N R⁻¹ − R⁻¹], N = resid² + H P̂ Hᵀ.
+    acc_R += S(0.5) * ((resid * resid + HPH) * rinv * rinv - rinv);
+    d_y = -resid * rinv;
+  }
+}
+
+// Step t of the exponential polynomial: adds its share to the sums and
+// returns ∂ℓ/∂dt_t and ∂ℓ/∂y_t.  ``ms`` is the plane stride of the moments
+// (T for one series, B·T batched).  The same terms as fisher_dfdq and
+// fisher_obs, written out in one body: so written, the Matérn units compile
+// to the code they had before the spectral family (the same ptxas lines;
+// built from those two functions, the f64 D = 1 unit spilled 4 bytes less).
 template <typename S, int D>
 __device__ __forceinline__ void fisher_step(const FilterScalars<S, D>& p, const S* dt, const S* y, const S* b,
                                             const S* C, const S* g, const S* L, long long t, long long ms, S* acc,
@@ -231,35 +383,172 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The spectral family's tile of per-step terms (module comment): rows
+// dA (D²) | weights em1_k, es_k (kW) | d c[0] (1) | d_P0 (D²) | d_H (D) | d_R,
+// each of kPitch values, one column a step; and its row of sums,
+// [d_c (Spectral<D>::kCoef) | d_P0 (D²) | d_H (D) | d_R].
+template <typename S, int D>
+struct SpectralFisher {
+  typedef Spectral<D> Sp;
+  static constexpr int kW = 2 * Sp::kBlocks;
+  static constexpr int kRowPlain = D * D + kW;  // the first row summed alone
+  static constexpr int kRows = kRowPlain + 1 + D * D + D + 1;
+  static constexpr int kPitch = kThreads + 1;
+  static constexpr int kN = Sp::kCoef + D * D + D + 1;
+  static constexpr int kH = Sp::kCoef + D * D;  // d_H's first sum
+  static constexpr int kPerThread = (kN + kThreads - 1) / kThreads;
+  static constexpr int kTableBytes = SpectralScalars<S, D, true>::kBytes;
+  static constexpr int kBytes = kTableBytes + kRows * kPitch * (int)sizeof(S);
+  static_assert(kBytes <= kSmemLimit, "the spectral Fisher tile does not fit a block");
+};
+
+extern __shared__ __align__(16) unsigned char pgt_fisher_smem[];
+
+template <typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+    dt_fisher_spectral_kernel(const S* __restrict__ scal, int n_scal, const S* __restrict__ dt, long long dt_bs,
+                              const S* __restrict__ y, long long y_bs, const S* __restrict__ b,
+                              const S* __restrict__ C, const S* __restrict__ g, const S* __restrict__ L,
+                              S* __restrict__ ddt_out, S* __restrict__ dy_out, S* __restrict__ sums, long long T) {
+  typedef SpectralFisher<S, D> A;
+  constexpr int P = A::kPitch;
+  // This block's series: its scalars, its slice of every plane.
+  const long long series = blockIdx.y;
+  const long long ms = (long long)gridDim.y * T;
+  scal += series * n_scal;
+  dt += series * dt_bs;
+  y += series * y_bs;
+  b += series * T;
+  C += series * T;
+  g += series * T;
+  L += series * T;
+  ddt_out += series * T;
+  dy_out += series * T;
+  sums += series * gridDim.x * A::kN;
+  S* sm = reinterpret_cast<S*>(pgt_fisher_smem);
+  SpectralScalars<S, D, true> p;
+  p.load(scal, sm);
+  S* tile = sm + A::kTableBytes / sizeof(S);
+  S* col = tile + threadIdx.x;
+  S out[A::kPerThread];
+#pragma unroll
+  for (int i = 0; i < A::kPerThread; ++i) out[i] = S(0);
+  const long long stride = (long long)gridDim.x * kThreads;
+#pragma unroll 1
+  for (long long base = (long long)blockIdx.x * kThreads; base < T; base += stride) {
+    const long long t = base + threadIdx.x;
+    if (t < T) {
+      const S dtv = dt[t];
+      S Am1[D * D], M[D * D], F[D * D], Q[D * D], w[A::kW];
+      spectral_am1<S, D>(p.c, dtv, Am1, w);
+      fq_from_am1<S, D>(Am1, p.P0, M, F, Q);
+      S mhat[D], Phat[D * D], dF[D * D], dQ[D * D], dP0[D * D];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) dP0[q] = S(0);
+      fisher_dfdq<S, D>(p.P0, F, Q, b, C, g, L, t, ms, mhat, Phat, dF, dQ, dP0);
+      S dA[D * D], dP0v[D * D];
+      am1_vjp<S, D>(p.P0, Am1, M, dF, dQ, dA, dP0v);
+      const S d_u = spectral_vjp<S, D>(p.c, dtv, dA);
+      ddt_out[t] = p.c[0] * d_u;
+      S dH[D], dR = S(0), d_y;
+#pragma unroll
+      for (int a = 0; a < D; ++a) dH[a] = S(0);
+      fisher_obs<S, D>(p.h, p.r, y[t], mhat, Phat, dH, dR, d_y);
+      dy_out[t] = d_y;
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) {
+        col[q * P] = dA[q];
+        col[(A::kRowPlain + 1 + q) * P] = dP0[q] + dP0v[q];
+      }
+#pragma unroll
+      for (int m = 0; m < A::kW; ++m) col[(D * D + m) * P] = w[m];
+      col[A::kRowPlain * P] = dtv * d_u;
+#pragma unroll
+      for (int a = 0; a < D; ++a) col[(A::kRowPlain + 1 + D * D + a) * P] = dH[a];
+      col[(A::kRows - 1) * P] = dR;
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < A::kRows; ++r) col[r * P] = S(0);
+    }
+    __syncthreads();
+    // Output o: d c[0] (o = 0) and d_P0, d_H, d_R (o ≥ kCoef) sum a row;
+    // block m's matrix entry q (o = 1 + m·D² + q) sums w_m·dA_q.
+#pragma unroll
+    for (int i = 0; i < A::kPerThread; ++i) {
+      const int o = threadIdx.x + i * kThreads;
+      if (o >= A::kN) break;
+      S s = S(0);
+      if (o == 0 || o >= A::Sp::kCoef) {
+        const S* row = tile + (o == 0 ? A::kRowPlain : A::kRowPlain + 1 + (o - A::Sp::kCoef)) * P;
+#pragma unroll 8
+        for (int k = 0; k < kThreads; ++k) s += row[k];
+      } else {
+        const S* wr = tile + (D * D + (o - 1) / (D * D)) * P;
+        const S* ar = tile + ((o - 1) % (D * D)) * P;
+#pragma unroll 8
+        for (int k = 0; k < kThreads; ++k) s += wr[k] * ar[k];
+      }
+      out[i] += s;
+    }
+    __syncthreads();
+  }
+  const S rinv = S(1) / p.r;
+#pragma unroll
+  for (int i = 0; i < A::kPerThread; ++i) {
+    const int o = threadIdx.x + i * kThreads;
+    if (o < A::kN) sums[(long long)blockIdx.x * A::kN + o] = (o >= A::kH && o < A::kH + D) ? out[i] * rinv : out[i];
+  }
+}
+
 }  // namespace pgt
 
-// C interface, bound with ctypes (kalman/_cuda.py), as in dt_scan.cu.
+// C interface, bound with ctypes (kalman/_cuda.py), as in dt_scan.cu: one
+// set of entry points per state dimension, taking the family.
+#define PGT_CAT2(a, b) a##b
+#define PGT_CAT(a, b) PGT_CAT2(a, b)
+#define PGT_ENTRY(name) PGT_CAT(PGT_CAT(name, _d), PGT_D)
+
 extern "C" {
 
-// Values in one block's row of sums at state dimension d.
-int pgt_dt_fisher_n_sums(int d) {
-  if (d == 1) return pgt::FisherSums<1>::kN;
-  if (d == 2) return pgt::FisherSums<2>::kN;
-  if (d == 3) return pgt::FisherSums<3>::kN;
+// Values in one block's row of sums.
+int PGT_ENTRY(pgt_dt_fisher_n_sums)(int family) {
+  if (family == pgt::kSpectral) return pgt::SpectralFisher<float, PGT_D>::kN;
+#if PGT_D <= 3
+  return pgt::FisherSums<PGT_D>::kN;
+#else
   return pgt::kBadArgs;
+#endif
 }
 
 // scal: (B, n_scal) rows [P0 (d²) | h (d) | r | coeffs]; dt, y: series·bs + t
 // (bs = 0: shared); b, g (d, B, T) and C, L (d, d, B, T) contiguous; ddt, dy
-// (B, T); sums: (B, n_blocks, pgt_dt_fisher_n_sums(d)).
-int pgt_dt_fisher(int is64, int d, int degree, const void* scal, const void* dt, long long dt_bs, const void* y,
-                  long long y_bs, const void* b, const void* C, const void* g, const void* L, void* ddt, void* dy,
-                  void* sums, long long T, int B, int n_blocks, void* stream) {
-  if (pgt::bad_shape(d, degree, T, 1) || n_blocks < 1 || B < 1 || B > 65535) return pgt::kBadArgs;
+// (B, T); sums: (B, n_blocks, n_sums).
+int PGT_ENTRY(pgt_dt_fisher)(int is64, int family, int degree, const void* scal, const void* dt, long long dt_bs,
+                             const void* y, long long y_bs, const void* b, const void* C, const void* g, const void* L,
+                             void* ddt, void* dy, void* sums, long long T, int B, int n_blocks, void* stream) {
+  if (pgt::bad_shape<PGT_D>(family, degree, T, 1) || n_blocks < 1 || B < 1 || B > 65535) return pgt::kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_scal = d * d + d + 2 + degree * d * d;
   const dim3 grid((unsigned int)n_blocks, (unsigned int)B);
-#define PGT_LAUNCH(S, DD)                                                                                       \
-  pgt::dt_fisher_kernel<S, DD><<<grid, pgt::kThreads, 0, st>>>(                                                 \
-      (const S*)scal, n_scal, degree, (const S*)dt, dt_bs, (const S*)y, y_bs, (const S*)b, (const S*)C,         \
-      (const S*)g, (const S*)L, (S*)ddt, (S*)dy, (S*)sums, T)
-  PGT_DISPATCH(is64, d, PGT_LAUNCH);
+  int rc = 0;
+  if (family == pgt::kSpectral) {
+#define PGT_LAUNCH(S)                                                                                              \
+  rc = pgt::launch_opted_in(pgt::dt_fisher_spectral_kernel<S, PGT_D>, grid, pgt::kThreads,                         \
+                            pgt::SpectralFisher<S, PGT_D>::kBytes, st, (const S*)scal,                             \
+                            pgt::SpectralScalars<S, PGT_D, true>::kN, (const S*)dt, dt_bs, (const S*)y, y_bs,      \
+                            (const S*)b, (const S*)C, (const S*)g, (const S*)L, (S*)ddt, (S*)dy, (S*)sums, T)
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
+    return rc;
+  }
+#if PGT_D <= 3
+  const int n_scal = PGT_D * PGT_D + PGT_D + 2 + degree * PGT_D * PGT_D;
+#define PGT_LAUNCH(S)                                                                                       \
+  pgt::dt_fisher_kernel<S, PGT_D><<<grid, pgt::kThreads, 0, st>>>(                                          \
+      (const S*)scal, n_scal, degree, (const S*)dt, dt_bs, (const S*)y, y_bs, (const S*)b, (const S*)C,     \
+      (const S*)g, (const S*)L, (S*)ddt, (S*)dy, (S*)sums, T)
+  PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+#endif
   return (int)cudaGetLastError();
 }
 

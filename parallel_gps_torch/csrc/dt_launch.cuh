@@ -1,7 +1,7 @@
 // What the two-pass kernel sources share on the launch side: the block size,
 // the scalar tables a dt kernel reads its model from, the argument check, the
-// dispatch on scalar type and state dimension, and the launch with opted-in
-// shared memory.
+// dispatch on scalar type, the shared-memory budget of a staged block and the
+// launch with opted-in shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +12,9 @@ namespace pgt {
 
 constexpr int kThreads = 128;
 constexpr int kBadArgs = -1;
+// The transition families of kalman/dt.py, as its wrappers pass them.
+constexpr int kExppoly = 0;
+constexpr int kSpectral = 1;
 
 template <typename S, int D>
 struct FilterScalars {
@@ -50,20 +53,74 @@ struct SmootherScalars {
   }
 };
 
-inline bool bad_shape(int d, int degree, long long T, int K) {
-  return d < 1 || d > 3 || degree < 0 || degree > d - 1 || T < 1 || K < 1;
+// The dt kernels' families: the exponential polynomial at D ≤ 3, of degree
+// ≤ D − 1 (the Matérn range), and the spectral family (degree unused).
+template <int D>
+inline bool bad_shape(int family, int degree, long long T, int K) {
+  const bool ok = (family == kExppoly && D <= 3 && degree >= 0 && degree <= D - 1) || family == kSpectral;
+  return !ok || T < 1 || K < 1;
 }
+
+// The spectral family's scalar table as a dt kernel reads it, copied once a
+// block from device memory into shared memory (every thread then reads the
+// same address, a broadcast): the filter's [P0 (D²) | h (D) | r | c], the
+// smoother's [P0 | c], c the Spectral<D> coefficients and block table — up
+// to 594 values at D = 8, which do not fit a thread's registers beside the
+// scan element.  kBytes is rounded up to 16 bytes, so that what follows it
+// in shared memory stays aligned.
+template <typename S, int D, bool kFilter>
+struct SpectralScalars {
+  static constexpr int kC = kFilter ? D * D + D + 1 : D * D;  // where c starts
+  static constexpr int kN = kC + Spectral<D>::kTable;
+  static constexpr int kBytes = (kN * (int)sizeof(S) + 15) / 16 * 16;
+  const S* P0;
+  const S* h;
+  S r;
+  const S* c;
+
+  // Every thread of the block calls it; it returns after the copy has landed.
+  __device__ __forceinline__ void load(const S* scal, S* sm) {
+    for (int i = threadIdx.x; i < kN; i += blockDim.x) sm[i] = scal[i];
+    __syncthreads();
+    P0 = sm;
+    h = kFilter ? sm + D * D : nullptr;
+    r = kFilter ? sm[D * D + D] : S(0);
+    c = sm + kC;
+  }
+};
 
 inline unsigned int n_blocks(long long n_chunks, int threads = kThreads) {
   return (unsigned int)((n_chunks + threads - 1) / threads);
 }
+
+// A block's shared-memory budget on an H100.
+constexpr int kSmemLimit = 232448;    // a block's opt-in limit, bytes
+constexpr int kSmemPerSM = 233472;    // an SM's shared memory, bytes
+constexpr int kSmemReserved = 1024;   // the runtime's share of it for each block
+
+// Warps a block of a stage of kBytesPerWarp bytes a warp and kBytesPerBlock
+// more a block: of 1, 2, 4, the count whose blocks leave an SM the most warps
+// by shared memory (kRes*), the larger on a tie, among those within a
+// block's limit.  (Static members, not a constexpr function: nvcc keeps host
+// functions out of device code.)
+template <int kBytesPerWarp, int kBytesPerBlock = 0>
+struct BlockWarps {
+  static constexpr int kRes1 = kSmemPerSM / (kBytesPerWarp + kBytesPerBlock + kSmemReserved);
+  static constexpr int kRes2 = 2 * kBytesPerWarp + kBytesPerBlock <= kSmemLimit
+                                   ? 2 * (kSmemPerSM / (2 * kBytesPerWarp + kBytesPerBlock + kSmemReserved))
+                                   : 0;
+  static constexpr int kRes4 = 4 * kBytesPerWarp + kBytesPerBlock <= kSmemLimit
+                                   ? 4 * (kSmemPerSM / (4 * kBytesPerWarp + kBytesPerBlock + kSmemReserved))
+                                   : 0;
+  static constexpr int kN = (kRes4 >= kRes2 && kRes4 >= kRes1) ? 4 : (kRes2 >= kRes1 ? 2 : 1);
+};
 
 // Launches ``kern`` on ``blocks`` blocks of ``threads`` threads with ``bytes``
 // of dynamic shared memory a block, opted in first (above the 48 KB default;
 // up to 227 KB a block on an H100, static shared memory included); returns
 // the opt-in's error or the launch's, so that a refused launch is reported.
 template <typename Kern, typename... Args>
-int launch_opted_in(Kern kern, unsigned int blocks, int threads, int bytes, cudaStream_t st, Args... args) {
+int launch_opted_in(Kern kern, dim3 blocks, int threads, int bytes, cudaStream_t st, Args... args) {
   const cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return (int)rc;
   kern<<<blocks, threads, bytes, st>>>(args...);
@@ -72,24 +129,12 @@ int launch_opted_in(Kern kern, unsigned int blocks, int threads, int bytes, cuda
 
 }  // namespace pgt
 
-// Runs LAUNCH(S, D) for the scalar type and state dimension asked for.
-#define PGT_DISPATCH(IS64, D, LAUNCH)   \
+// Runs LAUNCH(S) for the scalar type asked for.
+#define PGT_DISPATCH_TYPE(IS64, LAUNCH) \
   do {                                  \
     if (IS64) {                         \
-      if ((D) == 1) {                   \
-        LAUNCH(double, 1);              \
-      } else if ((D) == 2) {            \
-        LAUNCH(double, 2);              \
-      } else {                          \
-        LAUNCH(double, 3);              \
-      }                                 \
+      LAUNCH(double);                   \
     } else {                            \
-      if ((D) == 1) {                   \
-        LAUNCH(float, 1);               \
-      } else if ((D) == 2) {            \
-        LAUNCH(float, 2);               \
-      } else {                          \
-        LAUNCH(float, 3);               \
-      }                                 \
+      LAUNCH(float);                    \
     }                                   \
   } while (0)

@@ -13,7 +13,18 @@
 // Layouts are time-last, as at the port's public functions: dt, y (T,);
 // b, g (D, T); C, L (D, D, T); totals and prefixes (n, n_chunks).
 // Scalars (dt_launch.cuh): filter [P0 (D²) | h (D) | r | coeffs], smoother
-// [P0 | coeffs].
+// [P0 | coeffs]; the spectral family's coefficients are followed by its
+// block table (dt_elements.cuh: Spectral).
+//
+// Two transition families: the exponential polynomial of the Matérn kernels
+// (D = 1..3, its coefficients held in each thread's registers) and RBF's
+// spectral closed form (D = 1..8, up to 513 coefficients: the table is read
+// from shared memory, SpectralScalars, and the staged pass-2 kernels size
+// their blocks by their shared-memory budget, SpectralApply).
+//
+// One translation unit per state dimension (kalman/_cuda.py: VARIANTS):
+// compile with -DPGT_D=<1..8>; the entry points carry the dimension in their
+// names (pgt_dt_filter_scan_d3, ...) and take the family.
 //
 // What bounds these kernels on an H100, and what the design does about it:
 // the work per step is a dependent chain of small dense algebra (a filtering
@@ -33,6 +44,13 @@
 
 #include "scan_passes.cuh"
 
+#ifndef PGT_D
+#error "compile with -DPGT_D=<state dimension, 1..8>"
+#endif
+#if PGT_D < 1 || PGT_D > 8
+#error "PGT_D must be in 1..8"
+#endif
+
 namespace pgt {
 
 // The dt-engine's sources of a step's F and Q for the shared pass bodies
@@ -50,6 +68,28 @@ struct DtSmootherSource : SmootherScalars<S, D> {
   const S* dt;
   __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
     build_fq<S, D>(this->c, this->degree, this->P0, dt[t], F, Q);
+  }
+};
+
+// The spectral family's sources: the same rebuild, its coefficients read
+// from the block's shared-memory table (SpectralScalars).
+template <typename S, int D>
+struct SpectralFilterSource : SpectralScalars<S, D, true> {
+  const S* dt;
+  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
+    S Am1[D * D], M[D * D];
+    spectral_am1<S, D>(this->c, dt[t], Am1);
+    fq_from_am1<S, D>(Am1, this->P0, M, F, Q);
+  }
+};
+
+template <typename S, int D>
+struct SpectralSmootherSource : SpectralScalars<S, D, false> {
+  const S* dt;
+  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
+    S Am1[D * D], M[D * D];
+    spectral_am1<S, D>(this->c, dt[t], Am1);
+    fq_from_am1<S, D>(Am1, this->P0, M, F, Q);
   }
 };
 
@@ -161,87 +201,243 @@ __global__ void __launch_bounds__(kThreads)
   smoother_apply_staged<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c, warp_stage<S, D>());
 }
 
+// ---------------------------------------------------------------------------
+// The spectral family: the same four passes (pallas_dt.py:179, :208, :553,
+// :589 with RBF's build closure, rbf.py:267), F and Q rebuilt from the
+// shared-memory table.  Bound: as the exponential polynomial's, plus the
+// build — (D+1)/2 blocks of 2 transcendentals and 2·D² multiply-adds a step.
+// ---------------------------------------------------------------------------
+
+// The pass-2 kernels' budget, one fixed choice a unit: the scalar table, then
+// each warp's ChunkStage<S, D> (D + D² rows, as the exponential polynomial's)
+// — 4 warps of it exceed a block's 232,448 bytes at D ≥ 7 (258,048 B at
+// D = 7 float) — in blocks of 4, 2 or 1 warps, whichever leaves an SM the
+// most warps (BlockWarps; the filter's block_sum values are counted too).
+template <typename S, int D, bool kFilter>
+struct SpectralApply {
+  typedef ChunkStage<S, D, D + D * D, 1> G;
+  static constexpr int kTableBytes = SpectralScalars<S, D, kFilter>::kBytes;
+  static constexpr int kWarpBytes = G::kBytes + (kFilter ? 32 * (int)sizeof(S) : 0);
+  static constexpr int kWarps = BlockWarps<kWarpBytes, kTableBytes>::kN;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBytes = kTableBytes + kWarps * G::kBytes;  // dynamic shared memory a block
+  static_assert(kWarpBytes + kTableBytes <= kSmemLimit, "a spectral pass-2 unit does not fit one warp a block");
+};
+
+// The calling warp's stage, after the table.
+template <typename A, typename S>
+__device__ __forceinline__ S* spectral_warp_stage() {
+  return reinterpret_cast<S*>(pgt_dt_smem) + A::kTableBytes / sizeof(S) + (threadIdx.x / 32) * A::G::kWarp;
+}
+
+template <typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+    dt_filter_scan_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ y,
+                                   S* __restrict__ totals, long long T, int K, long long n_chunks) {
+  SpectralFilterSource<S, D> p;
+  p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
+  p.dt = dt;
+  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (c >= n_chunks) return;
+  filter_scan_chunk<S, D>(p, y, totals, T, K, n_chunks, c);
+}
+
+template <typename S, int D>
+__global__ void __launch_bounds__((SpectralApply<S, D, true>::kThreads))
+    dt_filter_apply_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ prefix,
+                                    const S* __restrict__ dt, const S* __restrict__ y, S* __restrict__ b_out,
+                                    S* __restrict__ C_out, S* __restrict__ ell_parts, long long T, int K,
+                                    long long n_chunks) {
+  typedef SpectralApply<S, D, true> A;
+  SpectralFilterSource<S, D> p;
+  p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
+  p.dt = dt;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  const S ll = filter_apply_staged<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c, spectral_warp_stage<A, S>());
+  block_sum<S, A::kThreads>(ll, ell_parts);
+}
+
+template <typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+    dt_smoother_scan_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ b,
+                                     const S* __restrict__ C, S* __restrict__ totals, long long T, int K,
+                                     long long n_chunks) {
+  SpectralSmootherSource<S, D> p;
+  p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
+  p.dt = dt;
+  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (c >= n_chunks) return;
+  smoother_scan_chunk<S, D>(p, b, C, totals, T, K, n_chunks, c);
+}
+
+template <typename S, int D>
+__global__ void __launch_bounds__((SpectralApply<S, D, false>::kThreads))
+    dt_smoother_apply_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ prefix,
+                                      const S* __restrict__ dt, const S* __restrict__ b, const S* __restrict__ C,
+                                      S* __restrict__ g_out, S* __restrict__ L_out, long long T, int K,
+                                      long long n_chunks) {
+  typedef SpectralApply<S, D, false> A;
+  SpectralSmootherSource<S, D> p;
+  p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
+  p.dt = dt;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  smoother_apply_staged<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c, spectral_warp_stage<A, S>());
+}
+
 }  // namespace pgt
 
-// C interface, bound with ctypes (kalman/_cuda.py).  Each entry launches one
-// kernel on the given stream, does not synchronise, and returns
-// cudaGetLastError() (0 on success) or kBadArgs.
+// C interface, bound with ctypes (kalman/_cuda.py), one set of entry points
+// per state dimension.  Each entry launches one kernel on the given stream,
+// does not synchronise, and returns cudaGetLastError() (0 on success) or
+// kBadArgs.  ``family`` is kExppoly (D ≤ 3 units only) or kSpectral;
+// ``degree`` is the exponential polynomial's.
+#define PGT_CAT2(a, b) a##b
+#define PGT_CAT(a, b) PGT_CAT2(a, b)
+#define PGT_ENTRY(name) PGT_CAT(PGT_CAT(name, _d), PGT_D)
+
 extern "C" {
 
+#if PGT_D == 1
 int pgt_threads_per_block(void) { return pgt::kThreads; }
 
 const char* pgt_error_string(int rc) {
-  if (rc == pgt::kBadArgs) return "unsupported arguments (d, degree, T or chunk)";
+  if (rc == pgt::kBadArgs) return "unsupported arguments (family, d, degree, T or chunk)";
   return cudaGetErrorString((cudaError_t)rc);
 }
+#endif
 
-int pgt_dt_filter_scan(int is64, int d, int degree, const void* scal, const void* dt, const void* y, void* totals,
-                       long long T, int K, void* stream) {
-  if (pgt::bad_shape(d, degree, T, K)) return pgt::kBadArgs;
+int PGT_ENTRY(pgt_dt_filter_scan)(int is64, int family, int degree, const void* scal, const void* dt, const void* y,
+                                  void* totals, long long T, int K, void* stream) {
+  if (pgt::bad_shape<PGT_D>(family, degree, T, K)) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
   cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S, DD)                                                                          \
-  pgt::dt_filter_scan_kernel<S, DD><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(            \
-      (const S*)scal, degree, (const S*)dt, (const S*)y, (S*)totals, T, K, n_chunks)
-  PGT_DISPATCH(is64, d, PGT_LAUNCH);
+  int rc = 0;
+  if (family == pgt::kSpectral) {
+#define PGT_LAUNCH(S)                                                                                           \
+  rc = pgt::launch_opted_in(pgt::dt_filter_scan_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks), pgt::kThreads, \
+                            pgt::SpectralScalars<S, PGT_D, true>::kBytes, st, (const S*)scal, (const S*)dt,      \
+                            (const S*)y, (S*)totals, T, K, n_chunks)
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
+    return rc;
+  }
+#if PGT_D <= 3
+#define PGT_LAUNCH(S)                                                                              \
+  pgt::dt_filter_scan_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(         \
+      (const S*)scal, degree, (const S*)dt, (const S*)y, (S*)totals, T, K, n_chunks)
+  PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+#endif
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a block of pgt_dt_filter_apply takes, in bytes.
-int pgt_dt_filter_apply_smem(int is64, int d) {
-  int bytes = 0;
-#define PGT_LAUNCH(S, DD) bytes = pgt::ChunkStage<S, DD>::kBytes
-  PGT_DISPATCH(is64, d, PGT_LAUNCH);
-#undef PGT_LAUNCH
-  return bytes;
+// The pass-2 kernels' blocks at this unit: threads a block and dynamic shared
+// memory a block in bytes, of the filter (smoother = 0) or the smoother.
+int PGT_ENTRY(pgt_dt_apply_threads)(int is64, int family, int smoother) {
+  if (family != pgt::kSpectral) return pgt::kThreads;
+  if (is64) return smoother ? pgt::SpectralApply<double, PGT_D, false>::kThreads : pgt::SpectralApply<double, PGT_D, true>::kThreads;
+  return smoother ? pgt::SpectralApply<float, PGT_D, false>::kThreads : pgt::SpectralApply<float, PGT_D, true>::kThreads;
 }
 
-int pgt_dt_filter_apply(int is64, int d, int degree, const void* scal, const void* prefix, const void* dt,
-                        const void* y, void* b, void* C, void* ell_parts, long long T, int K, void* stream) {
-  if (pgt::bad_shape(d, degree, T, K)) return pgt::kBadArgs;
+int PGT_ENTRY(pgt_dt_apply_smem)(int is64, int family, int smoother) {
+  if (family == pgt::kSpectral) {
+    if (is64) return smoother ? pgt::SpectralApply<double, PGT_D, false>::kBytes : pgt::SpectralApply<double, PGT_D, true>::kBytes;
+    return smoother ? pgt::SpectralApply<float, PGT_D, false>::kBytes : pgt::SpectralApply<float, PGT_D, true>::kBytes;
+  }
+#if PGT_D <= 3
+  return is64 ? pgt::ChunkStage<double, PGT_D>::kBytes : pgt::ChunkStage<float, PGT_D>::kBytes;
+#else
+  return pgt::kBadArgs;
+#endif
+}
+
+int PGT_ENTRY(pgt_dt_filter_apply)(int is64, int family, int degree, const void* scal, const void* prefix,
+                                   const void* dt, const void* y, void* b, void* C, void* ell_parts, long long T,
+                                   int K, void* stream) {
+  if (pgt::bad_shape<PGT_D>(family, degree, T, K)) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
   int rc = 0;
-#define PGT_LAUNCH(S, DD)                                                                                        \
-  {                                                                                                              \
-    auto kern = pgt::dt_filter_apply_kernel<S, DD>;                                                              \
-    rc = pgt::launch_staged<S, DD>(kern, n_chunks, (cudaStream_t)stream, (const S*)scal, degree, (const S*)prefix, \
-                                   (const S*)dt, (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, n_chunks);      \
+  if (family == pgt::kSpectral) {
+#define PGT_LAUNCH(S)                                                                                          \
+  {                                                                                                            \
+    typedef pgt::SpectralApply<S, PGT_D, true> A;                                                              \
+    rc = pgt::launch_opted_in(pgt::dt_filter_apply_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)scal, (const S*)prefix,  \
+                              (const S*)dt, (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, n_chunks);         \
   }
-  PGT_DISPATCH(is64, d, PGT_LAUNCH);
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
+    return rc;
+  }
+#if PGT_D <= 3
+#define PGT_LAUNCH(S)                                                                                            \
+  {                                                                                                              \
+    auto kern = pgt::dt_filter_apply_kernel<S, PGT_D>;                                                           \
+    rc = pgt::launch_staged<S, PGT_D>(kern, n_chunks, (cudaStream_t)stream, (const S*)scal, degree,              \
+                                      (const S*)prefix, (const S*)dt, (const S*)y, (S*)b, (S*)C, (S*)ell_parts,  \
+                                      T, K, n_chunks);                                                           \
+  }
+  PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+#endif
   return rc;
 }
 
-int pgt_dt_smoother_scan(int is64, int d, int degree, const void* scal, const void* dt, const void* b, const void* C,
-                         void* totals, long long T, int K, void* stream) {
-  if (pgt::bad_shape(d, degree, T, K)) return pgt::kBadArgs;
+int PGT_ENTRY(pgt_dt_smoother_scan)(int is64, int family, int degree, const void* scal, const void* dt,
+                                    const void* b, const void* C, void* totals, long long T, int K, void* stream) {
+  if (pgt::bad_shape<PGT_D>(family, degree, T, K)) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
   cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S, DD)                                                                          \
-  pgt::dt_smoother_scan_kernel<S, DD><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(          \
-      (const S*)scal, degree, (const S*)dt, (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks)
-  PGT_DISPATCH(is64, d, PGT_LAUNCH);
+  int rc = 0;
+  if (family == pgt::kSpectral) {
+#define PGT_LAUNCH(S)                                                                                             \
+  rc = pgt::launch_opted_in(pgt::dt_smoother_scan_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks), pgt::kThreads, \
+                            pgt::SpectralScalars<S, PGT_D, false>::kBytes, st, (const S*)scal, (const S*)dt,       \
+                            (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks)
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
+    return rc;
+  }
+#if PGT_D <= 3
+#define PGT_LAUNCH(S)                                                                              \
+  pgt::dt_smoother_scan_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(       \
+      (const S*)scal, degree, (const S*)dt, (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks)
+  PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+#endif
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a block of pgt_dt_smoother_apply takes, in bytes.
-int pgt_dt_smoother_apply_smem(int is64, int d) { return pgt_dt_filter_apply_smem(is64, d); }
-
-int pgt_dt_smoother_apply(int is64, int d, int degree, const void* scal, const void* prefix, const void* dt,
-                          const void* b, const void* C, void* g, void* L, long long T, int K, void* stream) {
-  if (pgt::bad_shape(d, degree, T, K)) return pgt::kBadArgs;
+int PGT_ENTRY(pgt_dt_smoother_apply)(int is64, int family, int degree, const void* scal, const void* prefix,
+                                     const void* dt, const void* b, const void* C, void* g, void* L, long long T,
+                                     int K, void* stream) {
+  if (pgt::bad_shape<PGT_D>(family, degree, T, K)) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
   int rc = 0;
-#define PGT_LAUNCH(S, DD)                                                                                        \
+  if (family == pgt::kSpectral) {
+#define PGT_LAUNCH(S)                                                                                            \
   {                                                                                                              \
-    auto kern = pgt::dt_smoother_apply_kernel<S, DD>;                                                            \
-    rc = pgt::launch_staged<S, DD>(kern, n_chunks, (cudaStream_t)stream, (const S*)scal, degree, (const S*)prefix, \
-                                   (const S*)dt, (const S*)b, (const S*)C, (S*)g, (S*)L, T, K, n_chunks);        \
+    typedef pgt::SpectralApply<S, PGT_D, false> A;                                                               \
+    rc = pgt::launch_opted_in(pgt::dt_smoother_apply_spectral_kernel<S, PGT_D>,                                  \
+                              pgt::n_blocks(n_chunks, A::kThreads), A::kThreads, A::kBytes, (cudaStream_t)stream, \
+                              (const S*)scal, (const S*)prefix, (const S*)dt, (const S*)b, (const S*)C, (S*)g,    \
+                              (S*)L, T, K, n_chunks);                                                            \
   }
-  PGT_DISPATCH(is64, d, PGT_LAUNCH);
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
+    return rc;
+  }
+#if PGT_D <= 3
+#define PGT_LAUNCH(S)                                                                                            \
+  {                                                                                                              \
+    auto kern = pgt::dt_smoother_apply_kernel<S, PGT_D>;                                                         \
+    rc = pgt::launch_staged<S, PGT_D>(kern, n_chunks, (cudaStream_t)stream, (const S*)scal, degree,              \
+                                      (const S*)prefix, (const S*)dt, (const S*)b, (const S*)C, (S*)g, (S*)L, T, \
+                                      K, n_chunks);                                                              \
+  }
+  PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+#endif
   return rc;
 }
 

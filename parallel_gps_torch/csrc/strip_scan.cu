@@ -129,21 +129,7 @@ __global__ void __launch_bounds__(kThreads)
 // not the largest stage that fits; it does not fit at D = 8 double (256,000
 // bytes a warp).
 // ---------------------------------------------------------------------------
-constexpr int kSmemLimit = 232448;    // a block's opt-in limit, bytes
-constexpr int kSmemPerSM = 233472;    // an SM's shared memory, bytes
-constexpr int kSmemReserved = 1024;   // the runtime's share of it for each block
-
-// Warps a block of a stage of kBytesPerWarp bytes a warp: of 1, 2, 4, the
-// count whose blocks leave an SM the most warps by shared memory (kRes*),
-// the larger on a tie, among those within a block's limit.  (Static members,
-// not a constexpr function: nvcc keeps host functions out of device code.)
-template <int kBytesPerWarp>
-struct BlockWarps {
-  static constexpr int kRes1 = kSmemPerSM / (kBytesPerWarp + kSmemReserved);
-  static constexpr int kRes2 = 2 * kBytesPerWarp <= kSmemLimit ? 2 * (kSmemPerSM / (2 * kBytesPerWarp + kSmemReserved)) : 0;
-  static constexpr int kRes4 = 4 * kBytesPerWarp <= kSmemLimit ? 4 * (kSmemPerSM / (4 * kBytesPerWarp + kSmemReserved)) : 0;
-  static constexpr int kN = (kRes4 >= kRes2 && kRes4 >= kRes1) ? 4 : (kRes2 >= kRes1 ? 2 : 1);
-};
+// (dt_launch.cuh: kSmemLimit, BlockWarps.)
 
 // Smoother units that stage their planes: bit D − 1, where that stage
 // measured faster than the moments alone on an H100 (PERF.md §6, row 9): D ≤ 6
@@ -251,16 +237,6 @@ __global__ void __launch_bounds__((ApplyStage<S, D, true>::kThreads))
 #define PGT_CAT2(a, b) a##b
 #define PGT_CAT(a, b) PGT_CAT2(a, b)
 #define PGT_ENTRY(name) PGT_CAT(PGT_CAT(name, _d), PGT_D)
-
-// Runs LAUNCH(S) for the scalar type asked for.
-#define PGT_DISPATCH_TYPE(IS64, LAUNCH) \
-  do {                                  \
-    if (IS64) {                         \
-      LAUNCH(double);                   \
-    } else {                            \
-      LAUNCH(float);                    \
-    }                                   \
-  } while (0)
 
 extern "C" {
 

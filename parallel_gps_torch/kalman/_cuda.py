@@ -1,9 +1,9 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles the package's CUDA sources (one process per
-translation unit, all started together; ``strip_scan.cu`` is one unit per
-state dimension, ``batched_scan.cu`` and ``plane_scan.cu`` one per state
-dimension and scalar type, ``VARIANTS``) and links them into a shared
+translation unit, all started together; ``dt_scan.cu``, ``dt_fisher.cu`` and
+``strip_scan.cu`` are one unit per state dimension, ``batched_scan.cu`` and
+``plane_scan.cu`` one per state dimension and scalar type, ``VARIANTS``) and links them into a shared
 library with a plain C interface, under ``build/parallel_gps_torch/`` at the
 root of the checkout, and ``ctypes`` loads it.  The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt and
@@ -30,15 +30,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # (csrc/dt_launch.cuh: kThreads).
 THREADS = 128
 
-# State dimensions the strip, batched and plane kernels are built for
-# (kalman/strip.py, kalman/batched.py, kalman/plane.py).
+# State dimensions the kernels are built for: every unit of the strip,
+# batched and plane kernels (kalman/strip.py, kalman/batched.py,
+# kalman/plane.py) and of the dt kernels' spectral family; the dt units of
+# d ≤ 3 hold the exponential polynomial too (kalman/dt.py: MAX_KERNEL_D).
 STRIP_DIMS = tuple(range(1, 9))
+_BY_D = [(f"_d{d}", [f"-DPGT_D={d}"]) for d in STRIP_DIMS]
 _BY_D_AND_TYPE = [
     (f"_d{d}_f{bits}", [f"-DPGT_D={d}", f"-DPGT_F64={int(bits == 64)}"]) for d in STRIP_DIMS for bits in (32, 64)
 ]
 # Sources compiled more than once: {file name: [(object suffix, extra flags)]}.
 VARIANTS = {
-    "strip_scan.cu": [(f"_d{d}", [f"-DPGT_D={d}"]) for d in STRIP_DIMS],
+    "dt_scan.cu": _BY_D,
+    "dt_fisher.cu": _BY_D,
+    "strip_scan.cu": _BY_D,
     "batched_scan.cu": _BY_D_AND_TYPE,
     "plane_scan.cu": _BY_D_AND_TYPE,
 }
@@ -108,14 +113,6 @@ def load():
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
-        "pgt_dt_filter_scan": [i, i, i, p, p, p, p, ll, i, p],
-        "pgt_dt_filter_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
-        "pgt_dt_filter_apply_smem": [i, i],
-        "pgt_dt_smoother_scan": [i, i, i, p, p, p, p, p, ll, i, p],
-        "pgt_dt_smoother_apply": [i, i, i, p, p, p, p, p, p, p, ll, i, p],
-        "pgt_dt_smoother_apply_smem": [i, i],
-        "pgt_dt_fisher": [i, i, i, p, p, ll, p, ll, p, p, p, p, p, p, p, ll, i, i, p],
-        "pgt_dt_fisher_n_sums": [i],
         # csrc/probes.cu (parallel_gps_torch/probes/)
         "pgt_probe_copy_chunk": [i, p, p, i, ll, i, p],
         "pgt_probe_copy_coalesced": [i, p, p, ll, p],
@@ -127,6 +124,15 @@ def load():
         "pgt_probe_tile_carry": [i, p, p, p, ll, i, p],
     }
     for d in STRIP_DIMS:
+        # csrc/dt_scan.cu, csrc/dt_fisher.cu (kalman/dt.py): (is64, family, ...)
+        sigs[f"pgt_dt_filter_scan_d{d}"] = [i, i, i, p, p, p, p, ll, i, p]
+        sigs[f"pgt_dt_filter_apply_d{d}"] = [i, i, i, p, p, p, p, p, p, p, ll, i, p]
+        sigs[f"pgt_dt_smoother_scan_d{d}"] = [i, i, i, p, p, p, p, p, ll, i, p]
+        sigs[f"pgt_dt_smoother_apply_d{d}"] = [i, i, i, p, p, p, p, p, p, p, ll, i, p]
+        sigs[f"pgt_dt_apply_threads_d{d}"] = [i, i, i]
+        sigs[f"pgt_dt_apply_smem_d{d}"] = [i, i, i]
+        sigs[f"pgt_dt_fisher_d{d}"] = [i, i, i, p, p, ll, p, ll, p, p, p, p, p, p, p, ll, i, i, p]
+        sigs[f"pgt_dt_fisher_n_sums_d{d}"] = [i]
         sigs[f"pgt_strip_filter_scan_d{d}"] = [i, p, p, p, p, p, ll, i, p]
         sigs[f"pgt_strip_filter_apply_d{d}"] = [i, p, p, p, p, p, p, p, p, ll, i, p]
         sigs[f"pgt_strip_smoother_scan_d{d}"] = [i, p, p, p, p, p, ll, i, p]

@@ -1,16 +1,20 @@
 """Fused-discretization ("dt-engine") filter and smoother
 (counterpart: parallel_gps_tpu/kalman/pallas_dt.py).
 
-For kernels whose transitions have an elementwise closed form (the Matérn
-family, ``SDEKernel.transition_coeffs``), the per-step transition and noise
-planes never exist: each step rebuilds, from its dt and the coefficients,
+For kernels whose transitions have an elementwise closed form
+(``SDEKernel.transition_coeffs``: the Matérn kernels' exponential polynomial,
+``EXPPOLY``, and RBF's spectral closed form, ``SPECTRAL``), the per-step
+transition and noise planes never exist: each step rebuilds, from its dt and
+the coefficients,
 
     Am1 = expm(dt·F) − I,   F = I + Am1,
     Q   = −(M + Mᵀ + M·Am1ᵀ),  M = Am1·P∞,
 
 the cancellation-free discretization of ops/disc.py.  The JAX ``build``
 closure becomes a family id plus the flat ``coeffs`` tensor
-(kernels/matern.py).
+(kernels/matern.py, kernels/rbf.py); the spectral family's block table is
+derived from d (``rbf.spectral_blocks``) and handed to the kernels with the
+coefficients (``kernel_coeffs``).
 
 ``lml_dt`` is differentiable: its backward is the smoother followed by the
 fused Fisher tail ``dt_fisher``, one scan-free pass from the filtered and
@@ -25,9 +29,11 @@ chunk helpers and the plain passes on planes are ``kalman/strip.py``'s.
 Each pass, and the Fisher tail, is a wrapper that dispatches on the device
 of its tensors:
 
-  - CUDA, d ≤ 3, float32 or float64: the hand-written kernel of
-    ``csrc/dt_scan.cu`` (one thread per chunk) or ``csrc/dt_fisher.cu`` (one
-    thread per step); anything else on CUDA raises;
+  - CUDA, float32 or float64, d ≤ ``MAX_KERNEL_D[family]`` (3 for the
+    exponential polynomial, 8 for the spectral family): the hand-written
+    kernel of ``csrc/dt_scan.cu`` (one thread per chunk) or
+    ``csrc/dt_fisher.cu`` (one thread per step), one translation unit per d;
+    anything else on CUDA raises;
   - CPU: the plain PyTorch version of the same function (``*_plain``).
 
 On the CPU, ``strip_filter_dt``/``strip_smoother_dt`` run the plain
@@ -41,9 +47,11 @@ or (B, T) — the entry points take the single-pass batched engine
 ``build_planes_tl`` and one launch filters (or smooths) all B series, with no
 prefix step on the host; ``lml_dt`` then returns (B,) and its backward is the
 batched smoother and one launch of the Fisher tail for all series.  This is
-what ``jax.vmap`` of the single-series entry points does in the JAX package.
+what ``jax.vmap`` of the single-series entry points does in the JAX package,
+for the exponential polynomial (a batch of RBF kernels is ROADMAP.md B7).
 
-``LAUNCHES`` counts kernel launches by kernel name.
+``LAUNCHES`` counts kernel launches by kernel name (the spectral family's
+kernels are ``<wrapper>_spectral``).
 """
 from __future__ import annotations
 
@@ -65,12 +73,20 @@ from parallel_gps_torch.kalman.strip import (
 )
 from parallel_gps_torch.kalman.timelast import fisher_grads_from_smoothed, pkf_from_tl, pks_from_tl
 from parallel_gps_torch.kernels.matern import EXPPOLY, build_transitions_m1
+from parallel_gps_torch.kernels.rbf import SPECTRAL, spectral_blocks
 from parallel_gps_torch.ops.linalg import symmetrize
 from parallel_gps_torch.types import LGSSMTL
 
-LAUNCHES = {"dt_filter_scan": 0, "dt_filter_apply": 0, "dt_smoother_scan": 0, "dt_smoother_apply": 0, "dt_fisher": 0}
+_KERNELS = ("dt_filter_scan", "dt_filter_apply", "dt_smoother_scan", "dt_smoother_apply", "dt_fisher")
+# By kernel: the exponential polynomial's under the wrapper's name, the
+# spectral family's with "_spectral" (csrc: dt_filter_scan_spectral_kernel, ...).
+LAUNCHES = dict.fromkeys(_KERNELS + tuple(f"{k}_spectral" for k in _KERNELS), 0)
 
-MAX_KERNEL_D = 3
+# The state dimensions the kernels are built for, by family: the Matérn
+# range for the exponential polynomial, RBF's spectral orders.
+MAX_KERNEL_D = {EXPPOLY: 3, SPECTRAL: 8}
+# The family ids the kernels take (csrc/dt_launch.cuh: kExppoly, kSpectral).
+FAMILY_IDS = {EXPPOLY: 0, SPECTRAL: 1}
 # Most blocks of the Fisher-tail kernel's grid-stride loops, over all series:
 # one row of partial sums per block.
 FISHER_MAX_BLOCKS = 2048
@@ -84,6 +100,34 @@ def reset_launch_counts() -> None:
 # --------------------------------------------------------------------------
 # Plain building blocks
 # --------------------------------------------------------------------------
+
+
+def _spectral_positions(d: int) -> list:
+    """The position of each spectral coefficient of the model's layout in the
+    kernels' (csrc/dt_elements.cuh: Spectral), where every block has a G and
+    an S matrix, [1/ℓ | G_1 | S_1 | …]: a real root's S is absent from the
+    model's layout."""
+    pos = [0]
+    for k, (_, beta) in enumerate(spectral_blocks(d)):
+        base = 1 + 2 * k * d * d
+        pos += range(base, base + d * d)
+        if beta != 0.0:
+            pos += range(base + d * d, base + 2 * d * d)
+    return pos
+
+
+def kernel_coeffs(family: str, coeffs: Tensor, d: int) -> Tensor:
+    """The coefficients as the kernels read them: the exponential
+    polynomial's as they are; the spectral family's in the kernels' layout (a
+    real root's S zero) followed by the block table [a_1, β_1, …].  A leading
+    batch axis is kept."""
+    if family != SPECTRAL:
+        return coeffs
+    blocks = spectral_blocks(d)
+    padded = coeffs.new_zeros(coeffs.shape[:-1] + (1 + 2 * len(blocks) * d * d,))
+    padded[..., _spectral_positions(d)] = coeffs
+    table = torch.tensor([v for block in blocks for v in block], dtype=coeffs.dtype, device=coeffs.device)
+    return torch.cat([padded, table.expand(coeffs.shape[:-1] + table.shape)], -1)
 
 
 def _dts_from_ts(ts: Tensor, t0=0.0) -> Tensor:
@@ -178,20 +222,31 @@ def _require(ok: bool, what: str) -> None:
         raise ValueError(f"dt-engine CUDA kernels: {what}")
 
 
+def _check_family(family, d: int, n: int) -> int:
+    """Validate the family, the state dimension and the coefficients' length
+    ``n``; returns the exponential polynomial's degree (0 for the spectral
+    family, whose layout has 1 + d³ values)."""
+    _require(family in MAX_KERNEL_D, f"unsupported transition family {family!r}")
+    top = MAX_KERNEL_D[family]
+    _require(1 <= d <= top, f"state dimension {d} outside 1..{top} (the {family} family's kernels are built for d <= {top})")
+    if family == SPECTRAL:
+        _require(n == 1 + d**3, f"coeffs of length {n} do not fit the d={d} spectral layout (1 + d³ = {1 + d**3})")
+        return 0
+    degree = (n - 1) // (d * d)
+    _require(n == 1 + degree * d * d and degree <= d - 1, f"coeffs of length {n} do not fit the d={d} exppoly layout")
+    return degree
+
+
 def _check(family, coeffs, P0, dts, tensors):
     """Validate the inputs of a kernel launch; returns (d, T, degree)."""
     d = P0.shape[0]
     dev = dts.device
     _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
-    _require(family == EXPPOLY, f"unsupported transition family {family!r}")
     _require(P0.dtype in (torch.float32, torch.float64), f"dtype must be float32 or float64, got {P0.dtype}")
-    _require(1 <= d <= MAX_KERNEL_D, f"state dimension {d} > {MAX_KERNEL_D} (the dt kernels are built for d <= 3)")
+    degree = _check_family(family, d, coeffs.numel())
     _require(dts.dim() == 1 and dts.shape[0] >= 1, f"dts must be (T,) with T >= 1, got {tuple(dts.shape)}")
     T = dts.shape[0]
-    n = coeffs.numel()
-    degree = (n - 1) // (d * d)
-    _require(n == 1 + degree * d * d and degree <= d - 1, f"coeffs of length {n} do not fit the d={d} exppoly layout")
-    tensors = {"coeffs": (coeffs, (n,)), "P0": (P0, (d, d)), "dts": (dts, (T,)), **tensors}
+    tensors = {"coeffs": (coeffs, (coeffs.numel(),)), "P0": (P0, (d, d)), "dts": (dts, (T,)), **tensors}
     _check_tensors(dev, P0.dtype, tensors)
     return d, T, degree
 
@@ -212,15 +267,12 @@ def _check_fisher(family, coeffs, P0, H, R, dts, y, moments: dict):
     the batch axis before time.  Returns (d, B, T, degree)."""
     d, dev, dtype = P0.shape[-1], dts.device, P0.dtype
     _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
-    _require(family == EXPPOLY, f"unsupported transition family {family!r}")
     _require(dtype in (torch.float32, torch.float64), f"dtype must be float32 or float64, got {dtype}")
-    _require(1 <= d <= MAX_KERNEL_D, f"state dimension {d} > {MAX_KERNEL_D} (the dt kernels are built for d <= 3)")
     _require(coeffs.dim() == 2 and coeffs.shape[0] >= 1, f"coeffs must be (B, n), got {tuple(coeffs.shape)}")
     B, n = coeffs.shape
+    degree = _check_family(family, d, n)
     _require(dts.dim() in (1, 2) and dts.shape[-1] >= 1, f"dts must be (T,) or (B, T) with T >= 1, got {tuple(dts.shape)}")
     T = dts.shape[-1]
-    degree = (n - 1) // (d * d)
-    _require(n == 1 + degree * d * d and degree <= d - 1, f"coeffs of length {n} do not fit the d={d} exppoly layout")
     tensors = {
         "coeffs": (coeffs, (B, n)), "P0": (P0, (B, d, d)), "H": (H, (B, 1, d)), "R": (R, (B, 1, 1)),
         "dts": (dts, (T,) if dts.dim() == 1 else (B, T)), "y": (y, (T,) if y.dim() == 1 else (B, T)),
@@ -230,16 +282,25 @@ def _check_fisher(family, coeffs, P0, H, R, dts, y, moments: dict):
     return d, B, T, degree
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, lib, d: int, family, is64: int, *args) -> None:
+    """Launch ``name`` of the unit of state dimension ``d``: its entry point
+    takes (is64, family id, *args)."""
     from parallel_gps_torch.kalman import _cuda
 
-    _cuda.launch(name, fn, *args)
-    LAUNCHES[name] += 1
+    _cuda.launch(name, getattr(lib, f"pgt_{name}_d{d}"), is64, FAMILY_IDS[family], *args)
+    LAUNCHES[name if family == EXPPOLY else f"{name}_spectral"] += 1
 
 
-def _filter_scalars(P0, H, R, coeffs) -> Tensor:
-    """[P0 (d²) | h (d) | r | coeffs], the filter kernels' scalar table."""
-    return torch.cat([P0.reshape(-1), H.reshape(-1), R.reshape(-1), coeffs.reshape(-1)]).contiguous()
+def _filter_scalars(family, P0, H, R, coeffs) -> Tensor:
+    """[P0 (d²) | h (d) | r | coeffs], the filter kernels' scalar table, the
+    coefficients as the kernels read them."""
+    kc = kernel_coeffs(family, coeffs, P0.shape[-1])
+    return torch.cat([P0.reshape(-1), H.reshape(-1), R.reshape(-1), kc.reshape(-1)]).contiguous()
+
+
+def _smoother_scalars(family, P0, coeffs) -> Tensor:
+    """[P0 (d²) | coeffs], the smoother kernels' scalar table."""
+    return torch.cat([P0.reshape(-1), kernel_coeffs(family, coeffs, P0.shape[-1]).reshape(-1)]).contiguous()
 
 
 def dt_filter_scan(family, coeffs, P0, H, R, dts, y) -> Tensor:
@@ -253,8 +314,8 @@ def dt_filter_scan(family, coeffs, P0, H, R, dts, y) -> Tensor:
     lib = _cuda.load()
     totals = torch.empty((filt_rows(d), n_chunks(T)), dtype=P0.dtype, device=dts.device)
     _launch(
-        "dt_filter_scan", lib.pgt_dt_filter_scan, int(P0.dtype == torch.float64), d, degree,
-        _filter_scalars(P0, H, R, coeffs), dts, y, totals, T, CHUNK, dts.device,
+        "dt_filter_scan", lib, d, family, int(P0.dtype == torch.float64), degree,
+        _filter_scalars(family, P0, H, R, coeffs), dts, y, totals, T, CHUNK, dts.device,
     )
     return totals
 
@@ -272,12 +333,14 @@ def dt_filter_apply(family, coeffs, P0, H, R, dts, y, prefix):
     )
     lib = _cuda.load()
     dev, dtype = dts.device, P0.dtype
+    is64 = int(dtype == torch.float64)
     b = torch.empty((d, T), dtype=dtype, device=dev)
     C = torch.empty((d, d, T), dtype=dtype, device=dev)
-    parts = torch.empty((-(-n_chunks(T) // _cuda.THREADS),), dtype=dtype, device=dev)
+    threads = getattr(lib, f"pgt_dt_apply_threads_d{d}")(is64, FAMILY_IDS[family], 0)
+    parts = torch.empty((-(-n_chunks(T) // threads),), dtype=dtype, device=dev)
     _launch(
-        "dt_filter_apply", lib.pgt_dt_filter_apply, int(dtype == torch.float64), d, degree,
-        _filter_scalars(P0, H, R, coeffs), prefix, dts, y, b, C, parts, T, CHUNK, dev,
+        "dt_filter_apply", lib, d, family, is64, degree,
+        _filter_scalars(family, P0, H, R, coeffs), prefix, dts, y, b, C, parts, T, CHUNK, dev,
     )
     # Per-block partials, each summed in a fixed order by the kernel; the
     # final sum is one deterministic reduction (no atomics).
@@ -294,10 +357,9 @@ def dt_smoother_scan(family, coeffs, P0, dts, b_tl, C_tl) -> Tensor:
     d, T, degree = _check(family, coeffs, P0, dts, {"b_tl": (b_tl, (d, T)), "C_tl": (C_tl, (d, d, T))})
     lib = _cuda.load()
     totals = torch.empty((smooth_rows(d), n_chunks(T)), dtype=P0.dtype, device=dts.device)
-    scal = torch.cat([P0.reshape(-1), coeffs.reshape(-1)]).contiguous()
     _launch(
-        "dt_smoother_scan", lib.pgt_dt_smoother_scan, int(P0.dtype == torch.float64), d, degree,
-        scal, dts, b_tl, C_tl, totals, T, CHUNK, dts.device,
+        "dt_smoother_scan", lib, d, family, int(P0.dtype == torch.float64), degree,
+        _smoother_scalars(family, P0, coeffs), dts, b_tl, C_tl, totals, T, CHUNK, dts.device,
     )
     return totals
 
@@ -316,10 +378,9 @@ def dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix):
     lib = _cuda.load()
     g = torch.empty((d, T), dtype=P0.dtype, device=dts.device)
     L = torch.empty((d, d, T), dtype=P0.dtype, device=dts.device)
-    scal = torch.cat([P0.reshape(-1), coeffs.reshape(-1)]).contiguous()
     _launch(
-        "dt_smoother_apply", lib.pgt_dt_smoother_apply, int(P0.dtype == torch.float64), d, degree,
-        scal, prefix, dts, b_tl, C_tl, g, L, T, CHUNK, dts.device,
+        "dt_smoother_apply", lib, d, family, int(P0.dtype == torch.float64), degree,
+        _smoother_scalars(family, P0, coeffs), prefix, dts, b_tl, C_tl, g, L, T, CHUNK, dts.device,
     )
     return g, L
 
@@ -354,7 +415,7 @@ def _dt_fisher_launch(family, coeffs, P0, H, R, dts, y, b_bt, C_bt, g_bt, L_bt):
     )
     lib = _cuda.load()
     dev, dtype = dts.device, P0.dtype
-    n_sums = lib.pgt_dt_fisher_n_sums(d)
+    n_sums = getattr(lib, f"pgt_dt_fisher_n_sums_d{d}")(FAMILY_IDS[family])
     # Blocks a series: the B series share the grid's budget, so that a thread
     # still sums several steps in registers before its block reduces.
     n_blocks = min(-(-T // _cuda.THREADS), max(1, FISHER_MAX_BLOCKS // B))
@@ -362,22 +423,25 @@ def _dt_fisher_launch(family, coeffs, P0, H, R, dts, y, b_bt, C_bt, g_bt, L_bt):
     d_y = torch.empty((B, T), dtype=dtype, device=dev)
     sums = torch.empty((B, n_blocks, n_sums), dtype=dtype, device=dev)
     # Per-series scalar table, rows [P0 (d²) | h (d) | r | coeffs].
-    scal = torch.cat([P0.reshape(B, -1), H.reshape(B, -1), R.reshape(B, -1), coeffs], 1).contiguous()
+    kc = kernel_coeffs(family, coeffs, d)
+    scal = torch.cat([P0.reshape(B, -1), H.reshape(B, -1), R.reshape(B, -1), kc], 1).contiguous()
     _launch(
-        "dt_fisher", lib.pgt_dt_fisher, int(dtype == torch.float64), d, degree, scal,
+        "dt_fisher", lib, d, family, int(dtype == torch.float64), degree, scal,
         dts, T if dts.dim() == 2 else 0, y, T if y.dim() == 2 else 0, b_bt, C_bt, g_bt, L_bt, d_dts, d_y, sums,
         T, B, n_blocks, dev,
     )
     # One row of sums per series and block, each reduced in a fixed order by
     # the kernel; the final sum over the blocks is one deterministic
     # reduction (no atomics), of the same shape at B = 1 as a single series'.
-    # Row layout: [d_coeffs, padded to the degree d−1 | d_P0 | d_H | d_R].
+    # Row layout: [d_coeffs | d_P0 | d_H | d_R], d_coeffs padded to the degree
+    # d−1 (exponential polynomial) or in the kernels' layout (spectral).
     total = sums.transpose(0, 1).reshape(n_blocks, B * n_sums).sum(0).reshape(B, n_sums)
     d2 = d * d
     off = n_sums - d2 - d - 1
     d_P0 = total[:, off : off + d2].reshape(B, d, d)
+    d_co = total[:, _spectral_positions(d)] if family == SPECTRAL else total[:, : coeffs.shape[1]]
     return (
-        total[:, : coeffs.shape[1]], symmetrize(d_P0), total[:, off + d2 : off + d2 + d].reshape(B, 1, d),
+        d_co, symmetrize(d_P0), total[:, off + d2 : off + d2 + d].reshape(B, 1, d),
         total[:, -1].reshape(B, 1, 1), d_dts, d_y,
     )
 
@@ -408,6 +472,7 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
     a batch axis (g (d, B, T), L (d, d, B, T)) from one launch of the batched
     smoother."""
     if coeffs.dim() == 2:
+        _require_batched_family(family)
         Fs, Qs, _ = build_planes_tl(family, coeffs, P0, dts)
         return batched_strip_smoother(Fs, Qs, b_tl, C_tl, None, project=False)
     if dts.device.type == "cpu":
@@ -419,9 +484,18 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
     return dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix)
 
 
+def _require_batched_family(family) -> None:
+    if family != EXPPOLY:
+        raise NotImplementedError(
+            f"the batched dt path takes the exponential polynomial only; a batch of {family!r} kernels "
+            "(batched RBF hyperparameters) is ROADMAP.md B7"
+        )
+
+
 def _batched_filter_dt(family, coeffs, P0, H, R, dts, observations):
     """The batched filter on planes built once from the coefficients; returns
     ((b, C, ell), (Fs, Qs)), the planes for a smoother that follows."""
+    _require_batched_family(family)
     Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
     ys = series_observations(observations, Fs.shape[2:])
     return batched_strip_filter(Fs, Qs, P0s, H, R.reshape(-1, 1, 1), ys), (Fs, Qs)

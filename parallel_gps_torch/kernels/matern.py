@@ -30,6 +30,7 @@ from torch import Tensor
 
 from parallel_gps_torch import config
 from parallel_gps_torch.kernels.base import VarianceLengthscaleKernel, scaled_dist
+from parallel_gps_torch.kernels.rbf import SPECTRAL, spectral_transitions_m1
 from parallel_gps_torch.ops.balance import balance_scale, balance_ss
 from parallel_gps_torch.ops.lyapunov import solve_lyap_vec
 from parallel_gps_torch.types import ContinuousDiscreteModel
@@ -57,11 +58,13 @@ def exppoly_transitions_m1(coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
 
 
 def build_transitions_m1(family: str, coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
-    """Dispatch on the transition family id (only the exponential
-    polynomial exists so far)."""
-    if family != EXPPOLY:
-        raise ValueError(f"unknown transition family {family!r}")
-    return exppoly_transitions_m1(coeffs, dts, d)
+    """Dispatch on the transition family id: the exponential polynomial
+    (here) or RBF's spectral closed form (kernels/rbf.py)."""
+    if family == EXPPOLY:
+        return exppoly_transitions_m1(coeffs, dts, d)
+    if family == SPECTRAL:
+        return spectral_transitions_m1(coeffs, dts, d)
+    raise ValueError(f"unknown transition family {family!r}")
 
 
 def matern_sde(variance: Tensor, lengthscales: Tensor, d: int):

@@ -10,9 +10,12 @@ lengthscale and variance scale it under autograd.
 Transitions, order ≤ 8: the spectral closed form of the unit-lengthscale
 companion F(1) (``_rbf_spectral``), evaluated elementwise in u = dt/ℓ and
 mapped to ``get_sde``'s balanced basis by the diagonal similarity κ
-(``_kappa``).  ``transition_coeffs()`` is ``None``: the dt-engine kernels
-are built for the exponential-polynomial family only, so RBF models take the
-plane-streaming strip engine (kalman/strip.py).
+(``_kappa``).  ``transition_coeffs()`` gives it as the ``SPECTRAL`` family
+(rbf.py:235-290 of the JAX package): the coefficients
+``[1/ℓ | per block: κ·G (d²) and, for a conjugate pair, κ·S (d²)]`` and,
+carried with the family and derived from d alone, the block table
+(``spectral_blocks``).  RBF models with ``parallel=True`` take the dt engine
+(kalman/dt.py), as the reference does.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from parallel_gps_torch.types import ContinuousDiscreteModel
 # eigenvector conditioning degrades and the transitions need a Padé
 # exponential.
 SPECTRAL_MAX_ORDER = 8
+# The transition family of the spectral closed form (kalman/dt.py).
+SPECTRAL = "spectral"
 
 
 @lru_cache(maxsize=None)
@@ -113,6 +118,40 @@ def _rbf_spectral(order: int):
     return tuple(blocks)
 
 
+def spectral_blocks(d: int) -> tuple:
+    """The block table of the order-d spectral family: one (a, β) per
+    eigenvalue block of F(1), a = −α > 0, β = 0 for a real root (a G
+    coefficient matrix only) and β > 0 for a conjugate pair (G and S), in the
+    order of the coefficients.  It depends on d alone."""
+    return tuple((-alpha, beta) for alpha, beta, _, _ in _rbf_spectral(d))
+
+
+def spectral_transitions_m1(coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
+    """(d, d, T) ``expm(dt·F) − I`` of the spectral family from its
+    coefficients (what the JAX ``build`` closure of rbf.py:267-288 computes):
+    with u = dt·c[0], a real block adds expm1(−a·u)·κG and a conjugate pair
+    (expm1(−a·u)·cos(βu) − 2 sin²(βu/2))·κG + e^{−a·u} sin(βu)·κS.
+    Differentiable in ``coeffs`` and ``dts``; scalar hyperparameters only
+    (``coeffs`` 1-D)."""
+    if coeffs.dim() != 1:
+        raise NotImplementedError("the spectral transitions of a batch of RBF kernels are ROADMAP.md B7")
+    u = dts.reshape(-1) * coeffs[0]
+    out = torch.zeros((d, d, u.shape[0]), dtype=dts.dtype, device=dts.device)
+    off = 1
+    for a, beta in spectral_blocks(d):
+        G = coeffs[off : off + d * d].reshape(d, d, 1)
+        off += d * d
+        if beta == 0.0:
+            out = out + torch.expm1(-a * u) * G
+            continue
+        S = coeffs[off : off + d * d].reshape(d, d, 1)
+        off += d * d
+        bu = beta * u
+        em1 = torch.expm1(-a * u) * torch.cos(bu) - 2.0 * torch.sin(0.5 * bu) ** 2
+        out = out + em1 * G + torch.exp(-a * u) * torch.sin(bu) * S
+    return out
+
+
 class RBF(VarianceLengthscaleKernel):
     def __init__(self, variance=1.0, lengthscales=1.0, order: int = 3, balancing_iter: int = -1, *, dtype=None, device=None):
         if order > SPECTRAL_MAX_ORDER:
@@ -163,26 +202,16 @@ class RBF(VarianceLengthscaleKernel):
         scale = ell_pow * balance_scale(self._scaled_F(), self._n_iter())
         return scale[None, :] / scale[:, None]
 
-    def transitions_m1_tl(self, dts: Tensor) -> Tensor:
-        """Time-last ``expm(dt·F) − I`` by the spectral closed form:
-        elementwise exp / cos / sin in u = dt/ℓ on (T,) planes."""
-        kap = self._kappa().to(dts.dtype)
-        u = dts.reshape(-1) / self.lengthscales.to(dts.dtype)
-        out = torch.zeros((self.order, self.order, u.shape[0]), dtype=dts.dtype, device=dts.device)
-        for alpha, beta, G, S in _rbf_spectral(self.order):
-            au = (-alpha) * u  # α < 0 (stable roots), so au ≥ 0
-            if S is None:
-                out = out + torch.expm1(-au) * (kap * self._const(G).to(dts.dtype))[:, :, None]
-            else:
-                bu = beta * u
-                em1c = torch.expm1(-au) * torch.cos(bu) - 2.0 * torch.sin(0.5 * bu) ** 2
-                es = torch.exp(-au) * torch.sin(bu)
-                out = (
-                    out
-                    + em1c * (kap * self._const(G).to(dts.dtype))[:, :, None]
-                    + es * (kap * self._const(S).to(dts.dtype))[:, :, None]
-                )
-        return out
+    def transition_coeffs(self):
+        """``(SPECTRAL, coeffs)``: the spectral closed form with κ folded into
+        each block's projector matrices, laid out
+        ``[1/ℓ | per block: κ·G (d²) and, for a conjugate pair, κ·S (d²)]``
+        (1 + d³ values); the block table is ``spectral_blocks(d)``."""
+        kap = self._kappa()
+        parts = [(1.0 / self.lengthscales).reshape(1)]
+        for _, _, G, S in _rbf_spectral(self.order):
+            parts += [(kap * self._const(M)).reshape(-1) for M in (G, S) if M is not None]
+        return SPECTRAL, torch.cat(parts)
 
     def dense(self, X: Tensor, X2: Tensor) -> Tensor:
         r = scaled_dist(X, X2, self.lengthscales)

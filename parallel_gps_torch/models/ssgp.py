@@ -6,9 +6,10 @@ observations (NaN = missing) as buffers, a kernel module and a
 softplus-unconstrained noise variance.  Its entry points pick an engine from
 what they can observe (``engine``): the sequential oracle for
 ``parallel=False``; the dt-engine (kalman/dt.py) for a kernel with a
-closed-form transition family and d ≤ 3; the plane-streaming strip engine
-(kalman/strip.py) for any other kernel with d ≤ 8; the plain time-last
-engine above that.  The dt and strip engines run hand-written CUDA kernels
+closed-form transition family within its kernels' range (the Matérn kernels,
+d ≤ 3; RBF of order ≤ 8, as the reference's ``lml_dt`` / ``pkfs_dt``
+route); the plane-streaming strip engine (kalman/strip.py) for any other
+kernel with d ≤ 8; the plain time-last engine above that.  The dt and strip engines run hand-written CUDA kernels
 when the model lives on a CUDA device and their plain PyTorch versions on
 the CPU.  A model is built on the card unless the caller names another
 device.
@@ -163,8 +164,8 @@ class StateSpaceGP(nn.Module):
         engine the entry points run, and the kernel's ``transition_coeffs()``
         where the dt-engine takes them."""
         d = self.kernel.state_dim
-        on_dt = self.parallel and d <= dt.MAX_KERNEL_D
-        if any(p.dim() for p in self.parameters()) and not (on_dt and isinstance(self.kernel, (Matern12, Matern32, Matern52))):
+        matern = isinstance(self.kernel, (Matern12, Matern32, Matern52))
+        if any(p.dim() for p in self.parameters()) and not (self.parallel and matern):
             raise NotImplementedError(
                 "hyperparameters with a batch axis (chains) run on the dt engine only, for the Matérn kernels with "
                 "parallel=True; a batched RBF model is still to be ported (ROADMAP.md, B7)"
@@ -172,7 +173,7 @@ class StateSpaceGP(nn.Module):
         if not self.parallel:
             return "sequential", None
         transition = self.kernel.transition_coeffs()
-        if transition is not None and on_dt:
+        if transition is not None and d <= dt.MAX_KERNEL_D[transition[0]]:
             return "dt", transition
         return ("strip" if d <= strip.MAX_KERNEL_D else "timelast"), None
 

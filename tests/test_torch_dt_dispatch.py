@@ -83,7 +83,12 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         tdt.dt_smoother_scan(fam, meta[0], meta[1], meta[4], b, C)
     with pytest.raises(ValueError, match="CUDA device"):
         tdt.dt_fisher(fam, *meta, b, C, b, C)
-    assert set(tdt.LAUNCHES) == {"dt_filter_scan", "dt_filter_apply", "dt_smoother_scan", "dt_smoother_apply", "dt_fisher"}
+    # The spectral family (RBF) is refused the same way.
+    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.RBF(1.0, 0.5, order=4, dtype=torch.float64, device="cpu"), *_data(50, 1))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tdt.strip_filter_dt(fam, *(x.to("meta") for x in (co, P0, H, R, dts, ty)))
+    kernels = {"dt_filter_scan", "dt_filter_apply", "dt_smoother_scan", "dt_smoother_apply", "dt_fisher"}
+    assert set(tdt.LAUNCHES) == kernels | {f"{k}_spectral" for k in kernels}
     assert set(tdt.LAUNCHES.values()) == {0}
 
 

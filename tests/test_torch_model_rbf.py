@@ -1,5 +1,6 @@
-"""PyTorch port vs the JAX package: ``RBF`` models on the strip and the
-sequential engines (LML, gradients, predict_f), their edge cases and their
+"""PyTorch port vs the JAX package: ``RBF`` models on the dt and the
+sequential engines (LML, gradients, predict_f), the same kernel's planes on
+the strip engine through the Kalman API, their edge cases and their
 ``to_numpy`` fields; f64 on the CPU."""
 import numpy as np
 import numpy.testing as npt
@@ -7,6 +8,8 @@ import pytest
 import torch
 
 from parallel_gps_torch import StateSpaceGP
+from parallel_gps_torch.kalman.timelast import lml_tl, pkfs_from_tl
+from parallel_gps_torch.models.ssgp import merge_sorted
 from _torch_model import _data, _pair
 
 torch.set_num_threads(1)
@@ -33,24 +36,56 @@ def _value_and_constrained_grads(tm):
     return float(ell.detach()), [float(p.grad / torch.sigmoid(p.detach())) for p in raws]
 
 
+def _strip_value_and_constrained_grads(tm):
+    """``_value_and_constrained_grads`` through the strip engine on the
+    model's planes (``lml_tl(..., strip=True)``: strip filter forward, strip
+    smoother + Fisher tail backward)."""
+    tm.zero_grad(set_to_none=True)
+    ell = lml_tl(tm.kernel.get_ssm_tl(tm.ts, tm.noise_variance.reshape(1, 1)), tm.ys, strip=True)
+    ell.backward()
+    raws = (tm.kernel.raw_variance, tm.kernel.raw_lengthscales, tm.raw_noise_variance)
+    return float(ell.detach()), [float(p.grad / torch.sigmoid(p.detach())) for p in raws]
+
+
+@torch.no_grad()
+def _strip_predict(tm, Xnew):
+    """``predict_f`` with the merged series smoothed by the strip engine
+    (``pkfs_from_tl(..., strip=True)``)."""
+    X = torch.tensor(Xnew)
+    order = torch.argsort(X)
+    nan = torch.full((X.shape[0],), float("nan"), dtype=tm.ys.dtype)
+    all_ts, (all_ys,), q_idx = merge_sorted(tm.ts, X[order], (tm.ys,), (nan,))
+    ssm = tm.kernel.get_ssm_tl(all_ts, tm.noise_variance.reshape(1, 1))
+    g, L = pkfs_from_tl(ssm, all_ys, strip=True, time_first_out=False)
+    h = ssm.H[0]
+    inv = torch.argsort(order)
+    return (h @ g[:, q_idx])[inv], torch.einsum("i,ijm,j->m", h, L[:, :, q_idx], h)[inv]
+
+
 @pytest.mark.parametrize("parallel", [True, False], ids=["strip", "sequential"])
 def test_rbf6_model_matches_jax(parallel):
-    """``RBF(order=6)``: the strip engine (no transition coefficients, d ≤ 8:
-    strip filter forward, strip smoother + Fisher tail backward) and the
-    sequential engine — LML, its three gradients and ``predict_f`` against the
-    JAX ``StateSpaceGP`` with the same ``parallel``, rtol 1e-7."""
+    """``RBF(order=6)``: with ``parallel=True`` the model's dt engine (the
+    spectral transition family: dt filter forward, dt smoother + Fisher tail
+    backward, as the reference routes it) and the same kernel's planes on the
+    strip engine through the Kalman API; with ``parallel=False`` the
+    sequential engine — LML, its three gradients and ``predict_f`` against
+    the JAX ``StateSpaceGP`` with the same ``parallel``, rtol 1e-7."""
     t, y = _data(120, 6)
     jm, tm = _pair("RBF", t, y, 1.1, 0.3, 0.1, parallel=parallel, order=6, balancing_iter=5)
-    assert tm.engine()[0] == ("strip" if parallel else "sequential")
+    assert tm.engine()[0] == ("dt" if parallel else "sequential")
     val_j, grads_j = _jax_value_and_grads(jm)
-    val, grads = _value_and_constrained_grads(tm)
-    npt.assert_allclose(val, float(val_j), rtol=1e-9)
-    npt.assert_allclose(grads, [float(g) for g in grads_j], rtol=1e-7)
     Xnew = np.random.RandomState(5).rand(13) * 1.2 - 0.1
     mean_j, var_j = jm.predict_f(Xnew)
-    mean_t, var_t = tm.predict_f(Xnew)
-    npt.assert_allclose(mean_t.numpy(), np.asarray(mean_j), rtol=1e-7, atol=1e-9)
-    npt.assert_allclose(var_t.numpy(), np.asarray(var_j), rtol=1e-7, atol=1e-9)
+    routes = [(_value_and_constrained_grads, lambda: tm.predict_f(Xnew))]
+    if parallel:
+        routes.append((_strip_value_and_constrained_grads, lambda: _strip_predict(tm, Xnew)))
+    for value_and_grads, predict in routes:
+        val, grads = value_and_grads(tm)
+        npt.assert_allclose(val, float(val_j), rtol=1e-9)
+        npt.assert_allclose(grads, [float(g) for g in grads_j], rtol=1e-7)
+        mean_t, var_t = predict()
+        npt.assert_allclose(mean_t.reshape(-1).numpy(), np.asarray(mean_j).reshape(-1), rtol=1e-7, atol=1e-9)
+        npt.assert_allclose(var_t.reshape(-1).numpy(), np.asarray(var_j).reshape(-1), rtol=1e-7, atol=1e-9)
 
 
 @pytest.mark.parametrize("parallel", [True, False], ids=["strip", "sequential"])

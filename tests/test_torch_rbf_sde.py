@@ -38,7 +38,7 @@ def test_rbf_sde_coefficients():
 @pytest.mark.parametrize("order", ORDERS)
 def test_get_sde_matches_jax(order):
     jkern, tkern = _pair(order)
-    assert tkern.state_dim == order and tkern.transition_coeffs() is None
+    assert tkern.state_dim == order and tkern.transition_coeffs()[0] == "spectral"
     for a, ref in zip(tkern.get_sde(), jkern.get_sde()):
         _close(a, ref)
 
