@@ -10,7 +10,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   1. device: the card's name and power limit (nvidia-smi); a CUDA device is
      required;
   2. build: compile every CUDA kernel from parallel_gps_torch/csrc; each
-     strip pass-2 unit's stage held against kalman/strip.py's mirror;
+     strip pass-2 unit's stage and each smoother pass-1 unit's (strip and
+     dt) held against kalman/strip.py's and kalman/dt.py's mirrors;
   3. kernels vs plain: for Matern12/32/52 at T = 65,537 with ~10% missing
      observations, the CUDA filter, smoother and Fisher tail of the dt-engine
      against their plain PyTorch versions, float64 to the JAX interpret-test
@@ -24,8 +25,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      has ragged edges (strip_edge_lengths); then every spectral dt unit (RBF's
      transition family, d = 1..8, float64 and float32: filter, smoother and
      Fisher tail) against its plain version at T = 65,537, and its staged
-     pass 2 at its ragged lengths; and the exponential polynomial's dt units
-     bit for bit against the tree before the spectral family
+     pass 2 at its ragged lengths; the smoother's pass 1 alone, every strip
+     and dt unit, float64 and float32, at the lengths where its stage has
+     ragged edges (check_scan_edges); and the exponential polynomial's dt
+     units bit for bit against the tree before the spectral family
      (PARENT_DT_DIGESTS, dt_outputs);
   4. the serving path at full size: StateSpaceGP(Matern52(0.8, 0.4), noise
      0.1), N = 10,000,000 float32 observations — one LML and three
@@ -93,14 +96,16 @@ The line before the last is the kernels' JSON record; the last line is
 
 ``ab_timers(label)`` runs this script's timers alone, on the Matern52 entry
 points, the dt applies, plane_scan, the two pkfs, the strip applies at every
-unit and the RBF(order=6) entry points, so that two trees can be compared in
-one call (each with this file copied to its root):
+unit, the RBF(order=6) entry points and the smoother's pass-1 kernels at
+every unit (``scan_timers(label)``, which also runs alone), so that two trees
+can be compared in one call (each with this file copied to its root):
 
     python3 -c "import chip_smoke as c; c.ab_timers('parent')"
 
-``strip_apply_outputs(out_dir)`` saves both strip pass-2 kernels' moments at
-every unit, and ``compare_strip_apply_outputs(dir_a, dir_b)`` compares two
-trees' bit for bit.
+``strip_apply_outputs(out_dir)`` saves both strip pass-2 kernels' moments and
+the smoother's pass-1 totals at every unit, ``spectral_outputs(out_dir)`` the
+spectral dt units' the same way, and ``compare_strip_apply_outputs(dir_a,
+dir_b)`` compares two trees' bit for bit.
 """
 from __future__ import annotations
 
@@ -246,10 +251,12 @@ N_LBFGS = 2
 TRAIN_START = (1.0, 0.3, 0.2)
 
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory 3.35 TB/s,
-# float32 outside the tensor cores 67 TFLOP/s.  A kernel's bound is the
-# larger of its bytes over the first and its operations over the second.
+# float32 outside the tensor cores 67 TFLOP/s, float64 34 TFLOP/s.  A
+# kernel's bound is the larger of its bytes over the first and its
+# operations over the peak of its scalar type.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12  # float64 outside the tensor cores
 
 # float32 checks: the kernel's float32 result must be as close to float64
 # truth as the plain float32 engine's, within F32_FACTOR (the two fold the
@@ -477,13 +484,15 @@ def kernel_bound(
     """(bound in ms, "bytes" or "operations"): the least time the card could
     take — each input read once and each output written once at the memory
     peak, against this run's operations at the float32 peak.  ``degree`` is
-    read by the dt kernels only.  ``B`` series: ``n_obs`` counts all series'
+    read by the dt kernels only; ``itemsize`` 8 counts the operations at the
+    float64 peak.  ``B`` series: ``n_obs`` counts all series'
     observed steps; ``y_series`` is the number of observation vectors the
     call reads (B by default, 1 where the chains share one with a batch
     stride of 0); the batched Fisher tail reads one shared dt.  The plane
     scan ("plane_scan_filter" / "_smoother") reads and writes its packed
     rows; "plane_transpose" moves ``rows`` rows of T values (d² for Fs, Qs
     and the covariances, d for the means)."""
+    peak_flops = PEAK_F64_FLOPS if itemsize == 8 else PEAK_F32_FLOPS
     if name.startswith("plane_"):
         check(name != "plane_transpose" or bool(rows), "kernel_bound: a transpose needs its row count")
         values = {
@@ -493,7 +502,7 @@ def kernel_bound(
         }[name]
         every, _ = flops_per_step(d, degree)[name]
         bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
-        ops_ms = 1e3 * every * T / PEAK_F32_FLOPS
+        ops_ms = 1e3 * every * T / peak_flops
         return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     if B > 1 or name in BATCHED_KERNELS:
         steps = B * T
@@ -505,7 +514,7 @@ def kernel_bound(
         }[name]
         every, observed = flops_per_step(d, degree)[name]
         bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
-        ops_ms = 1e3 * (every * steps + observed * n_obs) / PEAK_F32_FLOPS
+        ops_ms = 1e3 * (every * steps + observed * n_obs) / peak_flops
         return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     nc = dt.n_chunks(T)
     mom = (d + d * d) * T
@@ -525,7 +534,7 @@ def kernel_bound(
     }[name]
     every, observed = flops_per_step(d, degree, family)[name]
     bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * (every * T + observed * n_obs) / PEAK_F32_FLOPS
+    ops_ms = 1e3 * (every * T + observed * n_obs) / peak_flops
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -546,13 +555,10 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> None:
-    t0 = time.perf_counter()
-    so, log = _cuda.build()
-    _cuda.load()
-    print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
-    # One line per kernel: registers, stack and spills as ptxas reports them.
-    entry, frame = None, {}
+def ptxas_lines(log: str) -> list:
+    """One line per kernel of a build log: registers, stack and spills as
+    ptxas reports them."""
+    lines, entry, frame = [], None, {}
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '_ZN(?:3pgt|9pgt_probe)\d+(\w+?)_kernelI([fd])(?:Li(\d)E|Lb([01])E)?", line)
         if found:
@@ -565,12 +571,22 @@ def phase_build() -> None:
         elif "registers" in line and entry:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             smem = re.search(r"(\d+) bytes smem", line)
-            print(
-                f"  ptxas: {entry}: {regs} registers, {smem.group(1) if smem else 0} B static smem, "
+            lines.append(
+                f"ptxas: {entry}: {regs} registers, {smem.group(1) if smem else 0} B static smem, "
                 f"{frame.get('stack frame', '?')} B stack, "
                 f"{frame.get('spill stores', '?')} B spill stores, {frame.get('spill loads', '?')} B spill loads"
             )
             entry = None
+    return lines
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    so, log = _cuda.build()
+    _cuda.load()
+    print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_lines(log):
+        print(f"  {line}")
     # The dynamic shared memory of the kernels that stage through it: the dt
     # pass-2 units of each family (threads and bytes a block).
     lib = _cuda.load()
@@ -585,6 +601,7 @@ def phase_build() -> None:
                     staged[f"f{bits} D={d}"] = f"{threads}x{smem} B"
             print(f"  threads x dynamic smem a block: {name} {family} {staged}")
     phase_strip_stages(lib)
+    phase_scan_stages(lib)
     for dtype in (torch.float32, torch.float64):
         tiling = {d: plane.scan_tiling(d, dtype) for d in range(1, plane.MAX_KERNEL_D + 1)}
         print(f"  plane_scan {dtype}, by D: threads x steps a thread " + ", ".join(
@@ -616,6 +633,28 @@ def phase_strip_stages(lib) -> None:
             f"  strip_{kind}_apply d={d} {dtype}: stages {'planes' if rows != d + d * d else 'moments'} ({rows} rows a warp), "
             f"{threads} threads and {smem} B dynamic smem a block, {resident} warps an SM; at N={N_STRIP} "
             f"{min(resident, -(-path_warps // sms))} warps an SM ({path_warps} warps on {sms} SMs)"
+        )
+
+
+def phase_scan_stages(lib) -> None:
+    """Each smoother pass-1 unit's stage as the library reports it (and as
+    _cuda.load() has held it against kalman/strip.py's and kalman/dt.py's
+    mirrors) — threads a block, rows a warp stages, buffers, dynamic shared
+    memory a block, and the warps an SM holds (the occupancy calculator) —
+    held against the opt-in limit."""
+    units = [("strip_smoother_scan", (d, dtype), lib_stage, f"pgt_strip_scan_blocks_per_sm_d{d}", (int(dtype == torch.float64),))
+             for (d, dtype), lib_stage in _cuda.strip_scan_stages(lib).items()]
+    units += [(f"dt_smoother_scan{'' if family == EXPPOLY else '_spectral'}", (d, dtype), lib_stage,
+               f"pgt_dt_scan_blocks_per_sm_d{d}", (int(dtype == torch.float64), dt.FAMILY_IDS[family]))
+              for (family, d, dtype), lib_stage in _cuda.dt_scan_stages(lib).items()]
+    for name, (d, dtype), (threads, rows, smem, buffers), entry, args in units:
+        blocks = getattr(lib, entry)(*args)
+        what = f"{name} d={d} {dtype}"
+        check(0 < smem <= strip.SMEM_LIMIT, f"{what}: {smem} B a block")
+        check(blocks > 0, f"{what}: occupancy calculator returned {blocks}")
+        print(
+            f"  {what}: stages {'planes' if rows != d + d * d else 'moments'} ({rows} rows a warp) in {buffers} "
+            f"buffer(s), {threads} threads and {smem} B dynamic smem a block, {blocks * threads // 32} warps an SM"
         )
 
 
@@ -1026,6 +1065,76 @@ def check_strip_apply_edges() -> None:
             else:
                 print(f"strip apply edges d={d} f32 ({unit}), worst kernel error over plain f32 error by T (limit {F32_FACTOR:.0f}): "
                       + ", ".join(f"{T}: {e:.2f}" for T, e in worst.items()))
+
+
+def scan_edge_lengths(threads: int, dtype) -> tuple:
+    """The lengths where a smoother pass-1 unit's stage has ragged edges: its
+    block's strip_edge_lengths, and a round's worth of steps past a chunk
+    (a round is 8 float32 or 4 float64 steps)."""
+    return tuple(sorted(set(strip_edge_lengths(threads)) | {strip.CHUNK + 32 // (torch.finfo(dtype).bits // 8)}))
+
+
+def check_scan_edges() -> None:
+    """The smoother's pass-1 kernels alone, each launched once a case — every
+    strip unit and every spectral dt unit, d = 1..8, and the exponential
+    polynomial's d = 1..3, float64 and float32 — their chunk totals against
+    strip_smoother_scan_plain / dt_smoother_scan_plain at the lengths where the
+    unit's or its other scalar type's stage has ragged edges
+    (scan_edge_lengths), on the plain float64 filter's moments.  float64 to
+    strip_tolerances' smoother pair (the JAX interpret tests'); float32 on those
+    moments rounded to float32, against the float64 plain scan of the same
+    rounded moments by the 10× rule.  One line a unit with the worst error of
+    each length."""
+    lib = _cuda.load()
+    stages = {("strip", *unit): stage for unit, stage in _cuda.strip_scan_stages(lib).items()}
+    stages.update(_cuda.dt_scan_stages(lib))
+    units = [("strip", d) for d in range(1, strip.MAX_KERNEL_D + 1)]
+    units += [(family, d) for family in (SPECTRAL, EXPPOLY) for d in range(1, dt.MAX_KERNEL_D[family] + 1)]
+    n = 0
+    for kind, d in units:
+        _, _, rs, as_ = strip_tolerances(d)
+        threads = {dtype: stages[kind, d, dtype][0] for dtype in (torch.float64, torch.float32)}
+        lengths = sorted(set().union(*(scan_edge_lengths(w, dtype) for dtype, w in threads.items())))
+        name = "strip_smoother_scan" if kind == "strip" else f"dt_smoother_scan{'' if kind == EXPPOLY else '_spectral'}"
+        worst = {}
+        for T in lengths:
+            t, y = make_data(T, SEED + 9)
+            with torch.no_grad():
+                if kind == "strip":
+                    Fs, Qs, P0, H, R, yt = strip_inputs(strip_edge_kernel(d, torch.float64), t, y, torch.float64)
+                    b, C, _ = strip.strip_filter_plain(Fs, Qs, P0, H, R, yt)
+                    kernel_scan, plain_scan, model = strip.strip_smoother_scan, strip.strip_smoother_scan_plain, (Fs, Qs)
+                else:
+                    kern = spectral_kernel(d, torch.float64) if kind == SPECTRAL else strip_edge_kernel(d, torch.float64)
+                    fam, co, P0, H, R, dts, yt = kernel_inputs(kern, t, y, torch.float64)
+                    b, C, _ = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+                    kernel_scan = lambda *a, fam=fam: dt.dt_smoother_scan(fam, *a)  # noqa: E731
+                    plain_scan = lambda *a, fam=fam: dt.dt_smoother_scan_plain(fam, *a)  # noqa: E731
+                    model = (co, P0, dts)
+                b, C = b.contiguous(), C.contiguous()
+                model32 = tuple(x.float().contiguous() for x in model)
+                b32, C32 = b.float(), C.float()
+                strip.reset_launch_counts()
+                dt.reset_launch_counts()
+                tot_k, tot_k32 = kernel_scan(*model, b, C), kernel_scan(*model32, b32, C32)
+                launched = (strip.LAUNCHES if kind == "strip" else dt.LAUNCHES)[name]
+                tot_p, tot_q32 = plain_scan(*model, b, C), plain_scan(*model32, b32, C32)
+                tot_t = plain_scan(*model, b32.double(), C32.double())
+                torch.cuda.synchronize()
+            check(launched == 2, f"{name} d={d} T={T}: {launched} launches, expected 2")
+            what = f"{name} d={d} T={T}"
+            check(tot_k.shape == tot_p.shape == (strip.smooth_rows(d), strip.n_chunks(T)), f"{what}: totals {tuple(tot_k.shape)}")
+            check(allclose(tot_k, tot_p, rs, as_), f"{what} f64 totals: |kernel - plain| {max_abs(tot_k, tot_p):.3e}")
+            a, b_ = rel_err(tot_k32, tot_t), rel_err(tot_q32, tot_t)
+            check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} f32 totals: kernel {a:.3e} vs plain {b_:.3e}")
+            worst[T] = (max_abs(tot_k, tot_p), a / max(b_, F32_FLOOR / F32_FACTOR))
+            n += 2
+        print(
+            f"{name} d={d} edges (blocks of {threads[torch.float64]} / {threads[torch.float32]} threads, f64 / f32), "
+            f"T: f64 |kernel - plain|, f32 kernel error over plain f32 error: "
+            + ", ".join(f"{T}: {e:.1e} {r:.2f}" for T, (e, r) in worst.items())
+        )
+    print(f"smoother pass-1 units at their stages' ragged lengths: {n} cases, all within tolerance")
 
 
 # --------------------------------------------------------------------------
@@ -2735,19 +2844,11 @@ def ab_timers(label: str) -> None:
     filter and smoother rows of d = 4..8 at N = 1M float32.  The two strip
     pass-2 kernels on the Matern52 planes (d = 3, N = 10M float32) and at
     every d = 1..8 at N = 1M, float32 and float64; the RBF(order=6) N = 1M
-    LML, predict_f and training step on the engine the model takes.  One line a measurement, tagged with
-    ``label``, the card and the tree's look-back tiling and strip stages
+    LML, predict_f and training step on the engine the model takes; then the
+    smoother's pass-1 kernels (scan_timers).  One line a measurement, tagged
+    with ``label``, the card and the tree's look-back tiling and strip stages
     where it reports them."""
-    card = phase_device()
-    so, _ = _cuda.build()
-    _cuda.load()
-    print(f"ab {label}: library {so.name}")
-
-    def report(what, events_ms, fn):
-        _, by_name, _ = profile_call(fn)
-        device = {k: round(v, 4) for k, v in by_name.items()}
-        print(f"ab {label} [{card}] {what}: events {events_ms:.3f} ms, device {sum(by_name.values()):.3f} ms {device}")
-
+    report = ab_report(label)
     t, y = make_data(N_FULL, SEED)
     query = np.random.RandomState(SEED + 2).rand(1000) * 1.4 - 0.2
     model = StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, NOISE, dtype=torch.float32, device=DEV)
@@ -2846,6 +2947,90 @@ def ab_timers(label: str) -> None:
         report(f"LML {what}", cuda_ms(rbf.log_marginal_likelihood, reps=9), rbf.log_marginal_likelihood)
         report(f"predict_f {what}", cuda_ms(lambda: rbf.predict_f(queries), reps=9), lambda: rbf.predict_f(queries))
     report(f"training step {what}", cuda_ms(lambda: value_and_grad(rbf), reps=9), lambda: value_and_grad(rbf))
+    del rbf
+    torch.cuda.empty_cache()
+    scan_timers(label, report)
+
+
+def ab_report(label: str):
+    """The card's name, the tree's library built and loaded (with the ptxas
+    lines of the smoother's pass-1 kernels where it was built now), and a
+    ``report(what, events_ms, fn, profiles=1)`` that prints one A/B line: the
+    events' time and the device time by kernel in a profile of one call of
+    ``fn`` — with ``profiles`` > 1, each kernel's median over that many
+    profiled calls (a profile that recorded no device events is left out)."""
+    card = phase_device()
+    so, log = _cuda.build()
+    _cuda.load()
+    print(f"ab {label}: library {so.name}")
+    for line in ptxas_lines(log):
+        if "smoother_scan" in line:
+            print(f"ab {label} {line}")
+
+    def report(what, events_ms, fn, profiles=1):
+        runs = [by_name for by_name in (profile_call(fn)[1] for _ in range(profiles)) if by_name] or [{}]
+        device = {k: round(float(np.median([r.get(k, 0.0) for r in runs])), 4) for k in runs[0]}
+        print(f"ab {label} [{card}] {what}: events {events_ms:.3f} ms, device {sum(device.values()):.3f} ms {device}")
+
+    return report
+
+
+def scan_timers(label: str, report=None) -> None:
+    """The smoother's pass-1 kernels alone, for comparing two trees (or two
+    variants of a per-unit choice) in one call, each as events around ten
+    lone calls of its wrapper and device time, the median of five profiled
+    calls (``report``, ab_report's by default): dt_smoother_scan on the
+    filtered moments of Matern12, Matern32 and Matern52 (d = 1, 2, 3;
+    N = 10M float32); dt_smoother_scan_spectral at every d = 1..8
+    (RBF(1.0, 0.05, order=d), N = 1M float32); strip_smoother_scan on the
+    Matern52 planes (d = 3, N = 10M float32) and at every d = 1..8 at
+    N = 1M, float32 and float64 (strip_edge_kernel's planes).  Each line
+    names the tree's stage where it reports one, and the kernel's bound."""
+    report = report or ab_report(label)
+
+    def stage(*unit):
+        if not hasattr(strip, "scan_stage"):  # the parent's tree has no pass-1 stage
+            return "unstaged, 128 threads"
+        return (dt.scan_stage if len(unit) == 3 else strip.scan_stage)(*unit)
+
+    t, y = make_data(N_FULL, SEED)
+    t_s, y_s = make_data(N_STRIP, SEED + 4)
+    with torch.no_grad():
+        cases = [(kcls(*params, dtype=torch.float32, device=DEV), t, y)
+                 for kcls, params in ((Matern12, (1.2, 0.6)), (Matern32, (1.0, 0.5)), (Matern52, (0.8, 0.4)))]
+        cases += [(spectral_kernel(d, torch.float32), t_s, y_s) for d in SPECTRAL_DIMS]
+        for kern, tk, yk in cases:
+            fam, co, P0, H, R, dts, yt = kernel_inputs(kern, tk, yk, torch.float32)
+            d = P0.shape[0]
+            b, C, _ = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+
+            def scan():
+                return dt.dt_smoother_scan(fam, co, P0, dts, b, C)
+
+            name = "dt_smoother_scan" + ("_spectral" if fam == SPECTRAL else "")
+            what = f"{name} d={d} N={yk.shape[0]} {torch.float32}"
+            degree = 0 if fam == SPECTRAL else (co.numel() - 1) // (d * d)
+            bound = kernel_bound(name, d, degree, yk.shape[0], 0, 4)
+            print(f"ab {label} {what}: stage (threads, rows, bytes, buffers) {stage(fam, d, torch.float32)}, bound {bound[0]:.4f} ms ({bound[1]})")
+            report(what, cuda_ms(scan, reps=10), scan, profiles=5)
+            del b, C
+            torch.cuda.empty_cache()
+        cases = [(Matern52(0.8, 0.4, dtype=torch.float32, device=DEV), t, y, torch.float32)]
+        cases += [(strip_edge_kernel(d, dtype), t_s, y_s, dtype) for dtype in (torch.float32, torch.float64) for d in range(1, strip.MAX_KERNEL_D + 1)]
+        for kern, tk, yk, dtype in cases:
+            Fs, Qs, P0, H, R, yt = strip_inputs(kern, tk, yk, dtype)
+            d = P0.shape[0]
+            b, C, _ = strip.strip_filter(Fs, Qs, P0, H, R, yt)
+
+            def scan():
+                return strip.strip_smoother_scan(Fs, Qs, b, C)
+
+            what = f"strip_smoother_scan d={d} N={yt.shape[0]} {Fs.dtype}"
+            bound = kernel_bound("strip_smoother_scan", d, 0, yt.shape[0], 0, Fs.element_size())
+            print(f"ab {label} {what}: stage (threads, rows, bytes, buffers) {stage(d, Fs.dtype)}, bound {bound[0]:.4f} ms ({bound[1]})")
+            report(what, cuda_ms(scan, reps=10), scan, profiles=5)
+            del Fs, Qs, b, C
+            torch.cuda.empty_cache()
 
 
 def strip_apply_timers(report, label: str, what: str, planes) -> None:
@@ -2940,11 +3125,12 @@ def phase_dt_digests() -> None:
 
 
 def strip_apply_outputs(out_dir: str, T: int = 100_003) -> None:
-    """The moments of both strip pass-2 kernels at every d = 1..8, float32 and
-    float64, on planes made from the seed at T steps (by default a ragged
-    chunk, warp and block), saved in ``out_dir`` one file a unit, for
-    compare_strip_apply_outputs.  The smoother runs on the filter's moments,
-    so its inputs agree between two trees where the filter's outputs do."""
+    """The moments of both strip pass-2 kernels and the smoother's pass-1
+    totals at every d = 1..8, float32 and float64, on planes made from the
+    seed at T steps (by default a ragged chunk, warp and block), saved in
+    ``out_dir`` one file a unit, for compare_strip_apply_outputs.  The
+    smoother runs on the filter's moments, so its inputs agree between two
+    trees where the filter's outputs do."""
     phase_device()
     _cuda.build()
     os.makedirs(out_dir, exist_ok=True)
@@ -2955,17 +3141,43 @@ def strip_apply_outputs(out_dir: str, T: int = 100_003) -> None:
             with torch.no_grad():
                 pre_f = strip.exclusive_chunk_prefixes(strip.strip_filter_scan(Fs, Qs, P0, H, R, yt), d, reverse=False)
                 b, C, _ = strip.strip_filter_apply(Fs, Qs, P0, H, R, yt, pre_f)
-                pre_s = strip.exclusive_chunk_prefixes(strip.strip_smoother_scan(Fs, Qs, b, C), d, reverse=True)
-                g, L = strip.strip_smoother_apply(Fs, Qs, b, C, pre_s)
-            moments = {"b": b, "C": C, "g": g, "L": L}
-            torch.save({k: v.cpu() for k, v in moments.items()}, os.path.join(out_dir, f"d{d}_{dtype}.pt"))
+                tot_s = strip.strip_smoother_scan(Fs, Qs, b, C)
+                g, L = strip.strip_smoother_apply(Fs, Qs, b, C, strip.exclusive_chunk_prefixes(tot_s, d, reverse=True))
+            outputs = {"b": b, "C": C, "tot_s": tot_s, "g": g, "L": L}
+            torch.save({k: v.cpu() for k, v in outputs.items()}, os.path.join(out_dir, f"d{d}_{dtype}.pt"))
     print(f"strip apply outputs: T={T}, {len(os.listdir(out_dir))} units in {out_dir}")
 
 
+def spectral_outputs(out_dir: str, T: int = 100_003) -> None:
+    """strip_apply_outputs' counterpart for the spectral dt units, d = 1..8,
+    float32 and float64: RBF(1.0, 0.05, order=d) on data made from the seed,
+    each pass fed the kernels' own outputs (the filter apply the prefixes of
+    the filter scan's totals, the smoother the filter's moments, the smoother
+    apply the suffixes of the smoother scan's totals); the filter's moments,
+    the smoother scan's totals and the smoothed moments saved in ``out_dir``,
+    one file a unit (``spectral_d<d>_<dtype>.pt``)."""
+    phase_device()
+    _cuda.build()
+    os.makedirs(out_dir, exist_ok=True)
+    t, y = make_data(T, SEED + 4)
+    for dtype in (torch.float32, torch.float64):
+        for d in SPECTRAL_DIMS:
+            fam, co, P0, H, R, dts, yt = kernel_inputs(spectral_kernel(d, dtype), t, y, dtype)
+            with torch.no_grad():
+                pre_f = dt.exclusive_chunk_prefixes(dt.dt_filter_scan(fam, co, P0, H, R, dts, yt), d, reverse=False)
+                b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, yt, pre_f)
+                tot_s = dt.dt_smoother_scan(fam, co, P0, dts, b, C)
+                g, L = dt.dt_smoother_apply(fam, co, P0, dts, b, C, dt.exclusive_chunk_prefixes(tot_s, d, reverse=True))
+            outputs = {"b": b, "C": C, "tot_s": tot_s, "g": g, "L": L}
+            torch.save({k: v.cpu() for k, v in outputs.items()}, os.path.join(out_dir, f"spectral_d{d}_{dtype}.pt"))
+    print(f"spectral outputs: T={T}, {len(os.listdir(out_dir))} files in {out_dir}")
+
+
 def compare_strip_apply_outputs(dir_a: str, dir_b: str) -> bool:
-    """Each unit's moments from two strip_apply_outputs runs, compared bit for
-    bit (the values' bit patterns); where they differ, the largest difference
-    and the share of values that differ.  True where every unit agrees."""
+    """Each unit's outputs from two strip_apply_outputs (or spectral_outputs)
+    runs, compared bit for bit (the values' bit patterns); where they differ,
+    the largest difference and the share of values that differ.  True where
+    every unit agrees."""
     same = True
     for name in sorted(os.listdir(dir_a)):
         a, b = (torch.load(os.path.join(x, name)) for x in (dir_a, dir_b))
@@ -2974,11 +3186,11 @@ def compare_strip_apply_outputs(dir_a: str, dir_b: str) -> bool:
             differ = a[k].view(bits) != b[k].view(bits)
             if differ.any():
                 same = False
-                print(f"strip apply outputs {name} {k}: differ, {float(differ.double().mean()):.3e} of the values, "
+                print(f"outputs {name} {k}: differ, {float(differ.double().mean()):.3e} of the values, "
                       f"max abs {max_abs(a[k], b[k]):.3e}")
             else:
-                print(f"strip apply outputs {name} {k}: bit for bit")
-    print(f"strip apply outputs: {'every unit bit for bit' if same else 'not bit for bit'}")
+                print(f"outputs {name} {k}: bit for bit")
+    print(f"outputs of {dir_a} and {dir_b}: {'every unit bit for bit' if same else 'not bit for bit'}")
     return same
 
 
@@ -2988,6 +3200,7 @@ def main() -> int:
     count_prefix_calls()
     phase_kernels()
     check_spectral_kernels()
+    check_scan_edges()
     phase_dt_digests()
     phase_batched_kernels()
     model, data, queries, serving = phase_slice()

@@ -1,7 +1,7 @@
 // What the two-pass kernel sources share on the launch side: the block size,
 // the scalar tables a dt kernel reads its model from, the argument check, the
-// dispatch on scalar type, the shared-memory budget of a staged block and the
-// launch with opted-in shared memory.
+// dispatch on scalar type, the shared-memory budget of a staged block, the
+// launch with opted-in shared memory and the occupancy such a launch gets.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -115,6 +115,12 @@ struct BlockWarps {
   static constexpr int kN = (kRes4 >= kRes2 && kRes4 >= kRes1) ? 4 : (kRes2 >= kRes1 ? 2 : 1);
 };
 
+// Bit D − 1 of a per-unit choice, kF32 for float and kF64 for double.
+template <typename S, int D, unsigned kF32, unsigned kF64>
+struct UnitBit {
+  static constexpr bool kOn = (((sizeof(S) == 8 ? kF64 : kF32) >> (D - 1)) & 1u) != 0;
+};
+
 // Launches ``kern`` on ``blocks`` blocks of ``threads`` threads with ``bytes``
 // of dynamic shared memory a block, opted in first (above the 48 KB default;
 // up to 227 KB a block on an H100, static shared memory included); returns
@@ -125,6 +131,18 @@ int launch_opted_in(Kern kern, dim3 blocks, int threads, int bytes, cudaStream_t
   if (rc != cudaSuccess) return (int)rc;
   kern<<<blocks, threads, bytes, st>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Blocks of ``kern``, launched as budget A says (A::kThreads threads and
+// A::kBytes of dynamic shared memory a block), that an SM holds at once (the
+// CUDA occupancy calculator: registers, shared memory, threads), or minus the
+// error code.
+template <typename A, typename Kern>
+int blocks_per_sm(Kern kern) {
+  int blocks = 0;
+  cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, A::kBytes);
+  if (rc == cudaSuccess) rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, A::kThreads, A::kBytes);
+  return rc == cudaSuccess ? blocks : -(int)rc;
 }
 
 }  // namespace pgt

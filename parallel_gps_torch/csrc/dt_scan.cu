@@ -19,8 +19,8 @@
 // Two transition families: the exponential polynomial of the Matérn kernels
 // (D = 1..3, its coefficients held in each thread's registers) and RBF's
 // spectral closed form (D = 1..8, up to 513 coefficients: the table is read
-// from shared memory, SpectralScalars, and the staged pass-2 kernels size
-// their blocks by their shared-memory budget, SpectralApply).
+// from shared memory, SpectralScalars, and the staged kernels size their
+// blocks by their shared-memory budget, SpectralApply and ScanStage).
 //
 // One translation unit per state dimension (kalman/_cuda.py: VARIANTS):
 // compile with -DPGT_D=<1..8>; the entry points carry the dimension in their
@@ -35,11 +35,12 @@
 // walks its own chunk, so a warp's loads are strided by K and are not
 // coalesced; reads of one or two rows (dt, y) are served by L1, and the
 // passes that read b and C pay for it.  A warp's stores strided by K touch 32
-// partial sectors each.  The two pass-2 kernels therefore stage through
-// shared memory a warp at a time (scan_passes.cuh: ChunkStage): the filter's
-// stores (filter_apply_staged), the smoother's loads and stores
-// (smoother_apply_staged); the two pass-1 kernels still read b, C strided.
-// Each kernel below notes which of the two bounds it.
+// partial sectors each.  The kernels that move the moments therefore stage
+// them through shared memory a warp at a time (scan_passes.cuh: ChunkStage):
+// the filter's pass-2 stores (filter_apply_staged), the smoother's pass-2
+// loads and stores (smoother_apply_staged) and its pass-1 loads
+// (smoother_scan_staged); dt is still read strided.  Each kernel below notes
+// which of the two bounds it.
 #include <cuda_runtime.h>
 
 #include "scan_passes.cuh"
@@ -135,6 +136,13 @@ __device__ __forceinline__ S* warp_stage() {
   return reinterpret_cast<S*>(pgt_dt_smem) + (threadIdx.x / 32) * ChunkStage<S, D>::kWarp;
 }
 
+// The calling warp's stage of a budget A (SpectralApply, ScanStage): after
+// A::kTableBytes of the block's scalar table, if any.
+template <typename A, typename S>
+__device__ __forceinline__ S* table_warp_stage() {
+  return reinterpret_cast<S*>(pgt_dt_smem) + A::kTableBytes / sizeof(S) + (threadIdx.x / 32) * A::G::kWarp;
+}
+
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
     dt_filter_apply_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ prefix,
@@ -160,20 +168,39 @@ int launch_staged(Kern kern, long long n_chunks, cudaStream_t st, Args... args) 
 // pallas_call :685): reverse fold of each chunk to its suffix total.  The
 // next step's dt is read directly (t+1 < T), in place of the TPU kernel's
 // cross-strip boundary-dt column.
-// Bound: the strided loads of b and C (12 values a step at D = 3); measured
-// 4.0 ms at T = 10M f32.
+// Bound: bytes, 0.159 ms at T = 10M f32, D = 3 (dt, b and C in).  Loaded
+// strided by K, a thread walking its own chunk, its b and C (12 values a step
+// at D = 3) took 4.2 ms on an NVIDIA H100 80GB HBM3 at 700 W; so each warp
+// stages them, kR steps of its 32 chunks copied in as whole sectors
+// (smoother_scan_staged), in blocks set by ScanStage (the moments' rows, no
+// table).
+//
+// The smoother pass 1's units, of each family, that stage two buffers, the
+// next round's copy in flight while one is folded (bit D − 1), where that
+// measured more than 1% faster on an H100 (PERF.md §6, row 3: float D = 1, 3
+// and spectral D = 1, 4; two buffers halve the warps an SM, and lost by up to
+// 1.8× at spectral D ≥ 5); the rest stage one.  The double units were not
+// timed, and stage one.
 // ---------------------------------------------------------------------------
+constexpr unsigned kDtScanTwoF32 = 0x5u;
+constexpr unsigned kDtScanTwoF64 = 0x0u;
+constexpr unsigned kSpectralScanTwoF32 = 0x9u;
+constexpr unsigned kSpectralScanTwoF64 = 0x0u;
+
 template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
+using DtScan = ScanStage<S, D, false, UnitBit<S, D, kDtScanTwoF32, kDtScanTwoF64>::kOn ? 2 : 1>;
+
+template <typename S, int D>
+__global__ void __launch_bounds__((DtScan<S, D>::kThreads))
     dt_smoother_scan_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ dt,
                             const S* __restrict__ b, const S* __restrict__ C, S* __restrict__ totals, long long T,
                             int K, long long n_chunks) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
+  typedef DtScan<S, D> A;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
   DtSmootherSource<S, D> p;
   p.load(scal, degree);
   p.dt = dt;
-  smoother_scan_chunk<S, D>(p, b, C, totals, T, K, n_chunks, c);
+  smoother_scan_staged<S, D, A::kBuffers>(p, b, C, totals, T, K, n_chunks, c, table_warp_stage<A, S>());
 }
 
 // ---------------------------------------------------------------------------
@@ -224,12 +251,6 @@ struct SpectralApply {
   static_assert(kWarpBytes + kTableBytes <= kSmemLimit, "a spectral pass-2 unit does not fit one warp a block");
 };
 
-// The calling warp's stage, after the table.
-template <typename A, typename S>
-__device__ __forceinline__ S* spectral_warp_stage() {
-  return reinterpret_cast<S*>(pgt_dt_smem) + A::kTableBytes / sizeof(S) + (threadIdx.x / 32) * A::G::kWarp;
-}
-
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
     dt_filter_scan_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ y,
@@ -253,21 +274,28 @@ __global__ void __launch_bounds__((SpectralApply<S, D, true>::kThreads))
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
   const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
-  const S ll = filter_apply_staged<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c, spectral_warp_stage<A, S>());
+  const S ll = filter_apply_staged<S, D>(p, prefix, y, b_out, C_out, T, K, n_chunks, c, table_warp_stage<A, S>());
   block_sum<S, A::kThreads>(ll, ell_parts);
 }
 
+// The smoother's pass 1: the table, then each warp's stage of its moments
+// (smoother_scan_staged), in blocks set by ScanStage — the smoother apply's
+// blocks, the two stages being the same rows.
 template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
+using SpectralScan = ScanStage<S, D, false, UnitBit<S, D, kSpectralScanTwoF32, kSpectralScanTwoF64>::kOn ? 2 : 1,
+                               SpectralScalars<S, D, false>::kBytes>;
+
+template <typename S, int D>
+__global__ void __launch_bounds__((SpectralScan<S, D>::kThreads))
     dt_smoother_scan_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ b,
                                      const S* __restrict__ C, S* __restrict__ totals, long long T, int K,
                                      long long n_chunks) {
+  typedef SpectralScan<S, D> A;
   SpectralSmootherSource<S, D> p;
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
-  smoother_scan_chunk<S, D>(p, b, C, totals, T, K, n_chunks, c);
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  smoother_scan_staged<S, D, A::kBuffers>(p, b, C, totals, T, K, n_chunks, c, table_warp_stage<A, S>());
 }
 
 template <typename S, int D>
@@ -281,7 +309,7 @@ __global__ void __launch_bounds__((SpectralApply<S, D, false>::kThreads))
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
   const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
-  smoother_apply_staged<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c, spectral_warp_stage<A, S>());
+  smoother_apply_staged<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c, table_warp_stage<A, S>());
 }
 
 }  // namespace pgt
@@ -383,6 +411,35 @@ int PGT_ENTRY(pgt_dt_filter_apply)(int is64, int family, int degree, const void*
   return rc;
 }
 
+// The smoother pass 1's budget (ScanStage) at this unit and family: threads a
+// block, rows a warp stages in a buffer, dynamic shared memory a block in
+// bytes and buffers; and
+// the blocks an SM holds at once (the CUDA occupancy calculator: registers,
+// shared memory, threads), or minus the error code.  kBadArgs for the
+// exponential polynomial above D = 3.
+#define PGT_SCAN_STAGE(FIELD)                                                                                      \
+  (family == pgt::kSpectral ? (is64 ? pgt::SpectralScan<double, PGT_D>::FIELD : pgt::SpectralScan<float, PGT_D>::FIELD) \
+   : PGT_D > 3              ? pgt::kBadArgs                                                                            \
+                            : (is64 ? pgt::DtScan<double, PGT_D>::FIELD : pgt::DtScan<float, PGT_D>::FIELD))
+int PGT_ENTRY(pgt_dt_scan_threads)(int is64, int family) { return PGT_SCAN_STAGE(kThreads); }
+int PGT_ENTRY(pgt_dt_scan_rows)(int is64, int family) { return PGT_SCAN_STAGE(kRows); }
+int PGT_ENTRY(pgt_dt_scan_smem)(int is64, int family) { return PGT_SCAN_STAGE(kBytes); }
+int PGT_ENTRY(pgt_dt_scan_buffers)(int is64, int family) { return PGT_SCAN_STAGE(kBuffers); }
+#undef PGT_SCAN_STAGE
+
+int PGT_ENTRY(pgt_dt_scan_blocks_per_sm)(int is64, int family) {
+  if (family == pgt::kSpectral) {
+    return is64 ? pgt::blocks_per_sm<pgt::SpectralScan<double, PGT_D>>(pgt::dt_smoother_scan_spectral_kernel<double, PGT_D>)
+                : pgt::blocks_per_sm<pgt::SpectralScan<float, PGT_D>>(pgt::dt_smoother_scan_spectral_kernel<float, PGT_D>);
+  }
+#if PGT_D <= 3
+  return is64 ? pgt::blocks_per_sm<pgt::DtScan<double, PGT_D>>(pgt::dt_smoother_scan_kernel<double, PGT_D>)
+              : pgt::blocks_per_sm<pgt::DtScan<float, PGT_D>>(pgt::dt_smoother_scan_kernel<float, PGT_D>);
+#else
+  return pgt::kBadArgs;
+#endif
+}
+
 int PGT_ENTRY(pgt_dt_smoother_scan)(int is64, int family, int degree, const void* scal, const void* dt,
                                     const void* b, const void* C, void* totals, long long T, int K, void* stream) {
   if (pgt::bad_shape<PGT_D>(family, degree, T, K)) return pgt::kBadArgs;
@@ -390,22 +447,29 @@ int PGT_ENTRY(pgt_dt_smoother_scan)(int is64, int family, int degree, const void
   cudaStream_t st = (cudaStream_t)stream;
   int rc = 0;
   if (family == pgt::kSpectral) {
-#define PGT_LAUNCH(S)                                                                                             \
-  rc = pgt::launch_opted_in(pgt::dt_smoother_scan_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks), pgt::kThreads, \
-                            pgt::SpectralScalars<S, PGT_D, false>::kBytes, st, (const S*)scal, (const S*)dt,       \
-                            (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks)
+#define PGT_LAUNCH(S)                                                                                           \
+  {                                                                                                             \
+    typedef pgt::SpectralScan<S, PGT_D> A;                                                                      \
+    rc = pgt::launch_opted_in(pgt::dt_smoother_scan_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, st, (const S*)scal, (const S*)dt, (const S*)b, (const S*)C, \
+                              (S*)totals, T, K, n_chunks);                                                      \
+  }
     PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
     return rc;
   }
 #if PGT_D <= 3
-#define PGT_LAUNCH(S)                                                                              \
-  pgt::dt_smoother_scan_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(       \
-      (const S*)scal, degree, (const S*)dt, (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks)
+#define PGT_LAUNCH(S)                                                                                          \
+  {                                                                                                            \
+    typedef pgt::DtScan<S, PGT_D> A;                                                                           \
+    rc = pgt::launch_opted_in(pgt::dt_smoother_scan_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads),   \
+                              A::kThreads, A::kBytes, st, (const S*)scal, degree, (const S*)dt, (const S*)b,   \
+                              (const S*)C, (S*)totals, T, K, n_chunks);                                        \
+  }
   PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
 #endif
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 int PGT_ENTRY(pgt_dt_smoother_apply)(int is64, int family, int degree, const void* scal, const void* prefix,

@@ -9,11 +9,14 @@
 //
 // Each thread owns chunk c: the K consecutive steps [c·K, min(T, (c+1)·K)).
 //
-// The pass-2 bodies stage their rows through shared memory a warp at a time
-// (ChunkStage): filter_apply_staged its outputs, smoother_apply_staged its
-// moments in and out, and filter_apply_planes / smoother_apply_planes the F
-// and Q planes too (the strip filter, and the strip smoother's units where
-// that stage fits and measured faster).
+// The pass-2 bodies and the smoother's pass 1 stage their rows through shared
+// memory a warp at a time (ChunkStage): filter_apply_staged its outputs,
+// smoother_apply_staged its moments in and out, smoother_scan_staged its
+// moments in (in one buffer or two, ScanRounds), and filter_apply_planes /
+// smoother_apply_planes / smoother_scan_planes the F and Q planes too (the
+// strip filter, and the strip smoother's units where that stage fits and
+// measured faster).  The filter's pass 1, filter_scan_chunk, still loads its
+// steps strided.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -188,8 +191,9 @@ struct SmootherPlaneRows {
 // stage values in every round and every row, in either direction.  The copy
 // in is asynchronous (cp.async): every value of the lane's share is in
 // flight at once, and has landed when it returns (the caller synchronises
-// the warp).
-template <typename S, bool kToStage, typename Rows>
+// the warp) — or, with kWait false, is committed as one group and left in
+// flight (the caller waits on it, __pipeline_wait_prior).
+template <typename S, bool kToStage, typename Rows, bool kWait = true>
 __device__ __forceinline__ void stage_rows(const Rows& rows, S* stage, long long c0, int K, long long T, int r0) {
   typedef ChunkStage<S, 1> G;  // kR, kSlot and kRow do not depend on D
   constexpr int R = G::kR;
@@ -214,7 +218,7 @@ __device__ __forceinline__ void stage_rows(const Rows& rows, S* stage, long long
   }
   if constexpr (kToStage) {
     __pipeline_commit();
-    __pipeline_wait_prior(0);
+    if constexpr (kWait) __pipeline_wait_prior(0);
   }
 }
 
@@ -333,19 +337,192 @@ __device__ __forceinline__ void block_sum(S value, S* parts) {
   if (threadIdx.x == 0) parts[blockIdx.x] = red[0];
 }
 
-// Smoother pass 1: reverse fold of chunk c to its suffix total.
-template <typename S, int D, typename Src>
-__device__ __forceinline__ void smoother_scan_chunk(const Src& p, const S* b, const S* C, S* totals, long long T,
-                                                    int K, long long n_chunks, long long c) {
-  const long long t0 = c * K;
-  const long long t1 = (t0 + K < T) ? t0 + K : T;
-  Smooth<S, D> acc, e;
-  smoother_step<S, D>(p, b, T, C, T, t1 - 1, T, acc);
-  for (long long t = t1 - 2; t >= t0; --t) {
-    smoother_step<S, D>(p, b, T, C, T, t, T, e);
-    acc = smooth_combine<S, D>(acc, e);
+// The smoother's pass-1 budget, one fixed choice a unit: each warp stages
+// the rows of its 32 chunks (ChunkStage) — its moments b, C alone (D + D²
+// rows, F and Q from the source) or, with kPlanes, its F and Q planes too
+// (3D² + D rows) — in one buffer, or in two (kBuffers), the next round's
+// copy in flight while a round is folded; after kTableBytes a block of other
+// shared memory (the spectral dt units' scalar table), in blocks of 4, 2 or
+// 1 warps, whichever leaves an SM the most warps (BlockWarps).  No
+// per-thread sum is kept.  G's rows are all the buffers'.
+template <typename S, int D, bool Planes, int Buffers, int TableBytes = 0>
+struct ScanStage {
+  static constexpr bool kPlanes = Planes;
+  static constexpr int kBuffers = Buffers;
+  static constexpr int kRows = Planes ? 3 * D * D + D : D + D * D;  // a buffer's
+  static constexpr int kTableBytes = TableBytes;
+  static constexpr int kWarpBytes = ChunkStage<S, D, Buffers * kRows, 1>::kBytes;
+  static constexpr int kWarps = BlockWarps<kWarpBytes, kTableBytes>::kN;
+  static_assert(kWarpBytes + kTableBytes <= kSmemLimit, "a pass-1 unit's stage does not fit one warp a block");
+  typedef ChunkStage<S, D, Buffers * kRows, kWarps> G;
+  static constexpr int kThreads = G::kThreads;
+  static constexpr int kBytes = kTableBytes + G::kBytes;  // dynamic shared memory a block
+};
+
+// The copy in of smoother pass 1's rounds, the last round first, into one
+// buffer of kBufValues values or two: next(r0) returns the buffer that holds
+// round r0 once it has landed, and has issued the round after it in the
+// other buffer.  Every lane of the warp calls it for every round; the caller
+// synchronises the warp after it and again before the next call, after
+// which another lane's copy may overwrite what it read.
+template <typename S, typename Rows, int kBufValues, int kBuffers>
+struct ScanRounds {
+  static_assert(kBuffers == 1 || kBuffers == 2, "one buffer or two");
+  Rows rows;
+  S* stage;
+  long long c0;
+  int K;
+  long long T;
+  int k;  // rounds taken
+
+  __device__ __forceinline__ S* buffer(int i) const { return stage + (kBuffers == 2 ? (i & 1) * kBufValues : 0); }
+
+  // Issues the first round (r_first, the warp's last) where two buffers
+  // overlap.
+  __device__ __forceinline__ void start(int r_first) {
+    k = 0;
+    if (kBuffers == 2 && r_first >= 0) stage_rows<S, true, Rows, false>(rows, buffer(0), c0, K, T, r_first);
   }
-  store_smooth<S, D>(totals, n_chunks, c, acc);
+
+  __device__ __forceinline__ S* next(int r0) {
+    constexpr int R = ChunkStage<S, 1>::kR;
+    S* buf = buffer(k);
+    if constexpr (kBuffers == 2) {
+      if (r0 >= R) {
+        stage_rows<S, true, Rows, false>(rows, buffer(k + 1), c0, K, T, r0 - R);
+        __pipeline_wait_prior(1);  // this round's group; the next one's stays in flight
+      } else {
+        __pipeline_wait_prior(0);
+      }
+    } else {
+      stage_rows<S, true>(rows, buf, c0, K, T, r0);
+    }
+    ++k;
+    return buf;
+  }
+};
+
+// Smoother pass 1: reverse fold of chunk c to its suffix total, its loads
+// staged through ``stage`` (the calling warp's kBuffers × ChunkStage<S,
+// D>::kWarp values of shared memory): smoother_apply_staged's rounds without
+// the seed and without the copy out.  A round copies kR steps of the warp's
+// 32 chunks' b, C rows in as whole sectors (ScanRounds: with two buffers the
+// next round's copy is in flight while this one is folded); each thread
+// folds its kR steps backwards, F and Q of step t + 1 from the source.  The
+// fold has no seed: it starts from the element of the chunk's last step,
+// t1 − 1, and combines every earlier step's in, acc = smooth_combine(acc,
+// e), down to t0.  Every thread of the warp calls it, chunk or not
+// (c ≥ n_chunks); the rounds are the warp's first chunk's, and only the
+// series' last chunk can be shorter than K.
+template <typename S, int D, int kBuffers, typename Src>
+__device__ __forceinline__ void smoother_scan_staged(const Src& p, const S* b, const S* C, S* totals, long long T,
+                                                     int K, long long n_chunks, long long c, S* stage) {
+  typedef ChunkStage<S, D> G;
+  constexpr int R = G::kR;
+  const int lane = threadIdx.x & 31;
+  const long long c0 = c - lane;  // the warp's first chunk
+  const long long t0 = c * K;
+  const long long t1 = (c < n_chunks) ? ((t0 + K < T) ? t0 + K : T) : t0;
+  const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
+  const int r_first = span > 0 ? (int)((span - 1) / R) * R : -1;
+  Smooth<S, D> acc, e;
+  ScanRounds<S, MomentRows<const S*, D>, G::kWarp, kBuffers> rounds{{b, C}, stage, c0, K, T};
+  rounds.start(r_first);
+#pragma unroll 1
+  for (int r0 = r_first; r0 >= 0; r0 -= R) {
+    S* slot = rounds.next(r0) + lane * G::kSlot;
+    __syncwarp();
+#pragma unroll 1
+    for (int s = R - 1; s >= 0; --s) {
+      const long long t = t0 + r0 + s;
+      if (t >= t1) continue;
+      S m[D], P[D * D];
+#pragma unroll
+      for (int a = 0; a < D; ++a) m[a] = slot[a * G::kRow + s];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) P[q] = slot[(D + q) * G::kRow + s];
+      smoothing_element<S, D>(p, m, P, t, T, e);
+      if (t == t1 - 1) {
+        acc = e;
+      } else {
+        acc = smooth_combine<S, D>(acc, e);
+      }
+    }
+    // A later round's copy in writes stage values that other lanes read.
+    __syncwarp();
+  }
+  if (c < n_chunks) store_smooth<S, D>(totals, n_chunks, c, acc);
+}
+
+// Smoother pass 1 with its planes staged too: smoother_scan_staged's fold, in
+// the same order, through ``stage`` (the calling warp's kBuffers ×
+// ChunkStage<S, D, 3D² + D>::kWarp values): each round copies in the b, C
+// rows and the F, Q rows of the round's kR steps.  The step after the round
+// is kept in the pad of the lane's F, Q slots of the round's buffer, as
+// smoother_apply_planes keeps it: the next chunk's first step, read once,
+// directly, then the first step of the round just folded (with two buffers,
+// copied into the other buffer's pad, which no copy in writes).  The chunk
+// length K is a multiple of kR.
+template <typename S, int D, int kBuffers>
+__device__ __forceinline__ void smoother_scan_planes(const S* b, const S* C, const S* Fs, const S* Qs, S* totals,
+                                                     long long T, int K, long long n_chunks, long long c, S* stage) {
+  typedef ChunkStage<S, D, 3 * D * D + D> G;
+  constexpr int R = G::kR;
+  constexpr int kF = (D + D * D) * G::kRow;  // the F rows
+  constexpr int kQ = kF + D * D * G::kRow;   // the Q rows
+  const int lane = threadIdx.x & 31;
+  const long long c0 = c - lane;  // the warp's first chunk
+  const long long t0 = c * K;
+  const long long t1 = (c < n_chunks) ? ((t0 + K < T) ? t0 + K : T) : t0;
+  const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
+  const int r_first = span > 0 ? (int)((span - 1) / R) * R : -1;
+  Smooth<S, D> acc, e;
+  ScanRounds<S, SmootherPlaneRows<S, D>, G::kWarp, kBuffers> rounds{{b, C, Fs, Qs}, stage, c0, K, T};
+  if (t1 < T) {  // a chunk with a step after it
+    S* slot = rounds.buffer(0) + lane * G::kSlot;
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) {
+      slot[kF + q * G::kRow + R] = Fs[q * T + t1];
+      slot[kQ + q * G::kRow + R] = Qs[q * T + t1];
+    }
+  }
+  rounds.start(r_first);
+#pragma unroll 1
+  for (int r0 = r_first; r0 >= 0; r0 -= R) {
+    S* slot = rounds.next(r0) + lane * G::kSlot;
+    __syncwarp();
+#pragma unroll 1
+    for (int s = R - 1; s >= 0; --s) {
+      const long long t = t0 + r0 + s;
+      if (t >= t1) continue;
+      S m[D], P[D * D];
+#pragma unroll
+      for (int a = 0; a < D; ++a) m[a] = slot[a * G::kRow + s];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) P[q] = slot[(D + q) * G::kRow + s];
+      if (t == T - 1) {
+        build_smoothing_last<S, D>(m, P, e);
+      } else {
+        const Strided<S, G::kRow> Fn{slot + kF + s + 1}, Qn{slot + kQ + s + 1};
+        build_smoothing<S, D>(Fn, Qn, m, P, e);
+      }
+      if (t == t1 - 1) {
+        acc = e;
+      } else {
+        acc = smooth_combine<S, D>(acc, e);
+      }
+    }
+    // The round's first step is the step after the next round's last.
+    S* next = rounds.buffer(rounds.k) + lane * G::kSlot;
+#pragma unroll
+    for (int q = 0; q < D * D; ++q) {
+      next[kF + q * G::kRow + R] = slot[kF + q * G::kRow];
+      next[kQ + q * G::kRow + R] = slot[kQ + q * G::kRow];
+    }
+    // A later round's copy in writes stage values that other lanes read.
+    __syncwarp();
+  }
+  if (c < n_chunks) store_smooth<S, D>(totals, n_chunks, c, acc);
 }
 
 // Smoother pass 2: reverse re-fold of chunk c seeded with its exclusive

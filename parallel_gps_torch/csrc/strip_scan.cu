@@ -25,10 +25,10 @@
 // 2·D² more loads a step than the dt kernels.  From about D = 5 (float) or
 // D = 4 (double) two elements and the combine's temporaries no longer fit in
 // 255 registers and spill to local memory; the spills are accepted and
-// reported by ptxas (-Xptxas -v).  The two pass-2 kernels stage their rows
-// through shared memory a warp at a time (scan_passes.cuh: ChunkStage), each
-// unit by its own budget (ApplyStage below); the pass-1 kernels still load
-// strided.
+// reported by ptxas (-Xptxas -v).  The two pass-2 kernels and the
+// smoother's pass 1 stage their rows through shared memory a warp at a time
+// (scan_passes.cuh: ChunkStage), each unit by its own budget (ApplyStage and
+// StripScan below); the filter's pass 1 still loads strided.
 //
 // One translation unit per state dimension: compile with -DPGT_D=<1..8>, so
 // that the eight fully unrolled instantiations build side by side
@@ -190,17 +190,49 @@ __global__ void __launch_bounds__((ApplyStage<S, D, false>::kThreads))
 // Smoother pass 1.  Replaces pallas_scan.py _strip_smoother_scan_kernel
 // (:1795, pallas_call :1938): reverse fold of each chunk's smoothing elements
 // (F, Q at t+1 and the filtered b, C at t) to its suffix total.
-// Bound: bytes — (3D²+D) values a step, strided loads.
+// Bound: bytes — (3D²+D) values a step.  Loaded strided by K, a thread
+// walking its own chunk, they took 8.4 ms at D = 3, T = 10M float on an
+// NVIDIA H100 80GB HBM3 at 700 W, 23× the bound; so each warp stages them
+// (StripScan): b, C, F and Q copied in as whole sectors
+// (smoother_scan_planes), or b and C alone, F and Q loaded strided
+// (smoother_scan_staged).
+//
+// The budget, one fixed choice a unit, mirrored by kalman/strip.py
+// (scan_stage) and checked against it when the library loads: the units of
+// bit D − 1 of kScanPlanesF32 / kScanPlanesF64 stage their planes, the rest
+// their moments alone, in two buffers at the units of kScanTwoF32 /
+// kScanTwoF64, else in one (ScanStage: 4, 2 or 1 warps a block by
+// BlockWarps).  The planes measured faster on an H100 at D ≤ 7 in float and
+// D ≤ 6 in double (PERF.md §6, row 8); at D = 8 float and D = 7 double the
+// moments alone (at D = 7 double the planes' unit gets 64 registers and
+// 20 KB of spills, 3.5× slower), and at D = 8 double the planes do not fit.
+// Two buffers measured more than 1% faster at D = 1, 2 in float and D = 1, 2,
+// 4, 7 in double; elsewhere one (two halve the warps an SM, and lost by up
+// to 1.7×, or do not fit).
 // ---------------------------------------------------------------------------
+constexpr unsigned kScanPlanesF32 = 0x7Fu;
+constexpr unsigned kScanPlanesF64 = 0x3Fu;
+constexpr unsigned kScanTwoF32 = 0x3u;
+constexpr unsigned kScanTwoF64 = 0x4Bu;
+
 template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
+using StripScan = ScanStage<S, D, UnitBit<S, D, kScanPlanesF32, kScanPlanesF64>::kOn,
+                            UnitBit<S, D, kScanTwoF32, kScanTwoF64>::kOn ? 2 : 1>;
+
+template <typename S, int D>
+__global__ void __launch_bounds__((StripScan<S, D>::kThreads))
     strip_smoother_scan_kernel(const S* __restrict__ Fs, const S* __restrict__ Qs, const S* __restrict__ b,
                                const S* __restrict__ C, S* __restrict__ totals, long long T, int K,
                                long long n_chunks) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
-  PlaneSmootherSource<S, D> p{Fs, Qs, T};
-  smoother_scan_chunk<S, D>(p, b, C, totals, T, K, n_chunks, c);
+  typedef StripScan<S, D> A;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  S* stage = apply_stage_warp<A, S>();
+  if constexpr (A::kPlanes) {
+    smoother_scan_planes<S, D, A::kBuffers>(b, C, Fs, Qs, totals, T, K, n_chunks, c, stage);
+  } else {
+    PlaneSmootherSource<S, D> p{Fs, Qs, T};
+    smoother_scan_staged<S, D, A::kBuffers>(p, b, C, totals, T, K, n_chunks, c, stage);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -268,24 +300,29 @@ int PGT_ENTRY(pgt_strip_apply_smem)(int is64, int smoother) { return PGT_APPLY_S
 // Blocks of the pass-2 kernel an SM holds at once (the CUDA occupancy
 // calculator: registers, shared memory, threads), or minus the error code.
 int PGT_ENTRY(pgt_strip_apply_blocks_per_sm)(int is64, int smoother) {
-  int blocks = 0;
-  cudaError_t rc = cudaSuccess;
-#define PGT_OCCUPANCY(S, KERN, SMOOTHER)                                                                \
-  {                                                                                                     \
-    typedef pgt::ApplyStage<S, PGT_D, SMOOTHER> A;                                                      \
-    rc = cudaFuncSetAttribute(KERN<S, PGT_D>, cudaFuncAttributeMaxDynamicSharedMemorySize, A::kBytes);  \
-    if (rc == cudaSuccess)                                                                              \
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, KERN<S, PGT_D>, A::kThreads, A::kBytes); \
-  }
+  using pgt::ApplyStage;
+  using pgt::blocks_per_sm;
   if (is64) {
-    if (smoother) PGT_OCCUPANCY(double, pgt::strip_smoother_apply_kernel, true)
-    else PGT_OCCUPANCY(double, pgt::strip_filter_apply_kernel, false)
-  } else {
-    if (smoother) PGT_OCCUPANCY(float, pgt::strip_smoother_apply_kernel, true)
-    else PGT_OCCUPANCY(float, pgt::strip_filter_apply_kernel, false)
+    return smoother ? blocks_per_sm<ApplyStage<double, PGT_D, true>>(pgt::strip_smoother_apply_kernel<double, PGT_D>)
+                    : blocks_per_sm<ApplyStage<double, PGT_D, false>>(pgt::strip_filter_apply_kernel<double, PGT_D>);
   }
-#undef PGT_OCCUPANCY
-  return rc == cudaSuccess ? blocks : -(int)rc;
+  return smoother ? blocks_per_sm<ApplyStage<float, PGT_D, true>>(pgt::strip_smoother_apply_kernel<float, PGT_D>)
+                  : blocks_per_sm<ApplyStage<float, PGT_D, false>>(pgt::strip_filter_apply_kernel<float, PGT_D>);
+}
+
+// The smoother pass 1's budget (StripScan) of this unit: threads a block,
+// rows a warp stages in a buffer, dynamic shared memory a block in bytes,
+// buffers, and the blocks an SM holds at once (as above).
+#define PGT_SCAN_STAGE(FIELD) (is64 ? pgt::StripScan<double, PGT_D>::FIELD : pgt::StripScan<float, PGT_D>::FIELD)
+int PGT_ENTRY(pgt_strip_scan_threads)(int is64) { return PGT_SCAN_STAGE(kThreads); }
+int PGT_ENTRY(pgt_strip_scan_rows)(int is64) { return PGT_SCAN_STAGE(kRows); }
+int PGT_ENTRY(pgt_strip_scan_smem)(int is64) { return PGT_SCAN_STAGE(kBytes); }
+int PGT_ENTRY(pgt_strip_scan_buffers)(int is64) { return PGT_SCAN_STAGE(kBuffers); }
+#undef PGT_SCAN_STAGE
+
+int PGT_ENTRY(pgt_strip_scan_blocks_per_sm)(int is64) {
+  return is64 ? pgt::blocks_per_sm<pgt::StripScan<double, PGT_D>>(pgt::strip_smoother_scan_kernel<double, PGT_D>)
+              : pgt::blocks_per_sm<pgt::StripScan<float, PGT_D>>(pgt::strip_smoother_scan_kernel<float, PGT_D>);
 }
 
 int PGT_ENTRY(pgt_strip_filter_apply)(int is64, const void* scal, const void* prefix, const void* Fs, const void* Qs,
@@ -311,13 +348,19 @@ int PGT_ENTRY(pgt_strip_smoother_scan)(int is64, const void* Fs, const void* Qs,
                                        void* totals, long long T, int K, void* stream) {
   if (T < 1 || K < 1) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
-  cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S)                                                                               \
-  pgt::strip_smoother_scan_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(     \
-      (const S*)Fs, (const S*)Qs, (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks)
+  int rc = 0;
+#define PGT_LAUNCH(S)                                                                                       \
+  {                                                                                                         \
+    typedef pgt::StripScan<S, PGT_D> A;                                                                     \
+    /* smoother_scan_planes keeps the step after a round in its pad */                                      \
+    if (A::kPlanes && K % A::G::kR != 0) return pgt::kBadArgs;                                              \
+    rc = pgt::launch_opted_in(pgt::strip_smoother_scan_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)Fs, (const S*)Qs,       \
+                              (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks);                        \
+  }
   PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 int PGT_ENTRY(pgt_strip_smoother_apply)(int is64, const void* prefix, const void* Fs, const void* Qs, const void* b,

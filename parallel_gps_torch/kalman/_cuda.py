@@ -139,6 +139,9 @@ def load():
         sigs[f"pgt_strip_smoother_apply_d{d}"] = [i, p, p, p, p, p, p, p, ll, i, p]
         for field in ("threads", "rows", "smem", "blocks_per_sm"):
             sigs[f"pgt_strip_apply_{field}_d{d}"] = [i, i]
+        for field in _SCAN_FIELDS + ("blocks_per_sm",):
+            sigs[f"pgt_strip_scan_{field}_d{d}"] = [i]
+            sigs[f"pgt_dt_scan_{field}_d{d}"] = [i, i]
         for bits in (32, 64):
             sigs[f"pgt_batched_filter_d{d}_f{bits}"] = [p, p, ll, ll, p, ll, ll, p, ll, p, p, p, ll, i, i, p]
             sigs[f"pgt_batched_smoother_d{d}_f{bits}"] = [i, p, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p, p, ll, i, i, p]
@@ -159,16 +162,26 @@ def load():
     lib.pgt_threads_per_block.restype = ctypes.c_int
     if lib.pgt_threads_per_block() != THREADS:
         raise RuntimeError("csrc/dt_launch.cuh and kalman/_cuda.py disagree on threads per block")
-    from parallel_gps_torch.kalman import strip
+    from parallel_gps_torch.kalman import dt, strip
 
-    for (d, dtype, kind), got in strip_apply_stages(lib).items():
-        if got != strip.apply_stage(d, dtype, kind):
-            raise RuntimeError(
-                f"csrc/strip_scan.cu and kalman/strip.py disagree on the {kind} pass 2's stage at d = {d} {dtype}: "
-                f"(threads, rows, bytes) {got} against {strip.apply_stage(d, dtype, kind)}"
-            )
+    mirrors = [
+        ("csrc/strip_scan.cu", "kalman/strip.py", "pass 2", strip_apply_stages(lib), strip.apply_stage),
+        ("csrc/strip_scan.cu", "kalman/strip.py", "pass 1", strip_scan_stages(lib), strip.scan_stage),
+        ("csrc/dt_scan.cu", "kalman/dt.py", "pass 1", dt_scan_stages(lib), dt.scan_stage),
+    ]
+    for source, mirror, what, stages, expected in mirrors:
+        for unit, got in stages.items():
+            if got != expected(*unit):
+                raise RuntimeError(
+                    f"{source} and {mirror} disagree on the {what} stage of unit {unit}: "
+                    f"(threads, rows, bytes[, buffers]) {got} against {expected(*unit)}"
+                )
     _LIB = lib
     return lib
+
+
+_STAGE_FIELDS = ("threads", "rows", "smem")
+_SCAN_FIELDS = _STAGE_FIELDS + ("buffers",)
 
 
 def strip_apply_stages(lib) -> dict:
@@ -180,11 +193,42 @@ def strip_apply_stages(lib) -> dict:
     return {
         (d, dtype, kind): tuple(
             getattr(lib, f"pgt_strip_apply_{field}_d{d}")(int(dtype == torch.float64), int(kind == "smoother"))
-            for field in ("threads", "rows", "smem")
+            for field in _STAGE_FIELDS
         )
         for d in STRIP_DIMS
         for dtype in (torch.float32, torch.float64)
         for kind in ("filter", "smoother")
+    }
+
+
+def strip_scan_stages(lib) -> dict:
+    """{(d, dtype): (threads, rows a buffer, bytes, buffers)} of the strip
+    smoother's pass-1 kernel, as the library ``lib`` was built."""
+    import torch
+
+    return {
+        (d, dtype): tuple(getattr(lib, f"pgt_strip_scan_{field}_d{d}")(int(dtype == torch.float64)) for field in _SCAN_FIELDS)
+        for d in STRIP_DIMS
+        for dtype in (torch.float32, torch.float64)
+    }
+
+
+def dt_scan_stages(lib) -> dict:
+    """{(family, d, dtype): (threads, rows a buffer, bytes, buffers)} of the
+    dt smoother's pass-1 kernel of each transition family at each d it is
+    built for, as the library ``lib`` was built."""
+    import torch
+
+    from parallel_gps_torch.kalman import dt
+
+    return {
+        (family, d, dtype): tuple(
+            getattr(lib, f"pgt_dt_scan_{field}_d{d}")(int(dtype == torch.float64), dt.FAMILY_IDS[family])
+            for field in _SCAN_FIELDS
+        )
+        for family, top in dt.MAX_KERNEL_D.items()
+        for d in range(1, top + 1)
+        for dtype in (torch.float32, torch.float64)
     }
 
 

@@ -31,9 +31,11 @@ of its tensors:
 
   - CUDA, float32 or float64, d ≤ ``MAX_KERNEL_D[family]`` (3 for the
     exponential polynomial, 8 for the spectral family): the hand-written
-    kernel of ``csrc/dt_scan.cu`` (one thread per chunk) or
-    ``csrc/dt_fisher.cu`` (one thread per step), one translation unit per d;
-    anything else on CUDA raises;
+    kernel of ``csrc/dt_scan.cu`` (one thread per chunk; the pass-2 kernels
+    and the smoother's pass 1 stage the moments a warp at a time, the
+    smoother's pass 1 in blocks of ``scan_stage``) or ``csrc/dt_fisher.cu``
+    (one thread per step), one translation unit per d; anything else on CUDA
+    raises;
   - CPU: the plain PyTorch version of the same function (``*_plain``).
 
 On the CPU, ``strip_filter_dt``/``strip_smoother_dt`` run the plain
@@ -70,6 +72,7 @@ from parallel_gps_torch.kalman.strip import (
     strip_filter_scan_plain,
     strip_smoother_apply_plain,
     strip_smoother_scan_plain,
+    warp_stage_budget,
 )
 from parallel_gps_torch.kalman.timelast import fisher_grads_from_smoothed, pkf_from_tl, pks_from_tl
 from parallel_gps_torch.kernels.matern import EXPPOLY, build_transitions_m1
@@ -87,6 +90,14 @@ LAUNCHES = dict.fromkeys(_KERNELS + tuple(f"{k}_spectral" for k in _KERNELS), 0)
 MAX_KERNEL_D = {EXPPOLY: 3, SPECTRAL: 8}
 # The family ids the kernels take (csrc/dt_launch.cuh: kExppoly, kSpectral).
 FAMILY_IDS = {EXPPOLY: 0, SPECTRAL: 1}
+# The smoother pass 1's units that stage two buffers, the next round's copy in
+# flight while one is folded, by family and scalar type, where that measured
+# faster on an H100 (csrc/dt_scan.cu: kDtScanTwoF32, …; PERF.md §6); the rest
+# stage one.
+SCAN_TWO_BUFFERS = {
+    (EXPPOLY, torch.float32): frozenset({1, 3}), (EXPPOLY, torch.float64): frozenset(),
+    (SPECTRAL, torch.float32): frozenset({1, 4}), (SPECTRAL, torch.float64): frozenset(),
+}
 # Most blocks of the Fisher-tail kernel's grid-stride loops, over all series:
 # one row of partial sums per block.
 FISHER_MAX_BLOCKS = 2048
@@ -95,6 +106,23 @@ FISHER_MAX_BLOCKS = 2048
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def scan_stage(family: str, d: int, dtype) -> tuple[int, int, int, int]:
+    """(threads a block, rows a warp stages in a buffer, dynamic shared memory
+    a block in bytes, buffers) of the smoother's pass-1 kernel of ``family``
+    at state dimension ``d`` and scalar type ``dtype`` (csrc/dt_scan.cu:
+    DtScan, SpectralScan): each warp stages its moments, d + d² rows, in two
+    buffers where ``SCAN_TWO_BUFFERS`` says; the spectral family's scalar
+    table comes first, [P0 (d²) | coefficients | block table], in bytes
+    rounded up to 16."""
+    table = 0
+    if family == SPECTRAL:
+        blocks = (d + 1) // 2
+        values = d * d + 1 + 2 * blocks * d * d + 2 * blocks
+        table = -(-values * (torch.finfo(dtype).bits // 8) // 16) * 16
+    buffers = 2 if d in SCAN_TWO_BUFFERS[family, dtype] else 1
+    return warp_stage_budget(d + d * d, dtype, table=table, buffers=buffers) + (buffers,)
 
 
 # --------------------------------------------------------------------------

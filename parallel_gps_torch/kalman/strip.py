@@ -15,9 +15,10 @@ streams the log-likelihood).  Each pass is a wrapper that dispatches on the
 device of its tensors:
 
   - CUDA, d ≤ 8, float32 or float64: the hand-written kernel of
-    ``csrc/strip_scan.cu`` (one thread per chunk; the pass-2 kernels stage
-    their rows through shared memory a warp at a time, each unit by its
-    budget, ``apply_stage``); anything else on CUDA raises;
+    ``csrc/strip_scan.cu`` (one thread per chunk; the pass-2 kernels and the
+    smoother's pass 1 stage their rows through shared memory a warp at a
+    time, each unit by its budget, ``apply_stage`` and ``scan_stage``);
+    anything else on CUDA raises;
   - CPU: the plain PyTorch version of the same pass (``*_plain``).
 
 The dt-engine (``kalman/dt.py``) runs the same algorithm with F and Q rebuilt
@@ -67,6 +68,12 @@ SMEM_RESERVED = 1_024  # the CUDA runtime's share of it for each block
 # type, where that measured faster on an H100 (PERF.md §6); the rest stage
 # their moments alone.
 SMOOTHER_PLANES = {torch.float32: frozenset(range(1, 7)), torch.float64: frozenset({1, 3, 4, 5, 6})}
+# The same choice for the smoother's pass 1 (csrc/strip_scan.cu: StripScan,
+# kScanPlanesF32 / kScanPlanesF64), by its own measurement (PERF.md §6); and
+# its units that stage two buffers, the next round's copy in flight while one
+# is folded (kScanTwoF32 / kScanTwoF64).
+SCAN_PLANES = {torch.float32: frozenset(range(1, 8)), torch.float64: frozenset(range(1, 7))}
+SCAN_TWO_BUFFERS = {torch.float32: frozenset({1, 2}), torch.float64: frozenset({1, 2, 4, 7})}
 
 
 def filt_rows(d: int) -> int:
@@ -87,24 +94,46 @@ def apply_stage(d: int, dtype, kind: str) -> tuple[int, int, int]:
     """(threads a block, rows a warp stages, dynamic shared memory a block in
     bytes) of the ``kind`` ("filter" or "smoother") pass-2 kernel at state
     dimension ``d`` and scalar type ``dtype``."""
-    size = torch.finfo(dtype).bits // 8
     if kind == "filter":
         rows = 2 * d * d + 1
     elif d in SMOOTHER_PLANES[dtype]:
         rows = 3 * d * d + d
     else:
         rows = d + d * d
-    region = rows * 32 * (32 // size + 1) * size
-    per_warp = region + (0 if kind == "smoother" else 32 * size)
-    fits = [w for w in (4, 2, 1) if w * per_warp <= SMEM_LIMIT]
-    warps = max(fits, key=lambda w: resident_warps(w, per_warp))  # the first, the largest, on a tie
-    return 32 * warps, rows, warps * region
+    size = torch.finfo(dtype).bits // 8
+    return warp_stage_budget(rows, dtype, per_thread=size if kind == "filter" else 0)
 
 
-def resident_warps(warps: int, bytes_per_warp: int) -> int:
+def scan_stage(d: int, dtype) -> tuple[int, int, int, int]:
+    """(threads a block, rows a warp stages in a buffer, dynamic shared memory
+    a block in bytes, buffers) of the smoother's pass-1 kernel at state
+    dimension ``d`` and scalar type ``dtype``: its b, C, F and Q rows
+    (3d² + d) where ``SCAN_PLANES`` says, else its moments alone (d + d², F
+    and Q loaded strided), in two buffers where ``SCAN_TWO_BUFFERS`` says."""
+    rows = 3 * d * d + d if d in SCAN_PLANES[dtype] else d + d * d
+    buffers = 2 if d in SCAN_TWO_BUFFERS[dtype] else 1
+    return warp_stage_budget(rows, dtype, buffers=buffers) + (buffers,)
+
+
+def warp_stage_budget(rows: int, dtype, per_thread: int = 0, table: int = 0, buffers: int = 1) -> tuple[int, int, int]:
+    """(threads a block, ``rows``, dynamic shared memory a block) of a kernel
+    whose warps each stage ``buffers`` × ``rows`` rows of 32 slots of
+    32 / itemsize + 1 values, after ``table`` bytes a block (a scalar table),
+    with ``per_thread`` more bytes a thread counted against the limit (the
+    filter's block sum): 4, 2 or 1 warps a block, whichever leaves an SM the
+    most warps, the largest on a tie (csrc/dt_launch.cuh: BlockWarps)."""
+    size = torch.finfo(dtype).bits // 8
+    region = buffers * rows * 32 * (32 // size + 1) * size
+    per_warp = region + 32 * per_thread
+    fits = [w for w in (4, 2, 1) if w * per_warp + table <= SMEM_LIMIT]
+    warps = max(fits, key=lambda w: resident_warps(w, per_warp, table))  # the first, the largest, on a tie
+    return 32 * warps, rows, table + warps * region
+
+
+def resident_warps(warps: int, bytes_per_warp: int, bytes_per_block: int = 0) -> int:
     """Warps an SM holds, by shared memory, in blocks of ``warps`` warps of
-    ``bytes_per_warp`` each."""
-    return warps * (SMEM_PER_SM // (warps * bytes_per_warp + SMEM_RESERVED))
+    ``bytes_per_warp`` each and ``bytes_per_block`` more."""
+    return warps * (SMEM_PER_SM // (warps * bytes_per_warp + bytes_per_block + SMEM_RESERVED))
 
 
 def reset_launch_counts() -> None:
