@@ -10,8 +10,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   1. device: the card's name and power limit (nvidia-smi); a CUDA device is
      required;
   2. build: compile every CUDA kernel from parallel_gps_torch/csrc; each
-     strip pass-2 unit's stage and each smoother pass-1 unit's (strip and
-     dt) held against kalman/strip.py's and kalman/dt.py's mirrors;
+     strip pass-2 unit's stage and each filter and smoother pass-1 unit's
+     (strip and dt) held against kalman/strip.py's and kalman/dt.py's
+     mirrors;
   3. kernels vs plain: for Matern12/32/52 at T = 65,537 with ~10% missing
      observations, the CUDA filter, smoother and Fisher tail of the dt-engine
      against their plain PyTorch versions, float64 to the JAX interpret-test
@@ -25,9 +26,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      has ragged edges (strip_edge_lengths); then every spectral dt unit (RBF's
      transition family, d = 1..8, float64 and float32: filter, smoother and
      Fisher tail) against its plain version at T = 65,537, and its staged
-     pass 2 at its ragged lengths; the smoother's pass 1 alone, every strip
-     and dt unit, float64 and float32, at the lengths where its stage has
-     ragged edges (check_scan_edges); and the exponential polynomial's dt
+     pass 2 at its ragged lengths; the filter's and the smoother's pass 1
+     alone, every strip and dt unit, float64 and float32, at the lengths
+     where their stages have ragged edges (check_scan_edges); and the
+     exponential polynomial's dt
      units bit for bit against the tree before the spectral family
      (PARENT_DT_DIGESTS, dt_outputs);
   4. the serving path at full size: StateSpaceGP(Matern52(0.8, 0.4), noise
@@ -96,20 +98,22 @@ The line before the last is the kernels' JSON record; the last line is
 
 ``ab_timers(label)`` runs this script's timers alone, on the Matern52 entry
 points, the dt applies, plane_scan, the two pkfs, the strip applies at every
-unit, the RBF(order=6) entry points and the smoother's pass-1 kernels at
-every unit (``scan_timers(label)``, which also runs alone), so that two trees
-can be compared in one call (each with this file copied to its root):
+unit, the RBF(order=6) entry points and the filter's and the smoother's
+pass-1 kernels at every unit (``scan_timers(label)``, which also runs alone,
+``scan_timers(label, passes=("filter",))`` the filter's alone), so that two
+trees can be compared in one call (each with this file copied to its root):
 
     python3 -c "import chip_smoke as c; c.ab_timers('parent')"
 
 ``strip_apply_outputs(out_dir)`` saves both strip pass-2 kernels' moments and
-the smoother's pass-1 totals at every unit, ``spectral_outputs(out_dir)`` the
+both pass-1 kernels' totals at every unit, ``spectral_outputs(out_dir)`` the
 spectral dt units' the same way, and ``compare_strip_apply_outputs(dir_a,
 dir_b)`` compares two trees' bit for bit.
 """
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -636,25 +640,48 @@ def phase_strip_stages(lib) -> None:
         )
 
 
+PASS_KINDS = ("filter", "smoother")
+
+
+def scan_name(unit: str, kind: str) -> str:
+    """The launch counter of the ``kind`` pass-1 kernel of a unit ("strip",
+    or a dt family)."""
+    if unit == "strip":
+        return f"strip_{kind}_scan"
+    return f"dt_{kind}_scan{'' if unit == EXPPOLY else '_spectral'}"
+
+
+def scan_rows(name: str, d: int, rows: int, buffers: int) -> str:
+    """What a pass-1 unit's warps stage."""
+    if buffers == 0:
+        return "nothing (each thread reads its own chunk's rows directly)"
+    if "filter" in name:
+        what = "F, Q and y" if name.startswith("strip") else "y and dt"
+    else:
+        what = "planes" if rows != d + d * d else "moments"
+    return f"{what} ({rows} rows a warp) in {buffers} buffer(s)"
+
+
 def phase_scan_stages(lib) -> None:
-    """Each smoother pass-1 unit's stage as the library reports it (and as
-    _cuda.load() has held it against kalman/strip.py's and kalman/dt.py's
-    mirrors) — threads a block, rows a warp stages, buffers, dynamic shared
-    memory a block, and the warps an SM holds (the occupancy calculator) —
-    held against the opt-in limit."""
-    units = [("strip_smoother_scan", (d, dtype), lib_stage, f"pgt_strip_scan_blocks_per_sm_d{d}", (int(dtype == torch.float64),))
-             for (d, dtype), lib_stage in _cuda.strip_scan_stages(lib).items()]
-    units += [(f"dt_smoother_scan{'' if family == EXPPOLY else '_spectral'}", (d, dtype), lib_stage,
-               f"pgt_dt_scan_blocks_per_sm_d{d}", (int(dtype == torch.float64), dt.FAMILY_IDS[family]))
-              for (family, d, dtype), lib_stage in _cuda.dt_scan_stages(lib).items()]
+    """Each pass-1 unit's stage, the filter's and the smoother's, as the
+    library reports it (and as _cuda.load() has held it against
+    kalman/strip.py's and kalman/dt.py's mirrors) — threads a block, rows a
+    warp stages, buffers, dynamic shared memory a block, and the warps an SM
+    holds (the occupancy calculator) — held against the opt-in limit."""
+    units = [(scan_name("strip", kind), (d, dtype), lib_stage, f"pgt_strip_scan_blocks_per_sm_d{d}",
+              (int(dtype == torch.float64), int(kind == "smoother")))
+             for (d, dtype, kind), lib_stage in _cuda.strip_scan_stages(lib).items()]
+    units += [(scan_name(family, kind), (d, dtype), lib_stage, f"pgt_dt_scan_blocks_per_sm_d{d}",
+               (int(dtype == torch.float64), dt.FAMILY_IDS[family], int(kind == "smoother")))
+              for (family, d, dtype, kind), lib_stage in _cuda.dt_scan_stages(lib).items()]
     for name, (d, dtype), (threads, rows, smem, buffers), entry, args in units:
         blocks = getattr(lib, entry)(*args)
         what = f"{name} d={d} {dtype}"
-        check(0 < smem <= strip.SMEM_LIMIT, f"{what}: {smem} B a block")
+        check(0 <= smem <= strip.SMEM_LIMIT and (smem > 0 or buffers == 0), f"{what}: {smem} B a block")
         check(blocks > 0, f"{what}: occupancy calculator returned {blocks}")
         print(
-            f"  {what}: stages {'planes' if rows != d + d * d else 'moments'} ({rows} rows a warp) in {buffers} "
-            f"buffer(s), {threads} threads and {smem} B dynamic smem a block, {blocks * threads // 32} warps an SM"
+            f"  {what}: stages {scan_rows(name, d, rows, buffers)}, {threads} threads and {smem} B dynamic smem a "
+            f"block, {blocks * threads // 32} warps an SM"
         )
 
 
@@ -1068,73 +1095,92 @@ def check_strip_apply_edges() -> None:
 
 
 def scan_edge_lengths(threads: int, dtype) -> tuple:
-    """The lengths where a smoother pass-1 unit's stage has ragged edges: its
-    block's strip_edge_lengths, and a round's worth of steps past a chunk
-    (a round is 8 float32 or 4 float64 steps)."""
+    """The lengths where a pass-1 unit's stage has ragged edges: its block's
+    strip_edge_lengths, and a round's worth of steps past a chunk (a round
+    is 8 float32 or 4 float64 steps)."""
     return tuple(sorted(set(strip_edge_lengths(threads)) | {strip.CHUNK + 32 // (torch.finfo(dtype).bits // 8)}))
 
 
 def check_scan_edges() -> None:
-    """The smoother's pass-1 kernels alone, each launched once a case — every
-    strip unit and every spectral dt unit, d = 1..8, and the exponential
-    polynomial's d = 1..3, float64 and float32 — their chunk totals against
-    strip_smoother_scan_plain / dt_smoother_scan_plain at the lengths where the
-    unit's or its other scalar type's stage has ragged edges
-    (scan_edge_lengths), on the plain float64 filter's moments.  float64 to
-    strip_tolerances' smoother pair (the JAX interpret tests'); float32 on those
-    moments rounded to float32, against the float64 plain scan of the same
-    rounded moments by the 10× rule.  One line a unit with the worst error of
-    each length."""
+    """The filter's and the smoother's pass-1 kernels alone, each launched
+    once a case — every strip unit and every spectral dt unit, d = 1..8, and
+    the exponential polynomial's d = 1..3, float64 and float32 — their chunk
+    totals against strip_filter_scan_plain / dt_filter_scan_plain and
+    strip_smoother_scan_plain / dt_smoother_scan_plain at the lengths where
+    the unit's stage of either pass or scalar type has ragged edges
+    (scan_edge_lengths); the smoother on the plain float64 filter's moments.
+    float64 to strip_tolerances' filter and smoother pairs (the JAX
+    interpret tests'); float32 against float64 truth by the 10× rule: the
+    filter on its inputs rounded to float32, against the float64 plain scan
+    of the same rounded inputs; the smoother on the moments rounded to
+    float32, against the float64 plain scan of the same rounded moments.
+    One line a unit and pass with the worst error of each length."""
     lib = _cuda.load()
     stages = {("strip", *unit): stage for unit, stage in _cuda.strip_scan_stages(lib).items()}
     stages.update(_cuda.dt_scan_stages(lib))
     units = [("strip", d) for d in range(1, strip.MAX_KERNEL_D + 1)]
     units += [(family, d) for family in (SPECTRAL, EXPPOLY) for d in range(1, dt.MAX_KERNEL_D[family] + 1)]
     n = 0
-    for kind, d in units:
-        _, _, rs, as_ = strip_tolerances(d)
-        threads = {dtype: stages[kind, d, dtype][0] for dtype in (torch.float64, torch.float32)}
-        lengths = sorted(set().union(*(scan_edge_lengths(w, dtype) for dtype, w in threads.items())))
-        name = "strip_smoother_scan" if kind == "strip" else f"dt_smoother_scan{'' if kind == EXPPOLY else '_spectral'}"
-        worst = {}
+    for unit, d in units:
+        rf, af, rs, as_ = strip_tolerances(d)
+        tols = {"filter": (rf, af), "smoother": (rs, as_)}
+        threads = {(dtype, kind): stages[unit, d, dtype, kind][0] for dtype in (torch.float64, torch.float32) for kind in PASS_KINDS}
+        lengths = sorted(set().union(*(scan_edge_lengths(w, dtype) for (dtype, _), w in threads.items())))
+        names = {kind: scan_name(unit, kind) for kind in PASS_KINDS}
+        worst = {kind: {} for kind in PASS_KINDS}
         for T in lengths:
             t, y = make_data(T, SEED + 9)
             with torch.no_grad():
-                if kind == "strip":
+                if unit == "strip":
                     Fs, Qs, P0, H, R, yt = strip_inputs(strip_edge_kernel(d, torch.float64), t, y, torch.float64)
                     b, C, _ = strip.strip_filter_plain(Fs, Qs, P0, H, R, yt)
-                    kernel_scan, plain_scan, model = strip.strip_smoother_scan, strip.strip_smoother_scan_plain, (Fs, Qs)
+                    models = {"filter": (Fs, Qs, P0, H, R), "smoother": (Fs, Qs)}
+                    scans = {"filter": (strip.strip_filter_scan, strip.strip_filter_scan_plain),
+                             "smoother": (strip.strip_smoother_scan, strip.strip_smoother_scan_plain)}
+                    counts = strip.LAUNCHES
                 else:
-                    kern = spectral_kernel(d, torch.float64) if kind == SPECTRAL else strip_edge_kernel(d, torch.float64)
+                    kern = spectral_kernel(d, torch.float64) if unit == SPECTRAL else strip_edge_kernel(d, torch.float64)
                     fam, co, P0, H, R, dts, yt = kernel_inputs(kern, t, y, torch.float64)
                     b, C, _ = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
-                    kernel_scan = lambda *a, fam=fam: dt.dt_smoother_scan(fam, *a)  # noqa: E731
-                    plain_scan = lambda *a, fam=fam: dt.dt_smoother_scan_plain(fam, *a)  # noqa: E731
-                    model = (co, P0, dts)
+                    models = {"filter": (co, P0, H, R, dts), "smoother": (co, P0, dts)}
+                    scans = {kind: tuple(lambda *a, f=f, fam=fam: f(fam, *a) for f in fns) for kind, fns in (
+                        ("filter", (dt.dt_filter_scan, dt.dt_filter_scan_plain)),
+                        ("smoother", (dt.dt_smoother_scan, dt.dt_smoother_scan_plain)))}
+                    counts = dt.LAUNCHES
                 b, C = b.contiguous(), C.contiguous()
-                model32 = tuple(x.float().contiguous() for x in model)
-                b32, C32 = b.float(), C.float()
+                data = {"filter": (yt,), "smoother": (b, C)}
                 strip.reset_launch_counts()
                 dt.reset_launch_counts()
-                tot_k, tot_k32 = kernel_scan(*model, b, C), kernel_scan(*model32, b32, C32)
-                launched = (strip.LAUNCHES if kind == "strip" else dt.LAUNCHES)[name]
-                tot_p, tot_q32 = plain_scan(*model, b, C), plain_scan(*model32, b32, C32)
-                tot_t = plain_scan(*model, b32.double(), C32.double())
+                got = {}
+                for kind in PASS_KINDS:
+                    (kernel_scan, plain_scan), model = scans[kind], models[kind]
+                    model32, data32 = (tuple(x.float().contiguous() for x in xs) for xs in (model, data[kind]))
+                    tot_k, tot_k32 = kernel_scan(*model, *data[kind]), kernel_scan(*model32, *data32)
+                    tot_p, tot_q32 = plain_scan(*model, *data[kind]), plain_scan(*model32, *data32)
+                    # float64 truth of the float32 run: the filter's inputs, or
+                    # the smoother's moments, as rounded to float32.
+                    truth_model = tuple(x.double() for x in model32) if kind == "filter" else model
+                    tot_t = plain_scan(*truth_model, *(x.double() for x in data32))
+                    got[kind] = (tot_k, tot_k32, tot_p, tot_q32, tot_t)
+                launched = {kind: counts[names[kind]] for kind in PASS_KINDS}
                 torch.cuda.synchronize()
-            check(launched == 2, f"{name} d={d} T={T}: {launched} launches, expected 2")
-            what = f"{name} d={d} T={T}"
-            check(tot_k.shape == tot_p.shape == (strip.smooth_rows(d), strip.n_chunks(T)), f"{what}: totals {tuple(tot_k.shape)}")
-            check(allclose(tot_k, tot_p, rs, as_), f"{what} f64 totals: |kernel - plain| {max_abs(tot_k, tot_p):.3e}")
-            a, b_ = rel_err(tot_k32, tot_t), rel_err(tot_q32, tot_t)
-            check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} f32 totals: kernel {a:.3e} vs plain {b_:.3e}")
-            worst[T] = (max_abs(tot_k, tot_p), a / max(b_, F32_FLOOR / F32_FACTOR))
-            n += 2
-        print(
-            f"{name} d={d} edges (blocks of {threads[torch.float64]} / {threads[torch.float32]} threads, f64 / f32), "
-            f"T: f64 |kernel - plain|, f32 kernel error over plain f32 error: "
-            + ", ".join(f"{T}: {e:.1e} {r:.2f}" for T, (e, r) in worst.items())
-        )
-    print(f"smoother pass-1 units at their stages' ragged lengths: {n} cases, all within tolerance")
+            for kind, (tot_k, tot_k32, tot_p, tot_q32, tot_t) in got.items():
+                what = f"{names[kind]} d={d} T={T}"
+                rows = strip.filt_rows(d) if kind == "filter" else strip.smooth_rows(d)
+                check(launched[kind] == 2, f"{what}: {launched[kind]} launches, expected 2")
+                check(tot_k.shape == tot_p.shape == (rows, strip.n_chunks(T)), f"{what}: totals {tuple(tot_k.shape)}")
+                check(allclose(tot_k, tot_p, *tols[kind]), f"{what} f64 totals: |kernel - plain| {max_abs(tot_k, tot_p):.3e}")
+                a, b_ = rel_err(tot_k32, tot_t), rel_err(tot_q32, tot_t)
+                check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} f32 totals: kernel {a:.3e} vs plain {b_:.3e}")
+                worst[kind][T] = (max_abs(tot_k, tot_p), a / max(b_, F32_FLOOR / F32_FACTOR))
+                n += 2
+        for kind in PASS_KINDS:
+            print(
+                f"{names[kind]} d={d} edges (blocks of {threads[torch.float64, kind]} / {threads[torch.float32, kind]} "
+                f"threads, f64 / f32), T: f64 |kernel - plain|, f32 kernel error over plain f32 error: "
+                + ", ".join(f"{T}: {e:.1e} {r:.2f}" for T, (e, r) in worst[kind].items())
+            )
+    print(f"filter and smoother pass-1 units at their stages' ragged lengths: {n} cases, all within tolerance")
 
 
 # --------------------------------------------------------------------------
@@ -2845,7 +2891,7 @@ def ab_timers(label: str) -> None:
     pass-2 kernels on the Matern52 planes (d = 3, N = 10M float32) and at
     every d = 1..8 at N = 1M, float32 and float64; the RBF(order=6) N = 1M
     LML, predict_f and training step on the engine the model takes; then the
-    smoother's pass-1 kernels (scan_timers).  One line a measurement, tagged
+    filter's and the smoother's pass-1 kernels (scan_timers).  One line a measurement, tagged
     with ``label``, the card and the tree's look-back tiling and strip stages
     where it reports them."""
     report = ab_report(label)
@@ -2954,7 +3000,7 @@ def ab_timers(label: str) -> None:
 
 def ab_report(label: str):
     """The card's name, the tree's library built and loaded (with the ptxas
-    lines of the smoother's pass-1 kernels where it was built now), and a
+    lines of the pass-1 kernels where it was built now), and a
     ``report(what, events_ms, fn, profiles=1)`` that prints one A/B line: the
     events' time and the device time by kernel in a profile of one call of
     ``fn`` — with ``profiles`` > 1, each kernel's median over that many
@@ -2964,7 +3010,7 @@ def ab_report(label: str):
     _cuda.load()
     print(f"ab {label}: library {so.name}")
     for line in ptxas_lines(log):
-        if "smoother_scan" in line:
+        if re.search(r"(filter|smoother)_scan", line):
             print(f"ab {label} {line}")
 
     def report(what, events_ms, fn, profiles=1):
@@ -2975,62 +3021,79 @@ def ab_report(label: str):
     return report
 
 
-def scan_timers(label: str, report=None) -> None:
-    """The smoother's pass-1 kernels alone, for comparing two trees (or two
-    variants of a per-unit choice) in one call, each as events around ten
-    lone calls of its wrapper and device time, the median of five profiled
-    calls (``report``, ab_report's by default): dt_smoother_scan on the
-    filtered moments of Matern12, Matern32 and Matern52 (d = 1, 2, 3;
-    N = 10M float32); dt_smoother_scan_spectral at every d = 1..8
-    (RBF(1.0, 0.05, order=d), N = 1M float32); strip_smoother_scan on the
-    Matern52 planes (d = 3, N = 10M float32) and at every d = 1..8 at
-    N = 1M, float32 and float64 (strip_edge_kernel's planes).  Each line
-    names the tree's stage where it reports one, and the kernel's bound."""
+def scan_timers(label: str, report=None, passes=PASS_KINDS) -> None:
+    """The pass-1 kernels alone, for comparing two trees (or two variants of
+    a per-unit choice) in one call, each as events around ten lone calls of
+    its wrapper and device time, the median of five profiled calls
+    (``report``, ab_report's by default), for each pass of ``passes``.  The
+    filter's: dt_filter_scan on Matern12, Matern32 and Matern52 (d = 1, 2,
+    3) at N = 10M float32 and N = 1M float64, dt_filter_scan_spectral at
+    every d = 1..8 (RBF(1.0, 0.05, order=d)) at N = 1M, float32 and float64,
+    strip_filter_scan on the Matern52 planes (d = 3, N = 10M float32) and at
+    every d = 1..8 at N = 1M, float32 and float64 (strip_edge_kernel's
+    planes).  The smoother's, on the filtered moments: dt_smoother_scan at
+    d = 1, 2, 3 (N = 10M float32), dt_smoother_scan_spectral at every d
+    (N = 1M float32), strip_smoother_scan as the filter's.  Each line names
+    the tree's stage where it reports one, and the kernel's bound."""
     report = report or ab_report(label)
 
-    def stage(*unit):
-        if not hasattr(strip, "scan_stage"):  # the parent's tree has no pass-1 stage
-            return "unstaged, 128 threads"
-        return (dt.scan_stage if len(unit) == 3 else strip.scan_stage)(*unit)
+    def stage(kind, *unit):
+        fn = dt.scan_stage if len(unit) == 3 else strip.scan_stage
+        if "kind" in inspect.signature(fn).parameters:
+            return fn(*unit, kind)
+        return fn(*unit) if kind == "smoother" else "unstaged, 128 threads"  # a tree that stages the smoother's alone
 
     t, y = make_data(N_FULL, SEED)
     t_s, y_s = make_data(N_STRIP, SEED + 4)
+    matern = [(kcls, params) for kcls, params in ((Matern12, (1.2, 0.6)), (Matern32, (1.0, 0.5)), (Matern52, (0.8, 0.4)))]
     with torch.no_grad():
-        cases = [(kcls(*params, dtype=torch.float32, device=DEV), t, y)
-                 for kcls, params in ((Matern12, (1.2, 0.6)), (Matern32, (1.0, 0.5)), (Matern52, (0.8, 0.4)))]
-        cases += [(spectral_kernel(d, torch.float32), t_s, y_s) for d in SPECTRAL_DIMS]
-        for kern, tk, yk in cases:
-            fam, co, P0, H, R, dts, yt = kernel_inputs(kern, tk, yk, torch.float32)
-            d = P0.shape[0]
-            b, C, _ = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+        for kind in passes:
+            cases = [(kcls(*params, dtype=torch.float32, device=DEV), t, y, torch.float32) for kcls, params in matern]
+            cases += [(spectral_kernel(d, torch.float32), t_s, y_s, torch.float32) for d in SPECTRAL_DIMS]
+            if kind == "filter":
+                cases += [(kcls(*params, dtype=torch.float64, device=DEV), t_s, y_s, torch.float64) for kcls, params in matern]
+                cases += [(spectral_kernel(d, torch.float64), t_s, y_s, torch.float64) for d in SPECTRAL_DIMS]
+            for kern, tk, yk, dtype in cases:
+                fam, co, P0, H, R, dts, yt = kernel_inputs(kern, tk, yk, dtype)
+                d = P0.shape[0]
+                if kind == "filter":
+                    def scan():
+                        return dt.dt_filter_scan(fam, co, P0, H, R, dts, yt)
+                else:
+                    b, C, _ = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
 
-            def scan():
-                return dt.dt_smoother_scan(fam, co, P0, dts, b, C)
+                    def scan():
+                        return dt.dt_smoother_scan(fam, co, P0, dts, b, C)
 
-            name = "dt_smoother_scan" + ("_spectral" if fam == SPECTRAL else "")
-            what = f"{name} d={d} N={yk.shape[0]} {torch.float32}"
-            degree = 0 if fam == SPECTRAL else (co.numel() - 1) // (d * d)
-            bound = kernel_bound(name, d, degree, yk.shape[0], 0, 4)
-            print(f"ab {label} {what}: stage (threads, rows, bytes, buffers) {stage(fam, d, torch.float32)}, bound {bound[0]:.4f} ms ({bound[1]})")
-            report(what, cuda_ms(scan, reps=10), scan, profiles=5)
-            del b, C
-            torch.cuda.empty_cache()
-        cases = [(Matern52(0.8, 0.4, dtype=torch.float32, device=DEV), t, y, torch.float32)]
-        cases += [(strip_edge_kernel(d, dtype), t_s, y_s, dtype) for dtype in (torch.float32, torch.float64) for d in range(1, strip.MAX_KERNEL_D + 1)]
-        for kern, tk, yk, dtype in cases:
-            Fs, Qs, P0, H, R, yt = strip_inputs(kern, tk, yk, dtype)
-            d = P0.shape[0]
-            b, C, _ = strip.strip_filter(Fs, Qs, P0, H, R, yt)
+                name = scan_name(fam, kind)
+                what = f"{name} d={d} N={yk.shape[0]} {dtype}"
+                degree = 0 if fam == SPECTRAL else (co.numel() - 1) // (d * d)
+                bound = kernel_bound(name, d, degree, yk.shape[0], 0, yt.element_size())
+                print(f"ab {label} {what}: stage (threads, rows, bytes, buffers) {stage(kind, fam, d, dtype)}, bound {bound[0]:.4f} ms ({bound[1]})")
+                report(what, cuda_ms(scan, reps=10), scan, profiles=5)
+                del scan
+                torch.cuda.empty_cache()
+            cases = [(Matern52(0.8, 0.4, dtype=torch.float32, device=DEV), t, y, torch.float32)]
+            cases += [(strip_edge_kernel(d, dtype), t_s, y_s, dtype) for dtype in (torch.float32, torch.float64) for d in range(1, strip.MAX_KERNEL_D + 1)]
+            for kern, tk, yk, dtype in cases:
+                Fs, Qs, P0, H, R, yt = strip_inputs(kern, tk, yk, dtype)
+                d = P0.shape[0]
+                if kind == "filter":
+                    def scan():
+                        return strip.strip_filter_scan(Fs, Qs, P0, H, R, yt)
+                else:
+                    b, C, _ = strip.strip_filter(Fs, Qs, P0, H, R, yt)
 
-            def scan():
-                return strip.strip_smoother_scan(Fs, Qs, b, C)
+                    def scan():
+                        return strip.strip_smoother_scan(Fs, Qs, b, C)
 
-            what = f"strip_smoother_scan d={d} N={yt.shape[0]} {Fs.dtype}"
-            bound = kernel_bound("strip_smoother_scan", d, 0, yt.shape[0], 0, Fs.element_size())
-            print(f"ab {label} {what}: stage (threads, rows, bytes, buffers) {stage(d, Fs.dtype)}, bound {bound[0]:.4f} ms ({bound[1]})")
-            report(what, cuda_ms(scan, reps=10), scan, profiles=5)
-            del Fs, Qs, b, C
-            torch.cuda.empty_cache()
+                name = scan_name("strip", kind)
+                what = f"{name} d={d} N={yt.shape[0]} {Fs.dtype}"
+                bound = kernel_bound(name, d, 0, yt.shape[0], 0, Fs.element_size())
+                print(f"ab {label} {what}: stage (threads, rows, bytes, buffers) {stage(kind, d, Fs.dtype)}, bound {bound[0]:.4f} ms ({bound[1]})")
+                report(what, cuda_ms(scan, reps=10), scan, profiles=5)
+                del Fs, Qs, scan
+                torch.cuda.empty_cache()
 
 
 def strip_apply_timers(report, label: str, what: str, planes) -> None:
@@ -3125,7 +3188,7 @@ def phase_dt_digests() -> None:
 
 
 def strip_apply_outputs(out_dir: str, T: int = 100_003) -> None:
-    """The moments of both strip pass-2 kernels and the smoother's pass-1
+    """The moments of both strip pass-2 kernels and both pass-1 kernels'
     totals at every d = 1..8, float32 and float64, on planes made from the
     seed at T steps (by default a ragged chunk, warp and block), saved in
     ``out_dir`` one file a unit, for compare_strip_apply_outputs.  The
@@ -3139,11 +3202,11 @@ def strip_apply_outputs(out_dir: str, T: int = 100_003) -> None:
         for d in range(1, strip.MAX_KERNEL_D + 1):
             Fs, Qs, P0, H, R, yt = strip_inputs(strip_edge_kernel(d, dtype), t, y, dtype)
             with torch.no_grad():
-                pre_f = strip.exclusive_chunk_prefixes(strip.strip_filter_scan(Fs, Qs, P0, H, R, yt), d, reverse=False)
-                b, C, _ = strip.strip_filter_apply(Fs, Qs, P0, H, R, yt, pre_f)
+                tot_f = strip.strip_filter_scan(Fs, Qs, P0, H, R, yt)
+                b, C, _ = strip.strip_filter_apply(Fs, Qs, P0, H, R, yt, strip.exclusive_chunk_prefixes(tot_f, d, reverse=False))
                 tot_s = strip.strip_smoother_scan(Fs, Qs, b, C)
                 g, L = strip.strip_smoother_apply(Fs, Qs, b, C, strip.exclusive_chunk_prefixes(tot_s, d, reverse=True))
-            outputs = {"b": b, "C": C, "tot_s": tot_s, "g": g, "L": L}
+            outputs = {"tot_f": tot_f, "b": b, "C": C, "tot_s": tot_s, "g": g, "L": L}
             torch.save({k: v.cpu() for k, v in outputs.items()}, os.path.join(out_dir, f"d{d}_{dtype}.pt"))
     print(f"strip apply outputs: T={T}, {len(os.listdir(out_dir))} units in {out_dir}")
 
@@ -3153,8 +3216,9 @@ def spectral_outputs(out_dir: str, T: int = 100_003) -> None:
     float32 and float64: RBF(1.0, 0.05, order=d) on data made from the seed,
     each pass fed the kernels' own outputs (the filter apply the prefixes of
     the filter scan's totals, the smoother the filter's moments, the smoother
-    apply the suffixes of the smoother scan's totals); the filter's moments,
-    the smoother scan's totals and the smoothed moments saved in ``out_dir``,
+    apply the suffixes of the smoother scan's totals); the filter scan's
+    totals, the filter's moments, the smoother scan's totals and the smoothed
+    moments saved in ``out_dir``,
     one file a unit (``spectral_d<d>_<dtype>.pt``)."""
     phase_device()
     _cuda.build()
@@ -3164,11 +3228,11 @@ def spectral_outputs(out_dir: str, T: int = 100_003) -> None:
         for d in SPECTRAL_DIMS:
             fam, co, P0, H, R, dts, yt = kernel_inputs(spectral_kernel(d, dtype), t, y, dtype)
             with torch.no_grad():
-                pre_f = dt.exclusive_chunk_prefixes(dt.dt_filter_scan(fam, co, P0, H, R, dts, yt), d, reverse=False)
-                b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, yt, pre_f)
+                tot_f = dt.dt_filter_scan(fam, co, P0, H, R, dts, yt)
+                b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, yt, dt.exclusive_chunk_prefixes(tot_f, d, reverse=False))
                 tot_s = dt.dt_smoother_scan(fam, co, P0, dts, b, C)
                 g, L = dt.dt_smoother_apply(fam, co, P0, dts, b, C, dt.exclusive_chunk_prefixes(tot_s, d, reverse=True))
-            outputs = {"b": b, "C": C, "tot_s": tot_s, "g": g, "L": L}
+            outputs = {"tot_f": tot_f, "b": b, "C": C, "tot_s": tot_s, "g": g, "L": L}
             torch.save({k: v.cpu() for k, v in outputs.items()}, os.path.join(out_dir, f"spectral_d{d}_{dtype}.pt"))
     print(f"spectral outputs: T={T}, {len(os.listdir(out_dir))} files in {out_dir}")
 

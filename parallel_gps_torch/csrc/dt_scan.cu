@@ -39,7 +39,9 @@
 // them through shared memory a warp at a time (scan_passes.cuh: ChunkStage):
 // the filter's pass-2 stores (filter_apply_staged), the smoother's pass-2
 // loads and stores (smoother_apply_staged) and its pass-1 loads
-// (smoother_scan_staged); dt is still read strided.  Each kernel below notes
+// (smoother_scan_staged), and the filter's pass-1 loads of y and dt
+// (filter_scan_staged) at the two units where that measured faster than
+// reading them strided; the other passes read dt strided.  Each kernel below notes
 // which of the two bounds it.
 #include <cuda_runtime.h>
 
@@ -55,13 +57,16 @@
 namespace pgt {
 
 // The dt-engine's sources of a step's F and Q for the shared pass bodies
-// (scan_passes.cuh): rebuilt from dt[t] and the transition coefficients.
+// (scan_passes.cuh): rebuilt from dt[t] and the transition coefficients (the
+// filter's by build, F and Q from a dt value, which the staged filter scan
+// applies to its staged dt).
 template <typename S, int D>
 struct DtFilterSource : FilterScalars<S, D> {
   const S* dt;
-  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
-    build_fq<S, D>(this->c, this->degree, this->P0, dt[t], F, Q);
+  __device__ __forceinline__ void build(S dtv, S* F, S* Q) const {
+    build_fq<S, D>(this->c, this->degree, this->P0, dtv, F, Q);
   }
+  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const { build(dt[t], F, Q); }
 };
 
 template <typename S, int D>
@@ -77,11 +82,12 @@ struct DtSmootherSource : SmootherScalars<S, D> {
 template <typename S, int D>
 struct SpectralFilterSource : SpectralScalars<S, D, true> {
   const S* dt;
-  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
+  __device__ __forceinline__ void build(S dtv, S* F, S* Q) const {
     S Am1[D * D], M[D * D];
-    spectral_am1<S, D>(this->c, dt[t], Am1);
+    spectral_am1<S, D>(this->c, dtv, Am1);
     fq_from_am1<S, D>(Am1, this->P0, M, F, Q);
   }
+  __device__ __forceinline__ void fq(long long t, S* F, S* Q) const { build(dt[t], F, Q); }
 };
 
 template <typename S, int D>
@@ -94,22 +100,75 @@ struct SpectralSmootherSource : SpectralScalars<S, D, false> {
   }
 };
 
+extern __shared__ __align__(16) unsigned char pgt_dt_smem[];
+
+// The calling warp's region of the staged kernels' dynamic shared memory.
+template <typename S, int D>
+__device__ __forceinline__ S* warp_stage() {
+  return reinterpret_cast<S*>(pgt_dt_smem) + (threadIdx.x / 32) * ChunkStage<S, D>::kWarp;
+}
+
+// The calling warp's stage of a budget A (SpectralApply, ScanStage): after
+// A::kTableBytes of the block's scalar table, if any.
+template <typename A, typename S>
+__device__ __forceinline__ S* table_warp_stage() {
+  return reinterpret_cast<S*>(pgt_dt_smem) + A::kTableBytes / sizeof(S) + (threadIdx.x / 32) * A::G::kWarp;
+}
+
 // ---------------------------------------------------------------------------
 // Filter pass 1.  Replaces parallel_gps_tpu/kalman/pallas_dt.py
 // _dt_filter_scan_kernel (:179, pallas_call :341): per-chunk totals.
 // Bound: the combine chain (it reads 8 bytes a step and writes one total
-// per chunk); measured 0.40 ms at T = 10M f32, D = 3.
+// per chunk); 0.19 / 0.14 / 0.26 device ms at T = 10M f32, D = 1, 2, 3,
+// each thread reading its own chunk's y and dt strided by K (PERF.md §6,
+// row 1).  Those two rows mostly hit L1, but each load sits on the thread's
+// dependent chain; so a unit of the first pair of masks below stages them a
+// warp at a time instead, kR steps of its 32 chunks copied in as whole
+// sectors (filter_scan_staged), in two buffers at the units of the second
+// pair; the rest read them directly (filter_scan_direct).  Staged won on an
+// H100 only where the fold is shortest against its loads, the exponential
+// polynomial's f32 D = 1 (0.095 against 0.19 device ms at 10M), and at the
+// spectral f32 D = 7 (0.586 against 0.609 at 1M); elsewhere it lost by up to
+// 60% (the staged body takes more registers, 157 against 128 at f32 D = 3,
+// and two warp barriers a round), and two buffers won nowhere by more than
+// 1%.  Blocks by ScanStage (DtFilterScan below; the spectral family's,
+// SpectralFilterScan, count its table first).
 // ---------------------------------------------------------------------------
+constexpr unsigned kDtFilterScanStagedF32 = 0x1u;
+constexpr unsigned kDtFilterScanStagedF64 = 0x0u;
+constexpr unsigned kDtFilterScanTwoF32 = 0x0u;
+constexpr unsigned kDtFilterScanTwoF64 = 0x0u;
+constexpr unsigned kSpectralFilterScanStagedF32 = 0x40u;
+constexpr unsigned kSpectralFilterScanStagedF64 = 0x0u;
+constexpr unsigned kSpectralFilterScanTwoF32 = 0x0u;
+constexpr unsigned kSpectralFilterScanTwoF64 = 0x0u;
+
 template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
+using DtFilterScan = ScanStage<S, FilterDtRows<S>, FilterScanBuffers<S, D, kDtFilterScanStagedF32, kDtFilterScanStagedF64,
+                                                                     kDtFilterScanTwoF32, kDtFilterScanTwoF64>::kN>;
+
+// Filter pass 1 of chunk c by the unit's budget A: staged or direct.  Every
+// thread of the block calls it.
+template <typename A, typename S, int D, typename Src>
+__device__ __forceinline__ void dt_filter_scan_body(const Src& p, const S* dt, const S* y, S* totals, long long T,
+                                                    int K, long long n_chunks, long long c) {
+  if constexpr (A::kBuffers == 0) {
+    if (c < n_chunks) filter_scan_direct<S, D>(p, y, totals, T, K, n_chunks, c);
+  } else {
+    filter_scan_staged<S, D, A::kBuffers>(p, dt, y, totals, T, K, n_chunks, c, table_warp_stage<A, S>());
+  }
+}
+
+template <typename S, int D>
+__global__ void __launch_bounds__((DtFilterScan<S, D>::kThreads))
     dt_filter_scan_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ dt, const S* __restrict__ y,
                           S* __restrict__ totals, long long T, int K, long long n_chunks) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
+  typedef DtFilterScan<S, D> A;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
   DtFilterSource<S, D> p;
   p.load(scal, degree);
   p.dt = dt;
-  filter_scan_chunk<S, D>(p, y, totals, T, K, n_chunks, c);
+  dt_filter_scan_body<A, S, D>(p, dt, y, totals, T, K, n_chunks, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -128,21 +187,6 @@ __global__ void __launch_bounds__(kThreads)
 // block, 54 KB at D = 3 float, above the 48 KB static limit, hence the
 // opt-in in the launcher): 0.87 ms on the same card.
 // ---------------------------------------------------------------------------
-extern __shared__ __align__(16) unsigned char pgt_dt_smem[];
-
-// The calling warp's region of the staged kernels' dynamic shared memory.
-template <typename S, int D>
-__device__ __forceinline__ S* warp_stage() {
-  return reinterpret_cast<S*>(pgt_dt_smem) + (threadIdx.x / 32) * ChunkStage<S, D>::kWarp;
-}
-
-// The calling warp's stage of a budget A (SpectralApply, ScanStage): after
-// A::kTableBytes of the block's scalar table, if any.
-template <typename A, typename S>
-__device__ __forceinline__ S* table_warp_stage() {
-  return reinterpret_cast<S*>(pgt_dt_smem) + A::kTableBytes / sizeof(S) + (threadIdx.x / 32) * A::G::kWarp;
-}
-
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
     dt_filter_apply_kernel(const S* __restrict__ scal, int degree, const S* __restrict__ prefix,
@@ -188,7 +232,7 @@ constexpr unsigned kSpectralScanTwoF32 = 0x9u;
 constexpr unsigned kSpectralScanTwoF64 = 0x0u;
 
 template <typename S, int D>
-using DtScan = ScanStage<S, D, false, UnitBit<S, D, kDtScanTwoF32, kDtScanTwoF64>::kOn ? 2 : 1>;
+using DtScan = ScanStage<S, MomentRows<const S*, D>, UnitBit<S, D, kDtScanTwoF32, kDtScanTwoF64>::kOn ? 2 : 1>;
 
 template <typename S, int D>
 __global__ void __launch_bounds__((DtScan<S, D>::kThreads))
@@ -251,16 +295,26 @@ struct SpectralApply {
   static_assert(kWarpBytes + kTableBytes <= kSmemLimit, "a spectral pass-2 unit does not fit one warp a block");
 };
 
+// The filter's pass 1: the table, then each warp's stage of its y and dt
+// rows, or none (the units that read them directly), in blocks set by
+// ScanStage.
 template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
+using SpectralFilterScan =
+    ScanStage<S, FilterDtRows<S>,
+              FilterScanBuffers<S, D, kSpectralFilterScanStagedF32, kSpectralFilterScanStagedF64,
+                                kSpectralFilterScanTwoF32, kSpectralFilterScanTwoF64>::kN,
+              SpectralScalars<S, D, true>::kBytes>;
+
+template <typename S, int D>
+__global__ void __launch_bounds__((SpectralFilterScan<S, D>::kThreads))
     dt_filter_scan_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ y,
                                    S* __restrict__ totals, long long T, int K, long long n_chunks) {
+  typedef SpectralFilterScan<S, D> A;
   SpectralFilterSource<S, D> p;
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
-  filter_scan_chunk<S, D>(p, y, totals, T, K, n_chunks, c);
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  dt_filter_scan_body<A, S, D>(p, dt, y, totals, T, K, n_chunks, c);
 }
 
 template <typename S, int D>
@@ -282,7 +336,8 @@ __global__ void __launch_bounds__((SpectralApply<S, D, true>::kThreads))
 // (smoother_scan_staged), in blocks set by ScanStage — the smoother apply's
 // blocks, the two stages being the same rows.
 template <typename S, int D>
-using SpectralScan = ScanStage<S, D, false, UnitBit<S, D, kSpectralScanTwoF32, kSpectralScanTwoF64>::kOn ? 2 : 1,
+using SpectralScan = ScanStage<S, MomentRows<const S*, D>,
+                               UnitBit<S, D, kSpectralScanTwoF32, kSpectralScanTwoF64>::kOn ? 2 : 1,
                                SpectralScalars<S, D, false>::kBytes>;
 
 template <typename S, int D>
@@ -342,21 +397,28 @@ int PGT_ENTRY(pgt_dt_filter_scan)(int is64, int family, int degree, const void* 
   int rc = 0;
   if (family == pgt::kSpectral) {
 #define PGT_LAUNCH(S)                                                                                           \
-  rc = pgt::launch_opted_in(pgt::dt_filter_scan_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks), pgt::kThreads, \
-                            pgt::SpectralScalars<S, PGT_D, true>::kBytes, st, (const S*)scal, (const S*)dt,      \
-                            (const S*)y, (S*)totals, T, K, n_chunks)
+  {                                                                                                             \
+    typedef pgt::SpectralFilterScan<S, PGT_D> A;                                                                \
+    rc = pgt::launch_opted_in(pgt::dt_filter_scan_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, st, (const S*)scal, (const S*)dt, (const S*)y, (S*)totals, \
+                              T, K, n_chunks);                                                                  \
+  }
     PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
     return rc;
   }
 #if PGT_D <= 3
-#define PGT_LAUNCH(S)                                                                              \
-  pgt::dt_filter_scan_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(         \
-      (const S*)scal, degree, (const S*)dt, (const S*)y, (S*)totals, T, K, n_chunks)
+#define PGT_LAUNCH(S)                                                                                          \
+  {                                                                                                            \
+    typedef pgt::DtFilterScan<S, PGT_D> A;                                                                     \
+    rc = pgt::launch_opted_in(pgt::dt_filter_scan_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads),     \
+                              A::kThreads, A::kBytes, st, (const S*)scal, degree, (const S*)dt, (const S*)y,   \
+                              (S*)totals, T, K, n_chunks);                                                     \
+  }
   PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
 #endif
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 // The pass-2 kernels' blocks at this unit: threads a block and dynamic shared
@@ -411,33 +473,44 @@ int PGT_ENTRY(pgt_dt_filter_apply)(int is64, int family, int degree, const void*
   return rc;
 }
 
-// The smoother pass 1's budget (ScanStage) at this unit and family: threads a
-// block, rows a warp stages in a buffer, dynamic shared memory a block in
-// bytes and buffers; and
-// the blocks an SM holds at once (the CUDA occupancy calculator: registers,
-// shared memory, threads), or minus the error code.  kBadArgs for the
-// exponential polynomial above D = 3.
-#define PGT_SCAN_STAGE(FIELD)                                                                                      \
-  (family == pgt::kSpectral ? (is64 ? pgt::SpectralScan<double, PGT_D>::FIELD : pgt::SpectralScan<float, PGT_D>::FIELD) \
-   : PGT_D > 3              ? pgt::kBadArgs                                                                            \
-                            : (is64 ? pgt::DtScan<double, PGT_D>::FIELD : pgt::DtScan<float, PGT_D>::FIELD))
-int PGT_ENTRY(pgt_dt_scan_threads)(int is64, int family) { return PGT_SCAN_STAGE(kThreads); }
-int PGT_ENTRY(pgt_dt_scan_rows)(int is64, int family) { return PGT_SCAN_STAGE(kRows); }
-int PGT_ENTRY(pgt_dt_scan_smem)(int is64, int family) { return PGT_SCAN_STAGE(kBytes); }
-int PGT_ENTRY(pgt_dt_scan_buffers)(int is64, int family) { return PGT_SCAN_STAGE(kBuffers); }
+// The pass-1 budget (ScanStage) of the filter (smoother = 0) or the smoother
+// at this unit and family: threads a block, rows a warp stages in a buffer,
+// dynamic shared memory a block in bytes and buffers (0: the filter unit
+// reads its rows directly); and the blocks an SM holds at once (the CUDA
+// occupancy calculator: registers, shared memory, threads), or minus the
+// error code.  kBadArgs for the exponential polynomial above D = 3.
+#define PGT_SCAN_BUDGET(A, S, FIELD) (smoother ? pgt::A##Scan<S, PGT_D>::FIELD : pgt::A##FilterScan<S, PGT_D>::FIELD)
+#define PGT_SCAN_STAGE(FIELD)                                                                                    \
+  (family == pgt::kSpectral ? (is64 ? PGT_SCAN_BUDGET(Spectral, double, FIELD) : PGT_SCAN_BUDGET(Spectral, float, FIELD)) \
+   : PGT_D > 3              ? pgt::kBadArgs                                                                          \
+                            : (is64 ? PGT_SCAN_BUDGET(Dt, double, FIELD) : PGT_SCAN_BUDGET(Dt, float, FIELD)))
+int PGT_ENTRY(pgt_dt_scan_threads)(int is64, int family, int smoother) { return PGT_SCAN_STAGE(kThreads); }
+int PGT_ENTRY(pgt_dt_scan_rows)(int is64, int family, int smoother) { return PGT_SCAN_STAGE(kRows); }
+int PGT_ENTRY(pgt_dt_scan_smem)(int is64, int family, int smoother) { return PGT_SCAN_STAGE(kBytes); }
+int PGT_ENTRY(pgt_dt_scan_buffers)(int is64, int family, int smoother) { return PGT_SCAN_STAGE(kBuffers); }
 #undef PGT_SCAN_STAGE
+#undef PGT_SCAN_BUDGET
 
-int PGT_ENTRY(pgt_dt_scan_blocks_per_sm)(int is64, int family) {
+int PGT_ENTRY(pgt_dt_scan_blocks_per_sm)(int is64, int family, int smoother) {
+  using pgt::blocks_per_sm;
+#define PGT_BLOCKS(A, kern, S) blocks_per_sm<pgt::A<S, PGT_D>>(pgt::kern<S, PGT_D>)
   if (family == pgt::kSpectral) {
-    return is64 ? pgt::blocks_per_sm<pgt::SpectralScan<double, PGT_D>>(pgt::dt_smoother_scan_spectral_kernel<double, PGT_D>)
-                : pgt::blocks_per_sm<pgt::SpectralScan<float, PGT_D>>(pgt::dt_smoother_scan_spectral_kernel<float, PGT_D>);
+    if (smoother) {
+      return is64 ? PGT_BLOCKS(SpectralScan, dt_smoother_scan_spectral_kernel, double)
+                  : PGT_BLOCKS(SpectralScan, dt_smoother_scan_spectral_kernel, float);
+    }
+    return is64 ? PGT_BLOCKS(SpectralFilterScan, dt_filter_scan_spectral_kernel, double)
+                : PGT_BLOCKS(SpectralFilterScan, dt_filter_scan_spectral_kernel, float);
   }
 #if PGT_D <= 3
-  return is64 ? pgt::blocks_per_sm<pgt::DtScan<double, PGT_D>>(pgt::dt_smoother_scan_kernel<double, PGT_D>)
-              : pgt::blocks_per_sm<pgt::DtScan<float, PGT_D>>(pgt::dt_smoother_scan_kernel<float, PGT_D>);
+  if (smoother) {
+    return is64 ? PGT_BLOCKS(DtScan, dt_smoother_scan_kernel, double) : PGT_BLOCKS(DtScan, dt_smoother_scan_kernel, float);
+  }
+  return is64 ? PGT_BLOCKS(DtFilterScan, dt_filter_scan_kernel, double) : PGT_BLOCKS(DtFilterScan, dt_filter_scan_kernel, float);
 #else
   return pgt::kBadArgs;
 #endif
+#undef PGT_BLOCKS
 }
 
 int PGT_ENTRY(pgt_dt_smoother_scan)(int is64, int family, int degree, const void* scal, const void* dt,

@@ -5,18 +5,21 @@
 //
 // A filter source ``Src`` provides the members P0 (D²), h (D), r and
 //     void fq(long long t, S* F, S* Q) const;   // F_t, Q_t, row-major
-// a smoother source provides fq alone.
+// (the dt filter sources also build(dt, F, Q), F and Q from a dt value; the
+// bodies that stage F and Q read only P0, h and r); a smoother source
+// provides fq alone.
 //
 // Each thread owns chunk c: the K consecutive steps [c·K, min(T, (c+1)·K)).
 //
-// The pass-2 bodies and the smoother's pass 1 stage their rows through shared
-// memory a warp at a time (ChunkStage): filter_apply_staged its outputs,
-// smoother_apply_staged its moments in and out, smoother_scan_staged its
-// moments in (in one buffer or two, ScanRounds), and filter_apply_planes /
-// smoother_apply_planes / smoother_scan_planes the F and Q planes too (the
-// strip filter, and the strip smoother's units where that stage fits and
-// measured faster).  The filter's pass 1, filter_scan_chunk, still loads its
-// steps strided.
+// Every body stages its rows through shared memory a warp at a time
+// (ChunkStage): filter_apply_staged its outputs, smoother_apply_staged its
+// moments in and out, smoother_scan_staged its moments in, filter_scan_staged
+// its y and dt in (the pass-1 bodies in one buffer or two, ScanRounds), and
+// filter_apply_planes / filter_scan_planes / smoother_apply_planes /
+// smoother_scan_planes the F and Q planes too (the strip filter, and the
+// strip smoother's units where that stage fits and measured faster) — but
+// filter_scan_direct, the filter's pass 1 at the units where reading its
+// rows strided measured faster.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -101,10 +104,12 @@ __device__ __forceinline__ S step_loglik(const Src& p, const M& F, const M& Q, S
   return S(-0.5) * (diff * diff / var + dlog(var) + log2pi);
 }
 
-// Filter pass 1: fold chunk c to its total.
+// Filter pass 1 reading its steps directly, each thread its own chunk's y
+// and F, Q from the source, strided by K: fold chunk c to its total, from the
+// element of its first step t0, every later step combined in.
 template <typename S, int D, typename Src>
-__device__ __forceinline__ void filter_scan_chunk(const Src& p, const S* y, S* totals, long long T, int K,
-                                                  long long n_chunks, long long c) {
+__device__ __forceinline__ void filter_scan_direct(const Src& p, const S* y, S* totals, long long T, int K,
+                                                   long long n_chunks, long long c) {
   const long long t0 = c * K;
   const long long t1 = (t0 + K < T) ? t0 + K : T;
   S F[D * D], Q[D * D], yc;
@@ -164,6 +169,15 @@ struct FilterPlaneRows {
   __device__ __forceinline__ const S* at(int row, long long T) const {
     return row < D * D ? Fs + row * T : (row < 2 * D * D ? Qs + (row - D * D) * T : y);
   }
+};
+
+// The dt filter's inputs: y, then dt.
+template <typename S>
+struct FilterDtRows {
+  static constexpr int kN = 2;
+  const S* y;
+  const S* dt;
+  __device__ __forceinline__ const S* at(int row, long long) const { return row == 0 ? y : dt; }
 };
 
 // The smoother's inputs: b (D rows), C (D²), F (D²), Q (D²).
@@ -337,35 +351,46 @@ __device__ __forceinline__ void block_sum(S value, S* parts) {
   if (threadIdx.x == 0) parts[blockIdx.x] = red[0];
 }
 
-// The smoother's pass-1 budget, one fixed choice a unit: each warp stages
-// the rows of its 32 chunks (ChunkStage) — its moments b, C alone (D + D²
-// rows, F and Q from the source) or, with kPlanes, its F and Q planes too
-// (3D² + D rows) — in one buffer, or in two (kBuffers), the next round's
-// copy in flight while a round is folded; after kTableBytes a block of other
+// A pass-1 budget, the filter's or the smoother's, one fixed choice a unit:
+// each warp stages the rows the map ``Rows`` names (Rows::kN of them: the
+// smoother's moments b, C, D + D², or with its planes 3D² + D; the strip
+// filter's F, Q and y, 2D² + 1; the dt filter's y and dt, 2) of its 32 chunks
+// (ChunkStage) in one buffer, in two (the next round's copy in flight while a
+// round is folded), or in none (Buffers = 0: a dt filter unit that reads its
+// rows directly, filter_scan_direct); after kTableBytes a block of other
 // shared memory (the spectral dt units' scalar table), in blocks of 4, 2 or
 // 1 warps, whichever leaves an SM the most warps (BlockWarps).  No
 // per-thread sum is kept.  G's rows are all the buffers'.
-template <typename S, int D, bool Planes, int Buffers, int TableBytes = 0>
+template <typename S, typename Rows, int Buffers, int TableBytes = 0>
 struct ScanStage {
-  static constexpr bool kPlanes = Planes;
   static constexpr int kBuffers = Buffers;
-  static constexpr int kRows = Planes ? 3 * D * D + D : D + D * D;  // a buffer's
+  static constexpr int kRows = Rows::kN;  // a buffer's
   static constexpr int kTableBytes = TableBytes;
-  static constexpr int kWarpBytes = ChunkStage<S, D, Buffers * kRows, 1>::kBytes;
+  static constexpr int kWarpBytes = ChunkStage<S, 1, Buffers * kRows, 1>::kBytes;
   static constexpr int kWarps = BlockWarps<kWarpBytes, kTableBytes>::kN;
   static_assert(kWarpBytes + kTableBytes <= kSmemLimit, "a pass-1 unit's stage does not fit one warp a block");
-  typedef ChunkStage<S, D, Buffers * kRows, kWarps> G;
+  typedef ChunkStage<S, 1, Buffers * kRows, kWarps> G;
   static constexpr int kThreads = G::kThreads;
   static constexpr int kBytes = kTableBytes + G::kBytes;  // dynamic shared memory a block
 };
 
-// The copy in of smoother pass 1's rounds, the last round first, into one
-// buffer of kBufValues values or two: next(r0) returns the buffer that holds
-// round r0 once it has landed, and has issued the round after it in the
+// The buffers of a filter pass-1 unit (bit D − 1 of the per-unit masks):
+// none where it reads its rows directly (filter_scan_direct), else two at the
+// units of the second pair of masks, one at the rest.
+template <typename S, int D, unsigned kStagedF32, unsigned kStagedF64, unsigned kTwoF32, unsigned kTwoF64>
+struct FilterScanBuffers {
+  static constexpr int kN =
+      !UnitBit<S, D, kStagedF32, kStagedF64>::kOn ? 0 : (UnitBit<S, D, kTwoF32, kTwoF64>::kOn ? 2 : 1);
+};
+
+// The copy in of a pass-1 body's rounds — the smoother's the last round
+// first, the filter's (kForward) the first round first — into one buffer of
+// kBufValues values or two: next(r0) returns the buffer that holds round r0
+// once it has landed, and has issued the round after it in the walk in the
 // other buffer.  Every lane of the warp calls it for every round; the caller
-// synchronises the warp after it and again before the next call, after
-// which another lane's copy may overwrite what it read.
-template <typename S, typename Rows, int kBufValues, int kBuffers>
+// synchronises the warp after it and again before the next call, after which
+// another lane's copy may overwrite what it read.
+template <typename S, typename Rows, int kBufValues, int kBuffers, bool kForward = false>
 struct ScanRounds {
   static_assert(kBuffers == 1 || kBuffers == 2, "one buffer or two");
   Rows rows;
@@ -373,23 +398,25 @@ struct ScanRounds {
   long long c0;
   int K;
   long long T;
-  int k;  // rounds taken
+  int k;      // rounds taken
+  int r_top;  // the warp's last round, ((span − 1) / kR)·kR, or −1 where it has none
 
   __device__ __forceinline__ S* buffer(int i) const { return stage + (kBuffers == 2 ? (i & 1) * kBufValues : 0); }
 
-  // Issues the first round (r_first, the warp's last) where two buffers
-  // overlap.
-  __device__ __forceinline__ void start(int r_first) {
+  // Issues the walk's first round (r_top backwards, 0 forwards) where two
+  // buffers overlap.
+  __device__ __forceinline__ void start(int top) {
     k = 0;
-    if (kBuffers == 2 && r_first >= 0) stage_rows<S, true, Rows, false>(rows, buffer(0), c0, K, T, r_first);
+    r_top = top;
+    if (kBuffers == 2 && top >= 0) stage_rows<S, true, Rows, false>(rows, buffer(0), c0, K, T, kForward ? 0 : top);
   }
 
   __device__ __forceinline__ S* next(int r0) {
     constexpr int R = ChunkStage<S, 1>::kR;
     S* buf = buffer(k);
     if constexpr (kBuffers == 2) {
-      if (r0 >= R) {
-        stage_rows<S, true, Rows, false>(rows, buffer(k + 1), c0, K, T, r0 - R);
+      if (kForward ? r0 + R <= r_top : r0 >= R) {
+        stage_rows<S, true, Rows, false>(rows, buffer(k + 1), c0, K, T, kForward ? r0 + R : r0 - R);
         __pipeline_wait_prior(1);  // this round's group; the next one's stays in flight
       } else {
         __pipeline_wait_prior(0);
@@ -401,6 +428,97 @@ struct ScanRounds {
     return buf;
   }
 };
+
+// Filter pass 1 with its rows staged: fold chunk c to its total, in
+// filter_scan_direct's order — the element of the chunk's first step t0
+// assigned, every later step's combined in, acc = filt_combine(acc, e), up
+// to t1 − 1 — through ``stage`` (the calling warp's kBuffers ×
+// ChunkStage<S, D, Rows::kN>::kWarp values).  A round copies kR steps of the
+// warp's 32 chunks' rows in as whole sectors (ScanRounds, forwards); each
+// thread folds its kR steps, ``element(slot, s, t, e)`` building the element
+// of step t from the lane's slot at step s of the round.  Every thread of the
+// warp calls it, chunk or not (c ≥ n_chunks); the rounds are the warp's first
+// chunk's, and only the series' last chunk can be shorter than K.
+template <typename S, int D, int kBuffers, typename Rows, typename Element>
+__device__ __forceinline__ void filter_scan_rounds(const Rows& rows, const Element& element, S* totals, long long T,
+                                                   int K, long long n_chunks, long long c, S* stage) {
+  typedef ChunkStage<S, D, Rows::kN> G;
+  constexpr int R = G::kR;
+  const int lane = threadIdx.x & 31;
+  const long long c0 = c - lane;  // the warp's first chunk
+  const long long t0 = c * K;
+  const long long t1 = (c < n_chunks) ? ((t0 + K < T) ? t0 + K : T) : t0;
+  const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
+  Filt<S, D> acc, e;
+  ScanRounds<S, Rows, G::kWarp, kBuffers, true> rounds{rows, stage, c0, K, T};
+  rounds.start(span > 0 ? (int)((span - 1) / R) * R : -1);
+#pragma unroll 1
+  for (int r0 = 0; r0 < span; r0 += R) {
+    const S* slot = rounds.next(r0) + lane * G::kSlot;
+    __syncwarp();
+#pragma unroll 1
+    for (int s = 0; s < R; ++s) {
+      const long long t = t0 + r0 + s;
+      if (t >= t1) break;
+      element(slot, s, t, e);
+      if (t == t0) {
+        acc = e;
+      } else {
+        acc = filt_combine<S, D>(acc, e);
+      }
+    }
+    // A later round's copy in writes stage values that other lanes read.
+    __syncwarp();
+  }
+  if (c < n_chunks) store_filt<S, D>(totals, n_chunks, c, acc);
+}
+
+// The filtering element of a step whose F, Q and y rows are staged
+// (FilterPlaneRows): build_filtering reads F and Q where it uses them
+// (Strided), as filter_apply_planes does; ``p`` gives P0, h and r.
+template <typename S, int D, typename Src>
+struct PlaneElement {
+  typedef ChunkStage<S, D> G;
+  static constexpr int kQ = D * D * G::kRow;  // the Q rows; the y row at 2·kQ
+  const Src& p;
+  __device__ __forceinline__ void operator()(const S* slot, int s, long long t, Filt<S, D>& e) const {
+    const Strided<S, G::kRow> F{slot + s}, Q{slot + kQ + s};
+    const S yv = slot[2 * kQ + s];
+    const bool observed = !(yv != yv);  // NaN marks a missing observation
+    build_filtering<S, D>(F, Q, observed ? yv : S(0), observed ? S(1) : S(0), p.h, p.r, p.P0, t == 0, e);
+  }
+};
+
+// The filtering element of a step whose y and dt are staged (FilterDtRows):
+// F and Q built from the staged dt (the source's build).
+template <typename S, int D, typename Src>
+struct DtElement {
+  typedef ChunkStage<S, D> G;
+  const Src& p;
+  __device__ __forceinline__ void operator()(const S* slot, int s, long long t, Filt<S, D>& e) const {
+    const S yv = slot[s];
+    const bool observed = !(yv != yv);  // NaN marks a missing observation
+    S F[D * D], Q[D * D];
+    p.build(slot[G::kRow + s], F, Q);
+    build_filtering<S, D>(F, Q, observed ? yv : S(0), observed ? S(1) : S(0), p.h, p.r, p.P0, t == 0, e);
+  }
+};
+
+// Filter pass 1 of the strip units: their F, Q and y rows staged.
+template <typename S, int D, int kBuffers, typename Src>
+__device__ __forceinline__ void filter_scan_planes(const Src& p, const S* Fs, const S* Qs, const S* y, S* totals,
+                                                   long long T, int K, long long n_chunks, long long c, S* stage) {
+  filter_scan_rounds<S, D, kBuffers>(FilterPlaneRows<S, D>{Fs, Qs, y}, PlaneElement<S, D, Src>{p}, totals, T, K,
+                                     n_chunks, c, stage);
+}
+
+// Filter pass 1 of the dt units that stage: their y and dt rows staged.
+template <typename S, int D, int kBuffers, typename Src>
+__device__ __forceinline__ void filter_scan_staged(const Src& p, const S* dt, const S* y, S* totals, long long T,
+                                                   int K, long long n_chunks, long long c, S* stage) {
+  filter_scan_rounds<S, D, kBuffers>(FilterDtRows<S>{y, dt}, DtElement<S, D, Src>{p}, totals, T, K, n_chunks, c,
+                                     stage);
+}
 
 // Smoother pass 1: reverse fold of chunk c to its suffix total, its loads
 // staged through ``stage`` (the calling warp's kBuffers × ChunkStage<S,

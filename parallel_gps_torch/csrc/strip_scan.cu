@@ -25,16 +25,18 @@
 // 2·D² more loads a step than the dt kernels.  From about D = 5 (float) or
 // D = 4 (double) two elements and the combine's temporaries no longer fit in
 // 255 registers and spill to local memory; the spills are accepted and
-// reported by ptxas (-Xptxas -v).  The two pass-2 kernels and the
-// smoother's pass 1 stage their rows through shared memory a warp at a time
-// (scan_passes.cuh: ChunkStage), each unit by its own budget (ApplyStage and
-// StripScan below); the filter's pass 1 still loads strided.
+// reported by ptxas (-Xptxas -v).  The four kernels stage their rows through
+// shared memory a warp at a time (scan_passes.cuh: ChunkStage), each unit by
+// its own budget (ApplyStage, StripFilterScan and StripScan below), the
+// filter's pass 1 at the units where that measured faster.
 //
 // One translation unit per state dimension: compile with -DPGT_D=<1..8>, so
 // that the eight fully unrolled instantiations build side by side
 // (kalman/_cuda.py).  The entry points carry the dimension in their names
 // (pgt_strip_filter_scan_d6, ...).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "scan_passes.cuh"
 
@@ -47,8 +49,9 @@
 
 namespace pgt {
 
-// Sources of a step's F and Q for the shared pass bodies: loads from the
-// (D, D, T) planes.
+// Sources of a step's F and Q for the shared pass bodies that read them
+// directly: loads from the (D, D, T) planes (the bodies that stage F and Q
+// read only the filter's P0, h and r).
 template <typename S, int D>
 struct PlaneFilterSource {
   S P0[D * D];
@@ -89,28 +92,6 @@ struct PlaneSmootherSource {
     }
   }
 };
-
-// ---------------------------------------------------------------------------
-// Filter pass 1.  Replaces parallel_gps_tpu/kalman/pallas_scan.py
-// _strip_filter_scan_kernel (:766, pallas_call :999): per-chunk totals of the
-// filtering elements built from the streamed F, Q planes and y.
-// Bound: bytes — it reads (2D²+1) values a step and writes one total per
-// chunk; the strided plane loads keep it above that bound.
-// ---------------------------------------------------------------------------
-template <typename S, int D>
-__global__ void __launch_bounds__(kThreads)
-    strip_filter_scan_kernel(const S* __restrict__ scal, const S* __restrict__ Fs, const S* __restrict__ Qs,
-                             const S* __restrict__ y, S* __restrict__ totals, long long T, int K,
-                             long long n_chunks) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_chunks) return;
-  PlaneFilterSource<S, D> p;
-  p.load(scal);
-  p.Fs = Fs;
-  p.Qs = Qs;
-  p.T = T;
-  filter_scan_chunk<S, D>(p, y, totals, T, K, n_chunks, c);
-}
 
 // ---------------------------------------------------------------------------
 // The pass-2 kernels' shared-memory budget, one fixed choice a unit (state
@@ -155,10 +136,61 @@ struct ApplyStage {
 
 extern __shared__ __align__(16) unsigned char pgt_strip_smem[];
 
-// The calling warp's region of a pass-2 kernel's dynamic shared memory.
+// The calling warp's region of a staged kernel's dynamic shared memory, by
+// its budget A (ApplyStage, ScanStage).
 template <typename A, typename S>
 __device__ __forceinline__ S* apply_stage_warp() {
   return reinterpret_cast<S*>(pgt_strip_smem) + (threadIdx.x / 32) * A::G::kWarp;
+}
+
+// ---------------------------------------------------------------------------
+// Filter pass 1.  Replaces parallel_gps_tpu/kalman/pallas_scan.py
+// _strip_filter_scan_kernel (:766, pallas_call :999): per-chunk totals of the
+// filtering elements built from the streamed F, Q planes and y.
+// Bound: bytes — (2D²+1) values a step in, one total a chunk out.  Loaded
+// strided by K, a thread walking its own chunk, they took 5.7 device ms at
+// D = 3, T = 10M float on an NVIDIA H100 80GB HBM3 at 700 W, 24× the bound
+// (PERF.md §6, row 6); so each warp of the units of kFilterScanStagedF32 /
+// kFilterScanStagedF64 stages them: kR steps of its 32 chunks' F, Q and y
+// rows copied in as whole sectors, build_filtering reading F and Q from the
+// stage (filter_scan_planes), in two buffers at the units of
+// kFilterScanTwoF32 / kFilterScanTwoF64, else in one; blocks by ScanStage
+// (StripFilterScan), mirrored by kalman/strip.py (scan_stage,
+// FILTER_SCAN_STAGED, FILTER_SCAN_TWO_BUFFERS).  Measured on that card: the
+// stage won at D ≤ 7 in float (7.2× at D = 3, 10M) and D = 2..6 in double;
+// at float D = 8 and double D = 7, 8 a warp's stage (126–165 KB) leaves one
+// warp an SM, and it lost to the parent's strided reads at eight warps an SM
+// (6.44 against 5.49 device ms at float D = 8, 1M), as at double D = 1
+// (0.039 against 0.031); those units read directly (filter_scan_direct).
+// Two buffers won by more than 1% at D ≤ 3 in float and D = 2, 3 in double.
+// ---------------------------------------------------------------------------
+constexpr unsigned kFilterScanStagedF32 = 0x7Fu;
+constexpr unsigned kFilterScanStagedF64 = 0x3Eu;
+constexpr unsigned kFilterScanTwoF32 = 0x7u;
+constexpr unsigned kFilterScanTwoF64 = 0x6u;
+
+template <typename S, int D>
+using StripFilterScan =
+    ScanStage<S, FilterPlaneRows<S, D>,
+              FilterScanBuffers<S, D, kFilterScanStagedF32, kFilterScanStagedF64, kFilterScanTwoF32, kFilterScanTwoF64>::kN>;
+
+template <typename S, int D>
+__global__ void __launch_bounds__((StripFilterScan<S, D>::kThreads))
+    strip_filter_scan_kernel(const S* __restrict__ scal, const S* __restrict__ Fs, const S* __restrict__ Qs,
+                             const S* __restrict__ y, S* __restrict__ totals, long long T, int K,
+                             long long n_chunks) {
+  typedef StripFilterScan<S, D> A;
+  const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
+  PlaneFilterSource<S, D> p;
+  p.load(scal);
+  if constexpr (A::kBuffers == 0) {
+    p.Fs = Fs;
+    p.Qs = Qs;
+    p.T = T;
+    if (c < n_chunks) filter_scan_direct<S, D>(p, y, totals, T, K, n_chunks, c);
+  } else {
+    filter_scan_planes<S, D, A::kBuffers>(p, Fs, Qs, y, totals, T, K, n_chunks, c, apply_stage_warp<A, S>());
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -216,7 +248,10 @@ constexpr unsigned kScanTwoF32 = 0x3u;
 constexpr unsigned kScanTwoF64 = 0x4Bu;
 
 template <typename S, int D>
-using StripScan = ScanStage<S, D, UnitBit<S, D, kScanPlanesF32, kScanPlanesF64>::kOn,
+using StripScanPlanes = UnitBit<S, D, kScanPlanesF32, kScanPlanesF64>;
+
+template <typename S, int D>
+using StripScan = ScanStage<S, std::conditional_t<StripScanPlanes<S, D>::kOn, SmootherPlaneRows<S, D>, MomentRows<const S*, D>>,
                             UnitBit<S, D, kScanTwoF32, kScanTwoF64>::kOn ? 2 : 1>;
 
 template <typename S, int D>
@@ -227,7 +262,7 @@ __global__ void __launch_bounds__((StripScan<S, D>::kThreads))
   typedef StripScan<S, D> A;
   const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
   S* stage = apply_stage_warp<A, S>();
-  if constexpr (A::kPlanes) {
+  if constexpr (StripScanPlanes<S, D>::kOn) {
     smoother_scan_planes<S, D, A::kBuffers>(b, C, Fs, Qs, totals, T, K, n_chunks, c, stage);
   } else {
     PlaneSmootherSource<S, D> p{Fs, Qs, T};
@@ -276,13 +311,17 @@ int PGT_ENTRY(pgt_strip_filter_scan)(int is64, const void* scal, const void* Fs,
                                      void* totals, long long T, int K, void* stream) {
   if (T < 1 || K < 1) return pgt::kBadArgs;
   const long long n_chunks = (T + K - 1) / K;
-  cudaStream_t st = (cudaStream_t)stream;
-#define PGT_LAUNCH(S)                                                                               \
-  pgt::strip_filter_scan_kernel<S, PGT_D><<<pgt::n_blocks(n_chunks), pgt::kThreads, 0, st>>>(       \
-      (const S*)scal, (const S*)Fs, (const S*)Qs, (const S*)y, (S*)totals, T, K, n_chunks)
+  int rc = 0;
+#define PGT_LAUNCH(S)                                                                                         \
+  {                                                                                                           \
+    typedef pgt::StripFilterScan<S, PGT_D> A;                                                                 \
+    rc = pgt::launch_opted_in(pgt::strip_filter_scan_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads),  \
+                              A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)scal, (const S*)Fs,     \
+                              (const S*)Qs, (const S*)y, (S*)totals, T, K, n_chunks);                         \
+  }
   PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
-  return (int)cudaGetLastError();
+  return rc;
 }
 
 // The pass-2 kernels' budget (ApplyStage) of this unit, for the filter
@@ -310,19 +349,29 @@ int PGT_ENTRY(pgt_strip_apply_blocks_per_sm)(int is64, int smoother) {
                   : blocks_per_sm<ApplyStage<float, PGT_D, false>>(pgt::strip_filter_apply_kernel<float, PGT_D>);
 }
 
-// The smoother pass 1's budget (StripScan) of this unit: threads a block,
-// rows a warp stages in a buffer, dynamic shared memory a block in bytes,
-// buffers, and the blocks an SM holds at once (as above).
-#define PGT_SCAN_STAGE(FIELD) (is64 ? pgt::StripScan<double, PGT_D>::FIELD : pgt::StripScan<float, PGT_D>::FIELD)
-int PGT_ENTRY(pgt_strip_scan_threads)(int is64) { return PGT_SCAN_STAGE(kThreads); }
-int PGT_ENTRY(pgt_strip_scan_rows)(int is64) { return PGT_SCAN_STAGE(kRows); }
-int PGT_ENTRY(pgt_strip_scan_smem)(int is64) { return PGT_SCAN_STAGE(kBytes); }
-int PGT_ENTRY(pgt_strip_scan_buffers)(int is64) { return PGT_SCAN_STAGE(kBuffers); }
+// The pass-1 budget of this unit, the filter's (StripFilterScan, smoother =
+// 0) or the smoother's (StripScan): threads a block, rows a warp stages in a
+// buffer, dynamic shared memory a block in bytes, buffers, and the blocks an
+// SM holds at once (as above).
+#define PGT_SCAN_BUDGET(S, FIELD) (smoother ? pgt::StripScan<S, PGT_D>::FIELD : pgt::StripFilterScan<S, PGT_D>::FIELD)
+#define PGT_SCAN_STAGE(FIELD) (is64 ? PGT_SCAN_BUDGET(double, FIELD) : PGT_SCAN_BUDGET(float, FIELD))
+int PGT_ENTRY(pgt_strip_scan_threads)(int is64, int smoother) { return PGT_SCAN_STAGE(kThreads); }
+int PGT_ENTRY(pgt_strip_scan_rows)(int is64, int smoother) { return PGT_SCAN_STAGE(kRows); }
+int PGT_ENTRY(pgt_strip_scan_smem)(int is64, int smoother) { return PGT_SCAN_STAGE(kBytes); }
+int PGT_ENTRY(pgt_strip_scan_buffers)(int is64, int smoother) { return PGT_SCAN_STAGE(kBuffers); }
 #undef PGT_SCAN_STAGE
+#undef PGT_SCAN_BUDGET
 
-int PGT_ENTRY(pgt_strip_scan_blocks_per_sm)(int is64) {
-  return is64 ? pgt::blocks_per_sm<pgt::StripScan<double, PGT_D>>(pgt::strip_smoother_scan_kernel<double, PGT_D>)
-              : pgt::blocks_per_sm<pgt::StripScan<float, PGT_D>>(pgt::strip_smoother_scan_kernel<float, PGT_D>);
+int PGT_ENTRY(pgt_strip_scan_blocks_per_sm)(int is64, int smoother) {
+  using pgt::blocks_per_sm;
+  using pgt::StripFilterScan;
+  using pgt::StripScan;
+  if (is64) {
+    return smoother ? blocks_per_sm<StripScan<double, PGT_D>>(pgt::strip_smoother_scan_kernel<double, PGT_D>)
+                    : blocks_per_sm<StripFilterScan<double, PGT_D>>(pgt::strip_filter_scan_kernel<double, PGT_D>);
+  }
+  return smoother ? blocks_per_sm<StripScan<float, PGT_D>>(pgt::strip_smoother_scan_kernel<float, PGT_D>)
+                  : blocks_per_sm<StripFilterScan<float, PGT_D>>(pgt::strip_filter_scan_kernel<float, PGT_D>);
 }
 
 int PGT_ENTRY(pgt_strip_filter_apply)(int is64, const void* scal, const void* prefix, const void* Fs, const void* Qs,
@@ -353,7 +402,7 @@ int PGT_ENTRY(pgt_strip_smoother_scan)(int is64, const void* Fs, const void* Qs,
   {                                                                                                         \
     typedef pgt::StripScan<S, PGT_D> A;                                                                     \
     /* smoother_scan_planes keeps the step after a round in its pad */                                      \
-    if (A::kPlanes && K % A::G::kR != 0) return pgt::kBadArgs;                                              \
+    if (pgt::StripScanPlanes<S, PGT_D>::kOn && K % A::G::kR != 0) return pgt::kBadArgs;                     \
     rc = pgt::launch_opted_in(pgt::strip_smoother_scan_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
                               A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)Fs, (const S*)Qs,       \
                               (const S*)b, (const S*)C, (S*)totals, T, K, n_chunks);                        \

@@ -140,8 +140,8 @@ def load():
         for field in ("threads", "rows", "smem", "blocks_per_sm"):
             sigs[f"pgt_strip_apply_{field}_d{d}"] = [i, i]
         for field in _SCAN_FIELDS + ("blocks_per_sm",):
-            sigs[f"pgt_strip_scan_{field}_d{d}"] = [i]
-            sigs[f"pgt_dt_scan_{field}_d{d}"] = [i, i]
+            sigs[f"pgt_strip_scan_{field}_d{d}"] = [i, i]
+            sigs[f"pgt_dt_scan_{field}_d{d}"] = [i, i, i]
         for bits in (32, 64):
             sigs[f"pgt_batched_filter_d{d}_f{bits}"] = [p, p, ll, ll, p, ll, ll, p, ll, p, p, p, ll, i, i, p]
             sigs[f"pgt_batched_smoother_d{d}_f{bits}"] = [i, p, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p, p, ll, i, i, p]
@@ -202,33 +202,41 @@ def strip_apply_stages(lib) -> dict:
 
 
 def strip_scan_stages(lib) -> dict:
-    """{(d, dtype): (threads, rows a buffer, bytes, buffers)} of the strip
-    smoother's pass-1 kernel, as the library ``lib`` was built."""
+    """{(d, dtype, kind): (threads, rows a buffer, bytes, buffers)} of the
+    strip filter's and smoother's pass-1 kernels, as the library ``lib`` was
+    built."""
     import torch
 
     return {
-        (d, dtype): tuple(getattr(lib, f"pgt_strip_scan_{field}_d{d}")(int(dtype == torch.float64)) for field in _SCAN_FIELDS)
+        (d, dtype, kind): tuple(
+            getattr(lib, f"pgt_strip_scan_{field}_d{d}")(int(dtype == torch.float64), int(kind == "smoother"))
+            for field in _SCAN_FIELDS
+        )
         for d in STRIP_DIMS
         for dtype in (torch.float32, torch.float64)
+        for kind in ("filter", "smoother")
     }
 
 
 def dt_scan_stages(lib) -> dict:
-    """{(family, d, dtype): (threads, rows a buffer, bytes, buffers)} of the
-    dt smoother's pass-1 kernel of each transition family at each d it is
-    built for, as the library ``lib`` was built."""
+    """{(family, d, dtype, kind): (threads, rows a buffer, bytes, buffers)}
+    of the dt filter's and smoother's pass-1 kernels of each transition
+    family at each d it is built for, as the library ``lib`` was built."""
     import torch
 
     from parallel_gps_torch.kalman import dt
 
     return {
-        (family, d, dtype): tuple(
-            getattr(lib, f"pgt_dt_scan_{field}_d{d}")(int(dtype == torch.float64), dt.FAMILY_IDS[family])
+        (family, d, dtype, kind): tuple(
+            getattr(lib, f"pgt_dt_scan_{field}_d{d}")(
+                int(dtype == torch.float64), dt.FAMILY_IDS[family], int(kind == "smoother")
+            )
             for field in _SCAN_FIELDS
         )
         for family, top in dt.MAX_KERNEL_D.items()
         for d in range(1, top + 1)
         for dtype in (torch.float32, torch.float64)
+        for kind in ("filter", "smoother")
     }
 
 

@@ -33,7 +33,9 @@ of its tensors:
     exponential polynomial, 8 for the spectral family): the hand-written
     kernel of ``csrc/dt_scan.cu`` (one thread per chunk; the pass-2 kernels
     and the smoother's pass 1 stage the moments a warp at a time, the
-    smoother's pass 1 in blocks of ``scan_stage``) or ``csrc/dt_fisher.cu``
+    filter's pass 1 its y and dt rows at the units of
+    ``FILTER_SCAN_STAGED``, both pass 1s in blocks of ``scan_stage``) or
+    ``csrc/dt_fisher.cu``
     (one thread per step), one translation unit per d; anything else on CUDA
     raises;
   - CPU: the plain PyTorch version of the same function (``*_plain``).
@@ -98,6 +100,19 @@ SCAN_TWO_BUFFERS = {
     (EXPPOLY, torch.float32): frozenset({1, 3}), (EXPPOLY, torch.float64): frozenset(),
     (SPECTRAL, torch.float32): frozenset({1, 4}), (SPECTRAL, torch.float64): frozenset(),
 }
+# The filter pass 1's units that stage their y and dt rows a warp at a time,
+# and those of them that stage two buffers, by family and scalar type, where
+# each measured faster on an H100 (csrc/dt_scan.cu: kDtFilterScanStagedF32,
+# kDtFilterScanTwoF32, …; PERF.md §6); the rest read y and dt directly, each
+# thread its own chunk's (no buffer).
+FILTER_SCAN_STAGED = {
+    (EXPPOLY, torch.float32): frozenset({1}), (EXPPOLY, torch.float64): frozenset(),
+    (SPECTRAL, torch.float32): frozenset({7}), (SPECTRAL, torch.float64): frozenset(),
+}
+FILTER_SCAN_TWO_BUFFERS = {
+    (EXPPOLY, torch.float32): frozenset(), (EXPPOLY, torch.float64): frozenset(),
+    (SPECTRAL, torch.float32): frozenset(), (SPECTRAL, torch.float64): frozenset(),
+}
 # Most blocks of the Fisher-tail kernel's grid-stride loops, over all series:
 # one row of partial sums per block.
 FISHER_MAX_BLOCKS = 2048
@@ -108,21 +123,31 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def scan_stage(family: str, d: int, dtype) -> tuple[int, int, int, int]:
+def scan_stage(family: str, d: int, dtype, kind: str) -> tuple[int, int, int, int]:
     """(threads a block, rows a warp stages in a buffer, dynamic shared memory
-    a block in bytes, buffers) of the smoother's pass-1 kernel of ``family``
-    at state dimension ``d`` and scalar type ``dtype`` (csrc/dt_scan.cu:
-    DtScan, SpectralScan): each warp stages its moments, d + d² rows, in two
-    buffers where ``SCAN_TWO_BUFFERS`` says; the spectral family's scalar
-    table comes first, [P0 (d²) | coefficients | block table], in bytes
-    rounded up to 16."""
+    a block in bytes, buffers) of the ``kind`` ("filter" or "smoother")
+    pass-1 kernel of ``family`` at state dimension ``d`` and scalar type
+    ``dtype`` (csrc/dt_scan.cu: DtFilterScan, SpectralFilterScan, DtScan,
+    SpectralScan).  The filter's warps stage y and dt, 2 rows, at the units
+    of ``FILTER_SCAN_STAGED``, in two buffers where
+    ``FILTER_SCAN_TWO_BUFFERS`` says, and elsewhere none (0 buffers: each
+    thread reads its own chunk's); the smoother's stage their moments,
+    d + d² rows, in two buffers where ``SCAN_TWO_BUFFERS`` says.  The
+    spectral family's scalar table comes first, the filter's [P0 (d²) | h (d)
+    | r | coefficients | block table] or the smoother's [P0 | coefficients |
+    block table], in bytes rounded up to 16."""
     table = 0
     if family == SPECTRAL:
         blocks = (d + 1) // 2
-        values = d * d + 1 + 2 * blocks * d * d + 2 * blocks
+        values = d * d + 1 + 2 * blocks * d * d + 2 * blocks + (d + 1 if kind == "filter" else 0)
         table = -(-values * (torch.finfo(dtype).bits // 8) // 16) * 16
-    buffers = 2 if d in SCAN_TWO_BUFFERS[family, dtype] else 1
-    return warp_stage_budget(d + d * d, dtype, table=table, buffers=buffers) + (buffers,)
+    if kind == "filter":
+        rows = 2
+        staged, two = d in FILTER_SCAN_STAGED[family, dtype], d in FILTER_SCAN_TWO_BUFFERS[family, dtype]
+        buffers = 0 if not staged else 2 if two else 1
+    else:
+        rows, buffers = d + d * d, 2 if d in SCAN_TWO_BUFFERS[family, dtype] else 1
+    return warp_stage_budget(rows, dtype, table=table, buffers=buffers) + (buffers,)
 
 
 # --------------------------------------------------------------------------

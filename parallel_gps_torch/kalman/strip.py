@@ -15,10 +15,10 @@ streams the log-likelihood).  Each pass is a wrapper that dispatches on the
 device of its tensors:
 
   - CUDA, d ≤ 8, float32 or float64: the hand-written kernel of
-    ``csrc/strip_scan.cu`` (one thread per chunk; the pass-2 kernels and the
-    smoother's pass 1 stage their rows through shared memory a warp at a
-    time, each unit by its budget, ``apply_stage`` and ``scan_stage``);
-    anything else on CUDA raises;
+    ``csrc/strip_scan.cu`` (one thread per chunk; the passes stage their rows
+    through shared memory a warp at a time, each unit by its budget,
+    ``apply_stage`` and ``scan_stage``, the filter's pass 1 at the units of
+    ``FILTER_SCAN_STAGED``); anything else on CUDA raises;
   - CPU: the plain PyTorch version of the same pass (``*_plain``).
 
 The dt-engine (``kalman/dt.py``) runs the same algorithm with F and Q rebuilt
@@ -74,6 +74,13 @@ SMOOTHER_PLANES = {torch.float32: frozenset(range(1, 7)), torch.float64: frozens
 # is folded (kScanTwoF32 / kScanTwoF64).
 SCAN_PLANES = {torch.float32: frozenset(range(1, 8)), torch.float64: frozenset(range(1, 7))}
 SCAN_TWO_BUFFERS = {torch.float32: frozenset({1, 2}), torch.float64: frozenset({1, 2, 4, 7})}
+# The filter pass 1's units that stage their F, Q and y rows, and those of
+# them that stage two buffers (csrc/strip_scan.cu: StripFilterScan,
+# kFilterScanStagedF32, kFilterScanTwoF32, …), where each measured faster on
+# an H100 (PERF.md §6); the rest read their rows directly, each thread its
+# own chunk's (no buffer).
+FILTER_SCAN_STAGED = {torch.float32: frozenset(range(1, 8)), torch.float64: frozenset(range(2, 7))}
+FILTER_SCAN_TWO_BUFFERS = {torch.float32: frozenset({1, 2, 3}), torch.float64: frozenset({2, 3})}
 
 
 def filt_rows(d: int) -> int:
@@ -104,14 +111,22 @@ def apply_stage(d: int, dtype, kind: str) -> tuple[int, int, int]:
     return warp_stage_budget(rows, dtype, per_thread=size if kind == "filter" else 0)
 
 
-def scan_stage(d: int, dtype) -> tuple[int, int, int, int]:
+def scan_stage(d: int, dtype, kind: str) -> tuple[int, int, int, int]:
     """(threads a block, rows a warp stages in a buffer, dynamic shared memory
-    a block in bytes, buffers) of the smoother's pass-1 kernel at state
-    dimension ``d`` and scalar type ``dtype``: its b, C, F and Q rows
-    (3d² + d) where ``SCAN_PLANES`` says, else its moments alone (d + d², F
-    and Q loaded strided), in two buffers where ``SCAN_TWO_BUFFERS`` says."""
-    rows = 3 * d * d + d if d in SCAN_PLANES[dtype] else d + d * d
-    buffers = 2 if d in SCAN_TWO_BUFFERS[dtype] else 1
+    a block in bytes, buffers) of the ``kind`` ("filter" or "smoother")
+    pass-1 kernel at state dimension ``d`` and scalar type ``dtype``.  The
+    filter stages its F, Q and y rows (2d² + 1) where ``FILTER_SCAN_STAGED``
+    says, in two buffers where ``FILTER_SCAN_TWO_BUFFERS`` says, and
+    elsewhere none (0 buffers: each thread reads its own chunk's); the
+    smoother its b, C, F and Q rows (3d² + d) where ``SCAN_PLANES`` says,
+    else its moments alone (d + d², F and Q loaded strided), in two buffers
+    where ``SCAN_TWO_BUFFERS`` says."""
+    if kind == "filter":
+        rows = 2 * d * d + 1
+        buffers = 0 if d not in FILTER_SCAN_STAGED[dtype] else 2 if d in FILTER_SCAN_TWO_BUFFERS[dtype] else 1
+    else:
+        rows = 3 * d * d + d if d in SCAN_PLANES[dtype] else d + d * d
+        buffers = 2 if d in SCAN_TWO_BUFFERS[dtype] else 1
     return warp_stage_budget(rows, dtype, buffers=buffers) + (buffers,)
 
 

@@ -51,9 +51,9 @@ TOLS = {3: (1e-8, 1e-9), 6: (1e-7, 1e-8)}
 
 def _units():
     """(name, stage function of dtype) of every smoother pass-1 unit."""
-    units = [(("strip", d), lambda dtype, d=d: tstrip.scan_stage(d, dtype)) for d in range(1, tstrip.MAX_KERNEL_D + 1)]
+    units = [(("strip", d), lambda dtype, d=d: tstrip.scan_stage(d, dtype, "smoother")) for d in range(1, tstrip.MAX_KERNEL_D + 1)]
     for family, top in tdt.MAX_KERNEL_D.items():
-        units += [((family, d), lambda dtype, d=d, f=family: tdt.scan_stage(f, d, dtype)) for d in range(1, top + 1)]
+        units += [((family, d), lambda dtype, d=d, f=family: tdt.scan_stage(f, d, dtype, "smoother")) for d in range(1, top + 1)]
     return units
 
 
@@ -133,7 +133,7 @@ def test_scan_planes_and_buffers_are_staged_only_where_they_fit():
             table = 0 if kind == "strip" else _table_bytes(kind, d, dtype)
             assert table + _region(rows, dtype, buffers) <= SMEM_LIMIT, (kind, d, dtype)
     assert _region(200, torch.float64) == 256_000
-    assert tstrip.scan_stage(8, torch.float64)[1] == 8 + 64
+    assert tstrip.scan_stage(8, torch.float64, "smoother")[1] == 8 + 64
 
 
 def _edge_lengths(d):
