@@ -58,7 +58,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   9. the batched path: the two single-pass batched kernels and the Fisher
      tail with a batch axis against their plain versions (B = 5 and 64 series
      of T = 65,537, d = 1, 2, 3, 6 and 8; stride-0 shared operands; B = 1 bit
-     for bit the single-series Fisher tail); then Matern52 with 64 chains over
+     for bit the single-series Fisher tail); both kernels, the smoother with
+     and without its projection, at every d = 1..8, float64 and float32, at
+     the lengths where their tiles have ragged edges, with B = 3, 1 and 133,
+     two launches bit for bit (check_batched_edges); a wait between tiles
+     that may not poll raising (check_batched_overrun); then Matern52 with 64 chains over
      T = 65,536 float32 observations — one batched log posterior and gradient
      with exactly the launches that takes and no plain prefix, HMC, MALA, NUTS
      and the dual-averaging warm-up through the normal entry points, each
@@ -98,10 +102,13 @@ The line before the last is the kernels' JSON record; the last line is
 
 ``ab_timers(label)`` runs this script's timers alone, on the Matern52 entry
 points, the dt applies, plane_scan, the two pkfs, the strip applies at every
-unit, the RBF(order=6) entry points and the filter's and the smoother's
+unit, the RBF(order=6) entry points, the filter's and the smoother's
 pass-1 kernels at every unit (``scan_timers(label)``, which also runs alone,
-``scan_timers(label, passes=("filter",))`` the filter's alone), so that two
-trees can be compared in one call (each with this file copied to its root):
+``scan_timers(label, passes=("filter",))`` the filter's alone) and the
+batched kernels on the batched path and at every unit, with the batched
+value and gradient and an HMC step (``batched_timers(label)``, which also
+runs alone), so that two trees can be compared in one call (each with this
+file copied to its root):
 
     python3 -c "import chip_smoke as c; c.ab_timers('parent')"
 
@@ -1306,6 +1313,161 @@ def check_batched_case(name: str, planes64, planes32, ys) -> None:
         check(a <= max(F32_FACTOR * b, F32_FLOOR), f"batched {name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
 
 
+def batched_tile_steps(d: int, dtype, kind: str) -> int:
+    threads, steps, _, _ = batched.tile_shape(d, dtype, kind)
+    return threads * steps
+
+
+def batched_edge_lengths(d: int, dtype) -> tuple:
+    """The lengths where the batched kernels' tiles have ragged edges, for
+    each of the unit's two tiles (the filter's and the smoother's): one step;
+    a step short of a tile, a tile and a step past it; three tiles and a
+    5-step end."""
+    lengths = {1}
+    for kind in batched.KINDS:
+        tile = batched_tile_steps(d, dtype, kind)
+        lengths |= {tile - 1, tile, tile + 1, 3 * tile + 5}
+    return tuple(sorted(lengths))
+
+
+def check_batched_edges() -> None:
+    """Both batched kernels against their plain versions at every d = 1..8,
+    float64 and float32, at each unit's batched_edge_lengths with B = 3, and
+    with B = 1 and B = 133 (more series than SMs) at three filter tiles and
+    a 5-step end: the planes a view of longer ones (their own plane and batch
+    strides), the smoother with and without its projection on the plain
+    filter's moments, each kernel launched twice and the two launches' bits
+    equal.  float64 to batched_tolerances; float32 against float64 truth by
+    the 10× rule (the float32 smoothers' truth: the float64 plain smoother on
+    the same float32 moments).  One line a (d, scalar type), the worst error
+    of each case."""
+    B_MAX, N_MODELS = 133, 3
+    for d in range(1, batched.MAX_KERNEL_D + 1):
+        for dtype in (torch.float64, torch.float32):
+            lengths = batched_edge_lengths(d, dtype)
+            long_T = 3 * batched_tile_steps(d, dtype, "filter") + 5
+            cases = [(3, T) for T in lengths] + [(1, long_T), (B_MAX, long_T)]
+            T_max = max(T for _, T in cases)
+            t, ys = series_data(B_MAX, T_max, SEED + 40 + d)
+            with torch.no_grad():
+                # N_MODELS models of their own hyperparameters, series s the
+                # model s % N_MODELS's; every series its own observations and
+                # noise.
+                planes = {}
+                for dt_ in {torch.float64, dtype}:
+                    ts = torch.as_tensor(t, dtype=dt_, device=DEV)
+                    ssms = []
+                    for j in range(N_MODELS):
+                        if d <= 3:
+                            kcls = {1: Matern12, 2: Matern32, 3: Matern52}[d]
+                            kern = kcls(0.8 + 0.2 * j, 0.3 + 0.1 * j, dtype=dt_, device=DEV)
+                        else:
+                            kern = RBF(1.0 + 0.2 * j, 0.05 - 0.005 * j, order=d, dtype=dt_, device=DEV)
+                        ssms.append(kern.get_ssm_tl(ts, torch.ones(1, 1, dtype=dt_, device=DEV)))
+                    pick = torch.arange(B_MAX, device=DEV) % N_MODELS
+                    Fs = torch.stack([m.Fs for m in ssms], 2)[:, :, pick]
+                    Qs = torch.stack([m.Qs for m in ssms], 2)[:, :, pick]
+                    P0 = torch.stack([m.P0 for m in ssms])[pick]
+                    H = torch.stack([m.H for m in ssms])[pick]
+                    R = torch.as_tensor(NOISE * (0.7 + 0.6 * np.arange(B_MAX) / B_MAX), dtype=dt_, device=DEV).reshape(B_MAX, 1, 1)
+                    planes[dt_] = (Fs, Qs, P0, H, R, torch.as_tensor(ys, dtype=dt_, device=DEV))
+            worst = {}
+            for B, T in cases:
+                what = f"batched edges d={d} {str(dtype)[6:]} B={B} T={T}"
+
+                def cut(x, B=B, T=T):
+                    return x[:, :, :B, :T] if x.dim() == 4 else x[:B, :T] if x.dim() == 2 else x[:B]
+
+                with torch.no_grad():
+                    Fs, Qs, P0, H, R, y = (cut(x) for x in planes[torch.float64])
+                    b_p, C_p, ell_p = batched.batched_strip_filter_plain(Fs, Qs, P0, H, R, y)
+                    g_p, L_p, mean_p, var_p = batched.batched_strip_smoother_plain(Fs, Qs, b_p, C_p, H)
+                    Fk, Qk, P0k, Hk, Rk, yk = (cut(x) for x in planes[dtype])
+                    batched.reset_launch_counts()
+                    out_f = [batched.batched_strip_filter(Fk, Qk, P0k, Hk, Rk, yk) for _ in range(2)]
+                    bq, Cq = (b_p, C_p) if dtype == torch.float64 else batched.batched_strip_filter_plain(Fk, Qk, P0k, Hk, Rk, yk)[:2]
+                    out_s = [batched.batched_strip_smoother(Fk, Qk, bq.contiguous(), Cq.contiguous(), Hk) for _ in range(2)]
+                    out_n = batched.batched_strip_smoother(Fk, Qk, bq.contiguous(), Cq.contiguous(), None, project=False)
+                    torch.cuda.synchronize()
+                    batched.check_overruns()
+                    check(batched.LAUNCHES == {"batched_filter": 2, "batched_smoother": 3}, f"{what}: launches {batched.LAUNCHES}")
+                    check(all(torch.equal(a, b_) for a, b_ in zip(out_f[0] + out_s[0], out_f[1] + out_s[1])), f"{what}: two launches differ")
+                    check(torch.equal(out_n[0], out_s[0][0]) and torch.equal(out_n[1], out_s[0][1]), f"{what}: project=False changes the moments")
+                    b_k, C_k, ell_k = out_f[0]
+                    g_k, L_k, mean_k, var_k = out_s[0]
+                    # Relative to max(|ell|, 1): a series whose steps are all
+                    # missing has ell = 0 exactly.
+                    ell_scale = ell_p.abs().clamp_min(1.0)
+                    ell_rel = float(((ell_k.double() - ell_p).abs() / ell_scale).max())
+                    if dtype == torch.float64:
+                        rf, af, rs, as_ = batched_tolerances(d)
+                        check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"{what} filter moments")
+                        check(ell_rel <= 1e-10, f"{what} per-series LML {ell_rel:.3e}")
+                        check(allclose(g_k, g_p, rs, as_) and allclose(L_k, L_p, rs, as_), f"{what} smoother moments")
+                        check(allclose(mean_k, mean_p, rs, as_) and allclose(var_k, var_p, rs, as_), f"{what} projections")
+                        worst[(B, T)] = max(max_abs(b_k, b_p), max_abs(C_k, C_p), max_abs(g_k, g_p), max_abs(L_k, L_p))
+                        continue
+                    b_q, C_q, ell_q = batched.batched_strip_filter_plain(Fk, Qk, P0k, Hk, Rk, yk)
+                    g_q, L_q, mean_q, var_q = batched.batched_strip_smoother_plain(Fk, Qk, b_q, C_q, Hk)
+                    g_t, L_t, mean_t, var_t = batched.batched_strip_smoother_plain(Fs, Qs, b_q.double(), C_q.double(), H)
+                    ell_q_rel = float(((ell_q.double() - ell_p).abs() / ell_scale).max())
+                errs = {
+                    "b": (rel_err(b_k, b_p), rel_err(b_q, b_p)), "C": (rel_err(C_k, C_p), rel_err(C_q, C_p)),
+                    "ell": (ell_rel, ell_q_rel), "g": (rel_err(g_k, g_t), rel_err(g_q, g_t)),
+                    "L": (rel_err(L_k, L_t), rel_err(L_q, L_t)), "mean": (rel_err(mean_k, mean_t), rel_err(mean_q, mean_t)),
+                    "var": (rel_err(var_k, var_t), rel_err(var_q, var_t)),
+                }
+                for k, (a, b_) in errs.items():
+                    check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} f32 {k}: kernel {a:.3e} vs plain {b_:.3e}")
+                worst[(B, T)] = max(a / max(b_, F32_FLOOR / F32_FACTOR) for a, b_ in errs.values())
+            del planes
+            torch.cuda.empty_cache()
+            tiles = {kind: batched.tile_shape(d, dtype, kind) for kind in batched.KINDS}
+            unit = f"tiles (threads, steps, rows, bytes) filter {tiles['filter']} / smoother {tiles['smoother']}"
+            if dtype == torch.float64:
+                print(f"batched edges d={d} f64 ({unit}), worst |kernel - plain| by (B, T): " + ", ".join(f"{k}: {e:.2e}" for k, e in worst.items()))
+            else:
+                print(f"batched edges d={d} f32 ({unit}), worst kernel error over plain f32 error by (B, T) (limit {F32_FACTOR:.0f}): "
+                      + ", ".join(f"{k}: {e:.2f}" for k, e in worst.items()))
+
+
+def check_batched_overrun() -> None:
+    """A wait between two tiles that may not poll (MAX_POLLS = 0): the
+    series' log-likelihoods are NaN past their first tile, the first tile's
+    moments finite, and check_overruns raises; with the limit back, the same
+    call is finite and raises nothing."""
+    d, B, T = 2, 4, 3 * batched_tile_steps(2, torch.float32, "filter") + 5
+    t, ys = series_data(B, T, SEED + 50)
+    with torch.no_grad():
+        ssm = Matern32(1.0, 0.5, dtype=torch.float32, device=DEV).get_ssm_tl(
+            torch.as_tensor(t, dtype=torch.float32, device=DEV), torch.full((1, 1), NOISE, device=DEV)
+        )
+        args = (
+            ssm.Fs[:, :, None].expand(d, d, B, T), ssm.Qs[:, :, None].expand(d, d, B, T), ssm.P0.expand(B, d, d),
+            ssm.H.expand(B, 1, d), ssm.R.expand(B, 1, 1), torch.as_tensor(ys, dtype=torch.float32, device=DEV),
+        )
+        saved = batched.MAX_POLLS
+        batched.MAX_POLLS = 0
+        try:
+            b, C, ell = batched.batched_strip_filter(*args)
+            torch.cuda.synchronize()
+        finally:
+            batched.MAX_POLLS = saved
+        raised = False
+        try:
+            batched.check_overruns()
+        except RuntimeError as err:
+            raised = True
+            print(f"batched overrun with MAX_POLLS = 0 raised: {err}")
+        tile = batched_tile_steps(d, torch.float32, "filter")
+        check(raised, "an overrun of the batched filter did not raise")
+        check(bool(torch.isnan(ell).all()) and bool(torch.isfinite(b[..., :tile]).all()) and bool(torch.isnan(b[..., tile:]).all()),
+              "an overrun did not leave its series NaN past the first tile")
+        b, C, ell = batched.batched_strip_filter(*args)
+        batched.check_overruns()
+        check(bool(torch.isfinite(ell).all()), "the batched filter after an overrun")
+
+
 def phase_batched_kernels() -> None:
     """The two single-pass batched kernels and the batched Fisher tail
     against their plain versions."""
@@ -1375,6 +1537,8 @@ def phase_batched_kernels() -> None:
         for n, a, b_, a1, s1 in zip(FISHER_OUTPUTS, f_k, f_p, f_1, f_s):
             check(a.shape == b_.shape and allclose(a, b_, 1e-7, 1e-10), f"batched {name} f64 fisher {n}")
             check(torch.equal(a1[0], s1), f"batched {name} fisher {n}: B = 1 differs from the single-series call")
+    check_batched_edges()
+    check_batched_overrun()
 
 
 C_CHAINS = 64
@@ -1573,6 +1737,21 @@ def phase_batched_slice():
     return model, counts
 
 
+def hmc_step_s(model, n_steps: int = 3) -> float:
+    """Seconds of one HMC step of 10 leapfrog steps over the model's chains
+    (host clock, after one step)."""
+    log_post, u0 = make_log_posterior(model, CHAIN_PRIORS)
+    _, unravel = ravel_positions(u0)
+    kernel = make_kernel("hmc", lambda x: log_post(unravel(x)), 0.005, num_leapfrog_steps=10)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 35)
+    sample_chains(kernel, u0, log_post, gen, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample_chains(kernel, u0, log_post, gen, n_steps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_steps
+
+
 def phase_batched_times(card: str, model, counts) -> list:
     """The two batched kernels and the batched Fisher tail against bound and
     plain version at d = 3, B = 64, T = 65,536 in float32; the batched entry
@@ -1651,18 +1830,8 @@ def phase_batched_times(card: str, model, counts) -> list:
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: chains_value_and_grad(model), reps=5)
     step_peak = torch.cuda.max_memory_allocated() / 2**30
-    log_post, u0 = make_log_posterior(model, CHAIN_PRIORS)
-    flat0, unravel = ravel_positions(u0)
-    log_post_flat = lambda x: log_post(unravel(x))  # noqa: E731
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 35)
-    kernel = make_kernel("hmc", log_post_flat, 0.005, num_leapfrog_steps=10)
     n_steps = 3
-    sample_chains(kernel, u0, log_post, gen, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sample_chains(kernel, u0, log_post, gen, n_steps)
-    torch.cuda.synchronize()
-    hmc_s = (time.perf_counter() - t0) / n_steps
+    hmc_s = hmc_step_s(model, n_steps)
     print(f"batched SDE build (transition_coeffs + get_sde) Matern52 C={C_CHAINS} [{card}]: {sde_ms:.3f} ms; plane build (build_planes_tl) {what} f32: {planes_ms:.3f} ms")
     print(f"batched LML C={C_CHAINS} T={T_BATCHED} f32 [{card}]: {lml_ms:.3f} ms (peak {lml_peak:.2f} GiB); the same {C_CHAINS} LMLs as a loop of single-series lml_dt calls: {loop_ms:.3f} ms (values agree to {loop_rel:.2e})")
     print(f"batched log posterior + gradient C={C_CHAINS} T={T_BATCHED} f32 [{card}]: {step_ms:.3f} ms (peak {step_peak:.2f} GiB)")
@@ -2996,11 +3165,12 @@ def ab_timers(label: str) -> None:
     del rbf
     torch.cuda.empty_cache()
     scan_timers(label, report)
+    batched_timers(label, report)
 
 
 def ab_report(label: str):
-    """The card's name, the tree's library built and loaded (with the ptxas
-    lines of the pass-1 kernels where it was built now), and a
+    """The card's name, the tree's library built and loaded (with every
+    kernel's ptxas line where it was built now), and a
     ``report(what, events_ms, fn, profiles=1)`` that prints one A/B line: the
     events' time and the device time by kernel in a profile of one call of
     ``fn`` — with ``profiles`` > 1, each kernel's median over that many
@@ -3010,8 +3180,7 @@ def ab_report(label: str):
     _cuda.load()
     print(f"ab {label}: library {so.name}")
     for line in ptxas_lines(log):
-        if re.search(r"(filter|smoother)_scan", line):
-            print(f"ab {label} {line}")
+        print(f"ab {label} {line}")
 
     def report(what, events_ms, fn, profiles=1):
         runs = [by_name for by_name in (profile_call(fn)[1] for _ in range(profiles)) if by_name] or [{}]
@@ -3094,6 +3263,117 @@ def scan_timers(label: str, report=None, passes=PASS_KINDS) -> None:
                 report(what, cuda_ms(scan, reps=10), scan, profiles=5)
                 del Fs, Qs, scan
                 torch.cuda.empty_cache()
+
+
+T_UNIT = 16_384  # the batched units' sweep: 64 series of this length
+
+
+def batched_tile(d: int, dtype, kind: str) -> str:
+    """The tree's tile of a batched unit, as its lines name it."""
+    if hasattr(batched, "tile_shape"):
+        threads, steps, rows, smem = batched.tile_shape(d, dtype, kind)
+        if d in batched.WALK[kind][dtype]:
+            return f"one block a series, tiles {threads} threads x {steps} steps, read directly, {smem} B"
+        stage = f"{rows} rows staged" if rows else "read directly"
+        return f"tile {threads} threads x {steps} steps, {stage}, {smem} B"
+    threads = 128 if d <= 3 else 64 if d <= 5 else 32
+    return f"one block a series, tiles {threads} threads x 8 steps, read directly"
+
+
+def batched_timers(label: str, report=None, dims=tuple(range(1, 9)), dtypes=(torch.float32, torch.float64)) -> None:
+    """The batched kernels, for comparing two trees (or two tilings) in one
+    call: both kernels on the batched path's inputs (Matern52, 64 chains ×
+    T = 65,536, float32: the chains' planes, one shared observation vector,
+    the smoother without its projection as the gradient runs it), each as
+    events around ten lone calls of its wrapper and device time, the median
+    of five profiled calls (``report``, ab_report's by default); the batched
+    log posterior and gradient, events (median of 9) and one profile (device
+    time by kernel, idle share); one HMC step of 10 leapfrog steps; then
+    every unit of ``dims`` and ``dtypes`` on RBF (d ≥ 4) or Matérn planes of
+    64 series × T_UNIT steps.  Where the tree checks its overruns without a
+    host synchronisation a launch, the value and gradient also with one
+    (the status read at every launch), in turns.  Each line names the
+    tree's tile."""
+    report = report or ab_report(label)
+    card = phase_device()
+    t, y = make_data(T_BATCHED, SEED + 30)
+    model = chain_model(t, y, chain_hypers(C_CHAINS, SEED + 31), torch.float32)
+    with torch.no_grad():
+        fam, co = model.kernel.transition_coeffs()
+        co, P0, H, R, _ = dt.series_inputs(co, model.kernel.get_sde(), model.noise_variance.detach())
+        Fs, Qs, P0s = dt.build_planes_tl(fam, co, P0, dt._dts_from_ts(model.ts))
+        ys = batched.series_observations(model.ys, (C_CHAINS, T_BATCHED))
+        b, C, _ = batched.batched_strip_filter(Fs, Qs, P0s, H, R, ys)
+        what = f"d=3 B={C_CHAINS} T={T_BATCHED} torch.float32, the path's inputs"
+
+        def filt():
+            return batched.batched_strip_filter(Fs, Qs, P0s, H, R, ys)
+
+        def smooth():
+            return batched.batched_strip_smoother(Fs, Qs, b, C, None, project=False)
+
+        n_obs = C_CHAINS * int((~torch.isnan(model.ys)).sum())
+        for name, fn in (("batched_filter", filt), ("batched_smoother", smooth)):
+            bound = kernel_bound(name, 3, 2, T_BATCHED, n_obs, 4, B=C_CHAINS, y_series=1)
+            print(f"ab {label} {name} {what}: {batched_tile(3, torch.float32, name[8:])}, bound {bound[0]:.4f} ms ({bound[1]})")
+            report(f"{name} {what}", cuda_ms(fn, reps=10), fn, profiles=5)
+        del Fs, Qs, b, C
+        torch.cuda.empty_cache()
+    step = f"batched log posterior + gradient C={C_CHAINS} T={T_BATCHED}"
+    report(step, cuda_ms(lambda: chains_value_and_grad(model), reps=9), lambda: chains_value_and_grad(model))
+    profile_calls(card, f"{label} Matern52 C={C_CHAINS} T={T_BATCHED}", {"batched log posterior + gradient": lambda: chains_value_and_grad(model)})
+    print(f"ab {label} [{card}] HMC step (10 leapfrog steps, {C_CHAINS} chains, T={T_BATCHED}) f32: {hmc_step_s(model):.4f} s")
+    if hasattr(batched, "_watch"):
+        # What a host synchronisation at every launch (the overrun word read
+        # at once) would cost the value and gradient: in turns, without and
+        # with.
+        watch = batched._watch
+
+        def read_now(name, what_, status):
+            watch(name, what_, status)
+            batched.check_overruns()
+
+        times = {"without": [], "with": []}
+        for turn in ("without", "with", "with", "without"):
+            batched._watch = watch if turn == "without" else read_now
+            try:
+                times[turn].append(cuda_ms(lambda: chains_value_and_grad(model), reps=9))
+            finally:
+                batched._watch = watch
+        print(f"ab {label} [{card}] {step}: events without / with a synchronisation a launch "
+              + f"{times['without']} / {times['with']} ms")
+    del model
+    torch.cuda.empty_cache()
+
+    # Every unit, on 64 series of T_UNIT steps: one model's planes copied to
+    # every series, each series its own observations.
+    lib = _cuda.load()
+    occupancy = _cuda.batched_tiles(lib, fields=5) if hasattr(_cuda, "batched_tiles") else {}
+    t_u, ys_u = series_data(C_CHAINS, T_UNIT, SEED + 36)
+    for dtype in dtypes:
+        for d in dims:
+            with torch.no_grad():
+                Fs1, Qs1, P01, H1, R1, _ = strip_inputs(strip_edge_kernel(d, dtype), t_u, ys_u[0], dtype)
+                B = C_CHAINS
+                Fs, Qs = (x[:, :, None].expand(d, d, B, T_UNIT).contiguous() for x in (Fs1, Qs1))
+                P0, H, R = P01.expand(B, d, d), H1.expand(B, 1, d), R1.expand(B, 1, 1)
+                yb = torch.as_tensor(ys_u, dtype=dtype, device=DEV)
+                b, C, _ = batched.batched_strip_filter(Fs, Qs, P0, H, R, yb)
+                del Fs1, Qs1
+                calls = {
+                    "filter": lambda: batched.batched_strip_filter(Fs, Qs, P0, H, R, yb),
+                    "smoother": lambda: batched.batched_strip_smoother(Fs, Qs, b, C, None, project=False),
+                }
+                for kind, fn in calls.items():
+                    name = f"batched_{kind}"
+                    n_obs = int((~torch.isnan(yb)).sum())
+                    bound = kernel_bound(name, d, max(d - 1, 0), T_UNIT, n_obs, yb.element_size(), B=B)
+                    blocks = occupancy.get((d, dtype, kind), (None,) * 5)[4]
+                    unit = f"{name} d={d} B={B} T={T_UNIT} {dtype}"
+                    print(f"ab {label} {unit}: {batched_tile(d, dtype, kind)}, blocks an SM {blocks}, bound {bound[0]:.4f} ms ({bound[1]})")
+                    report(unit, cuda_ms(fn, reps=10), fn, profiles=5)
+                del Fs, Qs, b, C, calls
+            torch.cuda.empty_cache()
 
 
 def strip_apply_timers(report, label: str, what: str, planes) -> None:

@@ -150,13 +150,16 @@ struct Strided {
   __device__ __forceinline__ S operator[](int i) const { return p[i * kStride]; }
 };
 
-// The rows a stage copy moves: row i < kN is at(i, T), T values in device
-// memory.  MomentRows: b (D rows) then C (D²).
+// The rows a stage copy moves: row i < kN starts at at(i, T), its values a
+// step apart, and the rows of a plane a plane stride apart (T for one
+// series' planes; with a batch axis, B·T or the stride of the view).
+// MomentRows: b (D rows) then C (D²).
 template <typename P, int D>
 struct MomentRows {
   static constexpr int kN = D + D * D;
   P b, C;
-  __device__ __forceinline__ P at(int row, long long T) const { return row < D ? b + row * T : C + (row - D) * T; }
+  long long bs, cs;  // plane strides
+  __device__ __forceinline__ P at(int row, long long) const { return row < D ? b + row * bs : C + (row - D) * cs; }
 };
 
 // The filter's inputs: F (D² rows), Q (D²), y.
@@ -166,8 +169,9 @@ struct FilterPlaneRows {
   const S* Fs;
   const S* Qs;
   const S* y;
-  __device__ __forceinline__ const S* at(int row, long long T) const {
-    return row < D * D ? Fs + row * T : (row < 2 * D * D ? Qs + (row - D * D) * T : y);
+  long long fs, qs;  // plane strides
+  __device__ __forceinline__ const S* at(int row, long long) const {
+    return row < D * D ? Fs + row * fs : (row < 2 * D * D ? Qs + (row - D * D) * qs : y);
   }
 };
 
@@ -188,11 +192,12 @@ struct SmootherPlaneRows {
   const S* C;
   const S* Fs;
   const S* Qs;
-  __device__ __forceinline__ const S* at(int row, long long T) const {
-    if (row < D) return b + row * T;
-    if (row < D + D * D) return C + (row - D) * T;
-    if (row < D + 2 * D * D) return Fs + (row - D - D * D) * T;
-    return Qs + (row - D - 2 * D * D) * T;
+  long long bs, cs, fs, qs;  // plane strides
+  __device__ __forceinline__ const S* at(int row, long long) const {
+    if (row < D) return b + row * bs;
+    if (row < D + D * D) return C + (row - D) * cs;
+    if (row < D + 2 * D * D) return Fs + (row - D - D * D) * fs;
+    return Qs + (row - D - 2 * D * D) * qs;
   }
 };
 
@@ -275,7 +280,7 @@ __device__ __forceinline__ S filter_apply_staged(const Src& p, const S* prefix, 
       for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.C[q];
     }
     __syncwarp();
-    stage_rows<S, false>(MomentRows<S*, D>{b_out, C_out}, stage, c0, K, T, r0);
+    stage_rows<S, false>(MomentRows<S*, D>{b_out, C_out, T, T}, stage, c0, K, T, r0);
     __syncwarp();
   }
   return ll;
@@ -306,7 +311,7 @@ __device__ __forceinline__ S filter_apply_planes(const Src& p, const S* prefix, 
   Filt<S, D> acc, e;
   if (c < n_chunks) load_filt<S, D>(prefix, n_chunks, c, acc);
   S* slot = stage + lane * G::kSlot;
-  const FilterPlaneRows<S, D> in{Fs, Qs, y};
+  const FilterPlaneRows<S, D> in{Fs, Qs, y, T, T};
 #pragma unroll 1
   for (int r0 = 0; r0 < span; r0 += R) {
     // The copy-out of the round before read, in this lane, the stage values
@@ -330,7 +335,7 @@ __device__ __forceinline__ S filter_apply_planes(const Src& p, const S* prefix, 
       for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.C[q];
     }
     __syncwarp();
-    stage_rows<S, false>(MomentRows<S*, D>{b_out, C_out}, stage, c0, K, T, r0);
+    stage_rows<S, false>(MomentRows<S*, D>{b_out, C_out, T, T}, stage, c0, K, T, r0);
   }
   return ll;
 }
@@ -508,7 +513,7 @@ struct DtElement {
 template <typename S, int D, int kBuffers, typename Src>
 __device__ __forceinline__ void filter_scan_planes(const Src& p, const S* Fs, const S* Qs, const S* y, S* totals,
                                                    long long T, int K, long long n_chunks, long long c, S* stage) {
-  filter_scan_rounds<S, D, kBuffers>(FilterPlaneRows<S, D>{Fs, Qs, y}, PlaneElement<S, D, Src>{p}, totals, T, K,
+  filter_scan_rounds<S, D, kBuffers>(FilterPlaneRows<S, D>{Fs, Qs, y, T, T}, PlaneElement<S, D, Src>{p}, totals, T, K,
                                      n_chunks, c, stage);
 }
 
@@ -544,7 +549,7 @@ __device__ __forceinline__ void smoother_scan_staged(const Src& p, const S* b, c
   const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
   const int r_first = span > 0 ? (int)((span - 1) / R) * R : -1;
   Smooth<S, D> acc, e;
-  ScanRounds<S, MomentRows<const S*, D>, G::kWarp, kBuffers> rounds{{b, C}, stage, c0, K, T};
+  ScanRounds<S, MomentRows<const S*, D>, G::kWarp, kBuffers> rounds{{b, C, T, T}, stage, c0, K, T};
   rounds.start(r_first);
 #pragma unroll 1
   for (int r0 = r_first; r0 >= 0; r0 -= R) {
@@ -595,7 +600,7 @@ __device__ __forceinline__ void smoother_scan_planes(const S* b, const S* C, con
   const long long span = (c0 * K < T) ? ((T - c0 * K < K) ? T - c0 * K : K) : 0;  // the same for the warp
   const int r_first = span > 0 ? (int)((span - 1) / R) * R : -1;
   Smooth<S, D> acc, e;
-  ScanRounds<S, SmootherPlaneRows<S, D>, G::kWarp, kBuffers> rounds{{b, C, Fs, Qs}, stage, c0, K, T};
+  ScanRounds<S, SmootherPlaneRows<S, D>, G::kWarp, kBuffers> rounds{{b, C, Fs, Qs, T, T, T, T}, stage, c0, K, T};
   if (t1 < T) {  // a chunk with a step after it
     S* slot = rounds.buffer(0) + lane * G::kSlot;
 #pragma unroll
@@ -672,7 +677,7 @@ __device__ __forceinline__ void smoother_apply_staged(const Src& p, const S* pre
   for (int r0 = span > 0 ? (int)((span - 1) / R) * R : -1; r0 >= 0; r0 -= R) {
     // The copy-out of the round before touched, in this lane, the stage
     // values this copy-in writes: no barrier between them.
-    stage_rows<S, true>(MomentRows<const S*, D>{b, C}, stage, c0, K, T, r0);
+    stage_rows<S, true>(MomentRows<const S*, D>{b, C, T, T}, stage, c0, K, T, r0);
     __syncwarp();
 #pragma unroll 1
     for (int s = R - 1; s >= 0; --s) {
@@ -691,7 +696,7 @@ __device__ __forceinline__ void smoother_apply_staged(const Src& p, const S* pre
       for (int q = 0; q < D * D; ++q) slot[(D + q) * G::kRow + s] = acc.L[q];
     }
     __syncwarp();
-    stage_rows<S, false>(MomentRows<S*, D>{g_out, L_out}, stage, c0, K, T, r0);
+    stage_rows<S, false>(MomentRows<S*, D>{g_out, L_out, T, T}, stage, c0, K, T, r0);
   }
 }
 
@@ -727,7 +732,7 @@ __device__ __forceinline__ void smoother_apply_planes(const S* prefix, const S* 
       slot[kQ + q * G::kRow + R] = Qs[q * T + t1];
     }
   }
-  const SmootherPlaneRows<S, D> in{b, C, Fs, Qs};
+  const SmootherPlaneRows<S, D> in{b, C, Fs, Qs, T, T, T, T};
 #pragma unroll 1
   for (int r0 = span > 0 ? (int)((span - 1) / R) * R : -1; r0 >= 0; r0 -= R) {
     // The copy-out of the round before touched, in this lane, the stage
@@ -762,7 +767,7 @@ __device__ __forceinline__ void smoother_apply_planes(const S* prefix, const S* 
       slot[kQ + q * G::kRow + R] = slot[kQ + q * G::kRow];
     }
     __syncwarp();
-    stage_rows<S, false>(MomentRows<S*, D>{g_out, L_out}, stage, c0, K, T, r0);
+    stage_rows<S, false>(MomentRows<S*, D>{g_out, L_out, T, T}, stage, c0, K, T, r0);
   }
 }
 

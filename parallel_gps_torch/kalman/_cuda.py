@@ -143,8 +143,11 @@ def load():
             sigs[f"pgt_strip_scan_{field}_d{d}"] = [i, i]
             sigs[f"pgt_dt_scan_{field}_d{d}"] = [i, i, i]
         for bits in (32, 64):
-            sigs[f"pgt_batched_filter_d{d}_f{bits}"] = [p, p, ll, ll, p, ll, ll, p, ll, p, p, p, ll, i, i, p]
-            sigs[f"pgt_batched_smoother_d{d}_f{bits}"] = [i, p, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p, p, ll, i, i, p]
+            sigs[f"pgt_batched_filter_d{d}_f{bits}"] = [p, p, ll, ll, p, ll, ll, p, ll, p, p, p, ll, i, p, p, p, ll, p]
+            sigs[f"pgt_batched_smoother_d{d}_f{bits}"] = [
+                i, p, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p, p, ll, i, p, p, ll, p
+            ]
+            sigs[f"pgt_batched_tile_d{d}_f{bits}"] = [i, i]
             # csrc/plane_scan.cu (kalman/plane.py)
             sigs[f"pgt_plane_scan_d{d}_f{bits}"] = [i, i, p, p, ll, p, p, p, p, ll, p]
             sigs[f"pgt_plane_scan_threads_d{d}_f{bits}"] = []
@@ -162,19 +165,20 @@ def load():
     lib.pgt_threads_per_block.restype = ctypes.c_int
     if lib.pgt_threads_per_block() != THREADS:
         raise RuntimeError("csrc/dt_launch.cuh and kalman/_cuda.py disagree on threads per block")
-    from parallel_gps_torch.kalman import dt, strip
+    from parallel_gps_torch.kalman import batched, dt, strip
 
     mirrors = [
         ("csrc/strip_scan.cu", "kalman/strip.py", "pass 2", strip_apply_stages(lib), strip.apply_stage),
         ("csrc/strip_scan.cu", "kalman/strip.py", "pass 1", strip_scan_stages(lib), strip.scan_stage),
         ("csrc/dt_scan.cu", "kalman/dt.py", "pass 1", dt_scan_stages(lib), dt.scan_stage),
+        ("csrc/batched_scan.cu", "kalman/batched.py", "tile", batched_tiles(lib), batched.tile_shape),
     ]
     for source, mirror, what, stages, expected in mirrors:
         for unit, got in stages.items():
             if got != expected(*unit):
                 raise RuntimeError(
                     f"{source} and {mirror} disagree on the {what} stage of unit {unit}: "
-                    f"(threads, rows, bytes[, buffers]) {got} against {expected(*unit)}"
+                    f"(threads, [steps, ]rows, bytes[, buffers]) {got} against {expected(*unit)}"
                 )
     _LIB = lib
     return lib
@@ -211,6 +215,24 @@ def strip_scan_stages(lib) -> dict:
         (d, dtype, kind): tuple(
             getattr(lib, f"pgt_strip_scan_{field}_d{d}")(int(dtype == torch.float64), int(kind == "smoother"))
             for field in _SCAN_FIELDS
+        )
+        for d in STRIP_DIMS
+        for dtype in (torch.float32, torch.float64)
+        for kind in ("filter", "smoother")
+    }
+
+
+def batched_tiles(lib, fields: int = 4) -> dict:
+    """{(d, dtype, kind): (threads a block, steps a thread, rows a warp
+    stages, dynamic shared memory a block in bytes[, blocks an SM holds])}
+    of the batched kernels, as the library ``lib`` was built (the fifth
+    field, the occupancy calculator's, with ``fields`` = 5)."""
+    import torch
+
+    return {
+        (d, dtype, kind): tuple(
+            getattr(lib, f"pgt_batched_tile_d{d}_f{64 if dtype == torch.float64 else 32}")(int(kind == "smoother"), f)
+            for f in range(fields)
         )
         for d in STRIP_DIMS
         for dtype in (torch.float32, torch.float64)

@@ -12,35 +12,110 @@ one observation vector for B chains — is passed as an ``expand``-ed view
 (batch stride 0) and is never copied B times.
 
 Unlike the two-pass strip and dt engines there is no prefix step between two
-passes: one thread block owns a series, walks its time axis in tiles and
-carries the running element across them (``csrc/batched_scan.cu``).  Each
-wrapper dispatches on the device of its tensors:
+passes: every (series, tile) pair is a thread block, a tile of ``threads ×
+chunk`` steps (``tile_shape``), and each tile takes the inclusive total of
+the tile before it in its series from the block that computed it, in one
+launch (``csrc/batched_scan.cu``: a chained scan, so two launches give the
+same bits); at the units of ``WALK`` one block walks each series' tiles in
+order instead (``csrc/batched_walk.cuh``).  Each wrapper dispatches on the
+device of its tensors:
 
   - CUDA, d ≤ 8, float32 or float64: the hand-written kernel; anything else
     on CUDA raises;
   - CPU: the plain PyTorch version (``*_plain``), the time-last Kogge–Stone
     engine with the batch axis riding along.
 
+A wait between two tiles that outlasts ``MAX_POLLS`` polls makes the
+series' log-likelihood (the filter) or moments NaN and is raised without a
+host synchronisation at each launch: a later launch's wrapper raises it once
+the failed launch has finished, and ``check_overruns()`` waits for every
+launch and raises it.
+
 ``LAUNCHES`` counts kernel launches by kernel name.
 """
 from __future__ import annotations
 
+from collections import deque
+
 import torch
 from torch import Tensor
 
+from parallel_gps_torch.kalman.strip import filt_rows, smooth_rows, warp_stage_budget
 from parallel_gps_torch.kalman.timelast import pkf_from_tl, pks_from_tl
 from parallel_gps_torch.types import LGSSMTL
 
 LAUNCHES = {"batched_filter": 0, "batched_smoother": 0}
 
-# Steps folded sequentially by one CUDA thread within a tile.
-BATCHED_CHUNK = 8
 MAX_KERNEL_D = 8
+KINDS = ("filter", "smoother")
+# The tiles of the kernels (csrc/batched_scan.cu: BatchedTile), mirrored here
+# and checked against the library when it loads (kalman/_cuda.py).  The state
+# dimensions whose warps stage their rows (the filter's F, Q and y, 2d² + 1;
+# the smoother's b, C, F and Q, 3d² + d), by pass and scalar type, where that
+# measured faster on an H100 (PERF.md §6, kBatched*Staged); the rest read
+# them directly.  Steps a thread: one 32-byte sector of a row where the unit
+# stages (8 float32, 4 float64), DIRECT_CHUNK where it reads directly.
+DIRECT_CHUNK = 4
+STAGED = {
+    "filter": {torch.float32: frozenset({1, 3}), torch.float64: frozenset({1, 3, 4, 5, 6})},
+    "smoother": {torch.float32: frozenset({1, 2, 3, 6}), torch.float64: frozenset(range(1, 8))},
+}
+# The units that keep one block walking each series' tiles in order, the
+# kernels' first design (csrc/batched_walk.cuh), where the chained tiles
+# measured slower (kBatched*Walk): 128, 64 or 32 threads a block at d ≤ 3,
+# ≤ 5, above, WALK_CHUNK steps a thread.
+WALK = {
+    "filter": {torch.float32: frozenset(), torch.float64: frozenset({7, 8})},
+    "smoother": {torch.float32: frozenset(), torch.float64: frozenset({8})},
+}
+WALK_CHUNK = 8
+# Polls of the previous tile's flag before a tile gives up (each poll sleeps
+# up to 256 ns): seconds, against the microseconds a tile takes.  Read at
+# every launch.
+MAX_POLLS = 1 << 22
+OVERRUN = 1  # csrc/tile_scan.cuh: kSpinOverrun
+# Launches whose overrun word has not been read yet: (kernel, what, host
+# copy of the status, event after the copy).
+_PENDING: deque = deque()
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def tile_shape(d: int, dtype, kind: str) -> tuple[int, int, int, int]:
+    """(threads a block, steps a thread, rows a warp stages, dynamic shared
+    memory a block in bytes) of the ``kind`` ("filter" or "smoother") kernel
+    at state dimension ``d`` and scalar type ``dtype``: a tile is threads ×
+    steps consecutive steps of one series.  A staged unit's warps keep their
+    chunks' rows (a chunk is 32 / itemsize steps, in a slot of one more
+    value); no rows where the unit reads them directly.  Each block also
+    holds one element a thread (the block scan), one more (the prefix), the
+    filter's scalars [P0 | h | r] and four ints; 4, 2 or 1 warps, whichever
+    leaves an SM the most warps (``strip.warp_stage_budget``).  A unit of
+    ``WALK`` has one block a series, which scans a tile at a time in NT + 1
+    elements of shared memory."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    size = torch.finfo(dtype).bits // 8
+    filt = kind == "filter"
+    elem = filt_rows(d) if filt else smooth_rows(d)
+    if d in WALK[kind][dtype]:  # a block walks a series: the tile it scans at a time
+        threads = 128 if d <= 3 else 64 if d <= 5 else 32
+        return threads, WALK_CHUNK, 0, size * elem * (threads + 1)
+    scal = d * d + d + 1 if filt else 0
+    staged = d in STAGED[kind][dtype]
+    chunk = 32 // size if staged else DIRECT_CHUNK
+    rows = (2 * d * d + 1 if filt else 3 * d * d + d) if staged else 0
+    block = size * (elem + scal) + 16
+    threads, _, smem = warp_stage_budget(rows, dtype, per_thread=size * elem, table=block, buffers=int(staged))
+    return threads, chunk, rows, smem + threads * size * elem
+
+
+def n_tiles(d: int, dtype, kind: str, T: int) -> int:
+    threads, chunk, _, _ = tile_shape(d, dtype, kind)
+    return -(-T // (threads * chunk))
 
 
 def series_observations(observations: Tensor, shape) -> Tensor:
@@ -124,6 +199,45 @@ def _launch(name: str, d: int, dtype, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _scratch(d: int, dtype, kind: str, B: int, T: int, dev):
+    """(status, incl, tiles) of a launch: status zeroed — ticket, overrun,
+    one flag a tile and, for the filter, one arrival counter a series — and
+    one inclusive element a tile, written before its flag is raised."""
+    tiles = B * n_tiles(d, dtype, kind, T)
+    status = torch.zeros(2 + tiles + (B if kind == "filter" else 0), dtype=torch.int32, device=dev)
+    incl = torch.empty((tiles, filt_rows(d) if kind == "filter" else smooth_rows(d)), dtype=dtype, device=dev)
+    return status, incl, tiles
+
+
+def _watch(name: str, what: str, status: Tensor) -> None:
+    """Raise the overruns of earlier launches that have finished, and keep
+    this launch's overrun word for a later call: copied to the host behind
+    the launch, read once the copy has landed."""
+    check_overruns(wait=False)
+    host = torch.empty(2, dtype=torch.int32, pin_memory=True)
+    with torch.cuda.device(status.device):
+        host.copy_(status[:2], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    _PENDING.append((name, what, host, event))
+
+
+def check_overruns(wait: bool = True) -> None:
+    """Raise if a launch of either kernel had a wait outlast ``MAX_POLLS``
+    polls (its series' outputs are NaN).  With ``wait`` (the default) every
+    launch so far is waited for; else only those that have finished are
+    read."""
+    while _PENDING:
+        name, what, host, event = _PENDING[0]
+        if not wait and not event.query():
+            return
+        event.synchronize()
+        _PENDING.popleft()
+        if int(host[1]) == OVERRUN:
+            _PENDING.clear()
+            raise RuntimeError(f"{name}: a wait between two tiles outlasted {MAX_POLLS} polls ({what})")
+
+
 _PLANE = ("d", "d", "B", "T")
 
 
@@ -146,10 +260,15 @@ def batched_strip_filter(Fs_bt, Qs_bt, P0_b, H_b, R_b, ys_b):
     b = torch.empty((d, B, T), dtype=dtype, device=dev)
     C = torch.empty((d, d, B, T), dtype=dtype, device=dev)
     ell = torch.empty((B,), dtype=dtype, device=dev)
+    status, incl, tiles = _scratch(d, dtype, "filter", B, T, dev)
+    parts = torch.empty((tiles,), dtype=dtype, device=dev)  # each tile's share of its series' ell
+    max_polls = MAX_POLLS
+    _require(max_polls >= 0, f"MAX_POLLS must be >= 0, got {max_polls}")
     _launch(
         "batched_filter", d, dtype, scal, Fs_bt, f_ps, f_bs, Qs_bt, q_ps, q_bs, ys_b, y_bs,
-        b, C, ell, T, B, BATCHED_CHUNK, dev,
+        b, C, ell, T, B, status, incl, parts, max_polls, dev,
     )
+    _watch("batched_filter", f"d = {d}, B = {B}, T = {T}", status)
     return b, C, ell
 
 
@@ -177,8 +296,12 @@ def batched_strip_smoother(Fs_bt, Qs_bt, b_bt, C_bt, H_b, project: bool = True):
         var = torch.empty((B, T), dtype=dtype, device=dev)
     else:
         h = mean = var = None
+    status, incl, _ = _scratch(d, dtype, "smoother", B, T, dev)
+    max_polls = MAX_POLLS
+    _require(max_polls >= 0, f"MAX_POLLS must be >= 0, got {max_polls}")
     _launch(
         "batched_smoother", d, dtype, int(project), h, Fs_bt, f_ps, f_bs, Qs_bt, q_ps, q_bs,
-        b_bt, b_ps, b_bs, C_bt, c_ps, c_bs, g, L, mean, var, T, B, BATCHED_CHUNK, dev,
+        b_bt, b_ps, b_bs, C_bt, c_ps, c_bs, g, L, mean, var, T, B, status, incl, max_polls, dev,
     )
+    _watch("batched_smoother", f"d = {d}, B = {B}, T = {T}", status)
     return (g, L, mean, var) if project else (g, L)
