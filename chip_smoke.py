@@ -35,11 +35,13 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   4. the serving path at full size: StateSpaceGP(Matern52(0.8, 0.4), noise
      0.1), N = 10,000,000 float32 observations — one LML and three
      predict_f requests of 1,000 unsorted queries — with the launch counts
-     that path requires; the same in float64; and at N = 262,144 float64 the
-     model against its plain versions;
+     that path requires (a plane scan for the chunk prefix between the two
+     passes of each filter and smoother) and no plain prefix; the same in
+     float64; and at N = 262,144 float64 the model against its plain
+     versions;
   5. the training path on the same data: one LML + backward on that model,
      then five Adam steps and two L-BFGS steps from other hyperparameters,
-     with the launch counts of a training step;
+     with the launch counts of a training step and no plain prefix;
      the float32 gradient beside the float64 one and the plain float32 one;
      and at N = 262,144 float64 the gradient through the kernels against
      the plain path on the card and the same model on the CPU;
@@ -47,7 +49,14 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      and its bound at N = 10M float32, the LML, one predict_f request and
      one training step;
   7. profile (torch.profiler): device time by kernel and the device's idle
-     share for one LML, one predict_f request and one training step;
+     share for one LML, one predict_f request and one training step; then
+     the chunk prefix (strip.exclusive_chunk_prefixes: plane_scan over the
+     packed totals and a one-column shift) against its plain Kogge–Stone
+     version on the dt kernels' totals at the main path's shapes (Matern52
+     N = 10M: 156,250 chunks at d = 3; RBF(order=6) N = 1M: 15,625 at
+     d = 6), float64 and float32, both kinds, and at every d = 1..8 at 1 and
+     2 chunks and the plane scan's tile edges (phase_prefix), with its time
+     beside the plain prefix's and its bound;
   8. the RBF(order=6) model at N = 1,000,000 on the dt engine (the spectral
      kernels) the same way (phases 4–7), with every spectral unit d = 1..8
      timed at that length, and the model's LML, predict_f and training step
@@ -100,9 +109,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``ab_timers(label)`` runs this script's timers alone, on the Matern52 entry
-points, the dt applies, plane_scan, the two pkfs, the strip applies at every
-unit, the RBF(order=6) entry points, the filter's and the smoother's
+``entry_timers(label)`` times the entry points alone — the chunk prefix, the
+Matern52 LML, predict_f, training step and time-last pkfs, the RBF(order=6)
+LML, predict_f and training step — as events, wall, device time and the
+device's idle share.  ``ab_timers(label)`` runs those and this script's
+other timers alone: the dt applies, plane_scan, the time-first pkfs, the
+strip applies at every unit, the filter's and the smoother's
 pass-1 kernels at every unit (``scan_timers(label)``, which also runs alone,
 ``scan_timers(label, passes=("filter",))`` the filter's alone) and the
 batched kernels on the batched path and at every unit, with the batched
@@ -192,6 +204,7 @@ SOURCES = {
 DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_") and not k.endswith("_spectral"))
 SPECTRAL_KERNELS = tuple(f"{k}_spectral" for k in DT_KERNELS)
 STRIP_KERNELS = tuple(k for k in SOURCES if k.startswith("strip_"))
+PLANE_KERNELS = ("plane_scan", "plane_transpose")
 REPLACES = {
     "dt_filter_scan": "parallel_gps_tpu/kalman/pallas_dt.py:179",
     "dt_filter_apply": "parallel_gps_tpu/kalman/pallas_dt.py:208",
@@ -230,7 +243,9 @@ REPLACES = {
 }
 PLANE_BODY = "parallel_gps_tpu/kalman/pallas_scan.py:410"
 # Launches the serving path makes: the filter passes for the LML, and all
-# four passes for each predict_f request.
+# four passes for each predict_f request; and between the two passes of a
+# filter or a smoother, one plane scan for the chunk prefix
+# (strip.exclusive_chunk_prefixes).
 N_REQUESTS = 3
 EXPECTED_LAUNCHES = {
     "dt_filter_scan": 1 + N_REQUESTS,
@@ -239,21 +254,26 @@ EXPECTED_LAUNCHES = {
     "dt_smoother_apply": N_REQUESTS,
     "dt_fisher": 0,
     **dict.fromkeys(SPECTRAL_KERNELS, 0),
+    "plane_scan": 1 + 2 * N_REQUESTS,
 }
-LML_LAUNCHES = {**dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan": 1, "dt_filter_apply": 1}
-# One training step (LML + backward) launches each of the five kernels once.
-STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 1), **dict.fromkeys(SPECTRAL_KERNELS, 0)}
+LML_LAUNCHES = {**dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan": 1, "dt_filter_apply": 1, "plane_scan": 1}
+# One training step (LML + backward) launches each of the five kernels once,
+# and a plane scan for each of its two prefixes.
+STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 1), **dict.fromkeys(SPECTRAL_KERNELS, 0), "plane_scan": 2}
 # The RBF model on the dt engine (its spectral family): an LML is the filter;
 # a predict_f request the filter and the smoother; a training step all five.
 RBF_MODEL = dict(kernel="RBF", variance=0.8, lengthscales=0.05, noise_variance=NOISE, order=6)
-RBF_LML_LAUNCHES = {**dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan_spectral": 1, "dt_filter_apply_spectral": 1}
-RBF_PREDICT_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1), "dt_fisher_spectral": 0}
-RBF_STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1)}
+RBF_LML_LAUNCHES = {
+    **dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan_spectral": 1, "dt_filter_apply_spectral": 1, "plane_scan": 1,
+}
+RBF_PREDICT_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1), "dt_fisher_spectral": 0, "plane_scan": 2}
+RBF_STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1), "plane_scan": 2}
 # The strip path on the same model's planes, through the Kalman API: an LML
 # is the strip filter; a predict_f request and a training step (strip filter
 # forward, strip smoother backward) are all four.
-STRIP_LML_LAUNCHES = {"strip_filter_scan": 1, "strip_filter_apply": 1, "strip_smoother_scan": 0, "strip_smoother_apply": 0}
-STRIP_ALL_LAUNCHES = dict.fromkeys(STRIP_KERNELS, 1)
+STRIP_LML_LAUNCHES = {"strip_filter_scan": 1, "strip_filter_apply": 1, "strip_smoother_scan": 0, "strip_smoother_apply": 0, "plane_scan": 1}
+STRIP_ALL_LAUNCHES = {**dict.fromkeys(STRIP_KERNELS, 1), "plane_scan": 2}
+STRIP_PASSES = dict.fromkeys(STRIP_KERNELS, 1)  # strip.LAUNCHES after a filter and a smoother
 N_ADAM = 5
 N_LBFGS = 2
 # The optimisers start away from the serving model's hyperparameters (0.8,
@@ -976,7 +996,7 @@ def check_strip_kernels(t, y) -> None:
             g_k, L_k = strip.strip_smoother(Fs, Qs, b_p, C_p)
             g_p, L_p = strip.strip_smoother_plain(Fs, Qs, b_p, C_p)
             torch.cuda.synchronize()
-            check(strip.LAUNCHES == STRIP_ALL_LAUNCHES, f"{name}: launches {strip.LAUNCHES}")
+            check(strip.LAUNCHES == STRIP_PASSES, f"{name}: launches {strip.LAUNCHES}")
             print(
                 f"strip {name} f64 T={T_KERNEL}: |b| {max_abs(b_k, b_p):.3e} |C| {max_abs(C_k, C_p):.3e} "
                 f"ell {float(ell_k):.12f} vs {float(ell_p):.12f} |g| {max_abs(g_k, g_p):.3e} |L| {max_abs(L_k, L_p):.3e}"
@@ -1068,7 +1088,7 @@ def check_strip_apply_edges() -> None:
                         b_k, C_k, ell_k = strip.strip_filter(Fs, Qs, P0, H, R, yt)
                         g_k, L_k = strip.strip_smoother(Fs, Qs, b_p, C_p)
                         torch.cuda.synchronize()
-                        check(strip.LAUNCHES == STRIP_ALL_LAUNCHES, f"{what}: launches {strip.LAUNCHES}")
+                        check(strip.LAUNCHES == STRIP_PASSES, f"{what}: launches {strip.LAUNCHES}")
                         rf, af, rs, as_ = strip_tolerances(d)
                         check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"{what} f64 filter moments")
                         check(abs(float(ell_k - ell_p)) <= rf * abs(float(ell_p)), f"{what} f64 LML {float(ell_k)} vs {float(ell_p)}")
@@ -1549,33 +1569,44 @@ TWO_PASS_KERNELS = tuple(k for k in DT_KERNELS + STRIP_KERNELS if k.endswith(("_
 # One batched log posterior with its gradient: one launch each of the
 # batched filter, the batched smoother and the Fisher tail, and nothing else.
 BATCHED_STEP_LAUNCHES = {
-    "batched_filter": 1, "batched_smoother": 1, "dt_fisher": 1, **dict.fromkeys(TWO_PASS_KERNELS + SPECTRAL_KERNELS, 0),
+    "batched_filter": 1, "batched_smoother": 1, "dt_fisher": 1,
+    **dict.fromkeys(TWO_PASS_KERNELS + SPECTRAL_KERNELS + PLANE_KERNELS, 0),
 }
 PREFIX_CALLS = [0]
 
 
 def count_prefix_calls() -> None:
     """Count every call of the plain exclusive prefix between two passes
-    (``exclusive_chunk_prefixes``, which both two-pass engines call by its
-    module's name)."""
-    plain = strip.exclusive_chunk_prefixes
+    (``exclusive_chunk_prefixes_plain``, which the all-plain strip engines
+    call by its module's name; the card's entry points must make none)."""
+    plain = strip.exclusive_chunk_prefixes_plain
 
     def counting(*args, **kwargs):
         PREFIX_CALLS[0] += 1
         return plain(*args, **kwargs)
 
-    strip.exclusive_chunk_prefixes = counting
-    dt.exclusive_chunk_prefixes = counting
+    strip.exclusive_chunk_prefixes_plain = counting
 
 
 def all_launches() -> dict:
-    return {**dt.LAUNCHES, **strip.LAUNCHES, **batched.LAUNCHES}
+    return {**dt.LAUNCHES, **strip.LAUNCHES, **batched.LAUNCHES, **plane.LAUNCHES}
+
+
+def dt_launches() -> dict:
+    """The dt kernels' launches and the plane scans of their chunk prefixes."""
+    return {**dt.LAUNCHES, "plane_scan": plane.LAUNCHES["plane_scan"]}
+
+
+def strip_launches() -> dict:
+    """The strip kernels' launches and the plane scans of their chunk prefixes."""
+    return {**strip.LAUNCHES, "plane_scan": plane.LAUNCHES["plane_scan"]}
 
 
 def reset_all_launches() -> None:
     dt.reset_launch_counts()
     strip.reset_launch_counts()
     batched.reset_launch_counts()
+    plane.reset_launch_counts()
     PREFIX_CALLS[0] = 0
 
 
@@ -1683,7 +1714,10 @@ def phase_batched_slice():
         f"steps median {float(eps_w.median()):.4g}; NUTS (max_depth=3) tested its masks {first['nuts_mask_tests'] / N_NUTS:.1f} times a step"
     )
     print(f"  launches of the batched path (one run of the samplers included) {counts}, plain prefixes {PREFIX_CALLS[0]}")
-    check(not any(counts[k] for k in TWO_PASS_KERNELS + SPECTRAL_KERNELS) and PREFIX_CALLS[0] == 0, f"the samplers left the batched path: {counts}")
+    check(
+        not any(counts[k] for k in TWO_PASS_KERNELS + SPECTRAL_KERNELS + PLANE_KERNELS) and PREFIX_CALLS[0] == 0,
+        f"the samplers left the batched path: {counts}",
+    )
     check(counts["batched_filter"] >= counts["batched_smoother"] == counts["dt_fisher"] > N_HMC * 10, f"sampler launches {counts}")
     del first, second
     torch.cuda.empty_cache()
@@ -1850,15 +1884,19 @@ def phase_slice():
     for dtype in (torch.float32, torch.float64):
         model = StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, NOISE, dtype=dtype, device=DEV)
         torch.cuda.synchronize()
-        dt.reset_launch_counts()
+        reset_all_launches()
         with torch.no_grad():
             ell = model.log_marginal_likelihood()
-            after_lml = dict(dt.LAUNCHES)
+            after_lml = dt_launches()
             preds = [model.predict_f(q) for q in queries]
         torch.cuda.synchronize()
-        counts = dict(dt.LAUNCHES)
+        counts = dt_launches()
         tag = str(dtype).replace("torch.", "")
-        print(f"slice {tag} N={N_FULL}: LML {float(ell):.6f}, launches after LML {after_lml}, after requests {counts}")
+        print(
+            f"slice {tag} N={N_FULL}: LML {float(ell):.6f}, launches after LML {after_lml}, after requests {counts}, "
+            f"plain prefixes {PREFIX_CALLS[0]}"
+        )
+        check(PREFIX_CALLS[0] == 0, f"{tag} serving path ran {PREFIX_CALLS[0]} plain prefixes")
         check(bool(torch.isfinite(ell)), f"{tag} LML not finite")
         with torch.no_grad():
             again = model.log_marginal_likelihood()
@@ -1938,16 +1976,16 @@ def strip_predict(model, Xnew):
 
 # The two routes of the RBF(order=6) model's entry points: (LML, predict_f,
 # value and gradient, the same step through the plain versions only, the
-# counters the route's kernels add to, and the launches of an LML, a
-# predict_f request and a training step).
+# counts of the route's kernels and its prefixes' plane scans, and the
+# launches of an LML, a predict_f request and a training step).
 RBF_ROUTES = {
     "dt": (
         lambda m: m.log_marginal_likelihood(), lambda m, q: m.predict_f(q), value_and_grad, plain_value_and_grad,
-        dt.LAUNCHES, (RBF_LML_LAUNCHES, RBF_PREDICT_LAUNCHES, RBF_STEP_LAUNCHES),
+        dt_launches, (RBF_LML_LAUNCHES, RBF_PREDICT_LAUNCHES, RBF_STEP_LAUNCHES),
     ),
     "strip": (
         strip_lml, strip_predict, strip_value_and_grad, plain_strip_value_and_grad,
-        strip.LAUNCHES, (STRIP_LML_LAUNCHES, STRIP_ALL_LAUNCHES, STRIP_ALL_LAUNCHES),
+        strip_launches, (STRIP_LML_LAUNCHES, STRIP_ALL_LAUNCHES, STRIP_ALL_LAUNCHES),
     ),
 }
 
@@ -1965,28 +2003,32 @@ def drive_rbf_route(route: str):
     queries = np.random.RandomState(SEED + 5).rand(1000) * 1.4 - 0.2  # unsorted, some outside [0, 1)
     model = rbf_model(t, y, torch.float32)
     torch.cuda.synchronize()
-    counts = []
+    counts, plain_prefixes = [], []
     reset_all_launches()
     with torch.no_grad():
         ell = lml(model)
-        counts.append(dict(counter))
+        counts.append(counter())
+        plain_prefixes.append(PREFIX_CALLS[0])
         reset_all_launches()
         mean, var = predict(model, queries)
-        counts.append(dict(counter))
+        counts.append(counter())
+        plain_prefixes.append(PREFIX_CALLS[0])
     reset_all_launches()
     loss, grad = step(model)
-    counts.append(dict(counter))
-    others = {k: v for k, v in all_launches().items() if k not in counter}
+    counts.append(counter())
+    plain_prefixes.append(PREFIX_CALLS[0])
+    others = {k: v for k, v in all_launches().items() if k not in counts[-1]}
     torch.cuda.synchronize()
     tag = f"rbf {route} route"
     print(
         f"{tag} f32 RBF(order=6) N={N_STRIP} (the model on the {model.engine()[0]} engine): LML {float(ell):.6f}; query "
         f"variance min {float(var.min()):.3e} max {float(var.max()):.3e}; gradient (variance, lengthscale, noise) {grad.tolist()}"
     )
-    print(f"  launches: LML {counts[0]}, predict_f {counts[1]}, training step {counts[2]}")
+    print(f"  launches: LML {counts[0]}, predict_f {counts[1]}, training step {counts[2]}; plain prefixes {plain_prefixes}")
     for got, want, call in zip(counts, (want_lml, want_predict, want_step), ("LML", "predict_f", "training-step")):
         check(got == want, f"{tag} {call} launches {got}, expected {want}")
     check(not any(others.values()), f"{tag} launched another engine's kernel: {others}")
+    check(not any(plain_prefixes), f"{tag}: the LML, predict_f and training step ran {plain_prefixes} plain prefixes")
     check(bool(torch.isfinite(ell)) and bool(loss == -ell), f"{tag} f32 LML not finite, or the loss is not its negative")
     check(mean.shape == (1000, 1) and var.shape == (1000, 1) and bool(torch.isfinite(mean).all()), f"{tag} predict_f means")
     check(bool((var > 0).all()), f"{tag} predict_f variances not positive")
@@ -2025,7 +2067,7 @@ def drive_rbf_route(route: str):
     check(allclose(mean_k.cpu(), mean_c, 1e-7, 1e-9) and allclose(var_k.cpu(), var_c, 1e-7, 1e-9), f"{tag} f64 predict_f, card vs CPU")
     del m_k, m_c
     torch.cuda.empty_cache()
-    return model, queries, {k: sum(c[k] for c in counts) for k in counter}
+    return model, queries, {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 def phase_rbf_slice():
@@ -2052,10 +2094,11 @@ def phase_strip_slice():
     Fs, Qs, P0, H, R, yt = planes
     ts = torch.as_tensor(t, dtype=torch.float32, device=DEV)
     plane_bytes = Fs.numel() * Fs.element_size() + Qs.numel() * Qs.element_size()
-    strip.reset_launch_counts()
+    reset_all_launches()
     with torch.no_grad():
         sms, sPs = pkfs(LGSSMTL(P0, Fs, Qs, H, R), yt, engine="strip")
-        api_counts = dict(strip.LAUNCHES)
+        api_counts = strip_launches()
+        check(PREFIX_CALLS[0] == 0, f"pkfs(engine='strip') ran {PREFIX_CALLS[0]} plain prefixes")
         g_dt, L_dt = dt.pkfs_dt(kernel, ts, R, yt)
         k64 = Matern52(0.8, 0.4, dtype=torch.float64, device=DEV)
         g_t, L_t = dt.pkfs_dt(k64, ts.double(), R.double(), yt.double())
@@ -2072,7 +2115,7 @@ def phase_strip_slice():
     )
     for k, (a, b) in errs.items():
         check(a <= max(F32_FACTOR * b, F32_FLOOR), f"pkfs strip f32 {k}: strip {a:.3e} vs dt {b:.3e} from f64")
-    counts = {k: counts[k] + api_counts[k] for k in STRIP_KERNELS}
+    counts = {k: counts[k] + api_counts[k] for k in counts}
     del sms, sPs, g_s, L_s, g_dt, L_dt, g_t, L_t
     torch.cuda.empty_cache()
 
@@ -2096,25 +2139,30 @@ def phase_training(model, data) -> dict:
     start = StateSpaceGP.from_numpy(*data, "Matern52", *TRAIN_START, dtype=torch.float32, device=DEV)
     before = [p.detach().clone() for p in start.parameters()]
     torch.cuda.synchronize()
-    dt.reset_launch_counts()
+    reset_all_launches()
     loss, grad = value_and_grad(model)
-    step_counts = dict(dt.LAUNCHES)
+    step_counts = dt_launches()
     fitted, history = fit_adam(start, n_iters=N_ADAM)
-    adam_counts = dict(dt.LAUNCHES)
+    adam_counts = dt_launches()
     lbfgs_fitted, lbfgs_history = fit_lbfgs(start, n_iters=N_LBFGS)
     torch.cuda.synchronize()
-    counts = dict(dt.LAUNCHES)
+    counts = dt_launches()
     print(f"training f32 N={N_FULL}: loss {float(loss):.6f}, gradient (variance, lengthscale, noise) {grad.tolist()}")
-    print(f"  launches of one step {step_counts}, after {N_ADAM} Adam steps {adam_counts}, after {N_LBFGS} L-BFGS steps {counts}")
+    print(
+        f"  launches of one step {step_counts}, after {N_ADAM} Adam steps {adam_counts}, after {N_LBFGS} L-BFGS steps {counts}, "
+        f"plain prefixes {PREFIX_CALLS[0]}"
+    )
+    check(PREFIX_CALLS[0] == 0, f"the training path ran {PREFIX_CALLS[0]} plain prefixes")
     check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()), "f32 loss or gradient not finite")
     check(step_counts == STEP_LAUNCHES, f"one training step launched {step_counts}, expected {STEP_LAUNCHES}")
     want = {k: (1 + N_ADAM) * v for k, v in STEP_LAUNCHES.items()}
     check(adam_counts == want, f"launches after Adam {adam_counts}, expected {want}")
     # Every L-BFGS evaluation is one training step too: the five counts stay
-    # equal, and each of its steps makes at least one.
+    # equal, two prefixes each, and each of its steps makes at least one.
     check(
         len({counts[k] for k in DT_KERNELS}) == 1 and not any(counts[k] for k in SPECTRAL_KERNELS)
-        and counts["dt_fisher"] >= 1 + N_ADAM + N_LBFGS, f"launches after L-BFGS {counts}",
+        and counts["dt_fisher"] >= 1 + N_ADAM + N_LBFGS and counts["plane_scan"] == 2 * counts["dt_fisher"],
+        f"launches after L-BFGS {counts}",
     )
     with torch.no_grad():
         after_adam = fitted.training_loss()
@@ -2226,10 +2274,17 @@ def phase_times(card: str, model, queries, counts) -> list:
                 "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             })
-        # The plain exclusive prefix between the passes, on the card.
+        # The exclusive prefix between the passes (a plane scan and a shift),
+        # beside the plain Kogge–Stone prefix on the card; phase_prefix checks
+        # and records it.
         pf_ms = cuda_ms(lambda: dt.exclusive_chunk_prefixes(tot_f, d, reverse=False), reps=5)
         ps_ms = cuda_ms(lambda: dt.exclusive_chunk_prefixes(tot_s, d, reverse=True), reps=5)
-        print(f"chunk prefixes N={N_FULL} f32 [{card}]: filter {pf_ms:.3f} ms, smoother {ps_ms:.3f} ms")
+        pf_plain = cuda_ms(lambda: strip.exclusive_chunk_prefixes_plain(tot_f, d, reverse=False), reps=5)
+        ps_plain = cuda_ms(lambda: strip.exclusive_chunk_prefixes_plain(tot_s, d, reverse=True), reps=5)
+        print(
+            f"chunk prefixes N={N_FULL} f32 [{card}]: filter {pf_ms:.3f} ms, smoother {ps_ms:.3f} ms (plane scan and shift); "
+            f"plain filter {pf_plain:.3f} ms, smoother {ps_plain:.3f} ms"
+        )
         del passes, args, tot_f, pre_f, b, C, tot_s, pre_s, g, L
         torch.cuda.empty_cache()
 
@@ -2247,6 +2302,187 @@ def phase_times(card: str, model, queries, counts) -> list:
     print(f"predict_f 1000 queries N={N_FULL} f32 [{card}]: {pred_ms:.3f} ms (peak {pred_peak:.2f} GiB)")
     print(f"training step (LML + backward) N={N_FULL} f32 [{card}]: {step_ms:.3f} ms (peak {step_peak:.2f} GiB)")
     return records
+
+
+# The chunk prefix between the two passes (strip.exclusive_chunk_prefixes: an
+# inclusive plane_scan over the packed totals, then a one-column shift).  The
+# JAX package computes it as XLA ops (_strip_exclusive_prefixes), not a
+# Pallas kernel: its record names that function beside the scan's kernel.
+PREFIX_REPLACES = "parallel_gps_tpu/kalman/pallas_scan.py:907"
+
+
+def check_prefix_case(what: str, d: int, kind: str, x64, x32) -> tuple:
+    """The card prefix against ``exclusive_chunk_prefixes_plain`` on ``kind``
+    chunk totals (either of ``x64``, ``x32`` may be None): float64 moment
+    rows to the strip kernels' tolerances and every row to ROW_RTOL64 of its
+    magnitude; float32 moment rows against float64 truth (the plain prefix of
+    the same totals in float64) by the 10× rule.  Returns (float64 max
+    |moments| difference, largest float32 kernel-over-plain error ratio)."""
+    reverse = kind == "smoother"
+    worst64 = worst32 = 0.0
+    if x64 is not None:
+        rf, af, rs, as_ = strip_tolerances(d)
+        rtol, atol = (rf, af) if kind == "filter" else (rs, as_)
+        with torch.no_grad():
+            k, p = strip.exclusive_chunk_prefixes(x64, d, reverse), strip.exclusive_chunk_prefixes_plain(x64, d, reverse)
+        torch.cuda.synchronize()
+        check(k.shape == x64.shape and bool(torch.isfinite(k).all()), f"prefix {what} f64: shape {tuple(k.shape)} or not finite")
+        pairs = list(zip(moment_rows(k, d), moment_rows(p, d)))
+        worst64 = max(max_abs(a, b_) for a, b_ in pairs)
+        check(all(allclose(a, b_, rtol, atol) for a, b_ in pairs), f"prefix {what} f64 moments")
+        check(row_err(k, p) <= ROW_RTOL64, f"prefix {what} f64 rows")
+    if x32 is not None:
+        with torch.no_grad():
+            k = strip.exclusive_chunk_prefixes(x32, d, reverse)
+            p = strip.exclusive_chunk_prefixes_plain(x32, d, reverse)
+            t = strip.exclusive_chunk_prefixes_plain(x32.double(), d, reverse)
+        torch.cuda.synchronize()
+        check(k.shape == x32.shape and bool(torch.isfinite(k).all()), f"prefix {what} f32: shape {tuple(k.shape)} or not finite")
+        for a, b_, c in zip(moment_rows(k, d), moment_rows(p, d), moment_rows(t, d)):
+            ka, pa = rel_err(a, c), rel_err(b_, c)
+            worst32 = max(worst32, ka / max(pa, F32_FLOOR / F32_FACTOR))
+            check(ka <= max(F32_FACTOR * pa, F32_FLOOR), f"prefix {what} f32: kernel {ka:.3e} vs plain {pa:.3e} from f64")
+    return worst64, worst32
+
+
+def strip_totals(kernel, t, y, dtype) -> dict:
+    """{kind: chunk totals} of the strip kernels' pass 1 on the kernel's
+    planes (the smoother's on the strip filter's moments)."""
+    Fs, Qs, P0, H, R, yt = strip_inputs(kernel, t, y, dtype)
+    with torch.no_grad():
+        b, C, _ = strip.strip_filter(Fs, Qs, P0, H, R, yt)
+        return {"filter": strip.strip_filter_scan(Fs, Qs, P0, H, R, yt), "smoother": strip.strip_smoother_scan(Fs, Qs, b, C)}
+
+
+def dt_totals(model) -> dict:
+    """{kind: chunk totals} of the dt kernels' pass 1 on a model's data, as
+    its entry points give them."""
+    with torch.no_grad():
+        fam, co, sde, dts = dt._model_inputs(model.kernel, model.ts)
+        co, P0, H = co.detach(), sde.P0.detach(), sde.H.detach()
+        R = model.noise_variance.detach().reshape(1, 1)
+        b, C, _ = dt.strip_filter_dt(fam, co, P0, H, R, dts, model.ys)
+        return {"filter": dt.dt_filter_scan(fam, co, P0, H, R, dts, model.ys), "smoother": dt.dt_smoother_scan(fam, co, P0, dts, b, C)}
+
+
+def phase_prefix(card: str, launches: int) -> dict:
+    """The chunk prefix on the card against its plain version: at the main
+    path's shapes — the Matern52 N = 10M model's totals (156,250 chunks,
+    d = 3) and the RBF(order=6) N = 1M model's (15,625, d = 6), float32 and
+    float64, both kinds — and at every d = 1..8, float32 and float64, at 1
+    and 2 chunks and where the plane scan's tiles have edges
+    (plane_edge_lengths), on the strip kernels' totals of the
+    PLANE_EDGE_CASES models; then its time at the path's shapes against the
+    plain prefix and its bound.  ``launches``: the plane scans of the dt
+    path's prefixes.  Returns the kernels-line record."""
+    shapes = {}
+    for name, d, T, seed in (("Matern52", 3, N_FULL, SEED), ("RBF(order=6)", 6, N_STRIP, SEED + 4)):
+        t, y = make_data(T, seed)
+
+        def model(dtype):
+            if d == 3:
+                return StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, NOISE, dtype=dtype, device=DEV)
+            return rbf_model(t, y, dtype)
+
+        totals = {dtype: dt_totals(model(dtype)) for dtype in (torch.float64, torch.float32)}
+        for kind in plane.KINDS:
+            x64, x32 = totals[torch.float64][kind], totals[torch.float32][kind]
+            worst64, worst32 = check_prefix_case(f"{name} N={T} {kind}", d, kind, x64, x32)
+            print(
+                f"prefix {name} N={T} {kind}: {x32.shape[1]} chunks, d={d}: f64 |moments| {worst64:.3e}, "
+                f"f32 kernel error over plain f32 error {worst32:.2f} (limit {F32_FACTOR:.0f})"
+            )
+            shapes[(name, kind)] = (d, x32, worst64)
+        del totals, x64
+        torch.cuda.empty_cache()
+
+    # Every unit at its tile edges: the strip kernels' totals of a series of
+    # 64 steps a chunk, cut to each count of chunks.
+    for name, make in PLANE_EDGE_CASES:
+        d, n, worst64, worst32 = int(name.split("d=")[1]), 0, 0.0, 0.0
+        for dtype in (torch.float64, torch.float32):
+            threads, steps = plane.scan_tiling(d, dtype)
+            counts = (1, 2) + plane_edge_lengths(threads * steps)[1:]
+            t, y = make_data(strip.CHUNK * counts[-1], SEED + 60 + d)
+            totals = strip_totals(make(dtype), t, y, dtype)
+            for kind in plane.KINDS:
+                for m in counts:
+                    x = totals[kind][:, -m:] if kind == "smoother" else totals[kind][:, :m]
+                    pair = (x.contiguous(), None) if dtype == torch.float64 else (None, x.contiguous())
+                    w64, w32 = check_prefix_case(f"{name} {kind} {m} chunks", d, kind, *pair)
+                    worst64, worst32, n = max(worst64, w64), max(worst32, w32), n + 1
+            del totals
+            torch.cuda.empty_cache()
+        print(
+            f"prefix edges {name}: {n} prefixes at 1, 2 and the tile edges' chunk counts, both kinds, f64 and f32; "
+            f"f64 |moments| max {worst64:.3e}, f32 kernel error over plain f32 error at most {worst32:.2f}"
+        )
+    # The chain's wait is bounded too: with no polls allowed the second tile
+    # overruns, and the status read after the launch raises.
+    d, x = 3, shapes[("Matern52", "filter")][1]
+    max_polls, plane.MAX_POLLS = plane.MAX_POLLS, 0
+    try:
+        strip.exclusive_chunk_prefixes(x, d, False)
+        plane.check_overruns()
+    except RuntimeError as err:
+        print(f"prefix with MAX_POLLS = 0 raised, as it must: {err}")
+    else:
+        raise AssertionError("the chunk prefix with MAX_POLLS = 0 did not raise")
+    finally:
+        plane.MAX_POLLS = max_polls
+
+    # Times at the path's shapes: events around the whole prefix (its host
+    # work and the scan's status read included), the device time of one
+    # call, the plain prefix, and the bound of reading the totals once and
+    # writing the prefixes once.
+    out = {}
+    for (name, kind), (d, x, worst64) in shapes.items():
+        reverse = kind == "smoother"
+        with torch.no_grad():
+            k, p = strip.exclusive_chunk_prefixes(x, d, reverse), strip.exclusive_chunk_prefixes_plain(x, d, reverse)
+            plane.check_overruns()
+            look_back = dict(plane.LOOK_BACK)
+            again = strip.exclusive_chunk_prefixes(x, d, reverse)
+            torch.cuda.synchronize()
+            err = max_abs(k, p)
+            # The chained scan folds one predecessor a tile, so two calls give
+            # the same bits.
+            check(torch.equal(k, again), f"prefix {name} {kind}: two calls differ")
+            check(look_back["folded"] == look_back["tiles"] - 1, f"prefix {name} {kind}: look-back {look_back}")
+            del k, p, again
+            ms = cuda_ms(lambda: strip.exclusive_chunk_prefixes(x, d, reverse), reps=10)
+            plain_ms = cuda_ms(lambda: strip.exclusive_chunk_prefixes_plain(x, d, reverse), reps=3)
+            _, by_name, n_kernels = profile_call(lambda: strip.exclusive_chunk_prefixes(x, d, reverse))
+            # For comparison, the same inclusive scan joined by the decoupled
+            # look-back (the time-first path's): faster, but its fold, and so
+            # its bits, follow the blocks' timing.
+            lb_ms = cuda_ms(lambda: plane.plane_scan(x, d, kind, reverse), reps=10)
+            _, lb_by_name, _ = profile_call(lambda: plane.plane_scan(x, d, kind, reverse))
+            runs = [plane.plane_scan(x, d, kind, reverse) for _ in range(5)]
+            lb_same = all(torch.equal(runs[0], r) for r in runs[1:])
+            del runs
+        plane.check_overruns()
+        bound_ms, bound_by = kernel_bound(f"plane_scan_{kind}", d, 0, x.shape[1], 0, x.element_size())
+        print(
+            f"prefix {name} {kind} {x.shape[1]} chunks d={d} f32 [{card}]: {ms:.4f} ms (events), device "
+            f"{sum(by_name.values()):.4f} ms in {n_kernels} kernels {by_name}, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); |card - plain| {err:.3e}; look-back {look_back}; the scan by the decoupled look-back instead: "
+            f"{lb_ms:.4f} ms (events), device {sum(lb_by_name.values()):.4f} ms, five calls bit for bit: {lb_same}"
+        )
+        out[(name, kind)] = {
+            "at": f"{name} {kind} totals, {x.shape[1]} chunks, d={d} f32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": sum(by_name.values()) if by_name else None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "f64_max_abs_err": worst64, "look_back_ms": lb_ms,
+            "look_back_device_ms": sum(lb_by_name.values()) if lb_by_name else None, "look_back_deterministic": lb_same,
+        }
+    del shapes
+    torch.cuda.empty_cache()
+    main_rec = out.pop(("Matern52", "filter"))
+    # No single PyTorch call computes this scan.
+    return {
+        "name": "plane_scan_chunk_prefix", "route": "cuda", "source": SOURCES["plane_scan"], "replaces": REPLACES["plane_scan"],
+        "prefix_replaces": PREFIX_REPLACES, "launches": launches, **main_rec, "other_shapes": list(out.values()),
+    }
 
 
 def time_strip_kernels(card: str, what: str, planes) -> dict:
@@ -2622,7 +2858,6 @@ def phase_probes(card: str) -> list:
 # The time-first fused path: pkf / pks / pkfs on an LGSSM, engine="strip"
 # --------------------------------------------------------------------------
 
-PLANE_KERNELS = ("plane_scan", "plane_transpose")
 # Launches of the path: one scan a pass, one transpose a layout move.
 PKF_LAUNCHES = {"plane_scan": 1, "plane_transpose": 4}  # Fs, Qs in; b, C out
 PKS_LAUNCHES = {"plane_scan": 1, "plane_transpose": 6}  # Fs, Qs, ms, Ps in; g, L out
@@ -2712,14 +2947,15 @@ def phase_plane_kernels() -> None:
         del filt64, smooth64, filt32, smooth32
     check_plane_edges()
     # The look-back's spin is bounded: with no polls allowed every tile after
-    # the first overruns, and the wrapper raises instead of hanging; in a
-    # unit of each look-back (d = 3 filter rows: the warp's; d = 6: one
-    # thread's).
+    # the first overruns, and the status read after the launch raises
+    # instead of the kernel hanging; in a unit of each look-back (d = 3
+    # filter rows: the warp's; d = 6: one thread's).
     for name, make in (STRIP_CASES[2], STRIP_CASES[4]):
         filt, _, d = plane_rows(make, t, y, torch.float32)
         max_polls, plane.MAX_POLLS = plane.MAX_POLLS, 0
         try:
             plane.plane_scan(filt, d, "filter")
+            plane.check_overruns()
         except RuntimeError as err:
             print(f"plane_scan {name} with MAX_POLLS = 0 raised, as it must: {err}")
         else:
@@ -2863,7 +3099,7 @@ def phase_plane_slice():
         counts["pkfs"] = dict(plane.LAUNCHES)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    others = all_launches()
+    others = {k: v for k, v in all_launches().items() if k not in PLANE_KERNELS}
     print(f"plane slice f32 Matern52 N={N_FULL}: LML {float(ell):.6f}; launches {counts}; other kernels {others}; plain calls {PLAIN_CALLS}; peak {peak:.2f} GiB")
     check(counts == {"pkf": PKF_LAUNCHES, "pks": PKS_LAUNCHES, "pkfs": PKFS_LAUNCHES}, f"plane path launches {counts}")
     check(not any(others.values()) and PREFIX_CALLS[0] == 0, f"the plane path launched another engine's kernel: {others}")
@@ -2952,7 +3188,7 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
         reverse = kind == "smoother"
         with torch.no_grad():
             k, p = plane.plane_scan(x, d, kind, reverse), plane.plane_scan_plain(x, d, kind, reverse)
-            torch.cuda.synchronize()
+            plane.check_overruns()
             err, look_back = max_abs(k, p), dict(plane.LOOK_BACK)
             truth = [m.clone() for m in moment_rows(plane.plane_scan_plain(x.double(), d, kind, reverse), d)]
             errs = [(rel_err(a, c), rel_err(b_, c)) for a, b_, c in zip(moment_rows(k, d), moment_rows(p, d), truth)]
@@ -3046,26 +3282,140 @@ def phase_plane_times(card: str, counts: dict, inputs) -> list:
     ]
 
 
+def entry_timers(label: str, report=None) -> None:
+    """The entry points alone, for comparing two trees in one call (the
+    module docstring): at N = 10M, Matern52, float32, the chunk prefix of the
+    dt filter's and smoother's totals (``dt.exclusive_chunk_prefixes``,
+    whichever way the tree computes it), the LML, one predict_f request, one
+    training step and the time-last pkfs(LGSSMTL, "strip"); the RBF(order=6)
+    N = 1M LML, predict_f and training step on the engine the model takes.
+    Each as events (cuda_ms, median of 9) and as wall, device time by kernel
+    and the device's idle share (``report``, ab_report's by default: the
+    median of three profiled calls)."""
+    report = report or ab_report(label)
+    t, y = make_data(N_FULL, SEED)
+    query = np.random.RandomState(SEED + 2).rand(1000) * 1.4 - 0.2
+    model = StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, NOISE, dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        fam, co, sde, dts = dt._model_inputs(model.kernel, model.ts)
+        co, P0, H = co.detach(), sde.P0.detach(), sde.H.detach()
+        R = model.noise_variance.detach().reshape(1, 1)
+        b, C, _ = dt.strip_filter_dt(fam, co, P0, H, R, dts, model.ys)
+        totals = {
+            "filter": dt.dt_filter_scan(fam, co, P0, H, R, dts, model.ys),
+            "smoother": dt.dt_smoother_scan(fam, co, P0, dts, b, C),
+        }
+        del b, C
+        for kind, x in totals.items():
+            def prefix(x=x, kind=kind):
+                return dt.exclusive_chunk_prefixes(x, 3, reverse=kind == "smoother")
+
+            report(f"chunk prefix {kind} {x.shape[1]} chunks", cuda_ms(prefix, reps=9), prefix, profiles=3)
+        del totals
+
+        def lml():
+            return model.log_marginal_likelihood()
+
+        report("LML", cuda_ms(lml, reps=9), lml, profiles=3)
+        report("predict_f", cuda_ms(lambda: model.predict_f(query), reps=9), lambda: model.predict_f(query), profiles=3)
+    report("training step", cuda_ms(lambda: value_and_grad(model), reps=9), lambda: value_and_grad(model), profiles=3)
+    del model
+    torch.cuda.empty_cache()
+
+    kernel = Matern52(0.8, 0.4, dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        ts, yt = (torch.as_tensor(x, dtype=torch.float32, device=DEV) for x in (t, y))
+        ssm_tl = kernel.get_ssm_tl(ts, torch.full((1, 1), NOISE, dtype=torch.float32, device=DEV))
+
+        def api_tl():
+            return pkfs(ssm_tl, yt, engine="strip")
+
+        report("pkfs(LGSSMTL, strip)", cuda_ms(api_tl, reps=9), api_tl, profiles=3)
+        del ssm_tl
+        torch.cuda.empty_cache()
+
+    # The RBF(order=6) model at N = N_STRIP: its entry points on the engine it
+    # takes in this tree (strip before the spectral family, dt after).
+    t_s, y_s = make_data(N_STRIP, SEED + 4)
+    rbf = rbf_model(t_s, y_s, torch.float32)
+    queries = np.random.RandomState(SEED + 5).rand(1000) * 1.4 - 0.2
+    what = f"RBF(order=6) N={N_STRIP} on its {rbf.engine()[0]} engine"
+    with torch.no_grad():
+        report(f"LML {what}", cuda_ms(rbf.log_marginal_likelihood, reps=9), rbf.log_marginal_likelihood, profiles=3)
+        report(f"predict_f {what}", cuda_ms(lambda: rbf.predict_f(queries), reps=9), lambda: rbf.predict_f(queries), profiles=3)
+    report(f"training step {what}", cuda_ms(lambda: value_and_grad(rbf), reps=9), lambda: value_and_grad(rbf), profiles=3)
+    del rbf
+    torch.cuda.empty_cache()
+
+
+def status_read_timers(reps: int = 30) -> None:
+    """What reading the plane scan's status word costs an LML (Matern52
+    N = 10M and RBF(order=6) N = 1M, float32), in one process, the variants
+    in turns: the wrapper's read, copied behind an event and checked by a
+    later call (``plane._watch``); a read by a host synchronisation
+    (``status.tolist()``, the wrapper's before); no read at all.  Median of
+    ``reps`` calls each: CUDA events around the call, and the host clock
+    around the call and a synchronise."""
+    card = phase_device()
+    watch = plane._watch
+    variants = {
+        "event": watch,
+        "sync": lambda what, status, n_tiles, tile: status.tolist(),
+        "none": lambda what, status, n_tiles, tile: None,
+    }
+    t, y = make_data(N_FULL, SEED)
+    t_s, y_s = make_data(N_STRIP, SEED + 4)
+    models = {
+        f"LML Matern52 N={N_FULL}": StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, NOISE, dtype=torch.float32, device=DEV),
+        f"LML RBF(order=6) N={N_STRIP}": rbf_model(t_s, y_s, torch.float32),
+    }
+    try:
+        for what, model in models.items():
+            times = {v: ([], []) for v in variants}
+            with torch.no_grad():
+                for v, fn in variants.items():  # one warm-up call each
+                    plane._watch = fn
+                    model.log_marginal_likelihood()
+                for _ in range(reps):
+                    for v, fn in variants.items():
+                        plane._watch = fn
+                        torch.cuda.synchronize()
+                        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                        t0 = time.perf_counter()
+                        start.record()
+                        model.log_marginal_likelihood()
+                        end.record()
+                        torch.cuda.synchronize()
+                        times[v][1].append(1e3 * (time.perf_counter() - t0))
+                        times[v][0].append(start.elapsed_time(end))
+            plane.check_overruns()
+            print(
+                f"status read [{card}] {what}, median of {reps} in turns: "
+                + ", ".join(f"{v} events {np.median(e):.3f} ms wall {np.median(w):.3f} ms" for v, (e, w) in times.items())
+            )
+    finally:
+        plane._watch = watch
+
+
 def ab_timers(label: str) -> None:
     """This script's timers alone, for comparing two trees in one call (the
-    module docstring): at N = 10M, Matern52, float32 — dt_smoother_apply and
-    dt_filter_apply on the serving path's inputs and plane_scan on the
-    time-first path's filter and smoother rows, each as events around ten
-    lone calls of its wrapper (cuda_ms) and as device time in a profile of
-    one call; the LML, one predict_f request and one training step of the
-    model, and the time-first pkfs and pkfs(LGSSMTL, "strip"), each as
-    events (cuda_ms, median of 9) and as device time in a profile
+    module docstring): the entry points (entry_timers); at N = 10M,
+    Matern52, float32 — dt_smoother_apply and dt_filter_apply on the serving
+    path's inputs and plane_scan on the time-first path's filter and
+    smoother rows, each as events around ten lone calls of its wrapper
+    (cuda_ms) and as device time in a profile of one call; the time-first
+    pkfs, as events (cuda_ms, median of 9) and as device time in a profile
     (profile_call).  plane_scan also on the same rows in float64, and on RBF
     filter and smoother rows of d = 4..8 at N = 1M float32.  The two strip
     pass-2 kernels on the Matern52 planes (d = 3, N = 10M float32) and at
-    every d = 1..8 at N = 1M, float32 and float64; the RBF(order=6) N = 1M
-    LML, predict_f and training step on the engine the model takes; then the
-    filter's and the smoother's pass-1 kernels (scan_timers).  One line a measurement, tagged
-    with ``label``, the card and the tree's look-back tiling and strip stages
-    where it reports them."""
+    every d = 1..8 at N = 1M, float32 and float64; then the filter's and the
+    smoother's pass-1 kernels (scan_timers) and the batched kernels
+    (batched_timers).  One line a measurement, tagged with ``label``, the
+    card and the tree's look-back tiling and strip stages where it reports
+    them."""
     report = ab_report(label)
+    entry_timers(label, report)
     t, y = make_data(N_FULL, SEED)
-    query = np.random.RandomState(SEED + 2).rand(1000) * 1.4 - 0.2
     model = StateSpaceGP.from_numpy(t, y, "Matern52", 0.8, 0.4, NOISE, dtype=torch.float32, device=DEV)
     with torch.no_grad():
         fam, co, sde, dts = dt._model_inputs(model.kernel, model.ts)
@@ -3085,13 +3435,6 @@ def ab_timers(label: str) -> None:
 
         report("dt_filter_apply", cuda_ms(filter_apply, reps=10), filter_apply)
         del b, C, pre_s, pre_f
-
-        def lml():
-            return model.log_marginal_likelihood()
-
-        report("LML", cuda_ms(lml, reps=9), lml)
-        report("predict_f", cuda_ms(lambda: model.predict_f(query), reps=9), lambda: model.predict_f(query))
-    report("training step", cuda_ms(lambda: value_and_grad(model), reps=9), lambda: value_and_grad(model))
     del model
     torch.cuda.empty_cache()
 
@@ -3113,6 +3456,7 @@ def ab_timers(label: str) -> None:
                     return plane.plane_scan(x, d, kind, kind == "smoother")
 
                 ms = cuda_ms(scan, reps=10)
+                getattr(plane, "check_overruns", lambda: None)()  # a tree that reads the status later
                 print(f"ab {label} plane_scan {kind}{what}: look-back {plane.LOOK_BACK}")
                 report(f"plane_scan {kind}{what}", ms, scan)
 
@@ -3136,13 +3480,6 @@ def ab_timers(label: str) -> None:
 
         report("pkfs(LGSSM, strip)", cuda_ms(api, reps=9), api)
         del ssm
-        ssm_tl = kernel.get_ssm_tl(ts, torch.full((1, 1), NOISE, dtype=torch.float32, device=DEV))
-
-        def api_tl():
-            return pkfs(ssm_tl, yt, engine="strip")
-
-        report("pkfs(LGSSMTL, strip)", cuda_ms(api_tl, reps=9), api_tl)
-        del ssm_tl
         torch.cuda.empty_cache()
         # The strip pass-2 kernels: d = 3 on that model's planes (the
         # pkfs(LGSSMTL, "strip") path's), and every unit, d = 1..8 in float32
@@ -3152,18 +3489,6 @@ def ab_timers(label: str) -> None:
             for d in range(1, strip.MAX_KERNEL_D + 1):
                 strip_apply_timers(report, label, "", strip_inputs(strip_edge_kernel(d, dtype), t_s, y_s, dtype))
                 torch.cuda.empty_cache()
-
-    # The RBF(order=6) model at N = N_STRIP: its entry points on the engine it
-    # takes in this tree (strip before the spectral family, dt after).
-    rbf = rbf_model(t_s, y_s, torch.float32)
-    queries = np.random.RandomState(SEED + 5).rand(1000) * 1.4 - 0.2
-    what = f"RBF(order=6) N={N_STRIP} on its {rbf.engine()[0]} engine"
-    with torch.no_grad():
-        report(f"LML {what}", cuda_ms(rbf.log_marginal_likelihood, reps=9), rbf.log_marginal_likelihood)
-        report(f"predict_f {what}", cuda_ms(lambda: rbf.predict_f(queries), reps=9), lambda: rbf.predict_f(queries))
-    report(f"training step {what}", cuda_ms(lambda: value_and_grad(rbf), reps=9), lambda: value_and_grad(rbf))
-    del rbf
-    torch.cuda.empty_cache()
     scan_timers(label, report)
     batched_timers(label, report)
 
@@ -3172,9 +3497,10 @@ def ab_report(label: str):
     """The card's name, the tree's library built and loaded (with every
     kernel's ptxas line where it was built now), and a
     ``report(what, events_ms, fn, profiles=1)`` that prints one A/B line: the
-    events' time and the device time by kernel in a profile of one call of
-    ``fn`` — with ``profiles`` > 1, each kernel's median over that many
-    profiled calls (a profile that recorded no device events is left out)."""
+    events' time, and of ``profiles`` profiled calls of ``fn`` (profile_call)
+    the median wall, each kernel's median device time (a profile that
+    recorded no device events is left out), their sum and the device's idle
+    share (1 − device / wall)."""
     card = phase_device()
     so, log = _cuda.build()
     _cuda.load()
@@ -3183,9 +3509,16 @@ def ab_report(label: str):
         print(f"ab {label} {line}")
 
     def report(what, events_ms, fn, profiles=1):
-        runs = [by_name for by_name in (profile_call(fn)[1] for _ in range(profiles)) if by_name] or [{}]
+        calls = [profile_call(fn) for _ in range(profiles)]
+        runs = [by_name for _, by_name, _ in calls if by_name] or [{}]
         device = {k: round(float(np.median([r.get(k, 0.0) for r in runs])), 4) for k in runs[0]}
-        print(f"ab {label} [{card}] {what}: events {events_ms:.3f} ms, device {sum(device.values()):.3f} ms {device}")
+        wall, busy = float(np.median([c[0] for c in calls])), sum(device.values())
+        kernels = int(np.median([c[2] for c in calls]))
+        idle = f"idle share {max(0.0, 1.0 - busy / wall):.3f}" if device else "device time not measured"
+        print(
+            f"ab {label} [{card}] {what}: events {events_ms:.3f} ms, wall {wall:.3f} ms, device {busy:.3f} ms in {kernels} "
+            f"kernels, {idle} {device}"
+        )
 
     return report
 
@@ -3552,11 +3885,13 @@ def main() -> int:
     print(f"launches: serving path {serving}, training path {training}")
     for name in DT_KERNELS:
         check(serving[name] + training[name] > 0 and training[name] > 0, f"{name} was never launched on the training path")
-    counts = {name: serving[name] + training[name] for name in DT_KERNELS}
+    counts = {name: serving[name] + training[name] for name in DT_KERNELS + ("plane_scan",)}
+    check(serving["plane_scan"] > 0 and training["plane_scan"] > 0, "the dt path ran its chunk prefixes without a plane scan")
     records = phase_times(card, model, queries, counts)
     phase_profile(card, f"Matern52 N={N_FULL}", model, queries[0])
     del model, data
     torch.cuda.empty_cache()
+    records.append(phase_prefix(card, counts["plane_scan"]))
     rbf, rbf_queries, rbf_counts = phase_rbf_slice()
     print(f"launches: RBF dt path {rbf_counts}")
     for name in SPECTRAL_KERNELS:
@@ -3592,6 +3927,7 @@ def main() -> int:
         check(plane_counts[name] > 0, f"{name} was never launched on the time-first path")
     records += phase_plane_times(card, plane_counts, plane_inputs)
     del plane_inputs
+    plane.check_overruns()
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

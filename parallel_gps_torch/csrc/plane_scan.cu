@@ -85,6 +85,15 @@
 //    on D = 5, 6 filter and D = 7, 8 smoother rows, the warp elsewhere
 //    (double units take the same split; measured in double at D = 3 only,
 //    where the warp's is 1.4× / 1.7× as fast with one step a thread).
+//  - Chained, on request (``chained``; the chunk prefix between the two
+//    passes of the strip and dt engines takes it): no tile publishes its
+//    aggregate, so each tile's first thread waits for the inclusive total of
+//    the tile just before it and publishes its own.  The look-back's fold
+//    depends on which predecessors have published what when it looks, so
+//    its association, and the last bits of the scan, change from one launch
+//    to the next; the chain's do not.  It costs one dependent hop a tile:
+//    fine over the few hundred tiles of a prefix, not over the 19,532 of a
+//    time-first pass (above).
 //  - No hang.  A spin is bounded (max_polls polls of a window with
 //    __nanosleep back-off); on overrun the kernel sets status[1], publishes
 //    what it has so that no other block waits on it, and the wrapper raises.
@@ -143,14 +152,16 @@ namespace pgt {
 template <typename S, typename Ops>
 __device__ __forceinline__ int look_back_thread(const typename Ops::Elem& aggregate, long long tile, long long first,
                                                  int step, int* flags, S* agg, S* incl, int* status,
-                                                 long long max_polls, typename Ops::Elem& prefix) {
+                                                 long long max_polls, bool chained, typename Ops::Elem& prefix) {
   typedef typename Ops::Elem E;
   constexpr int n = Ops::kRows;
   if (tile == first) {
     publish<S, E>(incl + tile * n, flags + tile, kFlagIncl, aggregate);
     return 0;
   }
-  publish<S, E>(agg + tile * n, flags + tile, kFlagAgg, aggregate);
+  // Chained: no tile publishes an aggregate, so the first flag seen is the
+  // predecessor's INCL and the carry's association is fixed.
+  if (!chained) publish<S, E>(agg + tile * n, flags + tile, kFlagAgg, aggregate);
   int folded = 0;
   E x;
 #pragma unroll 1
@@ -282,7 +293,7 @@ extern __shared__ __align__(16) unsigned char pgt_plane_smem[];
 template <typename S, int D, int NT, int Steps, typename Ops>
 __global__ void __launch_bounds__(NT)
     plane_scan_kernel(const S* __restrict__ in, S* __restrict__ out, long long T, long long n_tiles, int reverse,
-                      int* status, int* flags, S* agg, S* incl, long long max_polls) {
+                      int chained, int* status, int* flags, S* agg, S* incl, long long max_polls) {
   typedef typename Ops::Elem E;
   typedef PlaneSmem<NT, Steps, Ops::kRows> M;
   constexpr int kRows = Ops::kRows;
@@ -337,15 +348,21 @@ __global__ void __launch_bounds__(NT)
   E aggregate;
   if (tid == 0) load_rows<S, E>(sm, NT, reverse ? 0 : n_thr - 1, aggregate);
   __syncthreads();  // sm is read: the look-back's window may reuse it
-  if (tid < (Ops::kWarpLookBack ? 32 : 1)) {
+  const bool warp_look_back = Ops::kWarpLookBack && !chained;
+  if (tid < (warp_look_back ? 32 : 1)) {
     E prefix;
     const long long first = reverse ? n_tiles - 1 : 0;
     const int step = reverse ? -1 : 1;
     int folded;
-    if constexpr (Ops::kWarpLookBack)
-      folded = look_back_warp<S, Ops>(aggregate, tile, first, step, flags, agg, incl, status, max_polls, sm, NT, prefix);
-    else
-      folded = look_back_thread<S, Ops>(aggregate, tile, first, step, flags, agg, incl, status, max_polls, prefix);
+    if constexpr (Ops::kWarpLookBack) {
+      if (warp_look_back)
+        folded = look_back_warp<S, Ops>(aggregate, tile, first, step, flags, agg, incl, status, max_polls, sm, NT, prefix);
+      else
+        folded = look_back_thread<S, Ops>(aggregate, tile, first, step, flags, agg, incl, status, max_polls, true, prefix);
+    } else {
+      folded = look_back_thread<S, Ops>(aggregate, tile, first, step, flags, agg, incl, status, max_polls, chained != 0,
+                                        prefix);
+    }
     if (tid == 0) {
       if (folded) {
         store_rows<S, E>(prefix_sm, 1, 0, prefix);
@@ -614,8 +631,8 @@ constexpr int pick_steps() {
 constexpr int kSteps = pick_steps();
 
 template <typename Ops>
-int launch_plane_scan(int reverse, const void* in, void* out, long long T, void* status, void* flags, void* agg,
-                      void* incl, long long max_polls, void* stream) {
+int launch_plane_scan(int reverse, int chained, const void* in, void* out, long long T, void* status, void* flags,
+                      void* agg, void* incl, long long max_polls, void* stream) {
   typedef pgt_scalar S;
   const long long n_tiles = (T + kNT * kSteps - 1) / (kNT * kSteps);
   if (n_tiles > 0x7fffffffLL) return pgt::kBadArgs;
@@ -624,8 +641,8 @@ int launch_plane_scan(int reverse, const void* in, void* out, long long T, void*
   cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return (int)rc;
   kern<<<(unsigned int)n_tiles, kNT, bytes, (cudaStream_t)stream>>>((const S*)in, (S*)out, T, n_tiles, reverse,
-                                                                    (int*)status, (int*)flags, (S*)agg, (S*)incl,
-                                                                    max_polls);
+                                                                    chained, (int*)status, (int*)flags, (S*)agg,
+                                                                    (S*)incl, max_polls);
   return (int)cudaGetLastError();
 }
 
@@ -639,16 +656,18 @@ int PGT_ENTRY(pgt_plane_scan_threads)(void) { return kNT; }
 int PGT_ENTRY(pgt_plane_scan_steps)(void) { return kSteps; }
 
 // in, out: contiguous (n, T) rows, n = 3D²+2D (smoother = 0) or 2D²+D
-// (smoother = 1); status: int (ticket, error, predecessors folded), zeroed;
-// flags: int (n_tiles,), zeroed; agg, incl: (n_tiles, n), need not be
-// zeroed; n_tiles = ceil(T / (threads · steps)).
-int PGT_ENTRY(pgt_plane_scan)(int smoother, int reverse, const void* in, void* out, long long T, void* status,
-                              void* flags, void* agg, void* incl, long long max_polls, void* stream) {
+// (smoother = 1); chained: each tile waits for the inclusive total of the
+// tile before it alone (the bits do not depend on the blocks' timing);
+// status: int (ticket, error, predecessors folded), zeroed; flags: int
+// (n_tiles,), zeroed; agg, incl: (n_tiles, n), need not be zeroed;
+// n_tiles = ceil(T / (threads · steps)).
+int PGT_ENTRY(pgt_plane_scan)(int smoother, int reverse, int chained, const void* in, void* out, long long T,
+                              void* status, void* flags, void* agg, void* incl, long long max_polls, void* stream) {
   if (T < 1 || max_polls < 0) return pgt::kBadArgs;
-  return smoother ? launch_plane_scan<pgt::SmootherOps<pgt_scalar, PGT_D>>(reverse, in, out, T, status, flags, agg,
-                                                                           incl, max_polls, stream)
-                  : launch_plane_scan<pgt::FilterOps<pgt_scalar, PGT_D>>(reverse, in, out, T, status, flags, agg,
-                                                                         incl, max_polls, stream);
+  return smoother ? launch_plane_scan<pgt::SmootherOps<pgt_scalar, PGT_D>>(reverse, chained, in, out, T, status,
+                                                                           flags, agg, incl, max_polls, stream)
+                  : launch_plane_scan<pgt::FilterOps<pgt_scalar, PGT_D>>(reverse, chained, in, out, T, status, flags,
+                                                                         agg, incl, max_polls, stream);
 }
 
 #if PGT_D == 1

@@ -149,7 +149,7 @@ def load():
             ]
             sigs[f"pgt_batched_tile_d{d}_f{bits}"] = [i, i]
             # csrc/plane_scan.cu (kalman/plane.py)
-            sigs[f"pgt_plane_scan_d{d}_f{bits}"] = [i, i, p, p, ll, p, p, p, p, ll, p]
+            sigs[f"pgt_plane_scan_d{d}_f{bits}"] = [i, i, i, p, p, ll, p, p, p, p, ll, p]
             sigs[f"pgt_plane_scan_threads_d{d}_f{bits}"] = []
             sigs[f"pgt_plane_scan_steps_d{d}_f{bits}"] = []
     for bits in (32, 64):

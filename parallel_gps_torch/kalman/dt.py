@@ -22,10 +22,11 @@ smoothed moments to the cotangents of (coeffs, P0, H, R, dts, y).
 
 The filter and the smoother are each a two-pass chunked scan over chunks of
 ``CHUNK`` consecutive steps: pass 1 folds each chunk to its total, an
-exclusive prefix over the (n, n_chunks) totals runs in plain PyTorch on the
-totals' device, and pass 2 re-folds each chunk seeded with its prefix and
-writes the moments (the filter's pass 2 also streams the log-likelihood); the
-chunk helpers and the plain passes on planes are ``kalman/strip.py``'s.
+exclusive prefix over the (n, n_chunks) totals runs as one plane scan
+(``strip.exclusive_chunk_prefixes``), and pass 2 re-folds each chunk seeded
+with its prefix and writes the moments (the filter's pass 2 also streams the
+log-likelihood); the chunk helpers and the plain passes on planes are
+``kalman/strip.py``'s.
 Each pass, and the Fisher tail, is a wrapper that dispatches on the device
 of its tensors:
 

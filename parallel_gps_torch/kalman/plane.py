@@ -23,6 +23,8 @@ Each wrapper dispatches on the device of its tensor:
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 from torch import Tensor
 
@@ -36,9 +38,9 @@ from parallel_gps_torch.kalman.timelast import (
 )
 
 LAUNCHES = {"plane_scan": 0, "plane_transpose": 0}
-# The last scan launch's tiles, the predecessors its look-backs folded
-# together (the decoupled look-back's work grows with their ratio) and the
-# steps a tile holds.
+# The last scan launch read back (check_overruns): its tiles, the
+# predecessors its look-backs folded together (the decoupled look-back's work
+# grows with their ratio) and the steps a tile holds.
 LOOK_BACK = {"tiles": 0, "folded": 0, "steps": 0}
 
 MAX_KERNEL_D = 8
@@ -48,6 +50,9 @@ KINDS = ("filter", "smoother")
 # a predecessor takes.  Read at every launch.
 MAX_POLLS = 1 << 22
 OVERRUN = 1  # csrc/plane_scan.cu: kSpinOverrun
+# Launches whose status word is on its way to the host: (what, host copy,
+# event, tiles, steps a tile), oldest first.
+_PENDING = collections.deque()
 
 
 def reset_launch_counts() -> None:
@@ -104,10 +109,15 @@ def _bits(x: Tensor) -> int:
     return 64 if x.dtype == torch.float64 else 32
 
 
-def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False) -> Tensor:
+def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False, chained: bool = False) -> Tensor:
     """Inclusive scan of packed (n, T) element rows along T (from the end,
-    with ``reverse``), ``kind`` "filter" or "smoother"; one launch.  A spin
-    of the look-back that outlasts ``MAX_POLLS`` polls raises."""
+    with ``reverse``), ``kind`` "filter" or "smoother"; one launch.  Tiles
+    are joined by the decoupled look-back, whose association depends on the
+    blocks' timing, or with ``chained`` by a chain of inclusive totals, whose
+    bits do not (csrc/plane_scan.cu).  A spin that outlasts ``MAX_POLLS``
+    polls leaves the output wrong and is raised by a later call once this
+    launch has finished, or by ``check_overruns()``: the status is read
+    without a host synchronisation."""
     n = rows(d, kind)
     if planes.device.type == "cpu":
         return plane_scan_plain(planes, d, kind, reverse)
@@ -130,15 +140,42 @@ def plane_scan(planes: Tensor, d: int, kind: str, reverse: bool = False) -> Tens
     incl = torch.empty((n_tiles, n), dtype=dtype, device=dev)
     out = torch.empty_like(planes)
     _cuda.launch(
-        "plane_scan", getattr(lib, f"pgt_plane_scan_{tag}"), int(kind == "smoother"), int(reverse), planes, out, T,
-        status, flags, agg, incl, max_polls, dev,
+        "plane_scan", getattr(lib, f"pgt_plane_scan_{tag}"), int(kind == "smoother"), int(reverse), int(chained), planes,
+        out, T, status, flags, agg, incl, max_polls, dev,
     )
     LAUNCHES["plane_scan"] += 1
-    _, overrun, folded = status.tolist()
-    LOOK_BACK.update(tiles=n_tiles, folded=folded, steps=tile)
-    if overrun == OVERRUN:
-        raise RuntimeError(f"plane_scan: a look-back spin outlasted {max_polls} polls ({kind}, d = {d}, T = {T})")
+    _watch(f"{max_polls} polls ({kind}, d = {d}, T = {T})", status, n_tiles, tile)
     return out
+
+
+def _watch(what: str, status: Tensor, n_tiles: int, tile: int) -> None:
+    """Raise the overruns of earlier launches that have finished, and keep
+    this launch's status word for a later call: copied to the host behind
+    the launch, read once the copy has landed."""
+    check_overruns(wait=False)
+    host = torch.empty(3, dtype=torch.int32, pin_memory=True)
+    with torch.cuda.device(status.device):
+        host.copy_(status, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    _PENDING.append((what, host, event, n_tiles, tile))
+
+
+def check_overruns(wait: bool = True) -> None:
+    """Read the status of the scans launched so far, oldest first, into
+    ``LOOK_BACK``, and raise if one had a spin outlast its polls (its output
+    is wrong).  With ``wait`` (the default) every launch so far is waited
+    for; else only those that have finished are read."""
+    while _PENDING:
+        what, host, event, n_tiles, tile = _PENDING[0]
+        if not wait and not event.query():
+            return
+        event.synchronize()
+        _PENDING.popleft()
+        LOOK_BACK.update(tiles=n_tiles, folded=int(host[2]), steps=tile)
+        if int(host[1]) == OVERRUN:
+            _PENDING.clear()
+            raise RuntimeError(f"plane_scan: a look-back spin outlasted {what}")
 
 
 def scan_tiling(d: int, dtype) -> tuple:

@@ -8,8 +8,9 @@ transition family (``SDEKernel.transition_coeffs()`` is ``None``), d ≤ 8.
 
 The filter and the smoother are each a two-pass chunked scan over chunks of
 ``CHUNK`` consecutive steps: pass 1 folds each chunk to its total, an
-exclusive prefix over the (n, n_chunks) totals runs in plain PyTorch on the
-totals' device (``exclusive_chunk_prefixes``), and pass 2 re-folds each chunk
+exclusive prefix over the (n, n_chunks) totals runs as one plane scan
+(``exclusive_chunk_prefixes``: ``plane.plane_scan``'s kernel on CUDA, its
+plain Kogge–Stone version on the CPU), and pass 2 re-folds each chunk
 seeded with its prefix and writes the moments (the filter's pass 2 also
 streams the log-likelihood).  Each pass is a wrapper that dispatches on the
 device of its tensors:
@@ -206,8 +207,26 @@ def _seed_chunks(operator, prefix, local, T: int):
 
 def exclusive_chunk_prefixes(totals: Tensor, d: int, reverse: bool) -> Tensor:
     """Exclusive prefixes (suffixes, for ``reverse``) of the packed
-    (n, n_chunks) chunk totals, by the plain Kogge–Stone scan on the
-    totals' device (counterpart: pallas_scan.py::_strip_exclusive_prefixes)."""
+    (n, n_chunks) chunk totals (counterpart:
+    pallas_scan.py::_strip_exclusive_prefixes): one inclusive
+    ``plane.plane_scan`` over the totals — its hand-written kernel on CUDA,
+    its tiles chained so that the bits do not change between calls; its
+    plain version on the CPU — then a one-column shift that puts the
+    identity first (last, for ``reverse``).  One chunk: the identity, and no
+    scan."""
+    from parallel_gps_torch.kalman import plane  # plane imports this module
+
+    kind = "smoother" if reverse else "filter"
+    ident = torch.zeros(plane.rows(d, kind), dtype=totals.dtype, device=totals.device)
+    ident[: d * d : d + 1] = 1  # A (E) = I, every other component 0
+    if totals.shape[-1] == 1:
+        return ident[:, None]
+    return exclusive_shift(plane.plane_scan(totals, d, kind, reverse, chained=True), ident, reverse)
+
+
+def exclusive_chunk_prefixes_plain(totals: Tensor, d: int, reverse: bool) -> Tensor:
+    """``exclusive_chunk_prefixes`` by the plain Kogge–Stone scan on the
+    totals' device; the all-plain engines' prefix."""
     if reverse:
         elems, op, ident = _unpack_smooth(totals, d), smoothing_operator_tl, smoothing_identity_tl
     else:
@@ -263,14 +282,14 @@ def strip_filter_plain(Fs_tl, Qs_tl, P0, H, R, observations):
     """Plain filter by the same chunked two-pass algorithm: (b_tl, C_tl, ell)."""
     y = observations.reshape(-1)
     totals = strip_filter_scan_plain(Fs_tl, Qs_tl, P0, H, R, y)
-    prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=False)
+    prefix = exclusive_chunk_prefixes_plain(totals, P0.shape[0], reverse=False)
     return strip_filter_apply_plain(Fs_tl, Qs_tl, P0, H, R, y, prefix)
 
 
 def strip_smoother_plain(Fs_tl, Qs_tl, b_tl, C_tl):
     """Plain smoother by the same chunked two-pass algorithm: (g_tl, L_tl)."""
     totals = strip_smoother_scan_plain(Fs_tl, Qs_tl, b_tl, C_tl)
-    prefix = exclusive_chunk_prefixes(totals, Fs_tl.shape[0], reverse=True)
+    prefix = exclusive_chunk_prefixes_plain(totals, Fs_tl.shape[0], reverse=True)
     return strip_smoother_apply_plain(Fs_tl, Qs_tl, b_tl, C_tl, prefix)
 
 

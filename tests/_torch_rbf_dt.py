@@ -12,7 +12,7 @@ import parallel_gps_tpu.kernels as jk
 from parallel_gps_torch import kernels as tk
 from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_tpu.kalman import timelast as jtl
-from _torch_common import _np
+from _torch_common import _np, jit_o0, port_model
 
 NOISE = 0.1
 
@@ -31,9 +31,10 @@ def _data(T, seed):
     return t, y
 
 
-def _jax_model(jkern, t, y):
-    ssm = jkern.get_ssm_tl(jnp.asarray(t).reshape(-1, 1), jnp.asarray(NOISE).reshape(1, 1))
-    return ssm, jnp.asarray(y).reshape(-1, 1)
+def _jax_model(tkern, t, y):
+    """The port kernel's time-last model as a JAX LGSSMTL (``port_model``)
+    and the observations."""
+    return port_model(tkern, t, NOISE)[0], jnp.asarray(y).reshape(-1, 1)
 
 
 def _torch_inputs(tkern, t, y):
@@ -46,7 +47,7 @@ def _torch_inputs(tkern, t, y):
     return family, coeffs, sde.P0, sde.H, R, dts, torch.tensor(y)
 
 
-@jax.jit
+@jit_o0
 def _jax_pkfs(ssm, ys):
     b, C, ell = jtl.pkf_from_tl(ssm, ys, True)
     return (b, C, ell) + tuple(jtl.pks_from_tl(ssm, b, C))
@@ -56,11 +57,12 @@ def check_four_passes_and_pkfs_dt(order):
     """The four plain passes composed through the chunk prefixes — filter
     scan and apply, smoother scan and apply, T = 203: three full chunks and
     a ragged one — and ``pkfs_dt`` from the kernel, against JAX
-    ``pkf_from_tl`` / ``pks_from_tl`` on the JAX kernel's planes: filter
-    1e-9 / 1e-10, LML rtol 1e-9, smoother 1e-8 / 1e-9."""
-    jkern, tkern = _kernels(order)
+    ``pkf_from_tl`` / ``pks_from_tl`` on the port kernel's planes (whose
+    build test_torch_rbf_transitions.py holds against the JAX kernel's):
+    filter 1e-9 / 1e-10, LML rtol 1e-9, smoother 1e-8 / 1e-9."""
+    _, tkern = _kernels(order)
     t, y = _data(203, order)
-    b_x, C_x, ell_x, g_x, L_x = _jax_pkfs(*_jax_model(jkern, t, y))
+    b_x, C_x, ell_x, g_x, L_x = _jax_pkfs(*_jax_model(tkern, t, y))
     fam, co, P0, H, R, dts, ty = _torch_inputs(tkern, t, y)
     with torch.no_grad():
         tot = tdt.dt_filter_scan_plain(fam, co, P0, H, R, dts, ty)
@@ -87,7 +89,7 @@ def _jax_value_and_grads(order, t, y, v, ell):
         kern = jk.RBF(variance=p[0], lengthscales=p[1], order=order, balancing_iter=5)
         return jtl.lml_tl(kern.get_ssm_tl(ts, p[2].reshape(1, 1)), ys, False)
 
-    return jax.jit(jax.value_and_grad(lml))(jnp.asarray([v, ell, NOISE]))
+    return jit_o0(jax.value_and_grad(lml))(jnp.asarray([v, ell, NOISE]))
 
 
 def check_lml_dt_value_and_grads(order):

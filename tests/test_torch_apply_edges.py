@@ -20,7 +20,6 @@ engine's model is the port's time-last planes as numpy arrays (the JAX
 package builds the same model eagerly in ~6 s on the CPU, over this file's
 budget).
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -31,6 +30,7 @@ from parallel_gps_torch import kernels as tk
 from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -90,7 +90,7 @@ def test_chunked_filter_passes_compose_to_the_plain_filter(T):
     npt.assert_allclose(float(ell), float(ell0), rtol=1e-12)
 
 
-@jax.jit
+@jit_o0
 def _jax_filter(ssm, ys):
     return pkf_from_tl(ssm, ys, True)
 

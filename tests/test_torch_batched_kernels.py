@@ -11,7 +11,6 @@ import numpy.testing as npt
 import pytest
 import torch
 
-import parallel_gps_tpu.kernels as jk
 from parallel_gps_torch import kernels as tk
 from parallel_gps_torch.kalman import batched as tb
 from parallel_gps_torch.kalman import dt as tdt
@@ -19,7 +18,7 @@ from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_torch.types import LGSSMTL
 from parallel_gps_tpu.kalman.pallas_scan import batched_strip_filter as jax_batched_filter
 from parallel_gps_tpu.kalman.pallas_scan import batched_strip_smoother as jax_batched_smoother
-from _torch_common import _no_compile_cache
+from _torch_common import _no_compile_cache, port_model
 from _torch_batched import _series, _t
 
 torch.set_num_threads(1)
@@ -50,12 +49,13 @@ def _kernel_maker(d):
 @pytest.fixture(scope="module")
 def jax_batch():
     """One evaluation of the JAX batched kernels in interpret mode, as
-    tests/test_batched_pallas.py runs them, shared by the assertions below."""
+    tests/test_batched_pallas.py runs them, shared by the assertions below,
+    on the port kernels' models (``port_model``)."""
     t, ys = _series(B, T, 0)
     ssms = []
     for i in range(B):
-        k = jk.Matern32(variance=0.5 + i * 0.3, lengthscales=0.2 + 0.1 * i)
-        ssms.append(k.get_ssm_tl(jnp.asarray(t).reshape(-1, 1), jnp.asarray(0.1 + 0.02 * i).reshape(1, 1)))
+        k = tk.Matern32(0.5 + i * 0.3, 0.2 + 0.1 * i, dtype=torch.float64, device="cpu")
+        ssms.append(port_model(k, t, 0.1 + 0.02 * i)[0])
     Fs, Qs = (jnp.stack([getattr(s, n) for s in ssms], axis=2) for n in ("Fs", "Qs"))
     P0, H, R = (jnp.stack([getattr(s, n) for s in ssms]) for n in ("P0", "H", "R"))
     with _no_compile_cache():

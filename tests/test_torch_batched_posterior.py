@@ -17,6 +17,7 @@ from parallel_gps_torch.models.params import positions_from_tree, positions_to_t
 from parallel_gps_tpu.inference.optim import make_log_posterior as jax_make_log_posterior
 from parallel_gps_tpu.models import StateSpaceGP as JaxStateSpaceGP
 from _torch_batched import C_CHAINS, ELL, MATERN, NOISE, PRIORS, VAR, _data
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -36,7 +37,7 @@ def test_batched_log_posterior_value_and_gradient_match_jax_vmap(name, d):
     stacked = jax.tree.map(
         lambda *xs: jnp.stack(xs), *[jax_make_log_posterior(_jax_model(name, t, y, c), None)[1] for c in range(C_CHAINS)]
     )
-    val_j, grad_j = jax.jit(jax.vmap(jax.value_and_grad(log_post_j)))(stacked)
+    val_j, grad_j = jit_o0(jax.vmap(jax.value_and_grad(log_post_j)))(stacked)
 
     tm = StateSpaceGP.from_numpy(t, y, name, 1.0, 1.0, 1.0, dtype=torch.float64, device="cpu")
     log_post, u0 = make_log_posterior(tm, PRIORS)

@@ -46,6 +46,7 @@ from parallel_gps_torch.kalman import batched as tb
 from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl, pks_from_tl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -325,8 +326,8 @@ def series():
         return pks_from_tl(JaxLGSSMTL(P0_, Fs_, Qs_, None, None), b_, C_)
 
     npy = [x.numpy() for x in (P0, Fs, Qs, H, R, y)]
-    jb, jC, jell = jax.jit(jax.vmap(jax_filter, in_axes=(0, 2, 2, 0, 0, 0), out_axes=(1, 2, 0)))(*npy)
-    jg, jL = jax.jit(jax.vmap(jax_smoother, in_axes=(0, 2, 2, 1, 2), out_axes=(1, 2)))(npy[0], npy[1], npy[2], jb, jC)
+    jb, jC, jell = jit_o0(jax.vmap(jax_filter, in_axes=(0, 2, 2, 0, 0, 0), out_axes=(1, 2, 0)))(*npy)
+    jg, jL = jit_o0(jax.vmap(jax_smoother, in_axes=(0, 2, 2, 1, 2), out_axes=(1, 2)))(npy[0], npy[1], npy[2], jb, jC)
     return dict(P0=P0, H=H, R=R, Fs=Fs, Qs=Qs, y=y, b=np.asarray(jb), C=np.asarray(jC), ell=np.asarray(jell),
                 g=np.asarray(jg), L=np.asarray(jL))
 

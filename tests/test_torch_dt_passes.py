@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX package: the dt-engine filter and smoother
 (parallel_gps_torch.kalman.dt, plain versions on the CPU) against
 parallel_gps_tpu's dt kernels in interpret mode and its time-last engine,
-and the four chunked passes composed; f64, same numpy inputs."""
-import jax
+and the four chunked passes composed; f64, same numpy inputs.  The JAX
+engines run on the port kernel's time-last model (``port_model``), whose
+build test_torch_sde_discretization.py holds against the JAX package's."""
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -15,21 +16,22 @@ from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_tpu.kalman.pallas_dt import _dts_from_ts, strip_filter_dt, strip_smoother_dt
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl, pks_from_tl
-from _torch_common import _no_compile_cache, _np
+from _torch_common import _no_compile_cache, _np, jit_o0, port_model
 from _torch_dt import _data, _torch_inputs
 
 torch.set_num_threads(1)
 
 
-@jax.jit
+@jit_o0
 def _jax_pkfs(ssm, ys):
     b, C, ell = pkf_from_tl(ssm, ys, True)
     return (b, C, ell) + tuple(pks_from_tl(ssm, b, C))
 
 
-def _jax_model(jkern, t, y):
-    ssm = jkern.get_ssm_tl(jnp.asarray(t).reshape(-1, 1), jnp.asarray(0.1).reshape(1, 1))
-    return ssm, jnp.asarray(y).reshape(-1, 1)
+def _jax_model(tkern, t, y):
+    """The port kernel's time-last model as a JAX LGSSMTL (``port_model``)
+    and the observations."""
+    return port_model(tkern, t, 0.1)[0], jnp.asarray(y).reshape(-1, 1)
 
 
 @pytest.mark.parametrize(
@@ -44,9 +46,9 @@ def test_filter_and_smoother_match_jax_time_last_engine(name, v, ell, T):
     (pkf_from_tl/pks_from_tl), the reference the JAX dt kernels are held
     against in test_pallas_dt.py, to that file's tolerances."""
     t, y = _data(T, 7)
-    ssm, ys = _jax_model(getattr(jk, name)(v, ell), t, y)
-    b_x, C_x, ell_x, g_x, L_x = _jax_pkfs(ssm, ys)
-    fam, co, P0, H, R, dts, ty = _torch_inputs(getattr(tk, name)(v, ell, dtype=torch.float64, device="cpu"), t, y)
+    tkern = getattr(tk, name)(v, ell, dtype=torch.float64, device="cpu")
+    b_x, C_x, ell_x, g_x, L_x = _jax_pkfs(*_jax_model(tkern, t, y))
+    fam, co, P0, H, R, dts, ty = _torch_inputs(tkern, t, y)
     with torch.no_grad():
         b, C, ell_t = tdt.strip_filter_dt(fam, co, P0, H, R, dts, ty)
         g, L = tdt.strip_smoother_dt(fam, co, P0, dts, b, C)
@@ -67,13 +69,16 @@ def test_filter_and_smoother_match_jax_dt_kernels_in_interpret_mode():
     test_pallas_dt.py holds them against the time-last engine that the test
     above holds the port against."""
     t, y = _data(257, 7)
-    jkern = jk.Matern12(1.2, 0.6)
-    ssm, ys = _jax_model(jkern, t, y)
-    coeffs, build = jkern.transition_coeffs()
+    ssm, ys = _jax_model(tk.Matern12(1.2, 0.6, dtype=torch.float64, device="cpu"), t, y)
+    coeffs, build = jk.Matern12(1.2, 0.6).transition_coeffs()
     dts = _dts_from_ts(jnp.asarray(t)).astype(ssm.P0.dtype)
     with _no_compile_cache():
-        b_s, C_s, ell_s = strip_filter_dt(build, coeffs, ssm.P0, ssm.H, ssm.R, dts, ys, block=32, interpret=True)
-        g_s, L_s = strip_smoother_dt(build, coeffs, ssm.P0, dts, b_s, C_s, block=32, interpret=True)
+        # Under jit: one program instead of an op-by-op interpretation.
+        def kernels(co, P0, H, R, dts, ys):
+            b, C, ell = strip_filter_dt(build, co, P0, H, R, dts, ys, block=32, interpret=True)
+            return (b, C, ell) + tuple(strip_smoother_dt(build, co, P0, dts, b, C, block=32, interpret=True))
+
+        b_s, C_s, ell_s, g_s, L_s = jit_o0(kernels)(coeffs, ssm.P0, ssm.H, ssm.R, dts, ys)
     fam, co, P0, H, R, tdts, ty = _torch_inputs(tk.Matern12(1.2, 0.6, dtype=torch.float64, device="cpu"), t, y)
     with torch.no_grad():
         b, C, ell_t = tdt.strip_filter_dt(fam, co, P0, H, R, tdts, ty)

@@ -33,7 +33,6 @@ steps, so each edge length is the first T steps of it.
 import re
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -47,6 +46,7 @@ from parallel_gps_torch.kernels.matern import EXPPOLY
 from parallel_gps_torch.kernels.rbf import SPECTRAL
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -214,9 +214,10 @@ def _edge_lengths(d):
 
 def _jax_pkf(ssm, y):
     """The jitted JAX time-last filter, (b, C), compiled at XLA's lowest
-    backend optimisation level: at T = 8,197 the default level's compile
-    takes 4–5 s, this one's about half, and the run stays well under 1 s."""
-    return jax.jit(pkf_from_tl).lower(ssm, y).compile({"xla_backend_optimization_level": 0})(ssm, y)
+    backend optimisation level (``jit_o0``): at T = 8,197 the default
+    level's compile takes 4–5 s, this one's about half, and the run stays
+    well under 1 s."""
+    return jit_o0(pkf_from_tl)(ssm, y)
 
 
 @pytest.mark.parametrize("d", [3, 6], ids=lambda d: f"d{d}")

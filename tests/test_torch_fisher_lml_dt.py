@@ -12,7 +12,7 @@ import torch
 import parallel_gps_tpu.kernels as jk
 from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_tpu.kalman import timelast as jtl
-from _torch_common import _np
+from _torch_common import _np, jit_o0, port_model
 from _torch_fisher import IDS, KERNELS, NOISE, _data, _torch_kernel
 
 torch.set_num_threads(1)
@@ -32,7 +32,7 @@ def _jax_lml_and_grads(name, u, t, y):
         kern = getattr(jk, name)(variance=jax.nn.softplus(p[0]), lengthscales=jax.nn.softplus(p[1]))
         return jtl.lml_tl(kern.get_ssm_tl(ts, p[2].reshape(1, 1)), ys, False)
 
-    return jax.jit(jax.value_and_grad(via_xla))(jnp.asarray(u))
+    return jit_o0(jax.value_and_grad(via_xla))(jnp.asarray(u))
 
 
 @pytest.mark.parametrize("name,v,ell", KERNELS, ids=IDS)
@@ -58,8 +58,8 @@ def test_lml_dt_grad_wrt_observations_matches_jax():
     """∂ℓ/∂y vs the JAX ``lml_tl``, rtol 1e-8 / atol 1e-12
     (test_pallas_dt.py:222); missing observations get exactly 0."""
     t, y = _data(157, 9)
-    ssm = jk.Matern32(1.0, 0.5).get_ssm_tl(jnp.asarray(t).reshape(-1, 1), jnp.asarray(NOISE).reshape(1, 1))
-    g_j = jax.jit(jax.grad(lambda o: jtl.lml_tl(ssm, o, False)))(jnp.asarray(y).reshape(-1, 1))
+    ssm = port_model(_torch_kernel("Matern32", 1.0, 0.5), t, NOISE)[0]
+    g_j = jit_o0(jax.grad(lambda o: jtl.lml_tl(ssm, o, False)))(jnp.asarray(y).reshape(-1, 1))
     obs = torch.tensor(y, requires_grad=True)
     R = torch.tensor([[NOISE]], dtype=torch.float64)
     tdt.lml_dt(_torch_kernel("Matern32", 1.0, 0.5), torch.tensor(t), R, obs).backward()

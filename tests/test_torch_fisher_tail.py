@@ -16,7 +16,7 @@ from parallel_gps_torch.types import LGSSMTL
 from parallel_gps_tpu.kalman import pallas_dt as jdt
 from parallel_gps_tpu.kalman import timelast as jtl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
-from _torch_common import _no_compile_cache, _np
+from _torch_common import _no_compile_cache, _np, jit_o0
 from _torch_fisher import IDS, KERNELS, NOISE, _data, _torch_kernel
 
 torch.set_num_threads(1)
@@ -51,7 +51,7 @@ def test_fisher_grads_from_smoothed_matches_jax():
     (_, _, H, R, _, _), (Fs, Qs, P0s), mom = _moments("Matern32", 1.1, 0.45, t, y)
     ssm = (P0s, Fs, Qs, H, R)
     ys = y.reshape(-1, 1)
-    ct_j, dy_j = jax.jit(jtl.fisher_grads_from_smoothed)(
+    ct_j, dy_j = jit_o0(jtl.fisher_grads_from_smoothed)(
         JaxLGSSMTL(*map(jnp.asarray, ssm)), jnp.asarray(ys), *map(jnp.asarray, mom), jnp.asarray(0.7)
     )
     ct_t, dy_t = ttl.fisher_grads_from_smoothed(
@@ -104,7 +104,7 @@ def test_dt_fisher_plain_matches_jax_kernel_in_interpret_mode():
     _, build = jk.Matern12(1.2, 0.6).transition_coeffs()
     co, P0, H, R, dts, ys = map(jnp.asarray, engine)
     with _no_compile_cache():
-        out_j = jdt._dt_fisher(build, co, P0, H, R, dts, ys.reshape(-1, 1), *map(jnp.asarray, mom), 32, True)
+        out_j = jit_o0(lambda *a: jdt._dt_fisher(build, *a, 32, True))(co, P0, H, R, dts, ys.reshape(-1, 1), *map(jnp.asarray, mom))
     for n, a, ref in zip(FISHER_OUTPUTS, _dt_fisher_on(engine, mom), out_j):
         npt.assert_allclose(_np(a), _np(ref).reshape(a.shape), rtol=1e-8, atol=1e-10, err_msg=n)
 
@@ -119,7 +119,7 @@ def test_dt_fisher_plain_matches_jax_plane_tail(name, v, ell):
     engine, _, mom = _moments(name, v, ell, t, y)
     _, build = getattr(jk, name)(v, ell).transition_coeffs()
 
-    @jax.jit
+    @jit_o0
     def plane_tail(co, P0, H, R, dts, ys, b, C, g, L):
         (Fs, Qs, P0s), vjp_fn = jax.vjp(lambda c, p, d_: jdt.build_planes_tl(build, c, p, d_), co, P0, dts)
         ct, dy = jtl.fisher_grads_from_smoothed(JaxLGSSMTL(P0s, Fs, Qs, H, R), ys, b, C, g, L, jnp.ones(()))

@@ -3,20 +3,19 @@ model — ``lgssm_from_numpy``, the sequential oracle (kf / ks / kfs), the
 reference-literal generic engine with two observation rows and its blocked
 scan, the dispatch's refusals — and the port's imports and documented drives;
 f64 on the CPU."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
 import pytest
 import torch
 
-import parallel_gps_tpu.kernels as jk
+from parallel_gps_torch import kernels as tk
 from parallel_gps_torch import LGSSM, LGSSMTL, lgssm_from_numpy
 from parallel_gps_torch.kalman import kf, kfs, ks, pkf, pkfs, pks
 from parallel_gps_tpu.kalman import parallel as jpar
 from parallel_gps_tpu.kalman import sequential as jseq
 from parallel_gps_tpu.types import LGSSM as JaxLGSSM
-from _torch_common import _np
+from _torch_common import _np, jit_o0, port_model
 from _torch_kalman import FILTER_TOL, SMOOTHER_TOL, _port, m52, rbf4  # noqa: F401 (m52, rbf4: fixtures)
 
 torch.set_num_threads(1)
@@ -62,8 +61,7 @@ def test_sequential_engine_matches_jax(problem, request):
         jssm, ys, tssm, ty = request.getfixturevalue("m2_problem")
     else:
         jssm, _, ys, tssm, _, ty = request.getfixturevalue(problem)
-    fms_j, fPs_j, ell_j, mps_j, Pps_j = jax.jit(lambda s, y: jseq.kf(s, y, True, True))(jssm, ys)
-    sms_j, sPs_j = jax.jit(jseq.kfs)(jssm, ys)
+    (fms_j, fPs_j, ell_j, mps_j, Pps_j), (sms_j, sPs_j) = jit_o0(lambda s, y: (jseq.kf(s, y, True, True), jseq.kfs(s, y)))(jssm, ys)
     fms, fPs, ell, mps, Pps = kf(tssm, ty, return_loglikelihood=True, return_predicted=True)
     assert len(kf(tssm, ty)) == 2 and len(kf(tssm, ty, return_predicted=True)) == 4
     for a, ref in ((fms, fms_j), (fPs, fPs_j), (mps, mps_j), (Pps, Pps_j)):
@@ -78,8 +76,9 @@ def test_generic_engine_with_two_observation_rows(m2_problem):
     """The reference-literal (m, m)-solve algebra (tests/test_multiobs.py):
     "auto" must pick the generic engine for m > 1."""
     jssm, ys, tssm, ty = m2_problem
-    fms_j, fPs_j, ell_j = jax.jit(lambda s, y: jpar.pkf(s, y, True, engine="generic"))(jssm, ys)
-    sms_j, sPs_j = jax.jit(lambda s, y: jpar.pkfs(s, y, engine="generic"))(jssm, ys)
+    (fms_j, fPs_j, ell_j), (sms_j, sPs_j) = jit_o0(
+        lambda s, y: (jpar.pkf(s, y, True, engine="generic"), jpar.pkfs(s, y, engine="generic"))
+    )(jssm, ys)
     for engine in ("generic", "auto"):
         fms, fPs, ell = pkf(tssm, ty, return_loglikelihood=True, engine=engine)
         sms, sPs = pkfs(tssm, ty, engine=engine)
@@ -100,7 +99,7 @@ def test_blocked_scan_of_the_generic_engine(m52):
     t = np.sort(rng.rand(T))
     y = np.sin(12.0 * t) + 0.3 * rng.randn(T)
     y[::9] = np.nan
-    ssm = jk.Matern32(1.0, 0.5).get_ssm(jnp.asarray(t).reshape(-1, 1), jnp.asarray(0.1).reshape(1, 1))
+    ssm, _ = port_model(tk.Matern32(1.0, 0.5, dtype=torch.float64, device="cpu"), t, 0.1, time_last=False)
     tssm, ty = _port(ssm, False), torch.tensor(y)
     _, _, ell_seq = kf(tssm, ty, True)
     sms_seq, sPs_seq = kfs(tssm, ty)

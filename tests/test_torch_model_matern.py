@@ -1,7 +1,9 @@
 """PyTorch port vs the JAX package: Matérn ``StateSpaceGP`` models (LML and
 predict_f) built from the same numpy data through ``StateSpaceGP.from_numpy``,
 query order and edge cases, and the sequential engine; f64 on the CPU, where
-the port runs the plain versions of its kernels."""
+the port runs the plain versions of its kernels.  The JAX model's entry
+points are compiled whole at XLA's lowest backend optimisation level
+(``jit_o0``)."""
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -11,6 +13,7 @@ import torch
 from parallel_gps_torch import StateSpaceGP
 from parallel_gps_torch.models import merge_sorted
 from parallel_gps_tpu.models import merge_sorted as jax_merge_sorted
+from _torch_common import jit_o0
 from _torch_model import _data, _pair
 
 torch.set_num_threads(1)
@@ -25,14 +28,14 @@ def test_lml_matches_jax(name, v, ell):
     jm, tm = _pair(name, t, y, v, ell, 0.1)
     with torch.no_grad():
         ell_t = float(tm.log_marginal_likelihood())
-    npt.assert_allclose(ell_t, float(jm.log_marginal_likelihood()), rtol=1e-9)  # test_model_interpret.py:77
+    npt.assert_allclose(ell_t, float(jit_o0(jm.log_marginal_likelihood)()), rtol=1e-9)  # test_model_interpret.py:77
 
 
 def test_predict_matches_jax():
     t, y = _data(257, 3)
     jm, tm = _pair("Matern52", t, y, 0.9, 0.4, 0.1)
     Xnew = np.random.RandomState(5).rand(23) * 1.2 - 0.1  # unsorted, some outside [0, 1)
-    mean_j, var_j = jm.predict_f(Xnew)
+    mean_j, var_j = jit_o0(jm.predict_f)(Xnew)
     mean_t, var_t = tm.predict_f(Xnew)
     assert mean_t.shape == (23, 1) and var_t.shape == (23, 1)
     # test_model_interpret.py:93-94
@@ -57,7 +60,7 @@ def test_all_nan_lml_is_exactly_zero_and_predicts_the_prior():
     jm, tm = _pair("Matern32", t, y, 1.3, 0.5, 0.2)
     with torch.no_grad():
         assert float(tm.log_marginal_likelihood()) == 0.0
-    assert float(jm.log_marginal_likelihood()) == 0.0
+    assert float(jit_o0(jm.log_marginal_likelihood)()) == 0.0
     mean, var = tm.predict_f(np.array([0.3, 1.7]))
     npt.assert_allclose(mean.numpy(), 0.0, atol=1e-12)
     npt.assert_allclose(var.numpy(), 1.3, rtol=1e-10)
@@ -69,7 +72,7 @@ def test_single_observation():
     v, ell, noise, t0, y0 = 0.9, 0.4, 0.1, 0.37, 0.8
     jm, tm = _pair("Matern52", np.array([t0]), np.array([y0]), v, ell, noise)
     with torch.no_grad():
-        npt.assert_allclose(float(tm.log_marginal_likelihood()), float(jm.log_marginal_likelihood()), rtol=1e-12)
+        npt.assert_allclose(float(tm.log_marginal_likelihood()), float(jit_o0(jm.log_marginal_likelihood)()), rtol=1e-12)
     X = np.array([0.5, 0.1, 0.37, 1.4])
     mean_t, var_t = tm.predict_f(X)
 
@@ -110,7 +113,7 @@ def test_sequential_model_matches_the_parallel_one():
     assert seq.engine()[0] == "sequential" and par.engine()[0] == "dt"
     with torch.no_grad():
         ell_s, ell_p = float(seq.log_marginal_likelihood()), float(par.log_marginal_likelihood())
-    npt.assert_allclose(ell_s, float(jm.log_marginal_likelihood()), rtol=1e-10)
+    npt.assert_allclose(ell_s, float(jit_o0(jm.log_marginal_likelihood)()), rtol=1e-10)
     assert abs(ell_s - ell_p) < 1e-10 * abs(ell_p)
     X = np.random.RandomState(1).rand(9)
     for a, b in zip(seq.predict_f(X), par.predict_f(X)):

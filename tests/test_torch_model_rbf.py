@@ -10,6 +10,7 @@ import torch
 from parallel_gps_torch import StateSpaceGP
 from parallel_gps_torch.kalman.timelast import lml_tl, pkfs_from_tl
 from parallel_gps_torch.models.ssgp import merge_sorted
+from _torch_common import jit_o0
 from _torch_model import _data, _pair
 
 torch.set_num_threads(1)
@@ -17,13 +18,13 @@ torch.set_num_threads(1)
 
 def _jax_value_and_grads(jm):
     """LML of a JAX model and its gradient w.r.t. the constrained
-    (variance, lengthscale, noise variance)."""
+    (variance, lengthscale, noise variance), compiled whole (``jit_o0``)."""
     import jax
 
     def lml(v, ell, noise):
         return jm.replace(kernel=jm.kernel.replace(variance=v, lengthscales=ell), noise_variance=noise).log_marginal_likelihood()
 
-    return jax.value_and_grad(lml, argnums=(0, 1, 2))(jm.kernel.variance, jm.kernel.lengthscales, jm.noise_variance)
+    return jit_o0(jax.value_and_grad(lml, argnums=(0, 1, 2)))(jm.kernel.variance, jm.kernel.lengthscales, jm.noise_variance)
 
 
 def _value_and_constrained_grads(tm):
@@ -75,7 +76,7 @@ def test_rbf6_model_matches_jax(parallel):
     assert tm.engine()[0] == ("dt" if parallel else "sequential")
     val_j, grads_j = _jax_value_and_grads(jm)
     Xnew = np.random.RandomState(5).rand(13) * 1.2 - 0.1
-    mean_j, var_j = jm.predict_f(Xnew)
+    mean_j, var_j = jit_o0(jm.predict_f)(Xnew)
     routes = [(_value_and_constrained_grads, lambda: tm.predict_f(Xnew))]
     if parallel:
         routes.append((_strip_value_and_constrained_grads, lambda: _strip_predict(tm, Xnew)))

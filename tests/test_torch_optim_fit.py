@@ -14,6 +14,7 @@ from parallel_gps_tpu.inference import fit_adam as jax_fit_adam
 from parallel_gps_tpu.models import StateSpaceGP as JaxStateSpaceGP
 from parallel_gps_tpu.toymodels import obs_noise, sinu
 from _torch_optim import _data, _model, _raw
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -46,7 +47,7 @@ def test_model_value_and_grad_match_jax(name, v, ell):
     loss = tm.training_loss()
     loss.backward()
 
-    @jax.jit
+    @jit_o0
     @jax.value_and_grad
     def jax_loss(u):
         p = jax.nn.softplus(u)

@@ -27,6 +27,7 @@ from parallel_gps_tpu.kalman.timelast import kogge_stone_scan_tl as jax_kogge_st
 from parallel_gps_tpu.kalman.timelast import smoothing_identity_tl as jax_smoothing_identity_tl
 from parallel_gps_tpu.kalman.timelast import smoothing_operator_tl as jax_smoothing_operator_tl
 from parallel_gps_tpu.types import LGSSM as JaxLGSSM
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -104,13 +105,16 @@ def test_plane_path_matches_jax_plane_scan_in_interpret_mode():
     the JAX ``pkf_pallas`` / ``pks_pallas`` (``_carry_scan_kernel``)."""
     ssm, ys, tssm, ty = _problem(_kernel("Matern32", 1.0, 0.5), 70, 7, 4)
     with _no_compile_cache():
-        # Under jit: one program each instead of an op-by-op interpretation.
-        fms_j, fPs_j, ell_j = jax.jit(partial(pkf_pallas, return_loglikelihood=True, block=32, interpret=True))(ssm, ys)
-        sms_j, sPs_j = jax.jit(partial(pks_pallas, block=32, interpret=True))(ssm, fms_j, fPs_j)
+        # Under jit: one program instead of an op-by-op interpretation.
+        def kernels(ssm, ys):
+            fms, fPs, ell = pkf_pallas(ssm, ys, return_loglikelihood=True, block=32, interpret=True)
+            return (fms, fPs, ell) + tuple(pks_pallas(ssm, fms, fPs, block=32, interpret=True))
+
+        fms_j, fPs_j, ell_j, sms_j, sPs_j = jit_o0(kernels)(ssm, ys)
     _assert_matches(_run_port(tssm, ty), (fms_j, fPs_j, ell_j, sms_j, sPs_j))
 
 
-@jax.jit
+@jit_o0
 def _jax_pkfs_tl(ssm, ys):
     fms, fPs, ell = pkf_tl(ssm, ys, True)
     return (fms, fPs, ell) + tuple(pks_tl(ssm, fms, fPs))
@@ -141,7 +145,7 @@ def _jax_unpack(X, d, kind):
     return cls(*(x.reshape(*shape, T) for x, shape in zip(jnp.split(X, cuts), shapes)))
 
 
-@partial(jax.jit, static_argnums=2)
+@partial(jit_o0, static_argnums=2)
 def _jax_plane_scans(filt, smooth, d):
     """JAX ``kogge_stone_scan_tl`` over packed filtering and smoothing rows,
     forward and reverse, repacked: {(kind, reverse): (n, T)}."""

@@ -25,7 +25,6 @@ series: a suffix of a series has the same smoothed moments as the whole
 series over those steps (the smoother runs backward from the last step), so
 each edge length is the last T steps of it.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -39,6 +38,7 @@ from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_torch.kernels.rbf import SPECTRAL
 from parallel_gps_tpu.kalman.timelast import pks_from_tl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -153,7 +153,7 @@ def _edge_lengths(d):
     return sorted(lengths)
 
 
-@jax.jit
+@jit_o0
 def _jax_pks(ssm, b, C):
     return pks_from_tl(ssm, b, C)
 

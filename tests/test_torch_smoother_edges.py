@@ -24,7 +24,6 @@ kernel: each series is smoothed at the end of an 8,193-step series whose
 first steps are padding, as a smoother's value at a step depends only on
 that step's filtered moments and the steps after it.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -37,6 +36,7 @@ from parallel_gps_torch.kalman.parallel import pkf, pkfs
 from parallel_gps_torch.types import LGSSM
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl, pks_from_tl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -82,7 +82,7 @@ def _chunked_smoother(family, coeffs, P0, dts, b, C):
         return tdt.dt_smoother_apply_plain(family, coeffs, P0, dts, b, C, pre)
 
 
-@jax.jit
+@jit_o0
 def _jax_smoother(ssm, b, C):
     return pks_from_tl(ssm, b, C)
 
@@ -131,7 +131,7 @@ def test_chunked_smoother_passes_compose_to_the_plain_smoother(T):
     npt.assert_allclose(L.numpy(), L0.numpy(), rtol=1e-10, atol=1e-12)
 
 
-@jax.jit
+@jit_o0
 def _jax_filter(ssm, ys):
     return pkf_from_tl(ssm, ys, True)[:2]
 

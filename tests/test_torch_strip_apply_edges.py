@@ -22,7 +22,6 @@ the plain versions they are held against, on the CPU, f64:
 Inputs are made from a seed with numpy; each model is built by the port and
 handed to JAX as numpy arrays.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -34,6 +33,7 @@ from parallel_gps_torch.kalman import strip as tstrip
 from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl, pks_from_tl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
+from _torch_common import jit_o0
 
 torch.set_num_threads(1)
 
@@ -130,7 +130,7 @@ def test_chunked_strip_smoother_passes_compose_to_the_plain_smoother(d):
         npt.assert_allclose(L.numpy(), L0.numpy(), rtol=rs, atol=as_, err_msg=f"T={T}")
 
 
-@jax.jit
+@jit_o0
 def _jax_pkfs(ssm, ys):
     b, C, ell = pkf_from_tl(ssm, ys, True)
     return (b, C, ell) + tuple(pks_from_tl(ssm, b, C))

@@ -1,7 +1,10 @@
 """PyTorch port vs the JAX package: the plane-streaming strip engine
 (kalman/strip.py) — its plain passes, which the CUDA kernels are held against
 on the card, against the JAX strip kernels in interpret mode and the JAX
-time-last engine — and ``lml_tl(strip=True)``; f64 on the CPU."""
+time-last engine — and ``lml_tl(strip=True)``; f64 on the CPU, both engines
+on the port kernel's model (``port_model``)."""
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,27 +12,33 @@ import numpy.testing as npt
 import pytest
 import torch
 
-import parallel_gps_tpu.kernels as jk
 from parallel_gps_torch import kernels as tk
-from parallel_gps_torch import lgssm_from_numpy
 from parallel_gps_torch.kalman import strip as tstrip
 from parallel_gps_torch.kalman import timelast as ttl
 from parallel_gps_tpu.kalman.pallas_scan import strip_filter, strip_smoother
 from parallel_gps_tpu.kalman.timelast import lml_tl, pkf_from_tl, pks_from_tl
-from _torch_common import _no_compile_cache, _np
+from _torch_common import _no_compile_cache, _np, jit_o0, port_model
 
 torch.set_num_threads(1)
 
 
-def _model(jkern, T, seed):
-    """A JAX LGSSMTL with observations (~11% NaN) and the port's copy of it."""
+def _model(tkern, T, seed):
+    """The port kernel's time-last model with observations (~11% NaN), as a
+    JAX LGSSMTL and the port's (``port_model``)."""
     rng = np.random.RandomState(seed)
     t = np.sort(rng.rand(T))
     y = np.sin(12.0 * t) + 0.3 * rng.randn(T)
     y[rng.choice(T, T // 9, replace=False)] = np.nan
-    ssm = jkern.get_ssm_tl(jnp.asarray(t).reshape(-1, 1), jnp.asarray(0.1).reshape(1, 1))
-    tssm = lgssm_from_numpy(*(np.asarray(x) for x in ssm), time_last=True, dtype=torch.float64, device="cpu")
+    ssm, tssm = port_model(tkern, t, 0.1)
     return ssm, jnp.asarray(y).reshape(-1, 1), tssm, torch.tensor(y)
+
+
+def _kern(name, *args, **kwargs):
+    """The port's kernel ``name``(*args, **kwargs) in float64 on the CPU."""
+    return getattr(tk, name)(*args, **kwargs, dtype=torch.float64, device="cpu")
+
+
+RBF4 = dict(order=4, balancing_iter=5)
 
 
 def _run_port(tssm, ty):
@@ -52,14 +61,20 @@ def _run_port(tssm, ty):
     return b, C, ell, g, L
 
 
-@jax.jit
+def _jax_strip_kernels(ssm, ys, block):
+    """The JAX strip filter and smoother kernels in interpret mode."""
+    b, C, ell = strip_filter(ssm.Fs, ssm.Qs, ssm.P0, ssm.H, ssm.R, ys, block=block, interpret=True)
+    return (b, C, ell) + tuple(strip_smoother(ssm.Fs, ssm.Qs, b, C, block=block, interpret=True))
+
+
+@jit_o0
 def _jax_pkfs(ssm, ys):
     b, C, ell = pkf_from_tl(ssm, ys, True)
     return (b, C, ell) + tuple(pks_from_tl(ssm, b, C))
 
 
 @pytest.mark.parametrize(
-    "jkern,T,block,tols",
+    "kern,T,block,tols",
     # Kernels and tolerances of tests/test_pallas_scan.py (:88-90, :106-107
     # for d ≤ 3; :131-138 for d = 4).  One case runs the JAX strip kernels in
     # interpret mode: Matern32 at block 8, so that T = 97 spans two grid steps
@@ -67,24 +82,24 @@ def _jax_pkfs(ssm, ys):
     # the port against the jitted JAX time-last engine, which
     # test_pallas_scan.py holds those kernels against.
     [
-        (jk.Matern32(1.0, 0.5), 97, 8, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
-        (jk.Matern52(0.8, 0.4), 301, None, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
-        (jk.RBF(variance=1.0, lengthscales=0.3, order=4, balancing_iter=5), 37, None, (1e-8, 1e-9, 1e-9, 1e-7, 1e-8)),
+        (("Matern32", 1.0, 0.5), 97, 8, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
+        (("Matern52", 0.8, 0.4), 301, None, (1e-9, 1e-10, 1e-10, 1e-8, 1e-9)),
+        (("RBF", 1.0, 0.3), 37, None, (1e-8, 1e-9, 1e-9, 1e-7, 1e-8)),
     ],
     ids=["m32_T97", "m52_T301", "rbf4_T37"],
 )
-def test_strip_engine_matches_jax_strip_kernels_in_interpret_mode(jkern, T, block, tols):
+def test_strip_engine_matches_jax_strip_kernels_in_interpret_mode(kern, T, block, tols):
     """Port's strip filter / smoother (plain passes) vs the JAX strip kernels
     themselves, run as the JAX tests run them on the CPU (interpret mode), or
     vs the JAX time-last engine those kernels are held against."""
     rf, af, rell, rs, as_ = tols
-    ssm, ys, tssm, ty = _model(jkern, T, 7)
+    ssm, ys, tssm, ty = _model(_kern(*kern, **(RBF4 if kern[0] == "RBF" else {})), T, 7)
     if block is None:
         b_s, C_s, ell_s, g_s, L_s = _jax_pkfs(ssm, ys)
     else:
         with _no_compile_cache():
-            b_s, C_s, ell_s = strip_filter(ssm.Fs, ssm.Qs, ssm.P0, ssm.H, ssm.R, ys, block=block, interpret=True)
-            g_s, L_s = strip_smoother(ssm.Fs, ssm.Qs, b_s, C_s, block=block, interpret=True)
+            # Under jit: one program instead of an op-by-op interpretation.
+            b_s, C_s, ell_s, g_s, L_s = jit_o0(partial(_jax_strip_kernels, block=block))(ssm, ys)
     b, C, ell, g, L = _run_port(tssm, ty)
     npt.assert_allclose(_np(b), _np(b_s), rtol=rf, atol=af)
     npt.assert_allclose(_np(C), _np(C_s), rtol=rf, atol=af)
@@ -98,7 +113,7 @@ def test_strip_engine_matches_jax_time_last_engine_at_high_order(order, T):
     """d = 6 and 8 (interpret mode is too slow there): against the JAX
     time-last engine, the reference the JAX strip kernels are held against;
     tolerances of test_pallas_scan.py:131-138."""
-    ssm, ys, tssm, ty = _model(jk.RBF(variance=1.0, lengthscales=0.3, order=order, balancing_iter=5), T, 5)
+    ssm, ys, tssm, ty = _model(_kern("RBF", 1.0, 0.3, order=order, balancing_iter=5), T, 5)
     b_x, C_x, ell_x, g_x, L_x = _jax_pkfs(ssm, ys)
     b, C, ell, g, L = _run_port(tssm, ty)
     npt.assert_allclose(_np(b), _np(b_x), rtol=1e-8, atol=1e-9)
@@ -111,7 +126,7 @@ def test_strip_engine_matches_jax_time_last_engine_at_high_order(order, T):
 @pytest.mark.parametrize("T", [1, 64, 65], ids=lambda T: f"T{T}")
 def test_strip_engine_equals_the_plain_time_last_engine_at_chunk_edges(T):
     """One step, exactly one chunk, and a ragged second chunk of one step."""
-    _, _, tssm, ty = _model(jk.Matern52(0.9, 0.45), T, 3)
+    _, _, tssm, ty = _model(_kern("Matern52", 0.9, 0.45), T, 3)
     b, C, ell, g, L = _run_port(tssm, ty)
     with torch.no_grad():
         b0, C0, ell0 = ttl.pkf_from_tl(tssm, ty, True)
@@ -126,9 +141,8 @@ def test_lml_tl_strip_value_and_gradient():
     Fisher tail backward): the value and the cotangents of every leaf of the
     model against the JAX ``lml_tl``, and the hyperparameter gradient against
     autograd through the plain filter's scan; rtol 1e-7."""
-    jkern = jk.RBF(variance=1.1, lengthscales=0.35, order=4, balancing_iter=5)
-    ssm, ys, tssm, ty = _model(jkern, 90, 11)
-    val_j, grads_j = jax.jit(jax.value_and_grad(lambda s, y: lml_tl(s, y, False), argnums=(0, 1)))(ssm, jnp.nan_to_num(ys))
+    ssm, ys, tssm, ty = _model(_kern("RBF", 1.1, 0.35, **RBF4), 90, 11)
+    val_j, grads_j = jit_o0(jax.value_and_grad(lambda s, y: lml_tl(s, y, False), argnums=(0, 1)))(ssm, jnp.nan_to_num(ys))
     leaves = [x.clone().requires_grad_() for x in tssm]
     tyc = torch.nan_to_num(ty).requires_grad_()
     val = ttl.lml_tl(type(tssm)(*leaves), tyc, strip=True)
@@ -156,7 +170,7 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     """A tensor on a device other than the CPU goes to the kernel wrapper,
     which refuses what it cannot launch instead of falling back; no launch
     is counted on the CPU."""
-    _, _, tssm, ty = _model(jk.Matern32(1.0, 0.5), 50, 1)
+    _, _, tssm, ty = _model(_kern("Matern32", 1.0, 0.5), 50, 1)
     _run_port(tssm, ty)
     assert set(tstrip.LAUNCHES) == {"strip_filter_scan", "strip_filter_apply", "strip_smoother_scan", "strip_smoother_apply"}
     assert set(tstrip.LAUNCHES.values()) == {0}
