@@ -26,7 +26,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      has ragged edges (strip_edge_lengths); then every spectral dt unit (RBF's
      transition family, d = 1..8, float64 and float32: filter, smoother and
      Fisher tail) against its plain version at T = 65,537, and its staged
-     pass 2 at its ragged lengths; the filter's and the smoother's pass 1
+     pass 2 at its ragged lengths; every composite dt unit (Periodic, Sum
+     and Product, d = 2..8, COMPOSITE_CASES) the same way, two launches bit
+     for bit (check_composite_kernels); the filter's and the smoother's pass 1
      alone, every strip and dt unit, float64 and float32, at the lengths
      where their stages have ragged edges (check_scan_edges); and the
      exponential polynomial's dt
@@ -61,7 +63,15 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      kernels) the same way (phases 4–7), with every spectral unit d = 1..8
      timed at that length, and the model's LML, predict_f and training step
      on the dt route beside the same entry points on the strip route (the
-     Kalman API on the model's planes) at orders 4..8; then the strip path:
+     Kalman API on the model's planes) at orders 4..8; then the
+     quasi-periodic model (QP_SPEC: Periodic(order=1) × Matern32, d = 8) at
+     N = 1,000,000 on the dt engine (the composite kernels): LML, predict_f
+     and a training step with their launch counts, against float64 truth
+     by the 10× rule beside the plain float32 path, and at T = 65,537
+     float64 against the plain path and the CPU (phase_qp_slice); each
+     composite kernel against its plain version and its bound, every
+     composite unit d = 2..8 timed at that length (phase_qp_times), and a
+     profile of the three entry points; then the strip path:
      the RBF(order=6) model's planes through the Kalman API and
      pkfs(engine="strip") on an explicit model at N = 10M;
   9. the batched path: the two single-pass batched kernels and the Fisher
@@ -111,8 +121,8 @@ The line before the last is the kernels' JSON record; the last line is
 
 ``entry_timers(label)`` times the entry points alone — the chunk prefix, the
 Matern52 LML, predict_f, training step and time-last pkfs, the RBF(order=6)
-LML, predict_f and training step — as events, wall, device time and the
-device's idle share.  ``ab_timers(label)`` runs those and this script's
+LML, predict_f and training step, and the quasi-periodic model's — as
+events, wall, device time and the device's idle share.  ``ab_timers(label)`` runs those and this script's
 other timers alone: the dt applies, plane_scan, the time-first pkfs, the
 strip applies at every unit, the filter's and the smoother's
 pass-1 kernels at every unit (``scan_timers(label)``, which also runs alone,
@@ -161,7 +171,8 @@ from parallel_gps_torch.kalman import _cuda  # noqa: E402
 from parallel_gps_torch.kalman import batched, dt, plane, strip, timelast  # noqa: E402
 from parallel_gps_torch.kalman.parallel import pkf, pkfs, pks  # noqa: E402
 from parallel_gps_torch.models.ssgp import merge_sorted  # noqa: E402
-from parallel_gps_torch.kernels import RBF, Matern12, Matern32, Matern52  # noqa: E402
+from parallel_gps_torch.kernels import RBF, Matern12, Matern32, Matern52, Periodic  # noqa: E402
+from parallel_gps_torch.kernels.composite import COMPOSITE  # noqa: E402
 from parallel_gps_torch.kernels.matern import EXPPOLY  # noqa: E402
 from parallel_gps_torch.kernels.rbf import SPECTRAL  # noqa: E402
 from parallel_gps_torch.probes import attrib as probe_attrib  # noqa: E402
@@ -189,6 +200,11 @@ SOURCES = {
     "dt_smoother_scan_spectral": "parallel_gps_torch/csrc/dt_scan.cu",
     "dt_smoother_apply_spectral": "parallel_gps_torch/csrc/dt_scan.cu",
     "dt_fisher_spectral": "parallel_gps_torch/csrc/dt_fisher.cu",
+    "dt_filter_scan_composite": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_filter_apply_composite": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_smoother_scan_composite": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_smoother_apply_composite": "parallel_gps_torch/csrc/dt_scan.cu",
+    "dt_fisher_composite": "parallel_gps_torch/csrc/dt_fisher.cu",
     "strip_filter_scan": "parallel_gps_torch/csrc/strip_scan.cu",
     "strip_filter_apply": "parallel_gps_torch/csrc/strip_scan.cu",
     "strip_smoother_scan": "parallel_gps_torch/csrc/strip_scan.cu",
@@ -199,10 +215,14 @@ SOURCES = {
     "plane_scan": "parallel_gps_torch/csrc/plane_scan.cu",
     "plane_transpose": "parallel_gps_torch/csrc/plane_scan.cu",
 }
-# The dt kernels of the exponential polynomial (the Matérn kernels) and of
-# the spectral family (RBF): one wrapper each, a kernel a family.
-DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_") and not k.endswith("_spectral"))
+# The dt kernels of the exponential polynomial (the Matérn kernels), of the
+# spectral family (RBF) and of the composite family (Periodic, Sum,
+# Product): one wrapper each, a kernel a family.
+DT_KERNELS = tuple(k for k in SOURCES if k.startswith("dt_") and not k.endswith(("_spectral", "_composite")))
 SPECTRAL_KERNELS = tuple(f"{k}_spectral" for k in DT_KERNELS)
+COMPOSITE_KERNELS = tuple(f"{k}_composite" for k in DT_KERNELS)
+# Every dt kernel of another family than the path's: none launched.
+NOT_SPECTRAL = dict.fromkeys(DT_KERNELS + COMPOSITE_KERNELS, 0)
 STRIP_KERNELS = tuple(k for k in SOURCES if k.startswith("strip_"))
 PLANE_KERNELS = ("plane_scan", "plane_transpose")
 REPLACES = {
@@ -218,6 +238,15 @@ REPLACES = {
     "dt_smoother_scan_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:553",
     "dt_smoother_apply_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:589",
     "dt_fisher_spectral": "parallel_gps_tpu/kalman/pallas_dt.py:839",
+    # The same five with a composite's build traced into them: Periodic's
+    # rotation planes (parallel_gps_tpu/kernels/periodic.py:140), a Sum's
+    # block diagonal (kernels/base.py:242) or a Product's Kronecker fold
+    # (kernels/base.py:420).
+    "dt_filter_scan_composite": "parallel_gps_tpu/kalman/pallas_dt.py:179",
+    "dt_filter_apply_composite": "parallel_gps_tpu/kalman/pallas_dt.py:208",
+    "dt_smoother_scan_composite": "parallel_gps_tpu/kalman/pallas_dt.py:553",
+    "dt_smoother_apply_composite": "parallel_gps_tpu/kalman/pallas_dt.py:589",
+    "dt_fisher_composite": "parallel_gps_tpu/kalman/pallas_dt.py:839",
     "strip_filter_scan": "parallel_gps_tpu/kalman/pallas_scan.py:766",
     "strip_filter_apply": "parallel_gps_tpu/kalman/pallas_scan.py:798",
     "strip_smoother_scan": "parallel_gps_tpu/kalman/pallas_scan.py:1795",
@@ -253,21 +282,40 @@ EXPECTED_LAUNCHES = {
     "dt_smoother_scan": N_REQUESTS,
     "dt_smoother_apply": N_REQUESTS,
     "dt_fisher": 0,
-    **dict.fromkeys(SPECTRAL_KERNELS, 0),
+    **dict.fromkeys(SPECTRAL_KERNELS + COMPOSITE_KERNELS, 0),
     "plane_scan": 1 + 2 * N_REQUESTS,
 }
-LML_LAUNCHES = {**dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan": 1, "dt_filter_apply": 1, "plane_scan": 1}
+LML_LAUNCHES = {
+    **dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS + COMPOSITE_KERNELS, 0), "dt_filter_scan": 1, "dt_filter_apply": 1, "plane_scan": 1,
+}
 # One training step (LML + backward) launches each of the five kernels once,
 # and a plane scan for each of its two prefixes.
-STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 1), **dict.fromkeys(SPECTRAL_KERNELS, 0), "plane_scan": 2}
+STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 1), **dict.fromkeys(SPECTRAL_KERNELS + COMPOSITE_KERNELS, 0), "plane_scan": 2}
 # The RBF model on the dt engine (its spectral family): an LML is the filter;
 # a predict_f request the filter and the smoother; a training step all five.
 RBF_MODEL = dict(kernel="RBF", variance=0.8, lengthscales=0.05, noise_variance=NOISE, order=6)
 RBF_LML_LAUNCHES = {
-    **dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0), "dt_filter_scan_spectral": 1, "dt_filter_apply_spectral": 1, "plane_scan": 1,
+    **NOT_SPECTRAL, **dict.fromkeys(SPECTRAL_KERNELS, 0), "dt_filter_scan_spectral": 1, "dt_filter_apply_spectral": 1, "plane_scan": 1,
 }
-RBF_PREDICT_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1), "dt_fisher_spectral": 0, "plane_scan": 2}
-RBF_STEP_LAUNCHES = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1), "plane_scan": 2}
+RBF_PREDICT_LAUNCHES = {**NOT_SPECTRAL, **dict.fromkeys(SPECTRAL_KERNELS, 1), "dt_fisher_spectral": 0, "plane_scan": 2}
+RBF_STEP_LAUNCHES = {**NOT_SPECTRAL, **dict.fromkeys(SPECTRAL_KERNELS, 1), "plane_scan": 2}
+# The quasi-periodic model on the dt engine (the composite family): the
+# covariance of experiments/common.py:104-112 (--cov QP) at --qp-order 1,
+# Periodic(1, 1, period=1, order=1) × Matern32(1, 1), d = 4 × 2 = 8 — the
+# largest state the dt kernels take — at N = 1M.  Its LML is the filter, a
+# predict_f request the filter and the smoother, a training step all five.
+N_QP = 1_000_000
+QP_SPEC = ("Product", [
+    ("Periodic", {"variance": 1.0, "lengthscales": 1.0, "period": 1.0, "order": 1}),
+    ("Matern32", {"variance": 1.0, "lengthscales": 1.0}),
+])
+NOT_COMPOSITE = dict.fromkeys(DT_KERNELS + SPECTRAL_KERNELS, 0)
+QP_LML_LAUNCHES = {
+    **NOT_COMPOSITE, **dict.fromkeys(COMPOSITE_KERNELS, 0), "dt_filter_scan_composite": 1, "dt_filter_apply_composite": 1,
+    "plane_scan": 1,
+}
+QP_PREDICT_LAUNCHES = {**NOT_COMPOSITE, **dict.fromkeys(COMPOSITE_KERNELS, 1), "dt_fisher_composite": 0, "plane_scan": 2}
+QP_STEP_LAUNCHES = {**NOT_COMPOSITE, **dict.fromkeys(COMPOSITE_KERNELS, 1), "plane_scan": 2}
 # The strip path on the same model's planes, through the Kalman API: an LML
 # is the strip filter; a predict_f request and a training step (strip filter
 # forward, strip smoother backward) are all four.
@@ -368,7 +416,13 @@ def kernel_inputs(k, t, y, dtype):
 
 
 def hyper_params(model):
-    return [model.kernel.raw_variance, model.kernel.raw_lengthscales, model.raw_noise_variance]
+    """The unconstrained hyperparameters: (variance, lengthscale, noise) of a
+    Matérn or RBF model; a composite's kernel parameters in their named
+    order, then the noise."""
+    k = model.kernel
+    if isinstance(k, (Matern12, Matern32, Matern52, RBF)):
+        return [k.raw_variance, k.raw_lengthscales, model.raw_noise_variance]
+    return [p for _, p in k.named_parameters()] + [model.raw_noise_variance]
 
 
 def value_and_grad(model):
@@ -452,20 +506,45 @@ def _inv_flops(d: int) -> int:
     return _inv_flops(k) + _inv_flops(m) + products + m * m + k * k
 
 
-def flops_per_step(d: int, degree: int, family: str = EXPPOLY) -> dict:
+# Operations of one composite weight of each kind and of its two derivatives
+# (csrc/dt_elements.cuh: composite_weight), by kind (kernels/composite.py:
+# EXPM1, TAU, COSM1, SIN, SPEC_EM1, SPEC_ES); TAU adds 3 a power.
+COMPOSITE_WEIGHT_OPS = {0: (3, 4), 1: (2, 4), 2: (8, 4), 3: (4, 3), 4: (14, 4), 5: (8, 4)}
+
+
+def composite_ops(plan) -> tuple:
+    """(build, chain rule) operations a step of a composite plan: each
+    weight's, then per monomial one multiply a factor past the first and a
+    multiply-add an entry of its pattern; the chain rule adds each weight's
+    derivatives, each monomial's ⟨dA, K⟩ over its pattern and its factors'
+    cotangents, and the tile's W·dA sums over every entry of each monomial."""
+    weights = sum(COMPOSITE_WEIGHT_OPS[k][0] + (3 * int(p) if k == 1 else 0) for k, p, _ in plan.weights)
+    nnz = sum(sum(pat) for pat in plan.patterns)
+    build = weights + sum(len(m) - 1 for m in plan.monomials) + 2 * nnz
+    chain = (
+        sum(COMPOSITE_WEIGHT_OPS[k][1] for k, _, _ in plan.weights) + 2 * nnz
+        + sum(len(m) * len(m) for m in plan.monomials) + 3 * len(plan.weights) + 2 * len(plan.monomials) * plan.d * plan.d
+    )
+    return build, chain
+
+
+def flops_per_step(d: int, degree: int, family: str = EXPPOLY, plan=None) -> dict:
     """Floating-point operations of one time step of each kernel, counted
     from csrc/dt_elements.cuh (a multiply, an add, a divide and a
     transcendental one each); ``*_obs`` parts run at observed steps only.
     The strip kernels load F and Q where the dt kernels rebuild them, from
-    the exponential polynomial of ``degree`` or (``family`` SPECTRAL) RBF's
+    the exponential polynomial of ``degree``, (``family`` SPECTRAL) RBF's
     spectral family: (d+1)/2 blocks, each 5 transcendentals, 8 scalar
-    operations and 2·d² multiply-adds a step."""
+    operations and 2·d² multiply-adds a step, or (COMPOSITE) a composite
+    ``plan``'s weights and monomials (composite_ops)."""
     tri = d * (d + 1) // 2
     inv = _inv_flops(d)
     blocks = (d + 1) // 2
     fq_from_am1 = d + _mm(d) + tri * (2 * d + 2)
     if family == SPECTRAL:
         build_fq = 1 + blocks * (13 + 4 * d * d) + fq_from_am1
+    elif family == COMPOSITE:
+        build_fq = composite_ops(plan)[0] + fq_from_am1
     else:
         build_fq = 4 + degree * (2 * d * d + 2) + fq_from_am1
     build_filtering = 2 * _mv(d) + 2 * d + 2 + d * (3 + 6 * d)
@@ -479,6 +558,8 @@ def flops_per_step(d: int, degree: int, family: str = EXPPOLY) -> dict:
         # products; then the coefficients' cotangents w·dA (2 blocks·d²
         # multiply-adds) and the sums of d c[0], d_P0, d_H and d_R.
         fq_vjp = am1_vjp + 2 + blocks * (13 + 4 * d * d) + 4 * blocks * d * d + d * d + d + 2
+    elif family == COMPOSITE:
+        fq_vjp = am1_vjp + composite_ops(plan)[1] + d * d + d + 2
     else:
         fq_vjp = am1_vjp + d + 6 + degree * (4 * d * d + 5)
     fisher = (
@@ -492,7 +573,7 @@ def flops_per_step(d: int, degree: int, family: str = EXPPOLY) -> dict:
         "dt_filter_scan": (build_fq + filt, 0), "dt_filter_apply": (build_fq + filt, loglik_obs),
         "dt_smoother_scan": (build_fq + smooth, 0), "dt_smoother_apply": (build_fq + smooth, 0),
         "dt_fisher": (fisher, fisher_obs),
-        **{f"{k}_spectral": v for k, v in (
+        **{f"{k}_{fam}": v for fam in (SPECTRAL, COMPOSITE) for k, v in (
             ("dt_filter_scan", (build_fq + filt, 0)), ("dt_filter_apply", (build_fq + filt, loglik_obs)),
             ("dt_smoother_scan", (build_fq + smooth, 0)), ("dt_smoother_apply", (build_fq + smooth, 0)),
             ("dt_fisher", (fisher, fisher_obs)),
@@ -510,7 +591,7 @@ def flops_per_step(d: int, degree: int, family: str = EXPPOLY) -> dict:
 
 def kernel_bound(
     name: str, d: int, degree: int, T: int, n_obs: int, itemsize: int, B: int = 1, y_series: int | None = None,
-    rows: int | None = None,
+    rows: int | None = None, plan=None,
 ):
     """(bound in ms, "bytes" or "operations"): the least time the card could
     take — each input read once and each output written once at the memory
@@ -522,7 +603,8 @@ def kernel_bound(
     stride of 0); the batched Fisher tail reads one shared dt.  The plane
     scan ("plane_scan_filter" / "_smoother") reads and writes its packed
     rows; "plane_transpose" moves ``rows`` rows of T values (d² for Fs, Qs
-    and the covariances, d for the means)."""
+    and the covariances, d for the means).  A composite kernel
+    ("…_composite") counts the operations of its ``plan``."""
     peak_flops = PEAK_F64_FLOPS if itemsize == 8 else PEAK_F32_FLOPS
     if name.startswith("plane_"):
         check(name != "plane_transpose" or bool(rows), "kernel_bound: a transpose needs its row count")
@@ -550,8 +632,8 @@ def kernel_bound(
     nc = dt.n_chunks(T)
     mom = (d + d * d) * T
     planes = 2 * d * d * T
-    family = SPECTRAL if name.endswith("_spectral") else EXPPOLY
-    name = name.removesuffix("_spectral") if family == SPECTRAL else name
+    family = next((f for f in (SPECTRAL, COMPOSITE) if name.endswith(f"_{f}")), EXPPOLY)
+    name = name.removesuffix(f"_{family}")
     values = {
         "dt_filter_scan": 2 * T + dt.filt_rows(d) * nc,
         "dt_filter_apply": 2 * T + dt.filt_rows(d) * nc + mom,
@@ -563,7 +645,7 @@ def kernel_bound(
         "strip_smoother_scan": planes + mom + dt.smooth_rows(d) * nc,
         "strip_smoother_apply": planes + mom + dt.smooth_rows(d) * nc + mom,
     }[name]
-    every, observed = flops_per_step(d, degree, family)[name]
+    every, observed = flops_per_step(d, degree, family, plan)[name]
     bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
     ops_ms = 1e3 * (every * T + observed * n_obs) / peak_flops
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
@@ -806,7 +888,7 @@ def check_spectral_kernels() -> None:
     RBF cases above; fisher_close); float32 against float64 truth by the 10×
     rule, as the Matérn units."""
     t, y = make_data(T_KERNEL, SEED + 1)
-    one_each = {**dict.fromkeys(DT_KERNELS, 0), **dict.fromkeys(SPECTRAL_KERNELS, 1)}
+    one_each = {**NOT_SPECTRAL, **dict.fromkeys(SPECTRAL_KERNELS, 1)}
     for d in SPECTRAL_DIMS:
         rf, af, rs, as_ = strip_tolerances(d)
         name = f"RBF d={d} spectral"
@@ -904,6 +986,145 @@ def check_spectral_apply_edges() -> None:
                 for k, (a, b_) in errs.items():
                     check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} {k}: kernel {a:.3e} vs plain {b_:.3e}")
     print(f"spectral dt pass-2 units at their stage's ragged lengths: {n} cases, d = 1..8, f64 and f32, all within tolerance")
+
+
+# The composite dt units' cases, one a state dimension d = 2..8: Sums,
+# Products, a Periodic × Matern12, a Sum of a Product (the CO2 shape) and the
+# QP model's Periodic × Matern32; and a bare Periodic (BARE_PERIODIC, d = 6:
+# undamped, Q = 0), held as the others but not timed.
+COMPOSITE_CASES = {
+    2: lambda dtype: Matern12(1.0, 0.5, dtype=dtype, device=DEV) + Matern12(0.8, 0.3, dtype=dtype, device=DEV),
+    3: lambda dtype: Matern32(1.1, 0.5, dtype=dtype, device=DEV) + Matern12(0.8, 0.3, dtype=dtype, device=DEV),
+    4: lambda dtype: Matern32(1.2, 0.6, dtype=dtype, device=DEV) * Matern32(0.9, 0.4, dtype=dtype, device=DEV),
+    5: lambda dtype: Matern52(0.8, 0.4, dtype=dtype, device=DEV) + Matern32(1.0, 0.5, dtype=dtype, device=DEV),
+    6: lambda dtype: Periodic(1.3, 0.8, period=0.7, order=2, dtype=dtype, device=DEV) * Matern12(1.0, 2.0, dtype=dtype, device=DEV),
+    7: lambda dtype: Periodic(1.0, 1.0, period=0.5, order=1, dtype=dtype, device=DEV) * Matern12(1.0, 0.7, dtype=dtype, device=DEV)
+    + Matern52(0.8, 0.4, dtype=dtype, device=DEV),
+    8: lambda dtype: Periodic(1.0, 1.0, period=1.0, order=1, dtype=dtype, device=DEV) * Matern32(1.0, 1.0, dtype=dtype, device=DEV),
+}
+BARE_PERIODIC = lambda dtype: Periodic(1.3, 0.8, period=0.7, order=2, dtype=dtype, device=DEV)  # noqa: E731
+
+
+def bits(x) -> bytes:
+    return x.detach().cpu().contiguous().numpy().tobytes()
+
+
+def check_composite_kernels() -> None:
+    """Every composite dt unit, d = 2..8 (COMPOSITE_CASES), float64 and
+    float32: the filter (scan and apply), the smoother (scan and apply, on
+    the plain filter's moments) and the Fisher tail through the kernels,
+    each launched once, against their plain versions at T = T_KERNEL with
+    ~10% missing observations — float64 to the spectral units' tolerances
+    (strip_tolerances, fisher_close), float32 against float64 truth by the
+    10× rule — and a second launch of each bit for bit the first, the bare
+    Periodic (BARE_PERIODIC) too; then the staged pass 2 at its ragged
+    lengths (check_composite_apply_edges)."""
+    t, y = make_data(T_KERNEL, SEED + 1)
+    one_each = {**NOT_COMPOSITE, **dict.fromkeys(COMPOSITE_KERNELS, 1)}
+    for d, make in [*COMPOSITE_CASES.items(), (6, BARE_PERIODIC)]:
+        rf, af, rs, as_ = strip_tolerances(d)
+        k64 = make(torch.float64)
+        name = f"{k64!r} d={d} composite"
+        check(k64.state_dim == d and k64.transition_coeffs()[0] == COMPOSITE, f"{name}: not a d={d} composite")
+        with torch.no_grad():
+            fam, co, P0, H, R, dts, yt = kernel_inputs(k64, t, y, torch.float64)
+            dt.reset_launch_counts()
+            b_k, C_k, ell_k = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+            b_p, C_p, ell_p = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+            g_k, L_k = dt.strip_smoother_dt(fam, co, P0, dts, b_p, C_p)
+            g_p, L_p = dt.strip_smoother_dt_plain(fam, co, P0, dts, b_p, C_p)
+            mom = [x.contiguous() for x in (b_p, C_p, g_p, L_p)]
+            f_k = dt.dt_fisher(fam, co, P0, H, R, dts, yt, *mom)
+            f_p = dt.dt_fisher_plain(fam, co, P0, H, R, dts, yt, *mom)
+            torch.cuda.synchronize()
+            launches = dict(dt.LAUNCHES)
+            again = (dt.strip_filter_dt(fam, co, P0, H, R, dts, yt), dt.strip_smoother_dt(fam, co, P0, dts, b_p, C_p),
+                     dt.dt_fisher(fam, co, P0, H, R, dts, yt, *mom))
+        check(launches == one_each, f"{name}: launches {launches}")
+        first = (b_k, C_k, ell_k, g_k, L_k, *f_k)
+        check(all(bits(a) == bits(b) for a, b in zip(first, [x for part in again for x in part])), f"{name}: two launches differ")
+        print(
+            f"{name} f64 T={T_KERNEL}: |b| {max_abs(b_k, b_p):.3e} |C| {max_abs(C_k, C_p):.3e} "
+            f"ell {float(ell_k):.12f} vs {float(ell_p):.12f} |g| {max_abs(g_k, g_p):.3e} |L| {max_abs(L_k, L_p):.3e}; fisher "
+            + " ".join(f"|{n}| {max_abs(a, b):.3e} (of {float(b.abs().max()):.3e})" for n, a, b in zip(FISHER_OUTPUTS, f_k, f_p))
+            + "; two launches bit for bit"
+        )
+        check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"{name} f64 filter moments")
+        check(abs(float(ell_k - ell_p)) <= 1e-9 * abs(float(ell_p)), f"{name} f64 LML")
+        check(allclose(g_k, g_p, rs, as_) and allclose(L_k, L_p, rs, as_), f"{name} f64 smoother moments")
+        for n, a, b in zip(FISHER_OUTPUTS, f_k, f_p):
+            check(fisher_close(a, b), f"{name} f64 fisher {n}")
+
+        with torch.no_grad():
+            fam, co, P0, H, R, dts, yt = kernel_inputs(make(torch.float32), t, y, torch.float32)
+            b_k, C_k, ell_k32 = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+            b_q, C_q, ell_q32 = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+            g_k, L_k = dt.strip_smoother_dt(fam, co, P0, dts, b_q, C_q)
+            g_q, L_q = dt.strip_smoother_dt_plain(fam, co, P0, dts, b_q, C_q)
+            g_t, L_t = dt.strip_smoother_dt_plain(fam, co.double(), P0.double(), dts.double(), b_q.double(), C_q.double())
+            in32 = [co, P0, H, R, dts, yt] + [x.contiguous() for x in (b_q, C_q, g_q, L_q)]
+            f_k = dt.dt_fisher(fam, *in32)
+            f_q = dt.dt_fisher_plain(fam, *in32)
+            f_t = dt.dt_fisher_plain(fam, *(x.double() for x in in32))
+            torch.cuda.synchronize()
+        errs = {
+            "b": (rel_err(b_k, b_p), rel_err(b_q, b_p)),
+            "C": (rel_err(C_k, C_p), rel_err(C_q, C_p)),
+            "ell": (abs(float(ell_k32) - float(ell_p)) / abs(float(ell_p)), abs(float(ell_q32) - float(ell_p)) / abs(float(ell_p))),
+            "g": (rel_err(g_k, g_t), rel_err(g_q, g_t)),
+            "L": (rel_err(L_k, L_t), rel_err(L_q, L_t)),
+            **{n: (rel_err(a, c), rel_err(b, c)) for n, a, b, c in zip(FISHER_OUTPUTS, f_k, f_q, f_t)},
+        }
+        print(f"{name} f32 vs f64 truth (kernel / plain f32): " + " ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in errs.items()))
+        for k, (a, b) in errs.items():
+            floor = f32_sum_floor(T_KERNEL) if k in FISHER_OUTPUTS[:4] else F32_FLOOR
+            check(a <= max(F32_FACTOR * b, floor), f"{name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
+    check_composite_apply_edges()
+
+
+def check_composite_apply_edges() -> None:
+    """Each composite unit's staged pass 2, filter and smoother, d = 2..8,
+    float64 and float32, at the lengths where its stage has ragged edges
+    (strip_edge_lengths of the unit's block, pgt_dt_apply_threads_d<d>), as
+    check_spectral_apply_edges holds the spectral units."""
+    lib = _cuda.load()
+    n = 0
+    for dtype in (torch.float64, torch.float32):
+        is64 = int(dtype == torch.float64)
+        for d, make in COMPOSITE_CASES.items():
+            rf, af, rs, as_ = strip_tolerances(d)
+            threads = {getattr(lib, f"pgt_dt_apply_threads_d{d}")(is64, dt.FAMILY_IDS[COMPOSITE], k) for k in (0, 1)}
+            lengths = sorted(set().union(*(strip_edge_lengths(w) for w in threads)))
+            kern = make(dtype)
+            for T in lengths:
+                t, y = make_data(T, SEED + 7)
+                what = f"composite d={d} {dtype} T={T} (blocks of {sorted(threads)} threads)"
+                with torch.no_grad():
+                    fam, co, P0, H, R, dts, yt = kernel_inputs(kern, t, y, dtype)
+                    b_k, C_k, ell_k = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+                    b_p, C_p, ell_p = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+                    g_k, L_k = dt.strip_smoother_dt(fam, co, P0, dts, b_p, C_p)
+                    g_p, L_p = dt.strip_smoother_dt_plain(fam, co, P0, dts, b_p, C_p)
+                    if dtype == torch.float32:
+                        args64 = [x.double() for x in (co, P0, H, R, dts, yt)]
+                        b_t, C_t, ell_t = dt.strip_filter_dt_plain(fam, *args64)
+                        g_t, L_t = dt.strip_smoother_dt_plain(fam, args64[0], args64[1], args64[4], b_p.double(), C_p.double())
+                    torch.cuda.synchronize()
+                n += 1
+                if dtype == torch.float64:
+                    check(allclose(b_k, b_p, rf, af) and allclose(C_k, C_p, rf, af), f"{what}: filter moments")
+                    check(abs(float(ell_k - ell_p)) <= 1e-9 * max(abs(float(ell_p)), 1e-300), f"{what}: LML")
+                    check(allclose(g_k, g_p, rs, as_) and allclose(L_k, L_p, rs, as_), f"{what}: smoother moments")
+                    continue
+                scale = max(abs(float(ell_t)), 1e-300)
+                errs = {
+                    "b": (rel_err(b_k, b_t), rel_err(b_p, b_t)), "C": (rel_err(C_k, C_t), rel_err(C_p, C_t)),
+                    "ell": (abs(float(ell_k) - float(ell_t)) / scale, abs(float(ell_p) - float(ell_t)) / scale),
+                    "g": (rel_err(g_k, g_t), rel_err(g_p, g_t)), "L": (rel_err(L_k, L_t), rel_err(L_p, L_t)),
+                }
+                for k, (a, b_) in errs.items():
+                    check(a <= max(F32_FACTOR * b_, F32_FLOOR), f"{what} {k}: kernel {a:.3e} vs plain {b_:.3e}")
+    print(f"composite dt pass-2 units at their stage's ragged lengths: {n} cases, d = 2..8, f64 and f32, all within tolerance")
 
 
 # The edges of the staged pass-2 kernels, dt_filter_apply and
@@ -1570,7 +1791,7 @@ TWO_PASS_KERNELS = tuple(k for k in DT_KERNELS + STRIP_KERNELS if k.endswith(("_
 # batched filter, the batched smoother and the Fisher tail, and nothing else.
 BATCHED_STEP_LAUNCHES = {
     "batched_filter": 1, "batched_smoother": 1, "dt_fisher": 1,
-    **dict.fromkeys(TWO_PASS_KERNELS + SPECTRAL_KERNELS + PLANE_KERNELS, 0),
+    **dict.fromkeys(TWO_PASS_KERNELS + SPECTRAL_KERNELS + COMPOSITE_KERNELS + PLANE_KERNELS, 0),
 }
 PREFIX_CALLS = [0]
 
@@ -1715,7 +1936,7 @@ def phase_batched_slice():
     )
     print(f"  launches of the batched path (one run of the samplers included) {counts}, plain prefixes {PREFIX_CALLS[0]}")
     check(
-        not any(counts[k] for k in TWO_PASS_KERNELS + SPECTRAL_KERNELS + PLANE_KERNELS) and PREFIX_CALLS[0] == 0,
+        not any(counts[k] for k in TWO_PASS_KERNELS + SPECTRAL_KERNELS + COMPOSITE_KERNELS + PLANE_KERNELS) and PREFIX_CALLS[0] == 0,
         f"the samplers left the batched path: {counts}",
     )
     check(counts["batched_filter"] >= counts["batched_smoother"] == counts["dt_fisher"] > N_HMC * 10, f"sampler launches {counts}")
@@ -2160,7 +2381,7 @@ def phase_training(model, data) -> dict:
     # Every L-BFGS evaluation is one training step too: the five counts stay
     # equal, two prefixes each, and each of its steps makes at least one.
     check(
-        len({counts[k] for k in DT_KERNELS}) == 1 and not any(counts[k] for k in SPECTRAL_KERNELS)
+        len({counts[k] for k in DT_KERNELS}) == 1 and not any(counts[k] for k in SPECTRAL_KERNELS + COMPOSITE_KERNELS)
         and counts["dt_fisher"] >= 1 + N_ADAM + N_LBFGS and counts["plane_scan"] == 2 * counts["dt_fisher"],
         f"launches after L-BFGS {counts}",
     )
@@ -2576,25 +2797,26 @@ def phase_strip_times(card: str, model, planes, counts) -> list:
     return records
 
 
-def spectral_passes(model):
-    """{kernel: (wrapper, plain version, arguments)} of the five spectral dt
-    kernels on ``model``'s inputs, no autograd: each pass on the outputs of
-    the kernels before it."""
+def spectral_passes(model, suffix="_spectral"):
+    """{kernel: (wrapper, plain version, arguments)} of the five dt kernels
+    of the model's table family (``suffix`` "_spectral" or "_composite") on
+    ``model``'s inputs, no autograd: each pass on the outputs of the kernels
+    before it."""
     fam, co, sde, dts = dt._model_inputs(model.kernel, model.ts)
     co, P0, H = co.detach(), sde.P0.detach(), sde.H.detach()
     R = model.noise_variance.detach().reshape(1, 1)
     y, d = model.ys, P0.shape[0]
     tot_f = dt.dt_filter_scan(fam, co, P0, H, R, dts, y)
-    pre_f = dt.exclusive_chunk_prefixes(tot_f, d, reverse=False)
+    pre_f = dt.chunk_prefixes(fam, tot_f, d, reverse=False)
     b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, y, pre_f)
-    pre_s = dt.exclusive_chunk_prefixes(dt.dt_smoother_scan(fam, co, P0, dts, b, C), d, reverse=True)
+    pre_s = dt.chunk_prefixes(fam, dt.dt_smoother_scan(fam, co, P0, dts, b, C), d, reverse=True)
     g, L = dt.dt_smoother_apply(fam, co, P0, dts, b, C, pre_s)
     return {
-        "dt_filter_scan_spectral": (dt.dt_filter_scan, dt.dt_filter_scan_plain, (fam, co, P0, H, R, dts, y)),
-        "dt_filter_apply_spectral": (dt.dt_filter_apply, dt.dt_filter_apply_plain, (fam, co, P0, H, R, dts, y, pre_f)),
-        "dt_smoother_scan_spectral": (dt.dt_smoother_scan, dt.dt_smoother_scan_plain, (fam, co, P0, dts, b, C)),
-        "dt_smoother_apply_spectral": (dt.dt_smoother_apply, dt.dt_smoother_apply_plain, (fam, co, P0, dts, b, C, pre_s)),
-        "dt_fisher_spectral": (dt.dt_fisher, dt.dt_fisher_plain, (fam, co, P0, H, R, dts, y, b, C, g, L)),
+        f"dt_filter_scan{suffix}": (dt.dt_filter_scan, dt.dt_filter_scan_plain, (fam, co, P0, H, R, dts, y)),
+        f"dt_filter_apply{suffix}": (dt.dt_filter_apply, dt.dt_filter_apply_plain, (fam, co, P0, H, R, dts, y, pre_f)),
+        f"dt_smoother_scan{suffix}": (dt.dt_smoother_scan, dt.dt_smoother_scan_plain, (fam, co, P0, dts, b, C)),
+        f"dt_smoother_apply{suffix}": (dt.dt_smoother_apply, dt.dt_smoother_apply_plain, (fam, co, P0, dts, b, C, pre_s)),
+        f"dt_fisher{suffix}": (dt.dt_fisher, dt.dt_fisher_plain, (fam, co, P0, H, R, dts, y, b, C, g, L)),
     }
 
 
@@ -2689,6 +2911,266 @@ def phase_rbf_routes(card: str, t, y, queries) -> None:
         m.zero_grad(set_to_none=True)
         del m, routes
         torch.cuda.empty_cache()
+
+
+def qp_model(t, y, dtype, device=None):
+    return StateSpaceGP.from_numpy(t, y, QP_SPEC, noise_variance=NOISE, dtype=dtype, device=device or DEV)
+
+
+@torch.no_grad()
+def plain_predict(model, Xnew):
+    """``model.predict_f(Xnew)`` of a dt-engine model with the merged series
+    filtered and smoothed by the plain versions only, on the model's
+    device."""
+    X = torch.as_tensor(np.asarray(Xnew), dtype=model.ts.dtype, device=model.ts.device)
+    order = torch.argsort(X)
+    nan = torch.full((X.shape[0],), float("nan"), dtype=model.ys.dtype, device=model.ys.device)
+    all_ts, (all_ys,), q_idx = merge_sorted(model.ts, X[order], (model.ys,), (nan,))
+    fam, co, sde, dts = dt._model_inputs(model.kernel, all_ts)
+    R = model.noise_variance.reshape(1, 1)
+    b, C, _ = dt.strip_filter_dt_plain(fam, co, sde.P0, sde.H, R, dts, all_ys)
+    g, L = dt.strip_smoother_dt_plain(fam, co, sde.P0, dts, b, C)
+    h, back = sde.H[0], torch.argsort(order)
+    return (h @ g[:, q_idx])[back][:, None], torch.einsum("i,ijm,j->m", h, L[:, :, q_idx], h)[back][:, None]
+
+
+def phase_qp_slice():
+    """The quasi-periodic model (QP_SPEC) at N = N_QP float32 on the dt
+    engine, the composite family: one LML, one predict_f request of 1,000
+    unsorted queries and one training step, each with the launches it
+    requires and none of another family's or engine's, no plain prefix, two
+    identical steps bit for bit; each result against float64 truth (the
+    same model in float64 on the kernels) by the 10× rule beside the plain
+    float32 path; and at N = T_KERNEL float64 the kernels against the plain
+    path on the card and the same model on the CPU.  Returns the float32
+    model, its queries and the path's launch counts."""
+    t, y = make_data(N_QP, SEED + 9)
+    queries = np.random.RandomState(SEED + 10).rand(1000) * 1.4 - 0.2  # unsorted, some outside [0, 1)
+    model = qp_model(t, y, torch.float32)
+    check(model.engine()[0] == "dt" and model.engine()[1][0] == COMPOSITE, f"the QP model runs the {model.engine()[0]} engine")
+    torch.cuda.synchronize()
+    counts, plain_prefixes = [], []
+    reset_all_launches()
+    with torch.no_grad():
+        ell = model.log_marginal_likelihood()
+        counts.append(dt_launches())
+        plain_prefixes.append(PREFIX_CALLS[0])
+        reset_all_launches()
+        mean, var = model.predict_f(queries)
+        counts.append(dt_launches())
+        plain_prefixes.append(PREFIX_CALLS[0])
+    reset_all_launches()
+    loss, grad = value_and_grad(model)
+    counts.append(dt_launches())
+    plain_prefixes.append(PREFIX_CALLS[0])
+    others = {k: v for k, v in all_launches().items() if k not in counts[-1]}
+    loss2, grad2 = value_and_grad(model)
+    torch.cuda.synchronize()
+    tag = f"QP {QP_SPEC[1][0][0]}(order=1) x Matern32 d=8 N={N_QP}"
+    print(
+        f"{tag} f32: LML {float(ell):.6f}; query variance min {float(var.min()):.3e} max {float(var.max()):.3e}; "
+        f"gradient (Periodic variance, lengthscale, period, Matern32 variance, lengthscale, noise) {grad.tolist()}"
+    )
+    print(f"  launches: LML {counts[0]}, predict_f {counts[1]}, training step {counts[2]}; plain prefixes {plain_prefixes}")
+    for got, want, call in zip(counts, (QP_LML_LAUNCHES, QP_PREDICT_LAUNCHES, QP_STEP_LAUNCHES), ("LML", "predict_f", "training-step")):
+        check(got == want, f"{tag} {call} launches {got}, expected {want}")
+    check(not any(others.values()), f"{tag} launched another engine's kernel: {others}")
+    check(not any(plain_prefixes), f"{tag}: the LML, predict_f and training step ran {plain_prefixes} plain prefixes")
+    check(bool(torch.isfinite(ell)) and bool(loss == -ell), f"{tag} f32 LML not finite, or the loss is not its negative")
+    check(mean.shape == (1000, 1) and var.shape == (1000, 1), f"{tag} predict_f shapes")
+    check(bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()), f"{tag} predict_f not finite")
+    check(bool(torch.isfinite(grad).all()), f"{tag} f32 gradient not finite")
+    check(bool(loss2 == loss) and bool((grad2 == grad).all()), f"{tag}: two identical steps differ")
+
+    # Float64 truth on the kernels, the plain float32 path beside the kernels.
+    m64 = qp_model(t, y, torch.float64)
+    with torch.no_grad():
+        ell64 = m64.log_marginal_likelihood()
+        mean64, var64 = m64.predict_f(queries)
+    _, grad64 = value_and_grad(m64)
+    del m64
+    torch.cuda.empty_cache()
+    loss_p, grad_p = plain_value_and_grad(model)
+    mean_p, var_p = plain_predict(model, queries)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    ell64 = float(ell64)
+    errs = {
+        "LML": (abs(float(ell) - ell64) / abs(ell64), abs(-float(loss_p) - ell64) / abs(ell64), F32_FLOOR),
+        "mean": (rel_err(mean, mean64), rel_err(mean_p, mean64), F32_FLOOR),
+        "var": (rel_err(var, var64), rel_err(var_p, var64), F32_FLOOR),
+        "gradient": (rel_err(grad, grad64), rel_err(grad_p, grad64), f32_sum_floor(N_QP)),
+    }
+    print(
+        f"{tag} f32 vs f64 truth (kernels / plain f32): " + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b, _) in errs.items())
+        + f"; f64 LML {ell64:.6f}, f64 gradient {grad64.tolist()}; query variance min: kernels f32 {float(var.min()):.3e}, "
+        f"plain f32 {float(var_p.min()):.3e}, f64 {float(var64.min()):.3e}"
+    )
+    # In float32 the posterior variance of 1M points under this smooth kernel
+    # is below the rounding of P − E·Pp·Eᵀ: both float32 paths may return
+    # small negative variances, which the 10× rule bounds; float64's are
+    # positive.
+    check(bool((var64 > 0).all()), f"{tag} f64 predict_f variances not positive")
+    for k, (a, b, floor) in errs.items():
+        check(a <= max(F32_FACTOR * b, floor), f"{tag} f32 {k}: kernels {a:.3e} vs plain {b:.3e} from f64")
+
+    tc, yc = make_data(T_KERNEL, SEED + 11)
+    m_k, m_c = qp_model(tc, yc, torch.float64), qp_model(tc, yc, torch.float64, device="cpu")
+    (loss_k, grad_k), (loss_p, grad_p), (loss_c, grad_c) = value_and_grad(m_k), plain_value_and_grad(m_k), value_and_grad(m_c)
+    with torch.no_grad():
+        mean_k, var_k = m_k.predict_f(queries)
+        mean_c, var_c = m_c.predict_f(queries)
+    print(
+        f"{tag} check f64 N={T_KERNEL}: loss kernels {float(loss_k):.10f} plain {float(loss_p):.10f} cpu {float(loss_c):.10f}; "
+        f"gradient kernels {grad_k.tolist()} plain {grad_p.tolist()} cpu {grad_c.tolist()}; "
+        f"predict_f vs cpu: mean {max_abs(mean_k, mean_c):.2e} var {max_abs(var_k, var_c):.2e}"
+    )
+    check(abs(float(loss_k - loss_p)) <= 1e-9 * abs(float(loss_p)), f"{tag} f64 LML, kernels vs plain")
+    check(abs(float(loss_k) - float(loss_c)) <= 1e-9 * abs(float(loss_c)), f"{tag} f64 LML, card vs CPU")
+    check(allclose(grad_k, grad_p, 1e-7, 1e-10), f"{tag} f64 gradient, kernels vs plain")
+    check(allclose(grad_k, grad_c, 1e-7, 1e-10), f"{tag} f64 gradient, card vs CPU")
+    check(allclose(mean_k.cpu(), mean_c, 1e-7, 1e-9) and allclose(var_k.cpu(), var_c, 1e-7, 1e-9), f"{tag} f64 predict_f, card vs CPU")
+    del m_k, m_c
+    torch.cuda.empty_cache()
+    return model, queries, {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def chained_plain_scan(tot, d: int, kind: str, tile: int):
+    """The plain inclusive scan in the chained kernel's association:
+    Kogge–Stone inside each tile of ``tile`` totals, then each tile's
+    elements combined with the inclusive total of the tile before it
+    (filter, forwards)."""
+    out, carry = torch.empty_like(tot), None
+    for t0 in range(0, tot.shape[1], tile):
+        loc = plane.plane_scan_plain(tot[:, t0 : t0 + tile].contiguous(), d, kind)
+        if carry is not None:
+            width = loc.shape[1]
+            first = strip._unpack_filt(carry[:, None].expand(-1, width).contiguous(), d)
+            loc = strip._pack(timelast.filtering_operator_tl(first, strip._unpack_filt(loc, d)), width)
+        out[:, t0 : t0 + tile] = loc
+        carry = loc[:, -1]
+    return out
+
+
+def qp_prefix_precision(card: str) -> None:
+    """Why the composite family's float32 filter prefix runs in float64
+    (dt.chunk_prefixes) and its smoother prefix does not: on the QP model's
+    chunk totals at N = N_QP, filter and smoother, the inclusive plane scan
+    of the float32 totals (the chained kernel) and the plain Kogge–Stone
+    scan of them, each against the float64 scan of the same totals, and
+    the float64 kernel scan of them rounded to float32 — for the filter
+    also the plain float32 scan in the chained kernel's association
+    (chained_plain_scan): the association alone is not what loses the
+    digits; the largest error of the moment components (the filter's b, C;
+    the smoother's g, L) over the chunks, relative to each component's
+    largest value."""
+    t, y = make_data(N_QP, SEED + 9)
+    m = qp_model(t, y, torch.float32)
+    d = 8
+    with torch.no_grad():
+        fam, co, sde, dts = dt._model_inputs(m.kernel, m.ts)
+        co, P0, H, R = co.detach(), sde.P0.detach(), sde.H.detach(), m.noise_variance.detach().reshape(1, 1)
+        tot_f = dt.dt_filter_scan(fam, co, P0, H, R, dts, m.ys)
+        b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, m.ys, dt.chunk_prefixes(fam, tot_f, d, reverse=False))
+        tot_s = dt.dt_smoother_scan(fam, co, P0, dts, b, C)
+        del b, C
+        for kind, tot, rows, want_f64 in (("filter", tot_f, slice(d * d, 2 * d * d + d), True),
+                                          ("smoother", tot_s, slice(d * d, 2 * d * d + d), False)):
+            # A filter prefix that holds chunk 0 has A = J = η = 0 exactly;
+            # a smoother suffix's E is a product of gains: b, C and g, L carry it.
+            rev = kind == "smoother"
+            truth = plane.plane_scan_plain(tot.double(), d, kind, rev)
+            scans = {
+                "kernel f32": plane.plane_scan(tot, d, kind, rev, chained=True),
+                "plain f32": plane.plane_scan_plain(tot, d, kind, rev),
+                "kernel f64 of the f32 totals": plane.plane_scan(tot.double(), d, kind, rev, chained=True).float(),
+            }
+            if kind == "filter":
+                threads, steps = plane.scan_tiling(d, torch.float32)
+                scans["plain f32 in the kernel's association"] = chained_plain_scan(tot, d, kind, threads * steps)
+            scale = truth[rows].abs().amax(1, keepdim=True).clamp_min(1e-300)
+            errs = {k: float(((v[rows].double() - truth[rows]).abs() / scale).max()) for k, v in scans.items()}
+            print(f"QP chunk prefix {kind} N={N_QP} ({tot.shape[1]} chunks) [{card}], moments vs the f64 scan of the same f32 "
+                  "totals: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            chosen = errs["kernel f64 of the f32 totals" if want_f64 else "kernel f32"]
+            check(chosen <= F32_FACTOR * max(errs["plain f32"], F32_FLOOR), f"QP chunk prefix {kind}: {errs}")
+            del truth, scans
+    del m, tot_f, tot_s
+    torch.cuda.empty_cache()
+
+
+def phase_qp_times(card: str, model, queries, counts) -> list:
+    """The composite dt kernels on the QP model at N = N_QP float32 — each
+    against its plain version, float64 truth and its bound (this run's plan
+    and observed steps), as events and as device time in a profile — and
+    every composite unit d = 2..8 (COMPOSITE_CASES) on the same data,
+    float32 and float64 (what the float64 units' spills cost); then
+    the model's three entry points (events, profile).  Returns the
+    composite kernels' records."""
+    records = []
+    T = model.ts.shape[0]
+    n_obs = int((~torch.isnan(model.ys)).sum())
+    plan = model.kernel.transition_coeffs()[0].plan
+    with torch.no_grad():
+        passes = spectral_passes(model, "_composite")
+        for name, (kern, plain, args) in passes.items():
+            as64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+            out_k, out_p, out_t = kern(*args), plain(*args), plain(*as64)
+            torch.cuda.synchronize()
+            out_k, out_p, out_t = ([o] if isinstance(o, torch.Tensor) else list(o) for o in (out_k, out_p, out_t))
+            err = max(max_abs(a, b) for a, b in zip(out_k, out_p))
+            rks = [rel_err(a, c) for a, c in zip(out_k, out_t)]
+            rps = [rel_err(a, c) for a, c in zip(out_p, out_t)]
+            del out_k, out_p, out_t, as64
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: kern(*args), reps=10)
+            _, by_name, _ = profile_call(lambda: kern(*args))
+            device_ms = by_name.get(name, None)
+            plain_ms = cuda_ms(lambda: plain(*args), reps=3)
+            torch.cuda.empty_cache()
+            bound_ms, bound_by = kernel_bound(name, 8, 0, T, n_obs, 4, plan=plan)
+            print(
+                f"{name} QP d=8 N={T} f32 [{card}]: kernel {ms:.3f} ms (device {device_ms}), plain {plain_ms:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}); |kernel - plain| {err:.3e}; vs f64 truth kernel {max(rks):.2e} plain {max(rps):.2e}"
+            )
+            floors = [f32_sum_floor(T)] * 4 + [F32_FLOOR] * 2 if name == "dt_fisher_composite" else [F32_FLOOR] * len(rks)
+            for a, b, floor in zip(rks, rps, floors):
+                check(a <= max(F32_FACTOR * b, floor), f"{name}: f32 kernel {rks} vs plain {rps}")
+            # No single PyTorch call computes any of these functions.
+            records.append({
+                "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+                "launches": counts[name], "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "at": f"QP d=8 N={T} f32", "units": [],
+            })
+        del passes
+        torch.cuda.empty_cache()
+        t_np, y_np = model.ts.double().cpu().numpy(), model.ys.double().cpu().numpy()
+        for d, make in COMPOSITE_CASES.items():
+            for dtype in (torch.float32, torch.float64):
+                kern_d = make(dtype)
+                m = StateSpaceGP.create((t_np, y_np), kern_d, NOISE, dtype=dtype, device=DEV)
+                passes = spectral_passes(m, "_composite")
+                plan_d = kern_d.transition_coeffs()[0].plan
+                size = torch.finfo(dtype).bits // 8
+                line = []
+                for rec in records:
+                    kern, _, args = passes[rec["name"]]
+                    ms = cuda_ms(lambda: kern(*args), reps=5 if dtype == torch.float32 else 3)
+                    bound_ms, bound_by = kernel_bound(rec["name"], d, 0, T, n_obs, size, plan=plan_d)
+                    if dtype == torch.float32:
+                        rec["units"].append({"d": d, "case": repr(kern_d), "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                    else:
+                        rec["units"][-1].update(ms_f64=ms, bound_ms_f64=bound_ms)
+                    line.append(f"{rec['name'].removesuffix('_composite')} {ms:.3f} (bound {bound_ms:.4f})")
+                print(f"composite units d={d} {kern_d!r} N={T} {dtype} [{card}], ms: " + ", ".join(line))
+                del passes, m
+                torch.cuda.empty_cache()
+        lml_ms = cuda_ms(model.log_marginal_likelihood, reps=5)
+        pred_ms = cuda_ms(lambda: model.predict_f(queries), reps=5)
+    step_ms = cuda_ms(lambda: value_and_grad(model), reps=5)
+    model.zero_grad(set_to_none=True)
+    print(f"QP d=8 N={T} f32 [{card}]: LML {lml_ms:.3f} ms, predict_f 1000 queries {pred_ms:.3f} ms, training step {step_ms:.3f} ms (events)")
+    return records
 
 
 def phase_sequential_time(card: str) -> None:
@@ -3288,8 +3770,9 @@ def entry_timers(label: str, report=None) -> None:
     dt filter's and smoother's totals (``dt.exclusive_chunk_prefixes``,
     whichever way the tree computes it), the LML, one predict_f request, one
     training step and the time-last pkfs(LGSSMTL, "strip"); the RBF(order=6)
-    N = 1M LML, predict_f and training step on the engine the model takes.
-    Each as events (cuda_ms, median of 9) and as wall, device time by kernel
+    N = 1M LML, predict_f and training step on the engine the model takes;
+    the quasi-periodic model's (QP_SPEC, N = 1M) where the tree has the
+    composite family.  Each as events (cuda_ms, median of 9) and as wall, device time by kernel
     and the device's idle share (``report``, ab_report's by default: the
     median of three profiled calls)."""
     report = report or ab_report(label)
@@ -3346,6 +3829,19 @@ def entry_timers(label: str, report=None) -> None:
     report(f"training step {what}", cuda_ms(lambda: value_and_grad(rbf), reps=9), lambda: value_and_grad(rbf), profiles=3)
     del rbf
     torch.cuda.empty_cache()
+
+    # The quasi-periodic model at N = N_QP, in a tree that has the composite
+    # family.
+    if hasattr(dt, "COMPOSITE"):
+        t_q, y_q = make_data(N_QP, SEED + 9)
+        qp = qp_model(t_q, y_q, torch.float32)
+        what = f"QP d=8 N={N_QP} on its {qp.engine()[0]} engine"
+        with torch.no_grad():
+            report(f"LML {what}", cuda_ms(qp.log_marginal_likelihood, reps=9), qp.log_marginal_likelihood, profiles=3)
+            report(f"predict_f {what}", cuda_ms(lambda: qp.predict_f(queries), reps=9), lambda: qp.predict_f(queries), profiles=3)
+        report(f"training step {what}", cuda_ms(lambda: value_and_grad(qp), reps=9), lambda: value_and_grad(qp), profiles=3)
+        del qp
+        torch.cuda.empty_cache()
 
 
 def status_read_timers(reps: int = 30) -> None:
@@ -3877,6 +4373,7 @@ def main() -> int:
     count_prefix_calls()
     phase_kernels()
     check_spectral_kernels()
+    check_composite_kernels()
     check_scan_edges()
     phase_dt_digests()
     phase_batched_kernels()
@@ -3899,6 +4396,15 @@ def main() -> int:
     records += phase_rbf_times(card, rbf, rbf_queries, rbf_counts)
     phase_profile(card, f"RBF(order=6) N={N_STRIP}", rbf, rbf_queries)
     del rbf
+    torch.cuda.empty_cache()
+    qp_prefix_precision(card)
+    qp, qp_queries, qp_counts = phase_qp_slice()
+    print(f"launches: QP dt path {qp_counts}")
+    for name in COMPOSITE_KERNELS:
+        check(qp_counts[name] > 0, f"{name} was never launched on the QP dt path")
+    records += phase_qp_times(card, qp, qp_queries, qp_counts)
+    phase_profile(card, f"QP d=8 N={N_QP}", qp, qp_queries)
+    del qp
     torch.cuda.empty_cache()
     rbf, _, planes, strip_counts = phase_strip_slice()
     print(f"launches: strip path {strip_counts}")

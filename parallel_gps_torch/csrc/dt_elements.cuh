@@ -4,14 +4,18 @@
 // (_build_filtering_rows :309, _filt_combine_rows :225, _build_smoothing_rows
 // :356, _smooth_combine_rows :290, the Schur-recursed _inv :132) and of the
 // in-register F/Q rebuild in kalman/pallas_dt.py (_build_fq_pure :104) for the
-// two transition families of the port — the exponential polynomial of
-// kernels/matern.py and RBF's spectral closed form of kernels/rbf.py (the
-// build closure of parallel_gps_tpu/kernels/rbf.py:267) — with their chain
-// rules (build_fq_vjp, spectral_vjp) for the Fisher-tail kernel.
+// three transition families of the port — the exponential polynomial of
+// kernels/matern.py, RBF's spectral closed form of kernels/rbf.py (the build
+// closure of parallel_gps_tpu/kernels/rbf.py:267) and the composite family
+// of Periodic, Sum and Product of kernels/composite.py (the builds of
+// parallel_gps_tpu/kernels/periodic.py:140, base.py:242 and :420) — with
+// their chain rules (build_fq_vjp, spectral_vjp, composite_weight) for the
+// Fisher-tail kernel.
 //
 // Everything is templated on the scalar type S and the state dimension D
 // (1..8; the dt kernels instantiate the exponential polynomial at 1..3 and
-// the spectral family at 1..8), with every loop fully unrolled, so
+// the spectral and composite families at 1..8), with every loop over a
+// matrix fully unrolled, so
 // an element lives in registers as far as they reach: a filtering element is
 // 3D²+2D values (33 at D=3, 120 at D=6, 208 at D=8), a smoothing element
 // 2D²+D; beyond about D=4 the compiler spills part of it to local memory.
@@ -57,6 +61,33 @@ struct Spectral {
   static constexpr int kCoef = 1 + 2 * kBlocks * D * D;
   static constexpr int kTable = kCoef + 2 * kBlocks;
 };
+
+// The composite family (kernels/composite.py), as the kernels read it:
+// Am1 = Σ_μ W_μ(dt)·K_μ, each monomial W_μ the product of at most
+// kMaxFactors weights w_m(ρ_m, dt), each a closed form of one kind
+// (CompositeWeight) of its rate ρ_m and dt.  Laid out, padded to fixed
+// limits: [ρ (kMaxWeights) | K_0 … K_{kMaxMonomials−1} (D² each)] (kCoef
+// values, the coefficients), then the plan: each weight's (kind, p, q), each
+// monomial's factors (−1 for none) and its pattern of structurally nonzero
+// entries as kMaskWords words of 16 bits, and the counts (n_w, n_mono).
+template <int D>
+struct Composite {
+  static constexpr int kMaxWeights = 16;
+  static constexpr int kMaxMonomials = 32;
+  static constexpr int kMaxFactors = 3;
+  static constexpr int kMaskWords = 4;
+  static_assert(D * D <= 16 * kMaskWords, "a pattern holds D² bits");
+  static constexpr int kMonoLen = kMaxFactors + kMaskWords;
+  static constexpr int kCoef = kMaxWeights + kMaxMonomials * D * D;
+  static constexpr int kWeights = kCoef;                        // (kind, p, q) a weight
+  static constexpr int kMonomials = kWeights + 3 * kMaxWeights;  // factors and pattern a monomial
+  static constexpr int kCounts = kMonomials + kMonoLen * kMaxMonomials;
+  static constexpr int kTable = kCounts + 2;
+};
+
+// The kinds of a composite weight (kernels/composite.py: EXPM1, TAU, COSM1,
+// SIN, SPEC_EM1, SPEC_ES).
+enum CompositeWeight { kWExpm1 = 0, kWTau = 1, kWCosm1 = 2, kWSin = 3, kWSpecEm1 = 4, kWSpecEs = 5 };
 
 // Filtering element (A, b, C, J, η); packed component order A, b, C, J, η.
 template <typename S, int D>
@@ -431,6 +462,150 @@ __device__ __forceinline__ S spectral_vjp(const S* c, S dt, const S* dA) {
     d_u += d_em1 * pg + d_es * ps;
   }
   return d_u;
+}
+
+// One composite weight of kind ``kind`` (constants p, q) of rate rho at dt,
+// and its derivatives by rho and by dt (kernels/composite.py: weights):
+//   expm1(−ρdt);  τ_p = e^{−ρdt} dt^p/p! (∂ρ = −dt τ_p, ∂dt = τ_{p−1} − ρ τ_p);
+//   cos θ − 1 = −2 sin²(θ/2) and sin θ, θ = (pρ)·dt (harmonic p);
+//   a spectral block's em1 and es of u = dt·ρ (a = p, β = q), as spectral_am1.
+// The rotation's and the spectral block's are functions of ρ·dt alone:
+// ∂ρ = dt·f′ and ∂dt = ρ·f′.
+template <typename S>
+__device__ __forceinline__ S composite_weight(int kind, S p, S q, S rho, S dt, S& d_rho, S& d_dt) {
+  if (kind == kWExpm1 || kind == kWTau) {
+    const S e = dexp(-rho * dt);
+    if (kind == kWExpm1) {
+      d_rho = -dt * e;
+      d_dt = -rho * e;
+      return dexpm1(-rho * dt);
+    }
+    S prev = e, tau = e;
+#pragma unroll 1
+    for (int k = 1; k <= (int)p; ++k) {
+      prev = tau;
+      tau = tau * dt * (S(1) / S(k));
+    }
+    d_rho = -dt * tau;
+    d_dt = prev - rho * tau;
+    return tau;
+  }
+  S sn, cs;
+  if (kind == kWCosm1 || kind == kWSin) {
+    const S om = p * rho;
+    const S th = om * dt;
+    dsincos(th, &sn, &cs);
+    if (kind == kWSin) {
+      d_rho = p * dt * cs;
+      d_dt = om * cs;
+      return sn;
+    }
+    const S sh = dsin(S(0.5) * th);
+    d_rho = -p * dt * sn;
+    d_dt = -om * sn;
+    return S(-2) * sh * sh;
+  }
+  const S u = dt * rho;
+  dsincos(q * u, &sn, &cs);
+  const S e = dexp(-p * u);
+  const S es = e * sn;
+  S w, fp;
+  if (kind == kWSpecEm1) {
+    const S sh = dsin(S(0.5) * q * u);
+    w = dexpm1(-p * u) * cs - S(2) * sh * sh;
+    fp = -p * e * cs - q * es;
+  } else {
+    w = es;
+    fp = -p * es + q * e * cs;
+  }
+  d_rho = dt * fp;
+  d_dt = rho * fp;
+  return w;
+}
+
+// The weights of step dt, w[m] for m < n_w (and their derivatives by rate
+// and by dt where w_rho is given).  The weights and the factors that index
+// them are read at run time: ``w`` is a small array of the thread's local
+// memory, read a few times a monomial; Am1 below is written through fixed
+// indices only.
+template <typename S, int D>
+__device__ __forceinline__ int composite_weights(const S* c, S dt, S* w, S* w_rho = nullptr, S* w_dt = nullptr) {
+  typedef Composite<D> Cp;
+  const int n_w = (int)c[Cp::kCounts];
+#pragma unroll 1
+  for (int m = 0; m < n_w; ++m) {
+    const S* spec = c + Cp::kWeights + 3 * m;
+    S dr, dd;
+    w[m] = composite_weight<S>((int)spec[0], spec[1], spec[2], c[m], dt, dr, dd);
+    if (w_rho) {
+      w_rho[m] = dr;
+      w_dt[m] = dd;
+    }
+  }
+  return n_w;
+}
+
+// Monomial ``mu``'s factors (−1 for none) and its value from the weights.
+template <typename S, int D>
+__device__ __forceinline__ S composite_monomial(const S* c, int mu, const S* w, int* f) {
+  typedef Composite<D> Cp;
+  const S* spec = c + Cp::kMonomials + Cp::kMonoLen * mu;
+  S W = S(1);
+#pragma unroll
+  for (int i = 0; i < Cp::kMaxFactors; ++i) {
+    f[i] = (int)spec[i];
+    if (f[i] >= 0) W = (i == 0) ? w[f[i]] : W * w[f[i]];
+  }
+  return W;
+}
+
+// Bit q of monomial mu's pattern: whether K_mu[q] is structurally nonzero.
+template <int D>
+struct CompositeMask {
+  unsigned words[Composite<D>::kMaskWords];
+  template <typename S>
+  __device__ __forceinline__ void load(const S* c, int mu) {
+    const S* spec = c + Composite<D>::kMonomials + Composite<D>::kMonoLen * mu + Composite<D>::kMaxFactors;
+#pragma unroll
+    for (int k = 0; k < Composite<D>::kMaskWords; ++k) words[k] = (16 * k < D * D) ? (unsigned)spec[k] : 0u;
+  }
+  __device__ __forceinline__ bool on(int q) const { return (words[q >> 4] >> (q & 15)) & 1u; }
+};
+
+// The composite family's Am1 = Σ_μ W_μ·K_μ over the structurally nonzero
+// entries, in the plan's order (kernels/composite.py:
+// composite_transitions_m1).
+template <typename S, int D>
+__device__ __forceinline__ void composite_am1(const S* c, S dt, S* Am1) {
+  typedef Composite<D> Cp;
+  S w[Cp::kMaxWeights];
+  composite_weights<S, D>(c, dt, w);
+#pragma unroll
+  for (int q = 0; q < D * D; ++q) Am1[q] = S(0);
+  const int n_mono = (int)c[Cp::kCounts + 1];
+#pragma unroll 1
+  for (int mu = 0; mu < n_mono; ++mu) {
+    int f[Cp::kMaxFactors];
+    const S Wm = composite_monomial<S, D>(c, mu, w, f);
+    CompositeMask<D> mask;
+    mask.load(c, mu);
+    const S* K = c + Cp::kMaxWeights + mu * D * D;
+#pragma unroll
+    for (int q = 0; q < D * D; ++q)
+      if (mask.on(q)) Am1[q] = Am1[q] + Wm * K[q];
+  }
+}
+
+// The Am1 of a family that reads its coefficients from a table (tags
+// Spectral<D>, Composite<D>).
+template <typename S, int D>
+__device__ __forceinline__ void table_am1(Spectral<D>, const S* c, S dt, S* Am1) {
+  spectral_am1<S, D>(c, dt, Am1);
+}
+
+template <typename S, int D>
+__device__ __forceinline__ void table_am1(Composite<D>, const S* c, S dt, S* Am1) {
+  composite_am1<S, D>(c, dt, Am1);
 }
 
 // ---------------------------------------------------------------------------

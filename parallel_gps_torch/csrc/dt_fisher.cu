@@ -54,6 +54,18 @@
 // Scalars: the rows of [P0 (D²) | h (D) | r | c], c the Spectral<D> table,
 // copied to shared memory once a block (SpectralScalars).
 //
+// The composite family (Periodic, Sum, Product; dt_fisher_composite_kernel)
+// sums the same way: its Am1 = Σ_μ W_μ·K_μ (dt_elements.cuh: composite_am1)
+// gives K_μ the cotangent W_μ·dA a step, and each weight w_m a cotangent
+// dw_m = Σ_{μ ∋ m} ⟨dA, K_μ⟩·Π_{other factors} w, whence its rate's
+// dw_m·∂w_m/∂ρ_m and dt's Σ_m dw_m·∂w_m/∂dt.  The tile holds dA (D²), the
+// monomials W_μ (kMaxMonomials), the rates' terms (kMaxWeights), d_P0, d_H
+// and d_R; the row of sums is [d_ρ (kMaxWeights) | d_K (kMaxMonomials·D²) |
+// d_P0 | d_H | d_R], the matrices of the unused monomials left zero.  The
+// similarity folded into each K_μ gets no cotangent of its own: it is a
+// constant of the coefficients (the reference's stop_gradient).  210,216
+// bytes of tile and table at D = 8 in double.
+//
 // One translation unit per state dimension (kalman/_cuda.py: VARIANTS):
 // compile with -DPGT_D=<1..8>.
 #include <cuda_runtime.h>
@@ -404,6 +416,26 @@ struct SpectralFisher {
 
 extern __shared__ __align__(16) unsigned char pgt_fisher_smem[];
 
+// The composite family's tile (module comment): rows dA (D²) | W_μ
+// (kMaxMonomials) | the rates' terms (kMaxWeights) | d_P0 (D²) | d_H (D) |
+// d_R, each of kPitch values, one column a step; and its row of sums,
+// [d_ρ | d_K | d_P0 | d_H | d_R].  The rates' rows and the rest are
+// consecutive, so that an output o < kMaxWeights or ≥ kCoef sums one row.
+template <typename S, int D>
+struct CompositeFisher {
+  typedef Composite<D> Cp;
+  static constexpr int kRowW = D * D;
+  static constexpr int kRowRates = kRowW + Cp::kMaxMonomials;
+  static constexpr int kRows = kRowRates + Cp::kMaxWeights + D * D + D + 1;
+  static constexpr int kPitch = kThreads + 1;
+  static constexpr int kN = Cp::kCoef + D * D + D + 1;
+  static constexpr int kH = Cp::kCoef + D * D;  // d_H's first sum
+  static constexpr int kPerThread = (kN + kThreads - 1) / kThreads;
+  static constexpr int kTableBytes = TableScalars<S, D, true, Cp>::kBytes;
+  static constexpr int kBytes = kTableBytes + kRows * kPitch * (int)sizeof(S);
+  static_assert(kBytes <= kSmemLimit, "the composite Fisher tile does not fit a block");
+};
+
 template <typename S, int D>
 __global__ void __launch_bounds__(kThreads)
     dt_fisher_spectral_kernel(const S* __restrict__ scal, int n_scal, const S* __restrict__ dt, long long dt_bs,
@@ -500,6 +532,148 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+    dt_fisher_composite_kernel(const S* __restrict__ scal, int n_scal, const S* __restrict__ dt, long long dt_bs,
+                               const S* __restrict__ y, long long y_bs, const S* __restrict__ b,
+                               const S* __restrict__ C, const S* __restrict__ g, const S* __restrict__ L,
+                               S* __restrict__ ddt_out, S* __restrict__ dy_out, S* __restrict__ sums, long long T) {
+  typedef CompositeFisher<S, D> A;
+  typedef Composite<D> Cp;
+  constexpr int P = A::kPitch;
+  // This block's series: its scalars, its slice of every plane.
+  const long long series = blockIdx.y;
+  const long long ms = (long long)gridDim.y * T;
+  scal += series * n_scal;
+  dt += series * dt_bs;
+  y += series * y_bs;
+  b += series * T;
+  C += series * T;
+  g += series * T;
+  L += series * T;
+  ddt_out += series * T;
+  dy_out += series * T;
+  sums += series * gridDim.x * A::kN;
+  S* sm = reinterpret_cast<S*>(pgt_fisher_smem);
+  TableScalars<S, D, true, Cp> p;
+  p.load(scal, sm);
+  S* tile = sm + A::kTableBytes / sizeof(S);
+  S* col = tile + threadIdx.x;
+  const int n_mono = (int)p.c[Cp::kCounts + 1];
+  S out[A::kPerThread];
+#pragma unroll
+  for (int i = 0; i < A::kPerThread; ++i) out[i] = S(0);
+  const long long stride = (long long)gridDim.x * kThreads;
+#pragma unroll 1
+  for (long long base = (long long)blockIdx.x * kThreads; base < T; base += stride) {
+    const long long t = base + threadIdx.x;
+    if (t < T) {
+      const S dtv = dt[t];
+      S w[Cp::kMaxWeights], w_rho[Cp::kMaxWeights], w_dt[Cp::kMaxWeights], dw[Cp::kMaxWeights];
+      const int n_w = composite_weights<S, D>(p.c, dtv, w, w_rho, w_dt);
+      S Am1[D * D], M[D * D], F[D * D], Q[D * D];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) Am1[q] = S(0);
+#pragma unroll 1
+      for (int mu = 0; mu < n_mono; ++mu) {
+        int f[Cp::kMaxFactors];
+        const S Wm = composite_monomial<S, D>(p.c, mu, w, f);
+        col[(A::kRowW + mu) * P] = Wm;
+        CompositeMask<D> mask;
+        mask.load(p.c, mu);
+        const S* K = p.c + Cp::kMaxWeights + mu * D * D;
+#pragma unroll
+        for (int q = 0; q < D * D; ++q)
+          if (mask.on(q)) Am1[q] = Am1[q] + Wm * K[q];
+      }
+      fq_from_am1<S, D>(Am1, p.P0, M, F, Q);
+      S mhat[D], Phat[D * D], dF[D * D], dQ[D * D], dP0[D * D];
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) dP0[q] = S(0);
+      fisher_dfdq<S, D>(p.P0, F, Q, b, C, g, L, t, ms, mhat, Phat, dF, dQ, dP0);
+      S dA[D * D], dP0v[D * D];
+      am1_vjp<S, D>(p.P0, Am1, M, dF, dQ, dA, dP0v);
+      // Each weight's cotangent: ⟨dA, K_μ⟩ times the monomial's other factors.
+#pragma unroll 1
+      for (int m = 0; m < n_w; ++m) dw[m] = S(0);
+#pragma unroll 1
+      for (int mu = 0; mu < n_mono; ++mu) {
+        int f[Cp::kMaxFactors];
+        composite_monomial<S, D>(p.c, mu, w, f);
+        CompositeMask<D> mask;
+        mask.load(p.c, mu);
+        const S* K = p.c + Cp::kMaxWeights + mu * D * D;
+        S gm = S(0);
+#pragma unroll
+        for (int q = 0; q < D * D; ++q)
+          if (mask.on(q)) gm += dA[q] * K[q];
+#pragma unroll
+        for (int i = 0; i < Cp::kMaxFactors; ++i) {
+          if (f[i] < 0) continue;
+          S other = gm;
+#pragma unroll
+          for (int j = 0; j < Cp::kMaxFactors; ++j)
+            if (j != i && f[j] >= 0) other *= w[f[j]];
+          dw[f[i]] += other;
+        }
+      }
+      S d_dt = S(0);
+#pragma unroll 1
+      for (int m = 0; m < Cp::kMaxWeights; ++m) {
+        const bool live = m < n_w;
+        if (live) d_dt += dw[m] * w_dt[m];
+        col[(A::kRowRates + m) * P] = live ? dw[m] * w_rho[m] : S(0);
+      }
+      ddt_out[t] = d_dt;
+      S dH[D], dR = S(0), d_y;
+#pragma unroll
+      for (int a = 0; a < D; ++a) dH[a] = S(0);
+      fisher_obs<S, D>(p.h, p.r, y[t], mhat, Phat, dH, dR, d_y);
+      dy_out[t] = d_y;
+      constexpr int kRowP0 = A::kRowRates + Cp::kMaxWeights;
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) {
+        col[q * P] = dA[q];
+        col[(kRowP0 + q) * P] = dP0[q] + dP0v[q];
+      }
+#pragma unroll
+      for (int a = 0; a < D; ++a) col[(kRowP0 + D * D + a) * P] = dH[a];
+      col[(A::kRows - 1) * P] = dR;
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < A::kRows; ++r) col[r * P] = S(0);
+    }
+    __syncthreads();
+    // Output o: d_ρ (o < kMaxWeights) and d_P0, d_H, d_R (o ≥ kCoef) sum a
+    // row; monomial μ's matrix entry q (o = kMaxWeights + μ·D² + q) sums
+    // W_μ·dA_q, for the plan's monomials only.
+#pragma unroll
+    for (int i = 0; i < A::kPerThread; ++i) {
+      const int o = threadIdx.x + i * kThreads;
+      if (o >= A::kN) break;
+      S s = S(0);
+      if (o < Cp::kMaxWeights || o >= Cp::kCoef) {
+        const S* row = tile + (A::kRowRates + (o < Cp::kMaxWeights ? o : Cp::kMaxWeights + o - Cp::kCoef)) * P;
+#pragma unroll 8
+        for (int k = 0; k < kThreads; ++k) s += row[k];
+      } else if ((o - Cp::kMaxWeights) / (D * D) < n_mono) {
+        const S* wr = tile + (A::kRowW + (o - Cp::kMaxWeights) / (D * D)) * P;
+        const S* ar = tile + ((o - Cp::kMaxWeights) % (D * D)) * P;
+#pragma unroll 8
+        for (int k = 0; k < kThreads; ++k) s += wr[k] * ar[k];
+      }
+      out[i] += s;
+    }
+    __syncthreads();
+  }
+  const S rinv = S(1) / p.r;
+#pragma unroll
+  for (int i = 0; i < A::kPerThread; ++i) {
+    const int o = threadIdx.x + i * kThreads;
+    if (o < A::kN) sums[(long long)blockIdx.x * A::kN + o] = (o >= A::kH && o < A::kH + D) ? out[i] * rinv : out[i];
+  }
+}
+
 }  // namespace pgt
 
 // C interface, bound with ctypes (kalman/_cuda.py), as in dt_scan.cu: one
@@ -513,6 +687,7 @@ extern "C" {
 // Values in one block's row of sums.
 int PGT_ENTRY(pgt_dt_fisher_n_sums)(int family) {
   if (family == pgt::kSpectral) return pgt::SpectralFisher<float, PGT_D>::kN;
+  if (family == pgt::kComposite) return pgt::CompositeFisher<float, PGT_D>::kN;
 #if PGT_D <= 3
   return pgt::FisherSums<PGT_D>::kN;
 #else
@@ -536,6 +711,17 @@ int PGT_ENTRY(pgt_dt_fisher)(int is64, int family, int degree, const void* scal,
                             pgt::SpectralFisher<S, PGT_D>::kBytes, st, (const S*)scal,                             \
                             pgt::SpectralScalars<S, PGT_D, true>::kN, (const S*)dt, dt_bs, (const S*)y, y_bs,      \
                             (const S*)b, (const S*)C, (const S*)g, (const S*)L, (S*)ddt, (S*)dy, (S*)sums, T)
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+    return rc;
+  }
+  if (family == pgt::kComposite) {
+#define PGT_LAUNCH(S)                                                                                              \
+  rc = pgt::launch_opted_in(pgt::dt_fisher_composite_kernel<S, PGT_D>, grid, pgt::kThreads,                        \
+                            pgt::CompositeFisher<S, PGT_D>::kBytes, st, (const S*)scal,                            \
+                            pgt::TableScalars<S, PGT_D, true, pgt::Composite<PGT_D>>::kN, (const S*)dt, dt_bs,     \
+                            (const S*)y, y_bs, (const S*)b, (const S*)C, (const S*)g, (const S*)L, (S*)ddt,        \
+                            (S*)dy, (S*)sums, T)
     PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
 #undef PGT_LAUNCH
     return rc;

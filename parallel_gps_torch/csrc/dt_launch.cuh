@@ -15,6 +15,7 @@ constexpr int kBadArgs = -1;
 // The transition families of kalman/dt.py, as its wrappers pass them.
 constexpr int kExppoly = 0;
 constexpr int kSpectral = 1;
+constexpr int kComposite = 2;
 
 template <typename S, int D>
 struct FilterScalars {
@@ -54,24 +55,28 @@ struct SmootherScalars {
 };
 
 // The dt kernels' families: the exponential polynomial at D ≤ 3, of degree
-// ≤ D − 1 (the Matérn range), and the spectral family (degree unused).
+// ≤ D − 1 (the Matérn range), and the spectral and composite families
+// (degree unused).
 template <int D>
 inline bool bad_shape(int family, int degree, long long T, int K) {
-  const bool ok = (family == kExppoly && D <= 3 && degree >= 0 && degree <= D - 1) || family == kSpectral;
+  const bool ok =
+      (family == kExppoly && D <= 3 && degree >= 0 && degree <= D - 1) || family == kSpectral || family == kComposite;
   return !ok || T < 1 || K < 1;
 }
 
-// The spectral family's scalar table as a dt kernel reads it, copied once a
+// The scalar table of a family that reads its coefficients from a table
+// (Fam: Spectral<D> or Composite<D>) as a dt kernel reads it, copied once a
 // block from device memory into shared memory (every thread then reads the
 // same address, a broadcast): the filter's [P0 (D²) | h (D) | r | c], the
-// smoother's [P0 | c], c the Spectral<D> coefficients and block table — up
-// to 594 values at D = 8, which do not fit a thread's registers beside the
-// scan element.  kBytes is rounded up to 16 bytes, so that what follows it
-// in shared memory stays aligned.
-template <typename S, int D, bool kFilter>
-struct SpectralScalars {
+// smoother's [P0 | c], c the family's coefficients and table — up to 594
+// values at D = 8 for the spectral family and 2,411 for the composite one,
+// which do not fit a thread's registers beside the scan element.  kBytes is
+// rounded up to 16 bytes, so that what follows it in shared memory stays
+// aligned.
+template <typename S, int D, bool kFilter, typename Fam = Spectral<D>>
+struct TableScalars {
   static constexpr int kC = kFilter ? D * D + D + 1 : D * D;  // where c starts
-  static constexpr int kN = kC + Spectral<D>::kTable;
+  static constexpr int kN = kC + Fam::kTable;
   static constexpr int kBytes = (kN * (int)sizeof(S) + 15) / 16 * 16;
   const S* P0;
   const S* h;
@@ -88,6 +93,9 @@ struct SpectralScalars {
     c = sm + kC;
   }
 };
+
+template <typename S, int D, bool kFilter>
+using SpectralScalars = TableScalars<S, D, kFilter, Spectral<D>>;
 
 inline unsigned int n_blocks(long long n_chunks, int threads = kThreads) {
   return (unsigned int)((n_chunks + threads - 1) / threads);

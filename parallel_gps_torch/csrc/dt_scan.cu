@@ -16,11 +16,13 @@
 // [P0 | coeffs]; the spectral family's coefficients are followed by its
 // block table (dt_elements.cuh: Spectral).
 //
-// Two transition families: the exponential polynomial of the Matérn kernels
-// (D = 1..3, its coefficients held in each thread's registers) and RBF's
-// spectral closed form (D = 1..8, up to 513 coefficients: the table is read
-// from shared memory, SpectralScalars, and the staged kernels size their
-// blocks by their shared-memory budget, SpectralApply and ScanStage).
+// Three transition families: the exponential polynomial of the Matérn kernels
+// (D = 1..3, its coefficients held in each thread's registers), RBF's
+// spectral closed form (D = 1..8, up to 513 coefficients) and the composite
+// family of Periodic, Sum and Product (D = 1..8, up to 2,338 coefficients
+// and plan values): the last two read their table from shared memory,
+// TableScalars, and their staged kernels size their blocks by their
+// shared-memory budget, TableApply and ScanStage.
 //
 // One translation unit per state dimension (kalman/_cuda.py: VARIANTS):
 // compile with -DPGT_D=<1..8>; the entry points carry the dimension in their
@@ -77,25 +79,26 @@ struct DtSmootherSource : SmootherScalars<S, D> {
   }
 };
 
-// The spectral family's sources: the same rebuild, its coefficients read
-// from the block's shared-memory table (SpectralScalars).
-template <typename S, int D>
-struct SpectralFilterSource : SpectralScalars<S, D, true> {
+// The sources of the families that read a table (Fam: Spectral<D> or
+// Composite<D>): the same rebuild, the coefficients read from the block's
+// shared-memory table (TableScalars).
+template <typename S, int D, typename Fam>
+struct TableFilterSource : TableScalars<S, D, true, Fam> {
   const S* dt;
   __device__ __forceinline__ void build(S dtv, S* F, S* Q) const {
     S Am1[D * D], M[D * D];
-    spectral_am1<S, D>(this->c, dtv, Am1);
+    table_am1<S, D>(Fam{}, this->c, dtv, Am1);
     fq_from_am1<S, D>(Am1, this->P0, M, F, Q);
   }
   __device__ __forceinline__ void fq(long long t, S* F, S* Q) const { build(dt[t], F, Q); }
 };
 
-template <typename S, int D>
-struct SpectralSmootherSource : SpectralScalars<S, D, false> {
+template <typename S, int D, typename Fam>
+struct TableSmootherSource : TableScalars<S, D, false, Fam> {
   const S* dt;
   __device__ __forceinline__ void fq(long long t, S* F, S* Q) const {
     S Am1[D * D], M[D * D];
-    spectral_am1<S, D>(this->c, dt[t], Am1);
+    table_am1<S, D>(Fam{}, this->c, dt[t], Am1);
     fq_from_am1<S, D>(Am1, this->P0, M, F, Q);
   }
 };
@@ -273,27 +276,47 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The spectral family: the same four passes (pallas_dt.py:179, :208, :553,
-// :589 with RBF's build closure, rbf.py:267), F and Q rebuilt from the
-// shared-memory table.  Bound: as the exponential polynomial's, plus the
-// build — (D+1)/2 blocks of 2 transcendentals and 2·D² multiply-adds a step.
+// The spectral and composite families: the same four passes (pallas_dt.py:179,
+// :208, :553, :589 with RBF's build closure, rbf.py:267, or a Periodic, Sum
+// or Product build, periodic.py:140, base.py:242, :420), F and Q rebuilt from
+// the shared-memory table.  Bound: as the exponential polynomial's, plus the
+// build — the spectral family's (D+1)/2 blocks of 2 transcendentals and 2·D²
+// multiply-adds a step; the composite family's n_w weights (a transcendental
+// or two each) and, for each of its monomials, up to two multiplies and one
+// multiply-add for each structurally nonzero entry.
+//
+// The composite units' pass-1 filter reads y and dt directly and their
+// smoother pass 1 stages one buffer, at every unit (the masks below): the
+// choices of the spectral units at most of theirs, not measured for this
+// family.
 // ---------------------------------------------------------------------------
+constexpr unsigned kCompositeFilterScanStagedF32 = 0x0u;
+constexpr unsigned kCompositeFilterScanStagedF64 = 0x0u;
+constexpr unsigned kCompositeFilterScanTwoF32 = 0x0u;
+constexpr unsigned kCompositeFilterScanTwoF64 = 0x0u;
+constexpr unsigned kCompositeScanTwoF32 = 0x0u;
+constexpr unsigned kCompositeScanTwoF64 = 0x0u;
 
 // The pass-2 kernels' budget, one fixed choice a unit: the scalar table, then
 // each warp's ChunkStage<S, D> (D + D² rows, as the exponential polynomial's)
 // — 4 warps of it exceed a block's 232,448 bytes at D ≥ 7 (258,048 B at
 // D = 7 float) — in blocks of 4, 2 or 1 warps, whichever leaves an SM the
 // most warps (BlockWarps; the filter's block_sum values are counted too).
-template <typename S, int D, bool kFilter>
-struct SpectralApply {
+template <typename S, int D, bool kFilter, typename Fam>
+struct TableApply {
   typedef ChunkStage<S, D, D + D * D, 1> G;
-  static constexpr int kTableBytes = SpectralScalars<S, D, kFilter>::kBytes;
+  static constexpr int kTableBytes = TableScalars<S, D, kFilter, Fam>::kBytes;
   static constexpr int kWarpBytes = G::kBytes + (kFilter ? 32 * (int)sizeof(S) : 0);
   static constexpr int kWarps = BlockWarps<kWarpBytes, kTableBytes>::kN;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kBytes = kTableBytes + kWarps * G::kBytes;  // dynamic shared memory a block
-  static_assert(kWarpBytes + kTableBytes <= kSmemLimit, "a spectral pass-2 unit does not fit one warp a block");
+  static_assert(kWarpBytes + kTableBytes <= kSmemLimit, "a pass-2 unit does not fit one warp a block");
 };
+
+template <typename S, int D, bool kFilter>
+using SpectralApply = TableApply<S, D, kFilter, Spectral<D>>;
+template <typename S, int D, bool kFilter>
+using CompositeApply = TableApply<S, D, kFilter, Composite<D>>;
 
 // The filter's pass 1: the table, then each warp's stage of its y and dt
 // rows, or none (the units that read them directly), in blocks set by
@@ -304,27 +327,40 @@ using SpectralFilterScan =
               FilterScanBuffers<S, D, kSpectralFilterScanStagedF32, kSpectralFilterScanStagedF64,
                                 kSpectralFilterScanTwoF32, kSpectralFilterScanTwoF64>::kN,
               SpectralScalars<S, D, true>::kBytes>;
-
 template <typename S, int D>
-__global__ void __launch_bounds__((SpectralFilterScan<S, D>::kThreads))
-    dt_filter_scan_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ y,
-                                   S* __restrict__ totals, long long T, int K, long long n_chunks) {
-  typedef SpectralFilterScan<S, D> A;
-  SpectralFilterSource<S, D> p;
+using CompositeFilterScan =
+    ScanStage<S, FilterDtRows<S>,
+              FilterScanBuffers<S, D, kCompositeFilterScanStagedF32, kCompositeFilterScanStagedF64,
+                                kCompositeFilterScanTwoF32, kCompositeFilterScanTwoF64>::kN,
+              TableScalars<S, D, true, Composite<D>>::kBytes>;
+
+// The smoother's pass 1: the table, then each warp's stage of its moments
+// (smoother_scan_staged), in blocks set by ScanStage.
+template <typename S, int D>
+using SpectralScan = ScanStage<S, MomentRows<const S*, D>,
+                               UnitBit<S, D, kSpectralScanTwoF32, kSpectralScanTwoF64>::kOn ? 2 : 1,
+                               SpectralScalars<S, D, false>::kBytes>;
+template <typename S, int D>
+using CompositeScan = ScanStage<S, MomentRows<const S*, D>,
+                                UnitBit<S, D, kCompositeScanTwoF32, kCompositeScanTwoF64>::kOn ? 2 : 1,
+                                TableScalars<S, D, false, Composite<D>>::kBytes>;
+
+// The four passes of a table family's unit of budget A; every thread of the
+// block calls each.
+template <typename A, typename S, int D, typename Fam>
+__device__ __forceinline__ void table_filter_scan(const S* scal, const S* dt, const S* y, S* totals, long long T,
+                                                  int K, long long n_chunks) {
+  TableFilterSource<S, D, Fam> p;
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
   const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
   dt_filter_scan_body<A, S, D>(p, dt, y, totals, T, K, n_chunks, c);
 }
 
-template <typename S, int D>
-__global__ void __launch_bounds__((SpectralApply<S, D, true>::kThreads))
-    dt_filter_apply_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ prefix,
-                                    const S* __restrict__ dt, const S* __restrict__ y, S* __restrict__ b_out,
-                                    S* __restrict__ C_out, S* __restrict__ ell_parts, long long T, int K,
-                                    long long n_chunks) {
-  typedef SpectralApply<S, D, true> A;
-  SpectralFilterSource<S, D> p;
+template <typename A, typename S, int D, typename Fam>
+__device__ __forceinline__ void table_filter_apply(const S* scal, const S* prefix, const S* dt, const S* y, S* b_out,
+                                                   S* C_out, S* ell_parts, long long T, int K, long long n_chunks) {
+  TableFilterSource<S, D, Fam> p;
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
   const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
@@ -332,48 +368,72 @@ __global__ void __launch_bounds__((SpectralApply<S, D, true>::kThreads))
   block_sum<S, A::kThreads>(ll, ell_parts);
 }
 
-// The smoother's pass 1: the table, then each warp's stage of its moments
-// (smoother_scan_staged), in blocks set by ScanStage — the smoother apply's
-// blocks, the two stages being the same rows.
-template <typename S, int D>
-using SpectralScan = ScanStage<S, MomentRows<const S*, D>,
-                               UnitBit<S, D, kSpectralScanTwoF32, kSpectralScanTwoF64>::kOn ? 2 : 1,
-                               SpectralScalars<S, D, false>::kBytes>;
-
-template <typename S, int D>
-__global__ void __launch_bounds__((SpectralScan<S, D>::kThreads))
-    dt_smoother_scan_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ b,
-                                     const S* __restrict__ C, S* __restrict__ totals, long long T, int K,
-                                     long long n_chunks) {
-  typedef SpectralScan<S, D> A;
-  SpectralSmootherSource<S, D> p;
+template <typename A, typename S, int D, typename Fam>
+__device__ __forceinline__ void table_smoother_scan(const S* scal, const S* dt, const S* b, const S* C, S* totals,
+                                                    long long T, int K, long long n_chunks) {
+  TableSmootherSource<S, D, Fam> p;
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
   const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
   smoother_scan_staged<S, D, A::kBuffers>(p, b, C, totals, T, K, n_chunks, c, table_warp_stage<A, S>());
 }
 
-template <typename S, int D>
-__global__ void __launch_bounds__((SpectralApply<S, D, false>::kThreads))
-    dt_smoother_apply_spectral_kernel(const S* __restrict__ scal, const S* __restrict__ prefix,
-                                      const S* __restrict__ dt, const S* __restrict__ b, const S* __restrict__ C,
-                                      S* __restrict__ g_out, S* __restrict__ L_out, long long T, int K,
-                                      long long n_chunks) {
-  typedef SpectralApply<S, D, false> A;
-  SpectralSmootherSource<S, D> p;
+template <typename A, typename S, int D, typename Fam>
+__device__ __forceinline__ void table_smoother_apply(const S* scal, const S* prefix, const S* dt, const S* b,
+                                                     const S* C, S* g_out, S* L_out, long long T, int K,
+                                                     long long n_chunks) {
+  TableSmootherSource<S, D, Fam> p;
   p.load(scal, reinterpret_cast<S*>(pgt_dt_smem));
   p.dt = dt;
   const long long c = (long long)blockIdx.x * A::kThreads + threadIdx.x;
   smoother_apply_staged<S, D>(p, prefix, b, C, g_out, L_out, T, K, n_chunks, c, table_warp_stage<A, S>());
 }
 
+// The kernels, one a pass and family.
+#define PGT_TABLE_KERNELS(FAM, FAMILY_T, FILTER_SCAN, SCAN, APPLY)                                                  \
+  template <typename S, int D>                                                                                      \
+  __global__ void __launch_bounds__((FILTER_SCAN<S, D>::kThreads))                                                 \
+      dt_filter_scan_##FAM##_kernel(const S* __restrict__ scal, const S* __restrict__ dt, const S* __restrict__ y,  \
+                                    S* __restrict__ totals, long long T, int K, long long n_chunks) {              \
+    table_filter_scan<FILTER_SCAN<S, D>, S, D, FAMILY_T<D>>(scal, dt, y, totals, T, K, n_chunks);                   \
+  }                                                                                                                 \
+  template <typename S, int D>                                                                                      \
+  __global__ void __launch_bounds__((APPLY<S, D, true>::kThreads))                                                 \
+      dt_filter_apply_##FAM##_kernel(const S* __restrict__ scal, const S* __restrict__ prefix,                      \
+                                     const S* __restrict__ dt, const S* __restrict__ y, S* __restrict__ b_out,      \
+                                     S* __restrict__ C_out, S* __restrict__ ell_parts, long long T, int K,          \
+                                     long long n_chunks) {                                                          \
+    table_filter_apply<APPLY<S, D, true>, S, D, FAMILY_T<D>>(scal, prefix, dt, y, b_out, C_out, ell_parts, T, K,    \
+                                                             n_chunks);                                             \
+  }                                                                                                                 \
+  template <typename S, int D>                                                                                      \
+  __global__ void __launch_bounds__((SCAN<S, D>::kThreads))                                                        \
+      dt_smoother_scan_##FAM##_kernel(const S* __restrict__ scal, const S* __restrict__ dt,                         \
+                                      const S* __restrict__ b, const S* __restrict__ C, S* __restrict__ totals,     \
+                                      long long T, int K, long long n_chunks) {                                     \
+    table_smoother_scan<SCAN<S, D>, S, D, FAMILY_T<D>>(scal, dt, b, C, totals, T, K, n_chunks);                     \
+  }                                                                                                                 \
+  template <typename S, int D>                                                                                      \
+  __global__ void __launch_bounds__((APPLY<S, D, false>::kThreads))                                                \
+      dt_smoother_apply_##FAM##_kernel(const S* __restrict__ scal, const S* __restrict__ prefix,                    \
+                                       const S* __restrict__ dt, const S* __restrict__ b, const S* __restrict__ C,  \
+                                       S* __restrict__ g_out, S* __restrict__ L_out, long long T, int K,            \
+                                       long long n_chunks) {                                                        \
+    table_smoother_apply<APPLY<S, D, false>, S, D, FAMILY_T<D>>(scal, prefix, dt, b, C, g_out, L_out, T, K,         \
+                                                                n_chunks);                                          \
+  }
+
+PGT_TABLE_KERNELS(spectral, Spectral, SpectralFilterScan, SpectralScan, SpectralApply)
+PGT_TABLE_KERNELS(composite, Composite, CompositeFilterScan, CompositeScan, CompositeApply)
+#undef PGT_TABLE_KERNELS
+
 }  // namespace pgt
 
 // C interface, bound with ctypes (kalman/_cuda.py), one set of entry points
 // per state dimension.  Each entry launches one kernel on the given stream,
 // does not synchronise, and returns cudaGetLastError() (0 on success) or
-// kBadArgs.  ``family`` is kExppoly (D ≤ 3 units only) or kSpectral;
-// ``degree`` is the exponential polynomial's.
+// kBadArgs.  ``family`` is kExppoly (D ≤ 3 units only), kSpectral or
+// kComposite; ``degree`` is the exponential polynomial's.
 #define PGT_CAT2(a, b) a##b
 #define PGT_CAT(a, b) PGT_CAT2(a, b)
 #define PGT_ENTRY(name) PGT_CAT(PGT_CAT(name, _d), PGT_D)
@@ -407,6 +467,18 @@ int PGT_ENTRY(pgt_dt_filter_scan)(int is64, int family, int degree, const void* 
 #undef PGT_LAUNCH
     return rc;
   }
+  if (family == pgt::kComposite) {
+#define PGT_LAUNCH(S)                                                                                           \
+  {                                                                                                             \
+    typedef pgt::CompositeFilterScan<S, PGT_D> A;                                                                \
+    rc = pgt::launch_opted_in(pgt::dt_filter_scan_composite_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, st, (const S*)scal, (const S*)dt, (const S*)y, (S*)totals, \
+                              T, K, n_chunks);                                                                  \
+  }
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+    return rc;
+  }
 #if PGT_D <= 3
 #define PGT_LAUNCH(S)                                                                                          \
   {                                                                                                            \
@@ -423,23 +495,25 @@ int PGT_ENTRY(pgt_dt_filter_scan)(int is64, int family, int degree, const void* 
 
 // The pass-2 kernels' blocks at this unit: threads a block and dynamic shared
 // memory a block in bytes, of the filter (smoother = 0) or the smoother.
+#define PGT_APPLY(A, FIELD)                                                                                      \
+  (is64 ? (smoother ? pgt::A<double, PGT_D, false>::FIELD : pgt::A<double, PGT_D, true>::FIELD)                    \
+        : (smoother ? pgt::A<float, PGT_D, false>::FIELD : pgt::A<float, PGT_D, true>::FIELD))
 int PGT_ENTRY(pgt_dt_apply_threads)(int is64, int family, int smoother) {
-  if (family != pgt::kSpectral) return pgt::kThreads;
-  if (is64) return smoother ? pgt::SpectralApply<double, PGT_D, false>::kThreads : pgt::SpectralApply<double, PGT_D, true>::kThreads;
-  return smoother ? pgt::SpectralApply<float, PGT_D, false>::kThreads : pgt::SpectralApply<float, PGT_D, true>::kThreads;
+  if (family == pgt::kSpectral) return PGT_APPLY(SpectralApply, kThreads);
+  if (family == pgt::kComposite) return PGT_APPLY(CompositeApply, kThreads);
+  return pgt::kThreads;
 }
 
 int PGT_ENTRY(pgt_dt_apply_smem)(int is64, int family, int smoother) {
-  if (family == pgt::kSpectral) {
-    if (is64) return smoother ? pgt::SpectralApply<double, PGT_D, false>::kBytes : pgt::SpectralApply<double, PGT_D, true>::kBytes;
-    return smoother ? pgt::SpectralApply<float, PGT_D, false>::kBytes : pgt::SpectralApply<float, PGT_D, true>::kBytes;
-  }
+  if (family == pgt::kSpectral) return PGT_APPLY(SpectralApply, kBytes);
+  if (family == pgt::kComposite) return PGT_APPLY(CompositeApply, kBytes);
 #if PGT_D <= 3
   return is64 ? pgt::ChunkStage<double, PGT_D>::kBytes : pgt::ChunkStage<float, PGT_D>::kBytes;
 #else
   return pgt::kBadArgs;
 #endif
 }
+#undef PGT_APPLY
 
 int PGT_ENTRY(pgt_dt_filter_apply)(int is64, int family, int degree, const void* scal, const void* prefix,
                                    const void* dt, const void* y, void* b, void* C, void* ell_parts, long long T,
@@ -452,6 +526,18 @@ int PGT_ENTRY(pgt_dt_filter_apply)(int is64, int family, int degree, const void*
   {                                                                                                            \
     typedef pgt::SpectralApply<S, PGT_D, true> A;                                                              \
     rc = pgt::launch_opted_in(pgt::dt_filter_apply_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)scal, (const S*)prefix,  \
+                              (const S*)dt, (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, n_chunks);         \
+  }
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+    return rc;
+  }
+  if (family == pgt::kComposite) {
+#define PGT_LAUNCH(S)                                                                                          \
+  {                                                                                                            \
+    typedef pgt::CompositeApply<S, PGT_D, true> A;                                                              \
+    rc = pgt::launch_opted_in(pgt::dt_filter_apply_composite_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
                               A::kThreads, A::kBytes, (cudaStream_t)stream, (const S*)scal, (const S*)prefix,  \
                               (const S*)dt, (const S*)y, (S*)b, (S*)C, (S*)ell_parts, T, K, n_chunks);         \
   }
@@ -482,6 +568,8 @@ int PGT_ENTRY(pgt_dt_filter_apply)(int is64, int family, int degree, const void*
 #define PGT_SCAN_BUDGET(A, S, FIELD) (smoother ? pgt::A##Scan<S, PGT_D>::FIELD : pgt::A##FilterScan<S, PGT_D>::FIELD)
 #define PGT_SCAN_STAGE(FIELD)                                                                                    \
   (family == pgt::kSpectral ? (is64 ? PGT_SCAN_BUDGET(Spectral, double, FIELD) : PGT_SCAN_BUDGET(Spectral, float, FIELD)) \
+   : family == pgt::kComposite                                                                                      \
+       ? (is64 ? PGT_SCAN_BUDGET(Composite, double, FIELD) : PGT_SCAN_BUDGET(Composite, float, FIELD))              \
    : PGT_D > 3              ? pgt::kBadArgs                                                                          \
                             : (is64 ? PGT_SCAN_BUDGET(Dt, double, FIELD) : PGT_SCAN_BUDGET(Dt, float, FIELD)))
 int PGT_ENTRY(pgt_dt_scan_threads)(int is64, int family, int smoother) { return PGT_SCAN_STAGE(kThreads); }
@@ -501,6 +589,14 @@ int PGT_ENTRY(pgt_dt_scan_blocks_per_sm)(int is64, int family, int smoother) {
     }
     return is64 ? PGT_BLOCKS(SpectralFilterScan, dt_filter_scan_spectral_kernel, double)
                 : PGT_BLOCKS(SpectralFilterScan, dt_filter_scan_spectral_kernel, float);
+  }
+  if (family == pgt::kComposite) {
+    if (smoother) {
+      return is64 ? PGT_BLOCKS(CompositeScan, dt_smoother_scan_composite_kernel, double)
+                  : PGT_BLOCKS(CompositeScan, dt_smoother_scan_composite_kernel, float);
+    }
+    return is64 ? PGT_BLOCKS(CompositeFilterScan, dt_filter_scan_composite_kernel, double)
+                : PGT_BLOCKS(CompositeFilterScan, dt_filter_scan_composite_kernel, float);
   }
 #if PGT_D <= 3
   if (smoother) {
@@ -524,6 +620,18 @@ int PGT_ENTRY(pgt_dt_smoother_scan)(int is64, int family, int degree, const void
   {                                                                                                             \
     typedef pgt::SpectralScan<S, PGT_D> A;                                                                      \
     rc = pgt::launch_opted_in(pgt::dt_smoother_scan_spectral_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
+                              A::kThreads, A::kBytes, st, (const S*)scal, (const S*)dt, (const S*)b, (const S*)C, \
+                              (S*)totals, T, K, n_chunks);                                                      \
+  }
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+    return rc;
+  }
+  if (family == pgt::kComposite) {
+#define PGT_LAUNCH(S)                                                                                           \
+  {                                                                                                             \
+    typedef pgt::CompositeScan<S, PGT_D> A;                                                                      \
+    rc = pgt::launch_opted_in(pgt::dt_smoother_scan_composite_kernel<S, PGT_D>, pgt::n_blocks(n_chunks, A::kThreads), \
                               A::kThreads, A::kBytes, st, (const S*)scal, (const S*)dt, (const S*)b, (const S*)C, \
                               (S*)totals, T, K, n_chunks);                                                      \
   }
@@ -556,6 +664,19 @@ int PGT_ENTRY(pgt_dt_smoother_apply)(int is64, int family, int degree, const voi
   {                                                                                                              \
     typedef pgt::SpectralApply<S, PGT_D, false> A;                                                               \
     rc = pgt::launch_opted_in(pgt::dt_smoother_apply_spectral_kernel<S, PGT_D>,                                  \
+                              pgt::n_blocks(n_chunks, A::kThreads), A::kThreads, A::kBytes, (cudaStream_t)stream, \
+                              (const S*)scal, (const S*)prefix, (const S*)dt, (const S*)b, (const S*)C, (S*)g,    \
+                              (S*)L, T, K, n_chunks);                                                            \
+  }
+    PGT_DISPATCH_TYPE(is64, PGT_LAUNCH);
+#undef PGT_LAUNCH
+    return rc;
+  }
+  if (family == pgt::kComposite) {
+#define PGT_LAUNCH(S)                                                                                            \
+  {                                                                                                              \
+    typedef pgt::CompositeApply<S, PGT_D, false> A;                                                               \
+    rc = pgt::launch_opted_in(pgt::dt_smoother_apply_composite_kernel<S, PGT_D>,                                  \
                               pgt::n_blocks(n_chunks, A::kThreads), A::kThreads, A::kBytes, (cudaStream_t)stream, \
                               (const S*)scal, (const S*)prefix, (const S*)dt, (const S*)b, (const S*)C, (S*)g,    \
                               (S*)L, T, K, n_chunks);                                                            \

@@ -3,7 +3,8 @@
 
 For kernels whose transitions have an elementwise closed form
 (``SDEKernel.transition_coeffs``: the Matérn kernels' exponential polynomial,
-``EXPPOLY``, and RBF's spectral closed form, ``SPECTRAL``), the per-step
+``EXPPOLY``, RBF's spectral closed form, ``SPECTRAL``, and the composite
+family of Periodic, Sum and Product, ``COMPOSITE``), the per-step
 transition and noise planes never exist: each step rebuilds, from its dt and
 the coefficients,
 
@@ -12,9 +13,10 @@ the coefficients,
 
 the cancellation-free discretization of ops/disc.py.  The JAX ``build``
 closure becomes a family id plus the flat ``coeffs`` tensor
-(kernels/matern.py, kernels/rbf.py); the spectral family's block table is
-derived from d (``rbf.spectral_blocks``) and handed to the kernels with the
-coefficients (``kernel_coeffs``).
+(kernels/matern.py, kernels/rbf.py, kernels/composite.py); the spectral
+family's block table is derived from d (``rbf.spectral_blocks``), the
+composite family's plan travels with its family id, and each is handed to
+the kernels with the coefficients (``kernel_coeffs``).
 
 ``lml_dt`` is differentiable: its backward is the smoother followed by the
 fused Fisher tail ``dt_fisher``, one scan-free pass from the filtered and
@@ -31,7 +33,9 @@ Each pass, and the Fisher tail, is a wrapper that dispatches on the device
 of its tensors:
 
   - CUDA, float32 or float64, d ≤ ``MAX_KERNEL_D[family]`` (3 for the
-    exponential polynomial, 8 for the spectral family): the hand-written
+    exponential polynomial, 8 for the spectral and composite families, a
+    composite within the kernels' limits, ``composite.Plan.fits``): the
+    hand-written
     kernel of ``csrc/dt_scan.cu`` (one thread per chunk; the pass-2 kernels
     and the smoother's pass 1 stage the moments a warp at a time, the
     filter's pass 1 its y and dt rows at the units of
@@ -56,7 +60,8 @@ what ``jax.vmap`` of the single-series entry points does in the JAX package,
 for the exponential polynomial (a batch of RBF kernels is ROADMAP.md B7).
 
 ``LAUNCHES`` counts kernel launches by kernel name (the spectral family's
-kernels are ``<wrapper>_spectral``).
+kernels are ``<wrapper>_spectral``, the composite family's
+``<wrapper>_composite``).
 """
 from __future__ import annotations
 
@@ -78,6 +83,8 @@ from parallel_gps_torch.kalman.strip import (
     warp_stage_budget,
 )
 from parallel_gps_torch.kalman.timelast import fisher_grads_from_smoothed, pkf_from_tl, pks_from_tl
+from parallel_gps_torch.kernels import composite
+from parallel_gps_torch.kernels.composite import COMPOSITE
 from parallel_gps_torch.kernels.matern import EXPPOLY, build_transitions_m1
 from parallel_gps_torch.kernels.rbf import SPECTRAL, spectral_blocks
 from parallel_gps_torch.ops.linalg import symmetrize
@@ -85,14 +92,17 @@ from parallel_gps_torch.types import LGSSMTL
 
 _KERNELS = ("dt_filter_scan", "dt_filter_apply", "dt_smoother_scan", "dt_smoother_apply", "dt_fisher")
 # By kernel: the exponential polynomial's under the wrapper's name, the
-# spectral family's with "_spectral" (csrc: dt_filter_scan_spectral_kernel, ...).
-LAUNCHES = dict.fromkeys(_KERNELS + tuple(f"{k}_spectral" for k in _KERNELS), 0)
+# spectral and composite families' with "_spectral" and "_composite" (csrc:
+# dt_filter_scan_spectral_kernel, dt_filter_scan_composite_kernel, ...).
+LAUNCHES = dict.fromkeys(_KERNELS + tuple(f"{k}_{f}" for f in (SPECTRAL, COMPOSITE) for k in _KERNELS), 0)
 
 # The state dimensions the kernels are built for, by family: the Matérn
-# range for the exponential polynomial, RBF's spectral orders.
-MAX_KERNEL_D = {EXPPOLY: 3, SPECTRAL: 8}
-# The family ids the kernels take (csrc/dt_launch.cuh: kExppoly, kSpectral).
-FAMILY_IDS = {EXPPOLY: 0, SPECTRAL: 1}
+# range for the exponential polynomial, RBF's spectral orders, and the
+# composites up to the same d = 8.
+MAX_KERNEL_D = {EXPPOLY: 3, SPECTRAL: 8, COMPOSITE: 8}
+# The family ids the kernels take (csrc/dt_launch.cuh: kExppoly, kSpectral,
+# kComposite).
+FAMILY_IDS = {EXPPOLY: 0, SPECTRAL: 1, COMPOSITE: 2}
 # The smoother pass 1's units that stage two buffers, the next round's copy in
 # flight while one is folded, by family and scalar type, where that measured
 # faster on an H100 (csrc/dt_scan.cu: kDtScanTwoF32, …; PERF.md §6); the rest
@@ -100,6 +110,7 @@ FAMILY_IDS = {EXPPOLY: 0, SPECTRAL: 1}
 SCAN_TWO_BUFFERS = {
     (EXPPOLY, torch.float32): frozenset({1, 3}), (EXPPOLY, torch.float64): frozenset(),
     (SPECTRAL, torch.float32): frozenset({1, 4}), (SPECTRAL, torch.float64): frozenset(),
+    (COMPOSITE, torch.float32): frozenset(), (COMPOSITE, torch.float64): frozenset(),
 }
 # The filter pass 1's units that stage their y and dt rows a warp at a time,
 # and those of them that stage two buffers, by family and scalar type, where
@@ -109,10 +120,12 @@ SCAN_TWO_BUFFERS = {
 FILTER_SCAN_STAGED = {
     (EXPPOLY, torch.float32): frozenset({1}), (EXPPOLY, torch.float64): frozenset(),
     (SPECTRAL, torch.float32): frozenset({7}), (SPECTRAL, torch.float64): frozenset(),
+    (COMPOSITE, torch.float32): frozenset(), (COMPOSITE, torch.float64): frozenset(),
 }
 FILTER_SCAN_TWO_BUFFERS = {
     (EXPPOLY, torch.float32): frozenset(), (EXPPOLY, torch.float64): frozenset(),
     (SPECTRAL, torch.float32): frozenset(), (SPECTRAL, torch.float64): frozenset(),
+    (COMPOSITE, torch.float32): frozenset(), (COMPOSITE, torch.float64): frozenset(),
 }
 # Most blocks of the Fisher-tail kernel's grid-stride loops, over all series:
 # one row of partial sums per block.
@@ -134,13 +147,14 @@ def scan_stage(family: str, d: int, dtype, kind: str) -> tuple[int, int, int, in
     ``FILTER_SCAN_TWO_BUFFERS`` says, and elsewhere none (0 buffers: each
     thread reads its own chunk's); the smoother's stage their moments,
     d + d² rows, in two buffers where ``SCAN_TWO_BUFFERS`` says.  The
-    spectral family's scalar table comes first, the filter's [P0 (d²) | h (d)
-    | r | coefficients | block table] or the smoother's [P0 | coefficients |
-    block table], in bytes rounded up to 16."""
+    spectral and composite families' scalar table comes first, the filter's
+    [P0 (d²) | h (d) | r | coefficients and table] or the smoother's [P0 |
+    coefficients and table], in bytes rounded up to 16."""
     table = 0
-    if family == SPECTRAL:
+    if family in (SPECTRAL, COMPOSITE):
         blocks = (d + 1) // 2
-        values = d * d + 1 + 2 * blocks * d * d + 2 * blocks + (d + 1 if kind == "filter" else 0)
+        coeffs = 1 + 2 * blocks * d * d + 2 * blocks if family == SPECTRAL else composite.table_size(d)
+        values = d * d + coeffs + (d + 1 if kind == "filter" else 0)
         table = -(-values * (torch.finfo(dtype).bits // 8) // 16) * 16
     if kind == "filter":
         rows = 2
@@ -173,8 +187,11 @@ def _spectral_positions(d: int) -> list:
 def kernel_coeffs(family: str, coeffs: Tensor, d: int) -> Tensor:
     """The coefficients as the kernels read them: the exponential
     polynomial's as they are; the spectral family's in the kernels' layout (a
-    real root's S zero) followed by the block table [a_1, β_1, …].  A leading
-    batch axis is kept."""
+    real root's S zero) followed by the block table [a_1, β_1, …]; the
+    composite family's padded and followed by its plan
+    (``composite.kernel_layout``).  A leading batch axis is kept."""
+    if family == COMPOSITE:
+        return composite.kernel_layout(family, coeffs)
     if family != SPECTRAL:
         return coeffs
     blocks = spectral_blocks(d)
@@ -276,13 +293,30 @@ def _require(ok: bool, what: str) -> None:
         raise ValueError(f"dt-engine CUDA kernels: {what}")
 
 
+def fits(family, d: int) -> bool:
+    """Whether the kernels take ``family`` at state dimension ``d``: d within
+    ``MAX_KERNEL_D``, and a composite's plan within the kernels' fixed limits
+    (``composite.Plan.fits``)."""
+    return d <= MAX_KERNEL_D.get(family, 0) and (family != COMPOSITE or family.plan.fits())
+
+
 def _check_family(family, d: int, n: int) -> int:
     """Validate the family, the state dimension and the coefficients' length
     ``n``; returns the exponential polynomial's degree (0 for the spectral
-    family, whose layout has 1 + d³ values)."""
+    family, whose layout has 1 + d³ values, and for the composite family)."""
     _require(family in MAX_KERNEL_D, f"unsupported transition family {family!r}")
     top = MAX_KERNEL_D[family]
     _require(1 <= d <= top, f"state dimension {d} outside 1..{top} (the {family} family's kernels are built for d <= {top})")
+    if family == COMPOSITE:
+        plan = family.plan
+        _require(
+            plan.fits(),
+            f"a composite of {len(plan.weights)} weights and {len(plan.monomials)} monomials of up to "
+            f"{max(map(len, plan.monomials), default=0)} factors exceeds the kernels' limits ({composite.MAX_WEIGHTS}, "
+            f"{composite.MAX_MONOMIALS}, {composite.MAX_FACTORS})",
+        )
+        _require(plan.d == d and n == plan.n_coeffs, f"coeffs of length {n} do not fit the d={d} composite plan")
+        return 0
     if family == SPECTRAL:
         _require(n == 1 + d**3, f"coeffs of length {n} do not fit the d={d} spectral layout (1 + d³ = {1 + d**3})")
         return 0
@@ -342,7 +376,7 @@ def _launch(name: str, lib, d: int, family, is64: int, *args) -> None:
     from parallel_gps_torch.kalman import _cuda
 
     _cuda.launch(name, getattr(lib, f"pgt_{name}_d{d}"), is64, FAMILY_IDS[family], *args)
-    LAUNCHES[name if family == EXPPOLY else f"{name}_spectral"] += 1
+    LAUNCHES[name if family == EXPPOLY else f"{name}_{family}"] += 1
 
 
 def _filter_scalars(family, P0, H, R, coeffs) -> Tensor:
@@ -488,12 +522,18 @@ def _dt_fisher_launch(family, coeffs, P0, H, R, dts, y, b_bt, C_bt, g_bt, L_bt):
     # the kernel; the final sum over the blocks is one deterministic
     # reduction (no atomics), of the same shape at B = 1 as a single series'.
     # Row layout: [d_coeffs | d_P0 | d_H | d_R], d_coeffs padded to the degree
-    # d−1 (exponential polynomial) or in the kernels' layout (spectral).
+    # d−1 (exponential polynomial) or in the kernels' layout (spectral,
+    # composite).
     total = sums.transpose(0, 1).reshape(n_blocks, B * n_sums).sum(0).reshape(B, n_sums)
     d2 = d * d
     off = n_sums - d2 - d - 1
     d_P0 = total[:, off : off + d2].reshape(B, d, d)
-    d_co = total[:, _spectral_positions(d)] if family == SPECTRAL else total[:, : coeffs.shape[1]]
+    if family == SPECTRAL:
+        d_co = total[:, _spectral_positions(d)]
+    elif family == COMPOSITE:
+        d_co = total[:, composite.kernel_positions(family)]
+    else:
+        d_co = total[:, : coeffs.shape[1]]
     return (
         d_co, symmetrize(d_P0), total[:, off + d2 : off + d2 + d].reshape(B, 1, d),
         total[:, -1].reshape(B, 1, 1), d_dts, d_y,
@@ -503,6 +543,23 @@ def _dt_fisher_launch(family, coeffs, P0, H, R, dts, y, b_bt, C_bt, g_bt, L_bt):
 # --------------------------------------------------------------------------
 # Filter and smoother
 # --------------------------------------------------------------------------
+
+
+def chunk_prefixes(family, totals: Tensor, d: int, reverse: bool) -> Tensor:
+    """The exclusive chunk prefixes between a filter's or a smoother's two
+    passes (``strip.exclusive_chunk_prefixes``, one plane scan).  The
+    composite family's float32 filter totals are scanned in float64 and
+    rounded back: its states reach d = 8 with lengthscales long against the
+    step, and on the quasi-periodic model at N = 1M the float32 filter
+    prefix — aggregates of thousands of steps combined through the inverse
+    of I + C·J, chained a tile at a time — lost every digit, where the
+    float64 prefix of the same totals keeps the float32 passes' accuracy;
+    the smoother's combine has no inverse, and its float32 prefix stays
+    within the plain one's accuracy (chip_smoke.qp_prefix_precision;
+    PERF.md §6)."""
+    if family == COMPOSITE and totals.dtype == torch.float32 and not reverse:
+        return exclusive_chunk_prefixes(totals.double(), d, reverse).float()
+    return exclusive_chunk_prefixes(totals, d, reverse)
 
 
 def strip_filter_dt(family: str, coeffs: Tensor, P0: Tensor, H: Tensor, R: Tensor, dts: Tensor, observations: Tensor):
@@ -517,7 +574,7 @@ def strip_filter_dt(family: str, coeffs: Tensor, P0: Tensor, H: Tensor, R: Tenso
     y = observations.reshape(-1).contiguous()
     R = R.reshape(1, 1)
     totals = dt_filter_scan(family, coeffs, P0, H, R, dts, y)
-    prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=False)
+    prefix = chunk_prefixes(family, totals, P0.shape[0], reverse=False)
     return dt_filter_apply(family, coeffs, P0, H, R, dts, y, prefix)
 
 
@@ -534,7 +591,7 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
     # The kernels take contiguous planes; the plain filter returns views.
     b_tl, C_tl = b_tl.contiguous(), C_tl.contiguous()
     totals = dt_smoother_scan(family, coeffs, P0, dts, b_tl, C_tl)
-    prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=True)
+    prefix = chunk_prefixes(family, totals, P0.shape[0], reverse=True)
     return dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix)
 
 
@@ -542,7 +599,7 @@ def _require_batched_family(family) -> None:
     if family != EXPPOLY:
         raise NotImplementedError(
             f"the batched dt path takes the exponential polynomial only; a batch of {family!r} kernels "
-            "(batched RBF hyperparameters) is ROADMAP.md B7"
+            "(batched RBF or composite hyperparameters) is ROADMAP.md B7"
         )
 
 

@@ -59,11 +59,16 @@ def exppoly_transitions_m1(coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
 
 def build_transitions_m1(family: str, coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
     """Dispatch on the transition family id: the exponential polynomial
-    (here) or RBF's spectral closed form (kernels/rbf.py)."""
+    (here), RBF's spectral closed form (kernels/rbf.py) or the composite
+    family of Periodic, Sum and Product (kernels/composite.py)."""
+    from parallel_gps_torch.kernels.composite import COMPOSITE, composite_transitions_m1
+
     if family == EXPPOLY:
         return exppoly_transitions_m1(coeffs, dts, d)
     if family == SPECTRAL:
         return spectral_transitions_m1(coeffs, dts, d)
+    if family == COMPOSITE:
+        return composite_transitions_m1(family, coeffs, dts, d)
     raise ValueError(f"unknown transition family {family!r}")
 
 

@@ -7,8 +7,9 @@ softplus-unconstrained noise variance.  Its entry points pick an engine from
 what they can observe (``engine``): the sequential oracle for
 ``parallel=False``; the dt-engine (kalman/dt.py) for a kernel with a
 closed-form transition family within its kernels' range (the Matérn kernels,
-d ≤ 3; RBF of order ≤ 8, as the reference's ``lml_dt`` / ``pkfs_dt``
-route); the plane-streaming strip engine (kalman/strip.py) for any other
+d ≤ 3; RBF of order ≤ 8; Periodic, Sum and Product of such kernels up to
+d = 8, as the reference's ``lml_dt`` / ``pkfs_dt`` route); the
+plane-streaming strip engine (kalman/strip.py) for any other
 kernel with d ≤ 8; the plain time-last engine above that.  The dt and strip engines run hand-written CUDA kernels
 when the model lives on a CUDA device and their plain PyTorch versions on
 the CPU.  A model is built on the card unless the caller names another
@@ -35,12 +36,41 @@ from parallel_gps_torch import config
 from parallel_gps_torch.kalman import dt, strip
 from parallel_gps_torch.kalman.sequential import kf, kfs
 from parallel_gps_torch.kalman.timelast import lml_tl, pkfs_from_tl
-from parallel_gps_torch.kernels.base import SDEKernel
+from parallel_gps_torch.kernels.base import Product, SDEKernel, Sum
 from parallel_gps_torch.kernels.matern import Matern12, Matern32, Matern52
+from parallel_gps_torch.kernels.periodic import Periodic
 from parallel_gps_torch.kernels.rbf import RBF
 from parallel_gps_torch.models.params import inv_softplus, softplus
 
-KERNELS = {"Matern12": Matern12, "Matern32": Matern32, "Matern52": Matern52, "RBF": RBF}
+KERNELS = {"Matern12": Matern12, "Matern32": Matern32, "Matern52": Matern52, "RBF": RBF, "Periodic": Periodic}
+COMBINATORS = {"Sum": Sum, "Product": Product}
+# Each leaf's constrained values and static fields, as a spec names them.
+_VALUES = ("variance", "lengthscales", "period")
+_STATIC = ("order", "balancing_iter")
+
+
+def kernel_from_spec(spec, dtype=None, device=None) -> SDEKernel:
+    """A kernel from a nested spec of numpy values: a leaf ``(name, {field:
+    value})`` — the constrained ``variance``, ``lengthscales`` (and
+    ``period``) and the static ``order`` / ``balancing_iter`` where the kernel
+    has them — or ``("Sum" | "Product", [spec, ...])``, optionally with
+    ``{"balancing_iter": n}`` third."""
+    name, body, *rest = spec
+    if name in COMBINATORS:
+        return COMBINATORS[name](*(kernel_from_spec(s, dtype, device) for s in body), **(rest[0] if rest else {}))
+    values = {k: np.asarray(v, dtype=np.float64) if k in _VALUES else v for k, v in body.items()}
+    return KERNELS[name](dtype=dtype, device=device, **values)
+
+
+def kernel_spec(kernel: SDEKernel):
+    """The inverse of ``kernel_from_spec``: constrained values as numpy
+    arrays."""
+    if isinstance(kernel, (Sum, Product)):
+        body = [kernel_spec(k) for k in kernel.kernels]
+        return (type(kernel).__name__, body) + (({"balancing_iter": kernel.balancing_iter},) if kernel.balancing_iter >= 0 else ())
+    fields = {k: getattr(kernel, k).detach().cpu().numpy() for k in _VALUES if hasattr(kernel, k)}
+    fields.update({k: getattr(kernel, k) for k in _STATIC if k in vars(kernel)})
+    return (type(kernel).__name__, fields)
 
 
 def merge_sorted(a: Tensor, b: Tensor, a_data, b_data):
@@ -131,7 +161,11 @@ class StateSpaceGP(nn.Module):
         """Model from numpy arrays of constrained values: the same
         quantities a JAX ``StateSpaceGP`` holds (``ts``, ``ys``,
         ``kernel.variance``, ``kernel.lengthscales``, ``noise_variance``),
-        so both packages compute the same thing.  Each of the three may be
+        so both packages compute the same thing.  ``kernel`` is a kernel's
+        name, or a nested spec (``kernel_from_spec``) such as
+        ``("Product", [("Periodic", {"variance": 1.0, "lengthscales": 1.0,
+        "period": 1.0, "order": 1}), ("Matern32", {...})])``, which carries
+        its own values (``variance`` and ``lengthscales`` are then unused).  Each of the three may be
         an array of shape (C,) — a batch of JAX models' hyperparameters, e.g.
         ``jax.vmap``-stacked leaves: C chains over the one data set (module
         docstring).  ``kernel_options``: the kernel's static fields
@@ -142,14 +176,21 @@ class StateSpaceGP(nn.Module):
         variance, lengthscales, noise_variance = (
             np.asarray(x, dtype=np.float64) for x in (variance, lengthscales, noise_variance)
         )
-        k = KERNELS[kernel](variance, lengthscales, dtype=dtype, device=device, **kernel_options)
+        if isinstance(kernel, str):
+            k = KERNELS[kernel](variance, lengthscales, dtype=dtype, device=device, **kernel_options)
+        else:
+            k = kernel_from_spec(kernel, dtype, device)
         return cls.create((ts, ys), k, noise_variance, parallel=parallel, dtype=dtype, device=device)
 
     def to_numpy(self) -> dict:
         """The constrained hyperparameters as numpy arrays and, for an RBF
         kernel, its static fields ``order`` and ``balancing_iter`` (the
         inverse of ``from_numpy``'s ``variance``, ``lengthscales``,
-        ``noise_variance`` and ``kernel_options``)."""
+        ``noise_variance`` and ``kernel_options``); for a Periodic, Sum or
+        Product kernel, ``kernel`` (its spec, ``kernel_spec``) and
+        ``noise_variance``."""
+        if isinstance(self.kernel, (Periodic, Sum, Product)):
+            return {"kernel": kernel_spec(self.kernel), "noise_variance": self.noise_variance.detach().cpu().numpy()}
         values = {
             "variance": self.kernel.variance, "lengthscales": self.kernel.lengthscales,
             "noise_variance": self.noise_variance,
@@ -168,12 +209,12 @@ class StateSpaceGP(nn.Module):
         if any(p.dim() for p in self.parameters()) and not (self.parallel and matern):
             raise NotImplementedError(
                 "hyperparameters with a batch axis (chains) run on the dt engine only, for the Matérn kernels with "
-                "parallel=True; a batched RBF model is still to be ported (ROADMAP.md, B7)"
+                "parallel=True; a batched RBF, Periodic or composite model is still to be ported (ROADMAP.md, B7)"
             )
         if not self.parallel:
             return "sequential", None
         transition = self.kernel.transition_coeffs()
-        if transition is not None and d <= dt.MAX_KERNEL_D[transition[0]]:
+        if transition is not None and dt.fits(transition[0], d):
             return "dt", transition
         return ("strip" if d <= strip.MAX_KERNEL_D else "timelast"), None
 

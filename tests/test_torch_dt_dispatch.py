@@ -83,12 +83,17 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         tdt.dt_smoother_scan(fam, meta[0], meta[1], meta[4], b, C)
     with pytest.raises(ValueError, match="CUDA device"):
         tdt.dt_fisher(fam, *meta, b, C, b, C)
-    # The spectral family (RBF) is refused the same way.
-    fam, co, P0, H, R, dts, ty = _torch_inputs(tk.RBF(1.0, 0.5, order=4, dtype=torch.float64, device="cpu"), *_data(50, 1))
-    with pytest.raises(ValueError, match="CUDA device"):
-        tdt.strip_filter_dt(fam, *(x.to("meta") for x in (co, P0, H, R, dts, ty)))
+    # The spectral family (RBF) and the composite family (a Periodic × Matérn)
+    # are refused the same way.
+    for kern in (
+        tk.RBF(1.0, 0.5, order=4, dtype=torch.float64, device="cpu"),
+        tk.Periodic(1.0, 1.0, 1.0, order=1, dtype=torch.float64, device="cpu") * tk.Matern32(1.0, 0.5, dtype=torch.float64, device="cpu"),
+    ):
+        fam, co, P0, H, R, dts, ty = _torch_inputs(kern, *_data(50, 1))
+        with pytest.raises(ValueError, match="CUDA device"):
+            tdt.strip_filter_dt(fam, *(x.to("meta") for x in (co, P0, H, R, dts, ty)))
     kernels = {"dt_filter_scan", "dt_filter_apply", "dt_smoother_scan", "dt_smoother_apply", "dt_fisher"}
-    assert set(tdt.LAUNCHES) == kernels | {f"{k}_spectral" for k in kernels}
+    assert set(tdt.LAUNCHES) == kernels | {f"{k}_{f}" for k in kernels for f in ("spectral", "composite")}
     assert set(tdt.LAUNCHES.values()) == {0}
 
 

@@ -42,6 +42,7 @@ import torch
 from parallel_gps_torch import kernels as tk
 from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_torch.kalman import strip as tstrip
+from parallel_gps_torch.kernels.composite import COMPOSITE
 from parallel_gps_torch.kernels.matern import EXPPOLY
 from parallel_gps_torch.kernels.rbf import SPECTRAL
 from parallel_gps_tpu.kalman.timelast import pkf_from_tl
@@ -88,12 +89,18 @@ def _buffers(unit, d, dtype):
 
 
 def _table_bytes(unit, d, dtype):
-    """The spectral filter scan's scalar table as the wrapper builds it,
-    [P0 | h | r | coefficients in the kernels' layout | block table], in
-    bytes rounded up to 16; none for the other units."""
-    if unit != SPECTRAL:
+    """The spectral or composite filter scan's scalar table as the wrapper
+    builds it, [P0 | h | r | coefficients in the kernels' layout | block
+    table or plan] (the composite's of a Sum of d Matern12 kernels: its
+    layout depends on d alone), in bytes rounded up to 16; none for the
+    other units."""
+    if unit not in (SPECTRAL, COMPOSITE):
         return 0
-    kern = tk.RBF(1.0, 0.3, order=d, dtype=torch.float64, device="cpu")
+    kern = (
+        tk.RBF(1.0, 0.3, order=d, dtype=torch.float64, device="cpu")
+        if unit == SPECTRAL
+        else tk.Sum(*(tk.Matern12(1.0, 0.3 + 0.1 * i, dtype=torch.float64, device="cpu") for i in range(d)))
+    )
     with torch.no_grad():
         fam, coeffs = kern.transition_coeffs()
         sde = kern.get_sde()
@@ -173,7 +180,7 @@ def test_mirror_sets_match_the_constexpr_masks(source):
     strip.FILTER_SCAN_STAGED, FILTER_SCAN_TWO_BUFFERS, SCAN_PLANES,
     SCAN_TWO_BUFFERS and SMOOTHER_PLANES; dt.FILTER_SCAN_STAGED,
     FILTER_SCAN_TWO_BUFFERS and
-    SCAN_TWO_BUFFERS of each family."""
+    SCAN_TWO_BUFFERS of each family (kDt…, kSpectral…, kComposite…)."""
     masks = _masks(source)
     if source == "strip_scan.cu":
         top = tstrip.MAX_KERNEL_D
@@ -185,7 +192,7 @@ def test_mirror_sets_match_the_constexpr_masks(source):
         expected = {f"{stem}F{bits}": (sets[dtype], top) for stem, sets in mirrors.items() for bits, dtype in ((32, torch.float32), (64, torch.float64))}
     else:
         expected = {}
-        for prefix, family in (("kDt", EXPPOLY), ("kSpectral", SPECTRAL)):
+        for prefix, family in (("kDt", EXPPOLY), ("kSpectral", SPECTRAL), ("kComposite", COMPOSITE)):
             for stem, sets in (("FilterScanStaged", tdt.FILTER_SCAN_STAGED), ("FilterScanTwo", tdt.FILTER_SCAN_TWO_BUFFERS),
                                ("ScanTwo", tdt.SCAN_TWO_BUFFERS)):
                 for bits, dtype in ((32, torch.float32), (64, torch.float64)):

@@ -210,6 +210,6 @@ def test_documented_drives_load_no_jax_and_launch_nothing_on_the_cpu():
     assert out.returncode == 0, out.stderr
     facts = json.loads(out.stdout.strip().splitlines()[-1])
     assert facts["foreign"] == []
-    assert len(facts["launches"]) == 14 and set(facts["launches"].values()) == {0}
+    assert len(facts["launches"]) == 19 and set(facts["launches"].values()) == {0}
     assert not facts["cuda_loader_imported"]
     assert facts["engine"] == "dt" and facts["shapes"] == [[40, 3], [40, 3, 3]]

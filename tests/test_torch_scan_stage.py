@@ -35,6 +35,7 @@ from parallel_gps_torch import kernels as tk
 from parallel_gps_torch.kalman import dt as tdt
 from parallel_gps_torch.kalman import strip as tstrip
 from parallel_gps_torch.kalman import timelast as ttl
+from parallel_gps_torch.kernels.composite import COMPOSITE
 from parallel_gps_torch.kernels.rbf import SPECTRAL
 from parallel_gps_tpu.kalman.timelast import pks_from_tl
 from parallel_gps_tpu.types import LGSSMTL as JaxLGSSMTL
@@ -75,12 +76,18 @@ def _two_buffers(kind, d, dtype):
 
 
 def _table_bytes(family, d, dtype):
-    """The spectral smoother scan's scalar table as the wrapper builds it,
-    [P0 | coefficients in the kernels' layout | block table], in bytes
-    rounded up to 16; none for the exponential polynomial."""
-    if family != SPECTRAL:
+    """The spectral or composite smoother scan's scalar table as the wrapper
+    builds it, [P0 | coefficients in the kernels' layout | block table or
+    plan] (the composite's of a Sum of d Matern12 kernels: its layout
+    depends on d alone), in bytes rounded up to 16; none for the
+    exponential polynomial."""
+    if family not in (SPECTRAL, COMPOSITE):
         return 0
-    kern = tk.RBF(1.0, 0.3, order=d, dtype=torch.float64, device="cpu")
+    kern = (
+        tk.RBF(1.0, 0.3, order=d, dtype=torch.float64, device="cpu")
+        if family == SPECTRAL
+        else tk.Sum(*(tk.Matern12(1.0, 0.3 + 0.1 * i, dtype=torch.float64, device="cpu") for i in range(d)))
+    )
     with torch.no_grad():
         fam, coeffs = kern.transition_coeffs()
         values = tdt._smoother_scalars(fam, kern.get_sde().P0, coeffs).numel()
