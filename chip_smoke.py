@@ -904,6 +904,9 @@ def check_spectral_kernels() -> None:
             f_p = dt.dt_fisher_plain(fam, co, P0, H, R, dts, yt, *mom)
             torch.cuda.synchronize()
         check(dt.LAUNCHES == one_each, f"{name}: launches {dt.LAUNCHES}")
+        with torch.no_grad():
+            again = dt.dt_fisher(fam, co, P0, H, R, dts, yt, *mom)
+        check(all(bits(a) == bits(b) for a, b in zip(f_k, again)), f"{name}: two Fisher launches differ")
         print(
             f"{name} f64 T={T_KERNEL}: |b| {max_abs(b_k, b_p):.3e} |C| {max_abs(C_k, C_p):.3e} "
             f"ell {float(ell_k):.12f} vs {float(ell_p):.12f} |g| {max_abs(g_k, g_p):.3e} |L| {max_abs(L_k, L_p):.3e}; fisher "
@@ -941,6 +944,68 @@ def check_spectral_kernels() -> None:
             floor = f32_sum_floor(T_KERNEL) if k in FISHER_OUTPUTS[:4] else F32_FLOOR
             check(a <= max(F32_FACTOR * b, floor), f"{name} f32 {k}: kernel {a:.3e} vs plain {b:.3e}")
     check_spectral_apply_edges()
+
+
+# Series lengths of the Fisher units' checks at their edges: one step, past
+# the first round of the lane-split body (16, 32, ..., 256 steps a block),
+# several rounds a block with a ragged last one.
+FISHER_EDGE_T = (1, 17, 33, 257, 5_003)
+
+
+def check_fisher_edges() -> None:
+    """Every dt_fisher unit — the exponential polynomial d = 1..3, the
+    spectral family d = 1..8, the composite family d = 2..8 and the bare
+    Periodic — float64 at the lengths FISHER_EDGE_T (the exponential
+    polynomial, whose body is not lane-split, at the largest) and float32
+    at the largest, and the batched units d = 1..3 with B = 3 at the
+    largest: each against dt_fisher_plain on the plain passes' moments
+    (float64 by fisher_close, float32 against float64 truth by the 10× rule
+    or f32_sum_floor), two launches bit for bit."""
+    units = fisher_units() + [(COMPOSITE, 6, BARE_PERIODIC)]
+    n_checked = 0
+    for family, d, make in units:
+        for T in FISHER_EDGE_T if family != EXPPOLY else FISHER_EDGE_T[-1:]:
+            t, y = make_data(T, SEED + 50 + T % 7)
+            outs = {torch.float32: float("nan")}
+            for dtype in (torch.float64, torch.float32) if T == FISHER_EDGE_T[-1] else (torch.float64,):
+                fam, co, P0, H, R, dts, yt = kernel_inputs(make(dtype), t, y, dtype)
+                with torch.no_grad():
+                    b, C, _ = dt.strip_filter_dt_plain(fam, co, P0, H, R, dts, yt)
+                    g, L = dt.strip_smoother_dt_plain(fam, co, P0, dts, b, C)
+                    args = (fam, co, P0, H, R, dts, yt, *(x.contiguous() for x in (b, C, g, L)))
+                    f_k, again = dt.dt_fisher(*args), dt.dt_fisher(*args)
+                    f_p = dt.dt_fisher_plain(*args)
+                    f_t = dt.dt_fisher_plain(*(x.double() if isinstance(x, torch.Tensor) else x for x in args))
+                    torch.cuda.synchronize()
+                what = f"dt_fisher {family} d={d} T={T} {dtype}"
+                check(all(bits(a) == bits(b_) for a, b_ in zip(f_k, again)), f"{what}: two launches differ")
+                if dtype == torch.float64:
+                    for n, a, b_ in zip(FISHER_OUTPUTS, f_k, f_p):
+                        check(fisher_close(a, b_), f"{what} {n}: |kernel - plain| {max_abs(a, b_):.3e}")
+                else:
+                    errs = [(n, rel_err(a, c), rel_err(b_, c)) for n, a, b_, c in zip(FISHER_OUTPUTS, f_k, f_p, f_t)]
+                    print(f"{what} vs f64 truth (kernel / plain f32): " + " ".join(f"{n} {a:.2e}/{b_:.2e}" for n, a, b_ in errs))
+                    for n, a, b_ in errs:
+                        floor = f32_sum_floor(T) if n in FISHER_OUTPUTS[:4] else F32_FLOOR
+                        check(a <= max(F32_FACTOR * b_, floor), f"{what} {n}: kernel {a:.3e} vs plain {b_:.3e} from f64")
+                outs[dtype] = max(max_abs(a, b_) / max(float(b_.abs().max()), 1e-300) for a, b_ in zip(f_k, f_p))
+                n_checked += 1
+            if T == FISHER_EDGE_T[-1]:
+                print(f"dt_fisher {family} d={d} T={T}: |kernel - plain| / max, f64 {outs[torch.float64]:.2e}, "
+                      f"f32 {outs[torch.float32]:.2e}; two launches bit for bit")
+    for d in FISHER_EXP:
+        for dtype in (torch.float64, torch.float32):
+            args = batched_fisher_inputs(d, dtype, B=3, T=FISHER_EDGE_T[-1])
+            with torch.no_grad():
+                f_k, again, f_p = dt.dt_fisher(*args), dt.dt_fisher(*args), dt.dt_fisher_plain(*args)
+                torch.cuda.synchronize()
+            what = f"dt_fisher batched d={d} B=3 T={FISHER_EDGE_T[-1]} {dtype}"
+            check(all(bits(a) == bits(b_) for a, b_ in zip(f_k, again)), f"{what}: two launches differ")
+            if dtype == torch.float64:
+                for n, a, b_ in zip(FISHER_OUTPUTS, f_k, f_p):
+                    check(fisher_close(a, b_), f"{what} {n}: |kernel - plain| {max_abs(a, b_):.3e}")
+            n_checked += 1
+    print(f"dt_fisher units at their edges: {n_checked} cases against dt_fisher_plain, two launches bit for bit")
 
 
 def check_spectral_apply_edges() -> None:
@@ -2807,9 +2872,9 @@ def spectral_passes(model, suffix="_spectral"):
     R = model.noise_variance.detach().reshape(1, 1)
     y, d = model.ys, P0.shape[0]
     tot_f = dt.dt_filter_scan(fam, co, P0, H, R, dts, y)
-    pre_f = dt.chunk_prefixes(fam, tot_f, d, reverse=False)
+    pre_f = dt.exclusive_chunk_prefixes(tot_f, d, reverse=False)
     b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, y, pre_f)
-    pre_s = dt.chunk_prefixes(fam, dt.dt_smoother_scan(fam, co, P0, dts, b, C), d, reverse=True)
+    pre_s = dt.exclusive_chunk_prefixes(dt.dt_smoother_scan(fam, co, P0, dts, b, C), d, reverse=True)
     g, L = dt.dt_smoother_apply(fam, co, P0, dts, b, C, pre_s)
     return {
         f"dt_filter_scan{suffix}": (dt.dt_filter_scan, dt.dt_filter_scan_plain, (fam, co, P0, H, R, dts, y)),
@@ -3035,35 +3100,22 @@ def phase_qp_slice():
     return model, queries, {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
-def chained_plain_scan(tot, d: int, kind: str, tile: int):
-    """The plain inclusive scan in the chained kernel's association:
-    Kogge–Stone inside each tile of ``tile`` totals, then each tile's
-    elements combined with the inclusive total of the tile before it
-    (filter, forwards)."""
-    out, carry = torch.empty_like(tot), None
-    for t0 in range(0, tot.shape[1], tile):
-        loc = plane.plane_scan_plain(tot[:, t0 : t0 + tile].contiguous(), d, kind)
-        if carry is not None:
-            width = loc.shape[1]
-            first = strip._unpack_filt(carry[:, None].expand(-1, width).contiguous(), d)
-            loc = strip._pack(timelast.filtering_operator_tl(first, strip._unpack_filt(loc, d)), width)
-        out[:, t0 : t0 + tile] = loc
-        carry = loc[:, -1]
-    return out
-
-
 def qp_prefix_precision(card: str) -> None:
-    """Why the composite family's float32 filter prefix runs in float64
-    (dt.chunk_prefixes) and its smoother prefix does not: on the QP model's
-    chunk totals at N = N_QP, filter and smoother, the inclusive plane scan
-    of the float32 totals (the chained kernel) and the plain Kogge–Stone
-    scan of them, each against the float64 scan of the same totals, and
-    the float64 kernel scan of them rounded to float32 — for the filter
-    also the plain float32 scan in the chained kernel's association
-    (chained_plain_scan): the association alone is not what loses the
-    digits; the largest error of the moment components (the filter's b, C;
-    the smoother's g, L) over the chunks, relative to each component's
-    largest value."""
+    """The chained chunk prefix of the composite family in float32, on the
+    QP model's chunk totals at N = N_QP, filter and smoother: the inclusive
+    plane scan of the float32 totals (the chained kernel), the plain
+    Kogge–Stone scan of them and the float64 kernel scan of them rounded to
+    float32, each against the float64 scan of the same totals; for the
+    filter also the plain models of the kernel's association
+    (plane.chained_plain_scan, the kernel's tile) with C and J mirrored from
+    the upper triangle (the kernel's combine before the repair: it lost
+    every digit here) and averaged (the kernel's now), and the sequential
+    fold, the reference's association (a tile of one, mirrored).  The
+    largest error of the moment components (the filter's b, C; the
+    smoother's g, L) over the chunks, relative to each component's largest
+    value.  Both float32 kernel prefixes are held within 10× of the plain
+    float32 scan's distance: the composite family's route, as every other
+    family's (strip.exclusive_chunk_prefixes)."""
     t, y = make_data(N_QP, SEED + 9)
     m = qp_model(t, y, torch.float32)
     d = 8
@@ -3071,11 +3123,10 @@ def qp_prefix_precision(card: str) -> None:
         fam, co, sde, dts = dt._model_inputs(m.kernel, m.ts)
         co, P0, H, R = co.detach(), sde.P0.detach(), sde.H.detach(), m.noise_variance.detach().reshape(1, 1)
         tot_f = dt.dt_filter_scan(fam, co, P0, H, R, dts, m.ys)
-        b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, m.ys, dt.chunk_prefixes(fam, tot_f, d, reverse=False))
+        b, C, _ = dt.dt_filter_apply(fam, co, P0, H, R, dts, m.ys, dt.exclusive_chunk_prefixes(tot_f, d, reverse=False))
         tot_s = dt.dt_smoother_scan(fam, co, P0, dts, b, C)
         del b, C
-        for kind, tot, rows, want_f64 in (("filter", tot_f, slice(d * d, 2 * d * d + d), True),
-                                          ("smoother", tot_s, slice(d * d, 2 * d * d + d), False)):
+        for kind, tot, rows in (("filter", tot_f, slice(d * d, 2 * d * d + d)), ("smoother", tot_s, slice(d * d, 2 * d * d + d))):
             # A filter prefix that holds chunk 0 has A = J = η = 0 exactly;
             # a smoother suffix's E is a product of gains: b, C and g, L carry it.
             rev = kind == "smoother"
@@ -3087,13 +3138,14 @@ def qp_prefix_precision(card: str) -> None:
             }
             if kind == "filter":
                 threads, steps = plane.scan_tiling(d, torch.float32)
-                scans["plain f32 in the kernel's association"] = chained_plain_scan(tot, d, kind, threads * steps)
+                for form in ("mirrored", "averaged"):
+                    scans[f"chained plain f32, {form}"] = plane.chained_plain_scan(tot, d, threads * steps, form)
+                scans["sequential fold f32, mirrored"] = plane.chained_plain_scan(tot.cpu(), d, 1, "mirrored")
             scale = truth[rows].abs().amax(1, keepdim=True).clamp_min(1e-300)
-            errs = {k: float(((v[rows].double() - truth[rows]).abs() / scale).max()) for k, v in scans.items()}
+            errs = {k: float(((v[rows].to(truth).double() - truth[rows]).abs() / scale).max()) for k, v in scans.items()}
             print(f"QP chunk prefix {kind} N={N_QP} ({tot.shape[1]} chunks) [{card}], moments vs the f64 scan of the same f32 "
                   "totals: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-            chosen = errs["kernel f64 of the f32 totals" if want_f64 else "kernel f32"]
-            check(chosen <= F32_FACTOR * max(errs["plain f32"], F32_FLOOR), f"QP chunk prefix {kind}: {errs}")
+            check(errs["kernel f32"] <= F32_FACTOR * max(errs["plain f32"], F32_FLOOR), f"QP chunk prefix {kind}: {errs}")
             del truth, scans
     del m, tot_f, tot_s
     torch.cuda.empty_cache()
@@ -4205,6 +4257,167 @@ def batched_timers(label: str, report=None, dims=tuple(range(1, 9)), dtypes=(tor
             torch.cuda.empty_cache()
 
 
+N_FISHER = 1_000_000  # the Fisher units' sweep: one series of this length
+FISHER_EXP = {1: Matern12, 2: Matern32, 3: Matern52}
+
+
+def fisher_units():
+    """(family, d, make(dtype)) of every dt_fisher unit: the exponential
+    polynomial d = 1..3 (Matérn), the spectral family d = 1..8 (RBF), the
+    composite family d = 2..8 (COMPOSITE_CASES)."""
+    units = [(EXPPOLY, d, lambda dtype, k=k: k(0.8, 0.4, dtype=dtype, device=DEV)) for d, k in FISHER_EXP.items()]
+    units += [(SPECTRAL, d, lambda dtype, d=d: spectral_kernel(d, dtype)) for d in SPECTRAL_DIMS]
+    return units + [(COMPOSITE, d, make) for d, make in COMPOSITE_CASES.items()]
+
+
+def fisher_inputs(k, t, y, dtype):
+    """dt_fisher's arguments for the kernel ``k`` on (t, y), the moments
+    from the kernels, no autograd."""
+    fam, co, P0, H, R, dts, yt = kernel_inputs(k, t, y, dtype)
+    with torch.no_grad():
+        b, C, _ = dt.strip_filter_dt(fam, co, P0, H, R, dts, yt)
+        b, C = b.contiguous(), C.contiguous()
+        g, L = dt.strip_smoother_dt(fam, co, P0, dts, b, C)
+    return fam, co, P0, H, R, dts, yt, b, C, g.contiguous(), L.contiguous()
+
+
+def batched_fisher_inputs(d: int, dtype, B: int = C_CHAINS, T: int = T_BATCHED):
+    """dt_fisher's arguments on the batched path: Matérn(d) chains with
+    C_CHAINS jittered hyperparameters over one series of T_BATCHED steps,
+    the moments from the batched kernels."""
+    t, y = make_data(T, SEED + 30)
+    name = FISHER_EXP[d].__name__
+    model = StateSpaceGP.from_numpy(t, y, name, *chain_hypers(B, SEED + 31), dtype=dtype, device=DEV)
+    with torch.no_grad():
+        fam, co, sde, dts = dt._model_inputs(model.kernel, model.ts)
+        co, P0, H, R, _ = dt.series_inputs(co.detach(), sde, model.noise_variance.detach())
+        P0, H = P0.detach(), H.detach()
+        (b, C, _), (Fs, Qs) = dt._batched_filter_dt(fam, co, P0, H, R, dts, model.ys)
+        b, C = b.contiguous(), C.contiguous()
+        g, L = batched.batched_strip_smoother(Fs, Qs, b, C, None, project=False)
+    return fam, co.contiguous(), P0.contiguous(), H.contiguous(), R.contiguous(), dts, model.ys, b, C, g.contiguous(), L.contiguous()
+
+
+def fisher_timers(label: str, report=None, dtypes=(torch.float32, torch.float64)) -> None:
+    """Every dt_fisher unit, for comparing two trees in one call: events
+    around five lone calls of dt.dt_fisher and its device time, the median
+    of three profiled calls (``report``, ab_report's by default, which also
+    prints the tree's ptxas lines), beside its bound from this run's
+    inputs: the exponential polynomial (d = 1..3), spectral (d = 1..8) and
+    composite (d = 2..8) units at N = N_FISHER, the batched units (d = 1..3,
+    C_CHAINS × T_BATCHED), float32 and float64; then the rows of PERF.md's
+    table at the path's shapes (Matern52 N = N_FULL, RBF(order=6) and the QP
+    model at N = 1M, float32).  Each unit's two launches bit for bit."""
+    report = report or ab_report(label)
+    t, y = make_data(N_FISHER, SEED + 5)
+
+    def time_unit(what, args, bound):
+        out = dt.dt_fisher(*args)
+        again = dt.dt_fisher(*args)
+        torch.cuda.synchronize()
+        check(all(bits(a) == bits(b) for a, b in zip(out, again)), f"{what}: two launches differ")
+        del out, again
+        print(f"ab {label} fisher {what}: bound {bound[0]:.4f} ms ({bound[1]})")
+        report(f"fisher {what}", cuda_ms(lambda: dt.dt_fisher(*args), reps=5), lambda: dt.dt_fisher(*args), profiles=3)
+
+    for dtype in dtypes:
+        size = torch.finfo(dtype).bits // 8
+        for family, d, make in fisher_units():
+            k = make(dtype)
+            args = fisher_inputs(k, t, y, dtype)
+            plan = k.transition_coeffs()[0].plan if family == COMPOSITE else None
+            n_obs = int((~torch.isnan(args[6])).sum())
+            name = "dt_fisher" if family == EXPPOLY else f"dt_fisher_{family}"
+            bound = kernel_bound(name, d, max(d - 1, 0), N_FISHER, n_obs, size, plan=plan)
+            time_unit(f"{family} d={d} {k!r} N={N_FISHER} {dtype}", args, bound)
+            del args
+            torch.cuda.empty_cache()
+        for d in FISHER_EXP:
+            args = batched_fisher_inputs(d, dtype)
+            n_obs = C_CHAINS * int((~torch.isnan(args[6])).sum())
+            bound = kernel_bound("dt_fisher", d, d - 1, T_BATCHED, n_obs, size, B=C_CHAINS, y_series=1)
+            time_unit(f"batched d={d} B={C_CHAINS} T={T_BATCHED} {dtype}", args, bound)
+            del args
+            torch.cuda.empty_cache()
+    for what, family, k, T, seed in (
+        ("Matern52", EXPPOLY, Matern52(0.8, 0.4, dtype=torch.float32, device=DEV), N_FULL, SEED),
+        ("RBF(order=6)", SPECTRAL, RBF(0.8, 0.05, order=6, dtype=torch.float32, device=DEV), N_STRIP, SEED + 4),
+        ("QP", COMPOSITE, qp_model(*make_data(2, 0), torch.float32).kernel, N_QP, SEED + 9),
+    ):
+        t_p, y_p = make_data(T, seed)
+        args = fisher_inputs(k, t_p, y_p, torch.float32)
+        d = args[2].shape[0]
+        plan = k.transition_coeffs()[0].plan if family == COMPOSITE else None
+        name = "dt_fisher" if family == EXPPOLY else f"dt_fisher_{family}"
+        bound = kernel_bound(name, d, d - 1, T, int((~torch.isnan(args[6])).sum()), 4, plan=plan)
+        time_unit(f"path {what} d={d} N={T} f32", args, bound)
+        del args
+        torch.cuda.empty_cache()
+
+
+def prefix_timers(label: str, report=None) -> None:
+    """The plane_scan units and the batched kernels whose filter combine the
+    averaged symmetrisation changes, for comparing two trees in one call:
+    every plane_scan unit, d = 1..8, float32 and float64, filter and
+    smoother — chained over the chunk totals of N_STRIP steps (the chunk
+    prefix), and with the look-back over the N_STRIP-step time-first rows
+    (the plane path) — as events and device time (``report``), each chained
+    scan's output digest (its bits do not depend on timing); and each
+    batched unit's outputs' digest (batched_filter and batched_smoother,
+    d = 1..8, both scalar types, 64 series × T_UNIT).  The units' times are
+    batched_timers'."""
+    report = report or ab_report(label)
+    t_s, y_s = make_data(N_STRIP, SEED + 4)
+    t_c, y_c = make_data(N_CHECK, SEED + 4)
+    digests = {}
+    for dtype in (torch.float32, torch.float64):
+        for d in range(1, plane.MAX_KERNEL_D + 1):
+            make = lambda dtype_, d=d: strip_edge_kernel(d, dtype_)  # noqa: E731
+            with torch.no_grad():
+                Fs, Qs, P0, H, R, yt = strip_inputs(make(dtype), t_s, y_s, dtype)
+                tot_f = strip.strip_filter_scan(Fs, Qs, P0, H, R, yt)
+                # The smoother's totals from the plain prefix's moments: the
+                # same in both trees.
+                pre_f = strip.exclusive_chunk_prefixes_plain(tot_f, d, reverse=False)
+                b, C, _ = strip.strip_filter_apply(Fs, Qs, P0, H, R, yt, pre_f)
+                tot_s = strip.strip_smoother_scan(Fs, Qs, b, C)
+                del Fs, Qs, b, C
+                for kind, tot in (("filter", tot_f), ("smoother", tot_s)):
+                    def scan(tot=tot, kind=kind):
+                        return plane.plane_scan(tot, d, kind, kind == "smoother", chained=True)
+
+                    unit = f"plane_scan chained {kind} d={d} {tot.shape[1]} chunks {dtype}"
+                    digests[unit] = hashlib.sha256(bits(scan())).hexdigest()[:16]
+                    report(unit, cuda_ms(scan, reps=10), scan)
+                del tot_f, tot_s
+                rows = plane_rows(make, t_c, y_c, dtype)
+                for kind, x in zip(plane.KINDS, rows[:2]):
+                    def scan(x=x, kind=kind):
+                        return plane.plane_scan(x, d, kind, kind == "smoother")
+
+                    report(f"plane_scan {kind} d={d} N={N_CHECK} {dtype}", cuda_ms(scan, reps=10), scan)
+                del rows
+            torch.cuda.empty_cache()
+    t_u, ys_u = series_data(C_CHAINS, T_UNIT, SEED + 36)
+    for dtype in (torch.float32, torch.float64):
+        for d in range(1, 9):
+            with torch.no_grad():
+                Fs1, Qs1, P01, H1, R1, _ = strip_inputs(strip_edge_kernel(d, dtype), t_u, ys_u[0], dtype)
+                B = C_CHAINS
+                Fs, Qs = (x[:, :, None].expand(d, d, B, T_UNIT).contiguous() for x in (Fs1, Qs1))
+                P0, H, R = P01.expand(B, d, d), H1.expand(B, 1, d), R1.expand(B, 1, 1)
+                yb = torch.as_tensor(ys_u, dtype=dtype, device=DEV)
+                f_out = batched.batched_strip_filter(Fs, Qs, P0, H, R, yb)
+                # The smoother on the plain filter's moments: the same in both trees.
+                m_p = batched.batched_strip_filter_plain(Fs, Qs, P0, H, R, yb)
+                s_out = batched.batched_strip_smoother(Fs, Qs, m_p[0].contiguous(), m_p[1].contiguous(), None, project=False)
+                for kind, out in (("filter", f_out), ("smoother", s_out)):
+                    digests[f"batched_{kind} d={d} {dtype}"] = hashlib.sha256(b"".join(bits(x) for x in out)).hexdigest()[:16]
+                del Fs, Qs, f_out, s_out, m_p
+            torch.cuda.empty_cache()
+    print(f"ab {label} digests {json.dumps(digests)}")
+
+
 def strip_apply_timers(report, label: str, what: str, planes) -> None:
     """Both strip pass-2 kernels on the given (Fs, Qs, P0, H, R, y) planes,
     through ``report`` (events around ten lone calls, device time in a
@@ -4374,6 +4587,7 @@ def main() -> int:
     phase_kernels()
     check_spectral_kernels()
     check_composite_kernels()
+    check_fisher_edges()
     check_scan_edges()
     phase_dt_digests()
     phase_batched_kernels()

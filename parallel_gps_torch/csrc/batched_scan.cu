@@ -121,6 +121,11 @@ constexpr unsigned kBatchedSmootherWalkF64 = 0x80u;
 // gives the kernel 64 registers there (255 with the calls).
 constexpr unsigned kBatchedSmootherCallsF32 = 0x0u;
 constexpr unsigned kBatchedSmootherCallsF64 = 0x40u;
+// The filter units whose combines are calls (__noinline__): inlined, with
+// the averaged combine (tile_scan.cuh: FilterOps), ptxas gives the float
+// D = 8 kernel 32 registers and 71 KB of spills (7× the time).
+constexpr unsigned kBatchedFilterCallsF32 = 0x80u;
+constexpr unsigned kBatchedFilterCallsF64 = 0x0u;
 // Steps a thread of the units that read directly (kalman/batched.py:
 // DIRECT_CHUNK) and of those that walk (WALK_CHUNK); a staged unit's chunk
 // is one 32-byte sector of a row, 8 steps in float and 4 in double.
@@ -170,6 +175,22 @@ struct BatchedSmootherOps : SmootherOps<S, D> {
     if constexpr (UnitBit<S, D, kBatchedSmootherCallsF32, kBatchedSmootherCallsF64>::kOn)
       return smooth_combine_call<S, D>(a, b);
     return smooth_combine<S, D>(a, b);
+  }
+};
+
+template <typename S, int D>
+__device__ __noinline__ Filt<S, D> filt_combine_call(const Filt<S, D>& a, const Filt<S, D>& b) {
+  return FilterOps<S, D>::combine(a, b);
+}
+
+// The filter's combines: inlined, or calls at the units of
+// kBatchedFilterCalls*.
+template <typename S, int D>
+struct BatchedFilterOps : FilterOps<S, D> {
+  __device__ static __forceinline__ Filt<S, D> combine(const Filt<S, D>& a, const Filt<S, D>& b) {
+    if constexpr (UnitBit<S, D, kBatchedFilterCallsF32, kBatchedFilterCallsF64>::kOn)
+      return filt_combine_call<S, D>(a, b);
+    return FilterOps<S, D>::combine(a, b);
   }
 };
 
@@ -396,7 +417,7 @@ __global__ void __launch_bounds__(BatchedTile<S, D, true>::kThreads)
                           long long max_polls) {
   typedef BatchedTile<S, D, true> U;
   typedef Filt<S, D> E;
-  typedef FilterOps<S, D> Ops;
+  typedef BatchedFilterOps<S, D> Ops;
   typedef ChunkStage<S, D> G;
   constexpr int NT = U::kThreads, K = U::kK;
   S* stage = reinterpret_cast<S*>(pgt_batched_smem);

@@ -168,6 +168,60 @@ __device__ __forceinline__ void mm_symout(const MA& a, const MB& bt, const MC& a
     }
 }
 
+// How a product that is symmetric in exact arithmetic is made symmetric
+// (filt_combine): kMirrored computes the upper triangle and mirrors it
+// (mm_symout, pallas_scan._mm_symout); kAveraged computes both triangles
+// and averages them, as the plain operator's _sym (kalman/timelast.py) —
+// the full product first, then the fold; kAveragedPairs the same values, a
+// pair (i, j), (j, i) at a time, which ptxas allocates differently (a
+// unit's choice: tile_scan.cuh: FilterOps).  Where an element is combined
+// with a carry that has gathered thousands of steps (the chained scans),
+// the mirrored upper triangle lets the rounding of the two triangles'
+// products drift apart from tile to tile; the average does not.
+enum SymForm { kMirrored, kAveraged, kAveragedPairs };
+
+// out = ½(X + Xᵀ), X = a · btᵀ + add.
+template <typename S, int D, SymForm Form, typename MA, typename MB, typename MC>
+__device__ __forceinline__ void mm_symavg(const MA& a, const MB& bt, const MC& add, S* out) {
+  if constexpr (Form == kAveragedPairs) {
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = i; j < D; ++j) {
+        S s = a[i * D] * bt[j * D];
+#pragma unroll
+        for (int k = 1; k < D; ++k) s += a[i * D + k] * bt[j * D + k];
+        s += add[i * D + j];
+        if (j > i) {
+          S t = a[j * D] * bt[i * D];
+#pragma unroll
+          for (int k = 1; k < D; ++k) t += a[j * D + k] * bt[i * D + k];
+          s = S(0.5) * (s + (t + add[j * D + i]));
+        }
+        out[i * D + j] = s;
+        out[j * D + i] = s;
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        S s = a[i * D] * bt[j * D];
+#pragma unroll
+        for (int k = 1; k < D; ++k) s += a[i * D + k] * bt[j * D + k];
+        out[i * D + j] = s + add[i * D + j];
+      }
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = i + 1; j < D; ++j) {
+        const S v = S(0.5) * (out[i * D + j] + out[j * D + i]);
+        out[i * D + j] = v;
+        out[j * D + i] = v;
+      }
+  }
+}
+
 // (P×Q)·(Q×R) product of row-major blocks (the Schur recursion below).
 template <typename S, int P, int Q, int R>
 __device__ __forceinline__ void mm_rect(const S* a, const S* b, S* out) {
@@ -669,7 +723,12 @@ __device__ __forceinline__ void build_filtering(const M& F, const M& Q, S y, S m
 
 // e1 ∘ e2 with e1 the earlier element.  C1 and J2 are symmetric, so
 // I + J2 C1 = (I + C1 J2)ᵀ and its inverse is Vᵀ: one inverse per combine.
-template <typename S, int D>
+// C and J are symmetric in exact arithmetic (SymForm): the sequential folds
+// of a chunk (scan_passes.cuh, batched_walk.cuh) mirror their upper
+// triangles, as the reference's fold does; the tiled and chained scans
+// (tile_scan.cuh: FilterOps) average the two triangles, as the plain
+// operator does.
+template <typename S, int D, SymForm Form = kMirrored>
 __device__ __forceinline__ Filt<S, D> filt_combine(const Filt<S, D>& e1, const Filt<S, D>& e2) {
   Filt<S, D> o;
   S M[D * D], V[D * D], U[D * D], T1[D * D], W[D * D];
@@ -687,7 +746,10 @@ __device__ __forceinline__ Filt<S, D> filt_combine(const Filt<S, D>& e1, const F
 #pragma unroll
   for (int i = 0; i < D; ++i) o.b[i] = v2[i] + e2.b[i];
   mm<S, D>(U, e1.C, T1);
-  mm_symout<S, D>(T1, e2.A, e2.C, o.C);
+  if constexpr (Form != kMirrored)
+    mm_symavg<S, D, Form>(T1, e2.A, e2.C, o.C);
+  else
+    mm_symout<S, D>(T1, e2.A, e2.C, o.C);
   // W = A1ᵀ Vᵀ: W[i][j] = Σ_k A1[k][i] V[j][k].
 #pragma unroll
   for (int i = 0; i < D; ++i)
@@ -711,7 +773,10 @@ __device__ __forceinline__ Filt<S, D> filt_combine(const Filt<S, D>& e1, const F
   for (int i = 0; i < D; ++i)
 #pragma unroll
     for (int j = 0; j < D; ++j) A1t[i * D + j] = e1.A[j * D + i];
-  mm_symout<S, D>(T1, A1t, e1.J, o.J);
+  if constexpr (Form != kMirrored)
+    mm_symavg<S, D, Form>(T1, A1t, e1.J, o.J);
+  else
+    mm_symout<S, D>(T1, A1t, e1.J, o.J);
   return o;
 }
 

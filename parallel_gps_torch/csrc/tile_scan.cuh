@@ -24,12 +24,22 @@ constexpr int kSpinOverrun = 1;
 // written as a flat array.
 // kWarpLookBack: which look-back the kind's units run (look_back_warp, else
 // look_back_thread) in plane_scan.cu, as measured on the card (its notes).
+// The filter's combine averages the two triangles of C and J (SymForm): in
+// the chained association, with the upper triangle mirrored, the float32
+// chunk prefix of the quasi-periodic model (d = 8, N = 1M) lost every digit
+// (chip_smoke.qp_prefix_precision; plane.chained_plain_scan models it on
+// the CPU).  The pairwise layout at double D = 6, where ptxas gave the
+// full-product layout 64 registers and 55 KB of spills (4× the time); the
+// full-product layout elsewhere, 14% faster at float D = 8 (PERF.md §6).
 template <typename S, int D>
 struct FilterOps {
   typedef Filt<S, D> Elem;
   static constexpr int kRows = ElementRows<D>::kFilt;
   static constexpr bool kWarpLookBack = D <= 4 || D >= 7;
-  __device__ static __forceinline__ Elem combine(const Elem& a, const Elem& b) { return filt_combine<S, D>(a, b); }
+  static constexpr SymForm kForm = (sizeof(S) == 8 && D == 6) ? kAveragedPairs : kAveraged;
+  __device__ static __forceinline__ Elem combine(const Elem& a, const Elem& b) {
+    return filt_combine<S, D, kForm>(a, b);
+  }
 };
 
 template <typename S, int D>

@@ -545,23 +545,6 @@ def _dt_fisher_launch(family, coeffs, P0, H, R, dts, y, b_bt, C_bt, g_bt, L_bt):
 # --------------------------------------------------------------------------
 
 
-def chunk_prefixes(family, totals: Tensor, d: int, reverse: bool) -> Tensor:
-    """The exclusive chunk prefixes between a filter's or a smoother's two
-    passes (``strip.exclusive_chunk_prefixes``, one plane scan).  The
-    composite family's float32 filter totals are scanned in float64 and
-    rounded back: its states reach d = 8 with lengthscales long against the
-    step, and on the quasi-periodic model at N = 1M the float32 filter
-    prefix — aggregates of thousands of steps combined through the inverse
-    of I + C·J, chained a tile at a time — lost every digit, where the
-    float64 prefix of the same totals keeps the float32 passes' accuracy;
-    the smoother's combine has no inverse, and its float32 prefix stays
-    within the plain one's accuracy (chip_smoke.qp_prefix_precision;
-    PERF.md §6)."""
-    if family == COMPOSITE and totals.dtype == torch.float32 and not reverse:
-        return exclusive_chunk_prefixes(totals.double(), d, reverse).float()
-    return exclusive_chunk_prefixes(totals, d, reverse)
-
-
 def strip_filter_dt(family: str, coeffs: Tensor, P0: Tensor, H: Tensor, R: Tensor, dts: Tensor, observations: Tensor):
     """dt-engine filter; returns (b_tl (d, T), C_tl (d, d, T), ell).
     ``dts``: the (T,) gaps between observation times (t0-prepended diff).
@@ -574,7 +557,7 @@ def strip_filter_dt(family: str, coeffs: Tensor, P0: Tensor, H: Tensor, R: Tenso
     y = observations.reshape(-1).contiguous()
     R = R.reshape(1, 1)
     totals = dt_filter_scan(family, coeffs, P0, H, R, dts, y)
-    prefix = chunk_prefixes(family, totals, P0.shape[0], reverse=False)
+    prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=False)
     return dt_filter_apply(family, coeffs, P0, H, R, dts, y, prefix)
 
 
@@ -591,7 +574,7 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
     # The kernels take contiguous planes; the plain filter returns views.
     b_tl, C_tl = b_tl.contiguous(), C_tl.contiguous()
     totals = dt_smoother_scan(family, coeffs, P0, dts, b_tl, C_tl)
-    prefix = chunk_prefixes(family, totals, P0.shape[0], reverse=True)
+    prefix = exclusive_chunk_prefixes(totals, P0.shape[0], reverse=True)
     return dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix)
 
 

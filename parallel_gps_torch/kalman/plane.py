@@ -24,12 +24,14 @@ Each wrapper dispatches on the device of its tensor:
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 from torch import Tensor
 
 from parallel_gps_torch.kalman.strip import _pack, _unpack_filt, _unpack_smooth, filt_rows, smooth_rows
 from parallel_gps_torch.kalman.timelast import (
+    _sym,
     filtering_identity_tl,
     filtering_operator_tl,
     kogge_stone_scan_tl,
@@ -80,6 +82,44 @@ def plane_scan_plain(planes: Tensor, d: int, kind: str, reverse: bool = False) -
         elems, op, ident = _unpack_smooth(planes, d), smoothing_operator_tl, smoothing_identity_tl
     scanned = kogge_stone_scan_tl(op, elems, ident(d, planes.dtype, planes.device), reverse)
     return _pack(scanned, planes.shape[-1])
+
+
+def mirror_upper(a: Tensor) -> Tensor:
+    """(d, d, ...) → its upper triangle mirrored into the lower, as the
+    kernels' ``mm_symout`` makes a product symmetric."""
+    d = a.shape[0]
+    upper = torch.ones(d, d, dtype=torch.bool, device=a.device).triu().reshape((d, d) + (1,) * (a.dim() - 2))
+    return torch.where(upper, a, a.transpose(0, 1))
+
+
+# The ways a filter combine makes its C and J symmetric: the kernels' tiled
+# and chained scans average the two triangles, as the plain operator does;
+# their sequential folds of a chunk mirror the upper triangle, as the
+# reference's fold does (csrc/dt_elements.cuh: filt_combine).
+SYM_FORMS = {"averaged": _sym, "mirrored": mirror_upper}
+
+
+def chained_plain_scan(planes: Tensor, d: int, tile: int, form: str = "averaged") -> Tensor:
+    """Inclusive forward scan of packed (n, T) filter rows in the chained
+    kernel's association (``plane_scan(..., chained=True)`` at one step a
+    thread, as at d = 8 float32): Kogge–Stone inside each tile of ``tile``
+    elements, then each element of a tile combined with the inclusive
+    total of the tile before it; every combine makes C and J symmetric by
+    ``form`` (``SYM_FORMS``).  ``tile`` = 1 is the sequential fold, the
+    reference's association (pallas_scan.py:907-935)."""
+    op = functools.partial(filtering_operator_tl, sym=SYM_FORMS[form])
+    out = planes.clone()
+    for t0 in range(0, planes.shape[1], tile):
+        loc = out[:, t0 : t0 + tile]
+        width = loc.shape[1]
+        s = 1
+        while s < width:  # block_scan: element i takes i − s, none before the tile
+            loc[:, s:] = _pack(op(_unpack_filt(loc[:, :-s].clone(), d), _unpack_filt(loc[:, s:].clone(), d)), width - s)
+            s <<= 1
+        if t0:
+            carry = out[:, t0 - 1 : t0].expand(-1, width).contiguous()
+            loc[:] = _pack(op(_unpack_filt(carry, d), _unpack_filt(loc.clone(), d)), width)
+    return out
 
 
 def plane_transpose_plain(x: Tensor) -> Tensor:

@@ -199,8 +199,10 @@ def _filtering_elements_from_planes(
     return FilteringElementTL(A, b, C, J, eta)
 
 
-def filtering_operator_tl(e1: FilteringElementTL, e2: FilteringElementTL) -> FilteringElementTL:
-    """Associative filtering combine, elementwise over the trailing axes."""
+def filtering_operator_tl(e1: FilteringElementTL, e2: FilteringElementTL, sym=_sym) -> FilteringElementTL:
+    """Associative filtering combine, elementwise over the trailing axes.
+    ``sym`` makes C and J symmetric: the two triangles averaged, or another
+    form (``plane.chained_plain_scan`` models the kernels' forms)."""
     A1, b1, C1, J1, eta1 = e1
     A2, b2, C2, J2, eta2 = e2
     eye = _eye_like(A1.shape[0], A1)
@@ -213,7 +215,7 @@ def filtering_operator_tl(e1: FilteringElementTL, e2: FilteringElementTL) -> Fil
     W = _mm(_mt(A1), _mt(V))
     eta = _mv(W, eta2 - _mv(J2, b1)) + eta1
     J = _mm(_mm(W, J2), A1) + J1
-    return FilteringElementTL(A, b, _sym(C), _sym(J), eta)
+    return FilteringElementTL(A, b, sym(C), sym(J), eta)
 
 
 def filtering_identity_tl(d: int, dtype, device=None) -> FilteringElementTL:
