@@ -28,7 +28,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      Fisher tail) against its plain version at T = 65,537, and its staged
      pass 2 at its ragged lengths; every composite dt unit (Periodic, Sum
      and Product, d = 2..8, COMPOSITE_CASES) the same way, two launches bit
-     for bit (check_composite_kernels); the filter's and the smoother's pass 1
+     for bit (check_composite_kernels); every dt_fisher unit at its edge
+     lengths, and the spectral and composite units with a batch of 3, 1 and
+     133 series (check_fisher_edges); the filter's and the smoother's pass 1
      alone, every strip and dt unit, float64 and float32, at the lengths
      where their stages have ragged edges (check_scan_edges); and the
      exponential polynomial's dt
@@ -86,7 +88,20 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      with exactly the launches that takes and no plain prefix, HMC, MALA, NUTS
      and the dual-averaging warm-up through the normal entry points, each
      chain against the single-series engine — with times, the same LMLs as a
-     loop of single-series calls, and a profile;
+     loop of single-series calls, and a profile; then RBF(order=6) and the
+     quasi-periodic model (QP_SPEC) with 64 chains each over T = 65,536
+     float32 observations (phase_batched_models): one batched log posterior
+     and gradient with exactly one launch each of the batched filter, the
+     batched smoother and the family's Fisher tail, twice bit for bit, an
+     HMC step, a batched predict_f of 1,000 unsorted queries, each chain
+     against the single-series model (float64 at T = 4,097, float32 against
+     float64 truth), times, peak memory, a profile and the three kernels at
+     the path's shapes against plain version and bound; then the experiment
+     CLIs on the card (phase_experiments, EXPERIMENT_RUNS): the sunspot MAP
+     study at its defaults in float64 (its loss falling at n = 1200, 2200,
+     3200, predictions on 30× grids), the sunspot MCMC study at n = 3000, the
+     toy speed sweep of pssgp and gp (equal RMSEs) and the toy MCMC study,
+     cut in depth, each on the exponential polynomial's dt units;
  10. the probe programs (parallel_gps_torch/probes, kernels in
      csrc/probes.cu): each probe kernel against its plain version at
      T = 65,537 in float32 and float64, bit for bit; then the three command
@@ -617,6 +632,7 @@ def kernel_bound(
         bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
         ops_ms = 1e3 * every * T / peak_flops
         return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    family = next((f for f in (SPECTRAL, COMPOSITE) if name.endswith(f"_{f}")), EXPPOLY)
     if B > 1 or name in BATCHED_KERNELS:
         steps = B * T
         y_values = (B if y_series is None else y_series) * T
@@ -624,15 +640,14 @@ def kernel_bound(
             "batched_filter": (3 * d * d + d) * steps + y_values,
             "batched_smoother": (4 * d * d + 2 * d) * steps,  # without the projection's two planes
             "dt_fisher": T + y_values + 2 * (d + d * d) * steps + 2 * steps,
-        }[name]
-        every, observed = flops_per_step(d, degree)[name]
+        }[name.removesuffix(f"_{family}")]
+        every, observed = flops_per_step(d, degree, family, plan)[name]
         bytes_ms = 1e3 * values * itemsize / PEAK_BYTES_PER_S
         ops_ms = 1e3 * (every * steps + observed * n_obs) / peak_flops
         return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     nc = dt.n_chunks(T)
     mom = (d + d * d) * T
     planes = 2 * d * d * T
-    family = next((f for f in (SPECTRAL, COMPOSITE) if name.endswith(f"_{f}")), EXPPOLY)
     name = name.removesuffix(f"_{family}")
     values = {
         "dt_filter_scan": 2 * T + dt.filt_rows(d) * nc,
@@ -957,10 +972,17 @@ def check_fisher_edges() -> None:
     spectral family d = 1..8, the composite family d = 2..8 and the bare
     Periodic — float64 at the lengths FISHER_EDGE_T (the exponential
     polynomial, whose body is not lane-split, at the largest) and float32
-    at the largest, and the batched units d = 1..3 with B = 3 at the
-    largest: each against dt_fisher_plain on the plain passes' moments
-    (float64 by fisher_close, float32 against float64 truth by the 10× rule
-    or f32_sum_floor), two launches bit for bit."""
+    at the largest, and every unit with a batch axis at the largest, with
+    B = FISHER_EDGE_B (the lane-split body among them), each series its own
+    hyperparameters, noise and observations (``batched_unit_inputs``): each
+    against dt_fisher_plain on the plain passes' moments (the batched
+    kernels' for a batch), float64 by fisher_close, float32 against float64
+    truth by the 10× rule or f32_sum_floor, two launches bit for bit.  The
+    batched spectral units at d ≥ 6 hold d_coeffs and d_P0, the cotangents
+    of RBF(≥ 6)'s hyperparameters, in float64 only: in float32 they carry
+    the conditioning of ROADMAP C4 in every engine, the kernel and its plain
+    version each 1e-5..2e-3 from float64 truth, and which of the two is
+    closer changes from series to series."""
     units = fisher_units() + [(COMPOSITE, 6, BARE_PERIODIC)]
     n_checked = 0
     for family, d, make in units:
@@ -993,19 +1015,77 @@ def check_fisher_edges() -> None:
             if T == FISHER_EDGE_T[-1]:
                 print(f"dt_fisher {family} d={d} T={T}: |kernel - plain| / max, f64 {outs[torch.float64]:.2e}, "
                       f"f32 {outs[torch.float32]:.2e}; two launches bit for bit")
-    for d in FISHER_EXP:
-        for dtype in (torch.float64, torch.float32):
-            args = batched_fisher_inputs(d, dtype, B=3, T=FISHER_EDGE_T[-1])
-            with torch.no_grad():
-                f_k, again, f_p = dt.dt_fisher(*args), dt.dt_fisher(*args), dt.dt_fisher_plain(*args)
-                torch.cuda.synchronize()
-            what = f"dt_fisher batched d={d} B=3 T={FISHER_EDGE_T[-1]} {dtype}"
-            check(all(bits(a) == bits(b_) for a, b_ in zip(f_k, again)), f"{what}: two launches differ")
-            if dtype == torch.float64:
-                for n, a, b_ in zip(FISHER_OUTPUTS, f_k, f_p):
-                    check(fisher_close(a, b_), f"{what} {n}: |kernel - plain| {max_abs(a, b_):.3e}")
-            n_checked += 1
+    T = FISHER_EDGE_T[-1]
+    failed = []
+    for family, d, make in units:
+        worst = {torch.float64: 0.0, torch.float32: 0.0}
+        for B in FISHER_EDGE_B:
+            for dtype in (torch.float64, torch.float32):
+                args = batched_unit_inputs(make, dtype, B, T, SEED + 60 + d)
+                with torch.no_grad():
+                    f_k, again, f_p = dt.dt_fisher(*args), dt.dt_fisher(*args), dt.dt_fisher_plain(*args)
+                    f_t = dt.dt_fisher_plain(*(x.double() if isinstance(x, torch.Tensor) else x for x in args))
+                    torch.cuda.synchronize()
+                what = f"dt_fisher {family} d={d} B={B} T={T} {dtype}"
+                check(all(f.shape[0] == B for f in f_k), f"{what}: outputs without the batch axis")
+                check(all(bits(a) == bits(b_) for a, b_ in zip(f_k, again)), f"{what}: two launches differ")
+                if dtype == torch.float64:
+                    for n, a, b_ in zip(FISHER_OUTPUTS, f_k, f_p):
+                        check(fisher_close(a, b_), f"{what} {n}: |kernel - plain| {max_abs(a, b_):.3e}")
+                else:
+                    errs = [(n, rel_err(a, c), rel_err(b_, c)) for n, a, b_, c in zip(FISHER_OUTPUTS, f_k, f_p, f_t)]
+                    print(f"{what} vs f64 truth (kernel / plain f32): " + " ".join(f"{n} {a:.2e}/{b_:.2e}" for n, a, b_ in errs))
+                    for n, rk, rp in errs:
+                        floor = f32_sum_floor(T) if n in FISHER_OUTPUTS[:4] else F32_FLOOR
+                        if family == SPECTRAL and d >= 6 and n in ("d_coeffs", "d_P0"):
+                            continue  # RBF(≥ 6)'s gradients in float32 (ROADMAP C4): held in float64 above
+                        if rk > max(F32_FACTOR * rp, floor):
+                            failed.append(f"{what} {n}: kernel {rk:.3e} vs plain {rp:.3e} from f64")
+                worst[dtype] = max(worst[dtype], *(max_abs(a, b_) / max(float(b_.abs().max()), 1e-300) for a, b_ in zip(f_k, f_p)))
+                n_checked += 1
+                del args, f_k, again, f_p, f_t
+        print(f"dt_fisher {family} d={d} batched B={'/'.join(map(str, FISHER_EDGE_B))} T={T}: |kernel - plain| / max, "
+              f"f64 {worst[torch.float64]:.2e}, f32 {worst[torch.float32]:.2e}; two launches bit for bit")
+    torch.cuda.empty_cache()
+    check(not failed, "batched Fisher units in float32, against float64 truth:\n  " + "\n  ".join(failed))
     print(f"dt_fisher units at their edges: {n_checked} cases against dt_fisher_plain, two launches bit for bit")
+
+
+# The batches of the Fisher units' edge check: a few series, the B = 1 call
+# of the batched layout, and more series than the grid's budget gives every
+# block of a series (FISHER_MAX_BLOCKS // B < ⌈T / THREADS⌉ at T = 5,003).
+FISHER_EDGE_B = (3, 1, 133)
+
+
+def batched_unit_kernel(make, dtype, B: int, seed: int):
+    """The unit's kernel (``make(dtype)``) with every hyperparameter of shape
+    (B,): each series' unconstrained values the unit's plus 0.1·N(0, 1)."""
+    k = make(dtype)
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in list(k.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        jitter = 0.1 * torch.randn(B, generator=gen, dtype=torch.float64)
+        setattr(k.get_submodule(owner), leaf, torch.nn.Parameter(p.detach() + jitter.to(dtype=dtype, device=DEV)))
+    return k
+
+
+def batched_unit_inputs(make, dtype, B: int, T: int, seed: int):
+    """dt_fisher's arguments for B series of the unit's kernel
+    (``batched_unit_kernel``), each with its own noise variance and its own
+    observations over shared times; the moments from the batched kernels."""
+    t, ys = series_data(B, T, seed)
+    noise = NOISE * np.exp(0.1 * np.random.RandomState(seed + 1).randn(B))
+    with torch.no_grad():
+        k = batched_unit_kernel(make, dtype, B, seed + 2)
+        fam, co = k.transition_coeffs()
+        co, P0, H, R, _ = dt.series_inputs(co, k.get_sde(), torch.as_tensor(noise, dtype=dtype, device=DEV))
+        co, P0, H, R = (x.contiguous() for x in (co, P0, H, R))
+        dts = dt._dts_from_ts(torch.as_tensor(t, dtype=dtype, device=DEV))
+        yb = torch.as_tensor(ys, dtype=dtype, device=DEV)
+        (b, C, _), (Fs, Qs) = dt._batched_filter_dt(fam, co, P0, H, R, dts, yb)
+        b, C = b.contiguous(), C.contiguous()
+        g, L = batched.batched_strip_smoother(Fs, Qs, b, C, None, project=False)
+    return fam, co, P0, H, R, dts, yb, b, C, g.contiguous(), L.contiguous()
 
 
 def check_spectral_apply_edges() -> None:
@@ -1544,10 +1624,9 @@ def batched_matern_inputs(kcls, B: int, t, dtype):
 
 
 def batched_rbf_inputs(B: int, t, dtype, order: int = 6):
-    """The same for RBF(order) models, whose planes are built one model at a
-    time (the RBF build takes scalar hyperparameters) and stacked.
-    Lengthscales from 0.05 down: above it the d = 8 model is too
-    ill-conditioned for either float32 version (``STRIP_CASES``)."""
+    """The same for RBF(order) models, their planes built one model at a
+    time and stacked.  Lengthscales from 0.05 down: above it the d = 8 model
+    is too ill-conditioned for either float32 version (``STRIP_CASES``)."""
     var, _, noise = series_hypers(B)
     ts = torch.as_tensor(t, dtype=dtype, device=DEV)
     with torch.no_grad():
@@ -1850,7 +1929,7 @@ def phase_batched_kernels() -> None:
 C_CHAINS = 64
 T_CHAIN_CHECK = 16_384
 N_HMC, N_MALA, N_NUTS, N_WARMUP = 4, 4, 2, 10
-CHAIN_PRIORS = {k: (lambda u: -0.5 * u * u) for k in ("kernel.variance", "kernel.lengthscales", "noise_variance")}
+CHAIN_PRIORS = {k: (lambda u: -0.5 * u * u) for k in ("variance", "lengthscales", "period", "noise_variance")}
 TWO_PASS_KERNELS = tuple(k for k in DT_KERNELS + STRIP_KERNELS if k.endswith(("_scan", "_apply")))
 # One batched log posterior with its gradient: one launch each of the
 # batched filter, the batched smoother and the Fisher tail, and nothing else.
@@ -1908,15 +1987,13 @@ def chain_model(t, y, hypers, dtype):
 
 
 def chains_value_and_grad(model):
-    """One log posterior and its gradient: values (C,), gradients (C, 3) in
-    (variance, lengthscale, noise) order; a scalar and (3,) for a scalar
-    model."""
+    """One log posterior (CHAIN_PRIORS) and its gradient: values (C,),
+    gradients (C, n) in the order of the parameters (a Matérn model's:
+    variance, lengthscale, noise); a scalar and (n,) for a scalar model."""
     log_post, u0 = make_log_posterior(model, CHAIN_PRIORS)
     u = {k: v.clone().requires_grad_() for k, v in u0.items()}
     lp = log_post(u)
-    names = ["kernel.raw_variance", "kernel.raw_lengthscales", "raw_noise_variance"]
-    grads = torch.autograd.grad(lp.sum(), [u[n] for n in names])
-    return lp.detach(), torch.stack(grads, -1)
+    return lp.detach(), torch.stack(torch.autograd.grad(lp.sum(), list(u.values())), -1)
 
 
 def phase_batched_slice():
@@ -2072,22 +2149,27 @@ def hmc_step_s(model, n_steps: int = 3) -> float:
     return (time.perf_counter() - t0) / n_steps
 
 
-def phase_batched_times(card: str, model, counts) -> list:
-    """The two batched kernels and the batched Fisher tail against bound and
-    plain version at d = 3, B = 64, T = 65,536 in float32; the batched entry
-    points; the same LMLs as a loop of single-series calls; an HMC step; a
-    profile of one batched value and gradient."""
+def batched_pass_records(card: str, model, counts: dict) -> tuple:
+    """The batched filter, the batched smoother and the batched Fisher tail on
+    a chains model's own inputs (C_CHAINS chains over one series of
+    T_BATCHED float32 steps on the dt engine): each against its plain
+    version and float64 truth by the 10× rule, its CUDA-event time beside
+    the plain version's, and its bound from this run's inputs.  Returns the
+    rows ({"name", "at", "launches", measured}; the Fisher tail's under the
+    family's kernel name) and (family, coeffs, P0, dts)."""
     records = []
     t = model.ts
-    R = model.noise_variance.detach()
     with torch.no_grad():
         fam, co = model.kernel.transition_coeffs()
-        co, P0, H, R, _ = dt.series_inputs(co, model.kernel.get_sde(), R)
+        co, P0, H, R, _ = dt.series_inputs(co, model.kernel.get_sde(), model.noise_variance.detach())
         co, P0, H, R = (x.contiguous() for x in (co, P0, H, R))
         dts = dt._dts_from_ts(t)
         Fs, Qs, P0s = dt.build_planes_tl(fam, co, P0, dts)
         ys = batched.series_observations(model.ys, (C_CHAINS, T_BATCHED))
-        d, degree = P0.shape[-1], (co.shape[1] - 1) // (P0.shape[-1] ** 2)
+        d = P0.shape[-1]
+        degree = (co.shape[1] - 1) // (d * d) if fam == EXPPOLY else 0
+        plan = fam.plan if fam == COMPOSITE else None
+        fisher = "dt_fisher" if fam == EXPPOLY else f"dt_fisher_{fam}"
         n_obs = C_CHAINS * int((~torch.isnan(model.ys)).sum())
         b, C, _ = batched.batched_strip_filter(Fs, Qs, P0s, H, R, ys)
         g, L = batched.batched_strip_smoother(Fs, Qs, b, C, None, project=False)
@@ -2096,43 +2178,59 @@ def phase_batched_times(card: str, model, counts) -> list:
         passes = {
             "batched_filter": (batched.batched_strip_filter, batched.batched_strip_filter_plain, (Fs, Qs, P0s, H, R, ys)),
             "batched_smoother": (smoother, smoother_plain, (Fs, Qs, b, C)),
-            "dt_fisher": (dt.dt_fisher, dt.dt_fisher_plain, (fam, co, P0, H, R, dts, model.ys, b, C, g, L)),
+            fisher: (dt.dt_fisher, dt.dt_fisher_plain, (fam, co, P0, H, R, dts, model.ys, b, C, g, L)),
         }
         what = f"d={d} B={C_CHAINS} T={T_BATCHED}"
         for name, (kern, plain, args) in passes.items():
-            as64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
-            out_k, out_p, out_t = list(kern(*args)), list(plain(*args)), list(plain(*as64))
+            out_k, out_p = list(kern(*args)), list(plain(*args))
             torch.cuda.synchronize()
             err = max(max_abs(a, b_) for a, b_ in zip(out_k, out_p))
+            out_t = list(plain(*(a.double() if isinstance(a, torch.Tensor) else a for a in args)))
             rks = [rel_err(a, c) for a, c in zip(out_k, out_t)]
             rps = [rel_err(a, c) for a, c in zip(out_p, out_t)]
-            del out_k, out_p, out_t, as64
+            del out_k, out_p, out_t
             torch.cuda.empty_cache()
             ms = cuda_ms(lambda: kern(*args), reps=10)
             plain_ms = cuda_ms(lambda: plain(*args), reps=3)
             torch.cuda.empty_cache()
             # The chains share one observation vector: ``ys`` is a stride-0 view.
-            bound_ms, bound_by = kernel_bound(name, d, degree, T_BATCHED, n_obs, 4, B=C_CHAINS, y_series=1 if ys.stride(0) == 0 else C_CHAINS)
+            bound_ms, bound_by = kernel_bound(
+                name, d, degree, T_BATCHED, n_obs, 4, B=C_CHAINS, y_series=1 if ys.stride(0) == 0 else C_CHAINS, plan=plan,
+            )
             print(
                 f"{name} {what} f32 [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
                 f"({bound_by}); |kernel - plain| {err:.3e}; vs f64 truth kernel {max(rks):.2e} plain {max(rps):.2e}"
             )
-            floors = [f32_sum_floor(T_BATCHED)] * 4 + [F32_FLOOR] * 2 if name == "dt_fisher" else [F32_FLOOR] * len(rks)
+            floors = [f32_sum_floor(T_BATCHED)] * 4 + [F32_FLOOR] * 2 if name == fisher else [F32_FLOOR] * len(rks)
             for a, b_, floor in zip(rks, rps, floors):
                 check(a <= max(F32_FACTOR * b_, floor), f"{name} {what}: f32 kernel {rks} vs plain {rps}")
-            measured = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-            if name == "dt_fisher":
-                records.append({"at": f"{what} f32", "launches": counts[name], **measured})
-            else:
-                # No single PyTorch call computes either function.
-                records.append({
-                    "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-                    "launches": counts[name], "at": f"{what} f32", **measured,
-                })
-        planes_ms = cuda_ms(lambda: dt.build_planes_tl(fam, co, P0, dts), reps=5)
-        sde_ms = cuda_ms(lambda: (model.kernel.transition_coeffs(), model.kernel.get_sde()), reps=5)
+            records.append({
+                "name": name, "at": f"{what} f32", "launches": counts[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            })
         del passes, args, Fs, Qs, b, C, g, L
         torch.cuda.empty_cache()
+    return records, (fam, co, P0, dts)
+
+
+def phase_batched_times(card: str, model, counts) -> list:
+    """The two batched kernels and the batched Fisher tail against bound and
+    plain version at d = 3, B = 64, T = 65,536 in float32; the batched entry
+    points; the same LMLs as a loop of single-series calls; an HMC step; a
+    profile of one batched value and gradient."""
+    rows, (fam, co, P0, dts) = batched_pass_records(card, model, counts)
+    records = []
+    for row in rows:
+        if row["name"] == "dt_fisher":
+            records.append({k: v for k, v in row.items() if k != "name"})
+        else:
+            # No single PyTorch call computes either function.
+            records.append({"name": row["name"], "route": "cuda", "source": SOURCES[row["name"]], "replaces": REPLACES[row["name"]], **row})
+    t = model.ts
+    what = f"d={P0.shape[-1]} B={C_CHAINS} T={T_BATCHED}"
+    with torch.no_grad():
+        planes_ms = cuda_ms(lambda: dt.build_planes_tl(fam, co, P0, dts), reps=5)
+        sde_ms = cuda_ms(lambda: (model.kernel.transition_coeffs(), model.kernel.get_sde()), reps=5)
 
         torch.cuda.reset_peak_memory_stats()
         lml_ms = cuda_ms(model.log_marginal_likelihood, reps=5)
@@ -2158,6 +2256,309 @@ def phase_batched_times(card: str, model, counts) -> list:
     print(f"HMC step (10 leapfrog steps, {C_CHAINS} chains, T={T_BATCHED}) f32 [{card}]: {hmc_s:.4f} s a step (host clock, {n_steps} steps, one initial evaluation included)")
     profile_calls(card, f"Matern52 C={C_CHAINS} T={T_BATCHED}", {"batched log posterior + gradient": lambda: chains_value_and_grad(model)})
     return records
+
+
+# The batched slice's spectral and composite models: RBF(order=6, 0.8, 0.05)
+# and the quasi-periodic model QP_SPEC, noise 0.1, with C_CHAINS chains over
+# one series of T_BATCHED float32 steps, each chain's hyperparameters the
+# model's × exp(0.1·N(0, 1)) (chain_hypers' protocol).  Each chain is held
+# against the single-series dt engine in float64 at T_CHAIN_F64 and in
+# float32 at full length against float64 truth by the 10× rule.
+T_CHAIN_F64 = 4_097
+N_CHAIN_QUERIES = 1_000
+F32_CHAINS = (0, C_CHAINS // 2, C_CHAINS - 1)
+BATCHED_PREDICT_LAUNCHES = {**dict.fromkeys(BATCHED_STEP_LAUNCHES, 0), "batched_filter": 1, "batched_smoother": 1}
+
+
+def rbf6_chains(h):
+    """(kernel spec, noise variance) of RBF(order=6) chains, ``h`` the
+    jitter factors (3, C) or one chain's (3,)."""
+    return ("RBF", {"variance": 0.8 * h[0], "lengthscales": 0.05 * h[1], "order": 6}), NOISE * h[2]
+
+
+def qp_chains(h):
+    """The same for the quasi-periodic model, ``h`` (6, C) or (6,)."""
+    (_, periodic), (_, matern) = QP_SPEC[1]
+    return ("Product", [
+        ("Periodic", {**periodic, "variance": periodic["variance"] * h[0], "lengthscales": periodic["lengthscales"] * h[1],
+                      "period": periodic["period"] * h[2]}),
+        ("Matern32", {"variance": matern["variance"] * h[3], "lengthscales": matern["lengthscales"] * h[4]}),
+    ]), NOISE * h[5]
+
+
+# name: (transition family, jitter rows, chains' spec); RBF(6)'s float32
+# gradient carries 10-100% error in every engine (ROADMAP C4), so only its
+# value is held in float32 and its gradient in float64.
+BATCHED_MODELS = {"RBF(order=6)": (SPECTRAL, 3, rbf6_chains, False), "QP": (COMPOSITE, 6, qp_chains, True)}
+
+
+def chains_of(make, h, t, y, dtype, chain=None):
+    """The model of every chain of ``h`` or, with ``chain``, of that one alone."""
+    spec, noise = make(h if chain is None else h[:, chain])
+    return StateSpaceGP.from_numpy(t, y, spec, noise_variance=noise, dtype=dtype, device=DEV)
+
+
+@torch.no_grad()
+def plain_batched_predict(model, Xnew, chains):
+    """``predict_f`` of the chains ``chains`` of a batched dt-engine model,
+    the merged series filtered and smoothed by the batched kernels' plain
+    versions on the model's device: (len(chains), M, 1) each."""
+    X = torch.as_tensor(np.asarray(Xnew), dtype=model.ts.dtype, device=model.ts.device)
+    order = torch.argsort(X)
+    nan = torch.full((X.shape[0],), float("nan"), dtype=model.ys.dtype, device=model.ys.device)
+    all_ts, (all_ys,), q_idx = merge_sorted(model.ts, X[order], (model.ys,), (nan,))
+    fam, co, sde, dts = dt._model_inputs(model.kernel, all_ts)
+    co, P0, H, R, _ = dt.series_inputs(co, sde, model.noise_variance)
+    idx = torch.as_tensor(chains, device=co.device)
+    Fs, Qs, P0s = dt.build_planes_tl(fam, co[idx], P0[idx], dts)
+    ys = batched.series_observations(all_ys, Fs.shape[2:])
+    b, C, _ = batched.batched_strip_filter_plain(Fs, Qs, P0s, H[idx], R[idx], ys)
+    mean, var = batched.batched_strip_smoother_plain(Fs, Qs, b, C, H[idx], project=True)[2:]
+    back = torch.argsort(order)
+    return mean[:, q_idx][:, back, None], var[:, q_idx][:, back, None]
+
+
+def phase_batched_models(card: str) -> tuple:
+    """The batched RBF(order=6) and quasi-periodic models at full width
+    (BATCHED_MODELS): for each, one batched log posterior and gradient with
+    exactly one launch each of batched_filter, batched_smoother and the
+    family's dt_fisher and no plain prefix, twice bit for bit; an HMC step
+    through sample_chains; a batched predict_f of N_CHAIN_QUERIES unsorted
+    queries (one launch of each batched kernel); each chain against the
+    single-series model in float64 at T_CHAIN_F64 (LML rtol 1e-9, gradient
+    1e-7, predictions 1e-8) and, a few chains, in float32 at full length
+    against float64 truth by the 10× rule: the value and gradient within 10×
+    of the single-series engine's distance, the predictions within 10× of
+    the larger of the single-series engine's and the batched kernels' plain
+    versions' (in float32 the quasi-periodic model's smoothed variances from
+    the batched association sit further from truth than the two-pass dt
+    engine's, in the kernels and their plain versions alike); times and peak memory; the three kernels on the
+    path's inputs against plain version and bound (``batched_pass_records``).
+    Returns the kernels' rows and the launches of the path by model."""
+    records, launches = [], {}
+    t, y = make_data(T_BATCHED, SEED + 70)
+    t64, y64 = make_data(T_CHAIN_F64, SEED + 71)
+    queries = np.random.RandomState(SEED + 72).rand(N_CHAIN_QUERIES) * 1.4 - 0.2  # unsorted, some outside [0, 1)
+    for what, (family, n_h, make, f32_grad) in BATCHED_MODELS.items():
+        tag = f"batched {what} C={C_CHAINS} T={T_BATCHED} f32"
+        h = torch.exp(0.1 * torch.randn((n_h, C_CHAINS), generator=torch.Generator().manual_seed(SEED + 73), dtype=torch.float64)).numpy()
+        model = chains_of(make, h, t, y, torch.float32)
+        engine, (fam, co) = model.engine()
+        check(engine == "dt" and fam == family and co.shape[0] == C_CHAINS, f"{tag}: engine {engine}, family {fam}")
+        fisher = f"dt_fisher_{family}"
+        step_want = {**BATCHED_STEP_LAUNCHES, "dt_fisher": 0, fisher: 1}
+
+        torch.cuda.synchronize()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        lp, grad = chains_value_and_grad(model)
+        torch.cuda.synchronize()
+        step_counts, step_peak = all_launches(), torch.cuda.max_memory_allocated() / 2**30
+        print(f"{tag}: log posterior min {float(lp.min()):.4f} max {float(lp.max()):.4f}; launches of one value and gradient "
+              f"{ {k: v for k, v in step_counts.items() if v} }, plain prefixes {PREFIX_CALLS[0]}; peak {step_peak:.2f} GiB")
+        check(lp.shape == (C_CHAINS,) and grad.shape == (C_CHAINS, len(list(model.parameters()))), f"{tag}: shapes")
+        check(bool(torch.isfinite(lp).all()) and bool(torch.isfinite(grad).all()), f"{tag}: log posterior or gradient not finite")
+        check(step_counts == step_want, f"{tag}: one value and gradient launched {step_counts}")
+        check(PREFIX_CALLS[0] == 0, f"{tag}: {PREFIX_CALLS[0]} plain prefixes")
+        lp2, grad2 = chains_value_and_grad(model)
+        check(torch.equal(lp, lp2) and torch.equal(grad, grad2), f"{tag}: two evaluations differ")
+        del lp2, grad2
+
+        # One HMC step of 10 leapfrog steps through the samplers' entry points.
+        log_post, u0 = make_log_posterior(model, CHAIN_PRIORS)
+        flat0, unravel = ravel_positions(u0)
+        log_post_flat = lambda x: log_post(unravel(x))  # noqa: E731
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 74)
+        eps = 0.5 * find_reasonable_step_size(log_post_flat, flat0, gen)
+        hmc = make_kernel("hmc", log_post_flat, eps, num_leapfrog_steps=10)
+        reset_all_launches()
+        samples, accept = sample_chains(hmc, u0, log_post, gen, 1)
+        torch.cuda.synchronize()
+        hmc_counts = all_launches()
+        t0 = time.perf_counter()
+        sample_chains(hmc, u0, log_post, gen, 2)
+        torch.cuda.synchronize()
+        hmc_s = (time.perf_counter() - t0) / 2
+        check(all(bool(torch.isfinite(v).all()) for v in samples.values()), f"{tag}: HMC samples not finite")
+        check(float(accept.min()) >= 0.0 and float(accept.max()) <= 1.0, f"{tag}: HMC acceptance outside [0, 1]")
+        check(hmc_counts[fisher] >= 10 and hmc_counts["batched_smoother"] == hmc_counts[fisher]
+              and not any(hmc_counts[k] for k in TWO_PASS_KERNELS + PLANE_KERNELS) and PREFIX_CALLS[0] == 0,
+              f"{tag}: the HMC step left the batched path: {hmc_counts}")
+        print(f"  HMC step (10 leapfrog steps, step size median {float(eps.median()):.4g}): acceptance {float(accept.mean()):.3f}, "
+              f"{hmc_s:.4f} s a step (host clock); launches of the first step { {k: v for k, v in hmc_counts.items() if v} }")
+
+        # A batched predict_f: one launch of each batched kernel.
+        reset_all_launches()
+        mean, var = model.predict_f(queries)
+        torch.cuda.synchronize()
+        pred_counts = all_launches()
+        check(pred_counts == BATCHED_PREDICT_LAUNCHES and PREFIX_CALLS[0] == 0, f"{tag}: predict_f launched {pred_counts}")
+        check(mean.shape == var.shape == (C_CHAINS, N_CHAIN_QUERIES, 1), f"{tag}: predict_f shapes")
+        check(bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()), f"{tag}: predict_f not finite")
+        launches[what] = {k: step_counts[k] + hmc_counts[k] + pred_counts[k] for k in step_counts}
+
+        # Each chain against the single-series dt engine: float64 at a
+        # smaller T, every chain ...
+        m64 = chains_of(make, h, t64, y64, torch.float64)
+        lp64, grad64 = chains_value_and_grad(m64)
+        mean64, var64 = m64.predict_f(queries)
+        worst = [0.0] * 4
+        for c in range(C_CHAINS):
+            one = chains_of(make, h, t64, y64, torch.float64, chain=c)
+            lp_c, grad_c = chains_value_and_grad(one)
+            mean_c, var_c = one.predict_f(queries)
+            errs = (abs(float(lp64[c] - lp_c)) / abs(float(lp_c)), rel_err(grad64[c], grad_c), rel_err(mean64[c], mean_c), rel_err(var64[c], var_c))
+            worst = [max(a, b_) for a, b_ in zip(worst, errs)]
+            check(errs[0] <= 1e-9, f"{tag} chain {c}: f64 log posterior vs single series {errs[0]:.3e}")
+            check(allclose(grad64[c], grad_c, 1e-7, 1e-10), f"{tag} chain {c}: f64 gradient vs single series {errs[1]:.3e}")
+            for n, a, b_ in (("mean", mean64[c], mean_c), ("var", var64[c], var_c)):
+                check(allclose(a, b_, 1e-8, 1e-9 * float(b_.abs().max())), f"{tag} chain {c}: f64 predict_f {n} vs single series {max_abs(a, b_):.3e}")
+        check(bool((var64 > 0).all()), f"{tag}: f64 predict_f variances not positive")
+        print(f"  chains vs single series f64 T={T_CHAIN_F64}: log posterior rel {worst[0]:.2e}, gradient {worst[1]:.2e}, "
+              f"predict_f mean {worst[2]:.2e} var {worst[3]:.2e}")
+        del m64, one
+
+        # ... and float32 at full length, a few chains, against float64 truth
+        # by the 10× rule (the single-series float32 model's distance).
+        truth = chains_of(make, h, t, y, torch.float64)
+        lp_t, grad_t = chains_value_and_grad(truth)
+        mean_t, var_t = truth.predict_f(queries)
+        del truth
+        torch.cuda.empty_cache()
+        mean_pb, var_pb = plain_batched_predict(model, queries, list(F32_CHAINS))
+        rows = []
+        for i, c in enumerate(F32_CHAINS):
+            one = chains_of(make, h, t, y, torch.float32, chain=c)
+            lp_c, grad_c = chains_value_and_grad(one)
+            mean_c, var_c = one.predict_f(queries)
+            # (batched, single series, the batched path's plain version or
+            # None, floor): the value and gradient against the single-series
+            # engine; the predictions against the better of the two f32
+            # engines (the single-series one is a different association).
+            quantities = {
+                "log posterior": (rel_err(lp[c:c + 1], lp_t[c:c + 1]), rel_err(lp_c.reshape(1), lp_t[c:c + 1]), None, f32_sum_floor(T_BATCHED)),
+                "gradient": (rel_err(grad[c], grad_t[c]), rel_err(grad_c, grad_t[c]), None, f32_sum_floor(T_BATCHED)),
+                "mean": (rel_err(mean[c], mean_t[c]), rel_err(mean_c, mean_t[c]), rel_err(mean_pb[i], mean_t[c]), F32_FLOOR),
+                "var": (rel_err(var[c], var_t[c]), rel_err(var_c, var_t[c]), rel_err(var_pb[i], var_t[c]), F32_FLOOR),
+            }
+            rows.append(f"chain {c}: " + ", ".join(
+                f"{n} {a:.2e}/{b_:.2e}" + (f"/{p:.2e}" if p is not None else "") for n, (a, b_, p, _) in quantities.items()
+            ))
+            for n, (a, b_, p, floor) in quantities.items():
+                if n != "gradient" or f32_grad:
+                    ref = b_ if p is None else max(b_, p)
+                    check(a <= max(F32_FACTOR * ref, floor), f"{tag} chain {c} {n}: batched {a:.3e} vs single series {b_:.3e}, plain batched {p} from f64")
+        print(f"  f32 vs f64 truth T={T_BATCHED} (batched / single series / the batched kernels' plain versions, predictions)"
+              f"{'' if f32_grad else ', the gradient not held (C4)'}: " + "; ".join(rows))
+        del one, mean_pb, var_pb
+
+        # Times: the entry points, then the three kernels on the path's inputs.
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: chains_value_and_grad(model), reps=5)
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            lml_ms = cuda_ms(model.log_marginal_likelihood, reps=5)
+            lml_peak = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            pred_ms = cuda_ms(lambda: model.predict_f(queries), reps=5)
+            pred_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{tag} [{card}]: LML {lml_ms:.3f} ms (peak {lml_peak:.2f} GiB), log posterior + gradient {step_ms:.3f} ms "
+              f"(peak {step_peak:.2f} GiB), predict_f of {N_CHAIN_QUERIES} queries {pred_ms:.3f} ms (peak {pred_peak:.2f} GiB), "
+              f"HMC step {hmc_s:.4f} s (CUDA events, medians of 5)")
+        profile_calls(card, f"{what} C={C_CHAINS} T={T_BATCHED}", {
+            "batched log posterior + gradient": lambda: chains_value_and_grad(model),
+            "batched predict_f": lambda: model.predict_f(queries),
+        })
+        rows, _ = batched_pass_records(card, model, launches[what])
+        records += [{**r, "model": what} for r in rows]
+        del model, mean, var, samples
+        torch.cuda.empty_cache()
+    return records, launches
+
+
+# The experiment CLIs on the card (parallel_gps_torch/experiments): the
+# sunspot MAP study at its defaults (float64, sizes 1200, 2200 and 3200, 100
+# L-BFGS iterations, 30× prediction grids); the sunspot MCMC study at size
+# 3000 with 100 HMC draws after 20 (its default: 1,000 after 100); the toy
+# speed sweep of pssgp and gp at sizes 2^12..2^15 with 3 seeds (default 21);
+# the toy MCMC study at 2^14 with 50 draws after 20.
+EXPERIMENT_RUNS = (
+    ("sunspot.map", []),
+    ("sunspot.mcmc", ["--sizes", "3000", "--n-samples", "100", "--burnin", "20"]),
+    ("toy_models.speed_and_stability", ["--model", "pssgp", "--log2-sizes", "12", "13", "14", "15", "--n-seeds", "3"]),
+    ("toy_models.speed_and_stability", ["--model", "gp", "--log2-sizes", "12", "13", "14", "15", "--n-seeds", "3"]),
+    ("toy_models.mcmc", ["--log2-sizes", "14", "--n-samples", "50", "--burnin", "20"]),
+)
+
+
+def phase_experiments(card: str) -> dict:
+    """Each run of EXPERIMENT_RUNS through its module's ``run(args)``, the
+    results written to a temporary directory: its wall time and the dt
+    kernels it launched (every model is Matern32, d = 2, float64: the
+    exponential polynomial's f64 d = 2 units), none of the plain prefix.
+    The checks: the MAP loss falls at every size and its predictions are
+    finite with positive variances; the MCMC draws are finite with an
+    acceptance in [0, 1]; the sweep's RMSEs are finite and the state-space
+    model's equal the dense GP's (the same posterior, rtol 1e-6).  Returns
+    the dt kernels' launches over all runs."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from parallel_gps_torch.experiments import common as experiments_common
+
+    out_dir = tempfile.mkdtemp(prefix="pgt_experiments_")
+    dtype = torch.get_default_dtype()
+    total = dict.fromkeys(DT_KERNELS, 0)
+    results = {}
+    try:
+        for module, argv in EXPERIMENT_RUNS:
+            cli = importlib.import_module(f"parallel_gps_torch.experiments.{module}")
+            args = cli.parser().parse_args(argv + ["--out-dir", out_dir])
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            results[module, getattr(args, "model", "")] = cli.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = all_launches()
+            ran = {k: v for k, v in counts.items() if v}
+            print(f"experiment {module} {' '.join(argv) or '(defaults)'} [{card}]: wall {wall:.1f} s; launches {ran}; plain prefixes {PREFIX_CALLS[0]}")
+            check(PREFIX_CALLS[0] == 0, f"experiment {module}: {PREFIX_CALLS[0]} plain prefixes")
+            check(set(ran) <= set(DT_KERNELS) | {"plane_scan"}, f"experiment {module} left the exponential polynomial's dt units: {ran}")
+            if args.model != "gp":
+                check(counts["dt_filter_scan"] > 0 and counts["dt_filter_apply"] > 0, f"experiment {module}: no dt filter launched")
+            for k in DT_KERNELS:
+                total[k] += counts[k]
+        files = {f: np.load(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+        for n in (1200, 2200, 3200):
+            out = files[f"sunspot_map_pssgp_n{n}.npz"]
+            loss, var = out["loss_history"], out["var"]
+            check(out["mean"].dtype == np.float64 and np.isfinite(loss).all() and loss[-1] < loss[0], f"sunspot MAP n={n}: loss {loss[0]} -> {loss[-1]}")
+            check(out["mean"].shape == (30 * n, 1) and np.isfinite(out["mean"]).all() and bool((var > 0).all()), f"sunspot MAP n={n}: predictions")
+            print(f"  sunspot MAP n={n}: loss {loss[0]:.2f} -> {loss[-1]:.2f} in {loss.size} L-BFGS iterations, fit {float(out['wall']):.2f} s, "
+                  f"predict_f of {30 * n} points {float(out['wall_pred']):.3f} s")
+        for name in ("sunspot_mcmc_pssgp_hmc_n3000.npz", "mcmc_pssgp_Matern32_hmc_float64.npz"):
+            out = files[name]
+            draws = [out[k] for k in out.files if k.startswith(("sample_", "n16384_"))]
+            check(len(draws) == 3 and all(np.isfinite(x).all() and x.shape == draws[0].shape for x in draws), f"{name}: draws")
+            check(np.isfinite(out["accepts"]).all() and 0.0 <= out["accepts"].min() and out["accepts"].max() <= 1.0, f"{name}: acceptance")
+            print(f"  {name}: {draws[0].shape[0]} draws, acceptance {out['accepts']}, walls {out['walls']} s")
+        ssgp, gp = (files[f"speed_stability_{m}_Matern32_float64.npz"] for m in ("pssgp", "gp"))
+        check(np.isfinite(ssgp["rmses"]).all() and np.isfinite(gp["rmses"]).all(), "toy sweep: RMSEs not finite")
+        gap = float(np.max(np.abs(ssgp["rmses"] - gp["rmses"]) / gp["rmses"]))
+        check(gap <= 1e-6, f"toy sweep: the state-space RMSEs differ from the dense GP's by {gap:.3e}")
+        for m, out in (("pssgp", ssgp), ("gp", gp)):
+            print(f"  toy sweep {m}: sizes {out['sizes'].tolist()}, median predict_f wall a size {np.median(out['times'], 1).round(4).tolist()} s, "
+                  f"mean RMSE {out['rmses'].mean(1).round(5).tolist()}")
+        print(f"  toy sweep: pssgp RMSEs vs gp rel {gap:.2e}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.set_default_dtype(dtype)
+        experiments_common._DEVICE[0] = None
+    check(all(total[k] > 0 for k in DT_KERNELS), f"the experiments did not launch every exp. dt unit: {total}")
+    return total
 
 
 def phase_slice():
@@ -4580,9 +4981,25 @@ def compare_strip_apply_outputs(dir_a: str, dir_b: str) -> bool:
     return same
 
 
+def laps():
+    """A function that prints the seconds since its previous call (or since
+    ``laps()``) beside the name of what ran in them, and the total."""
+    start = time.perf_counter()
+    last = [start]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"time: {what} {now - last[0]:.1f} s (total {now - start:.1f} s)", flush=True)
+        last[0] = now
+
+    return lap
+
+
 def main() -> int:
     card = phase_device()
+    lap = laps()
     phase_build()
+    lap("build")
     count_prefix_calls()
     phase_kernels()
     check_spectral_kernels()
@@ -4590,7 +5007,9 @@ def main() -> int:
     check_fisher_edges()
     check_scan_edges()
     phase_dt_digests()
+    lap("kernels against their plain versions")
     phase_batched_kernels()
+    lap("batched kernels")
     model, data, queries, serving = phase_slice()
     training = phase_training(model, data)
     print(f"launches: serving path {serving}, training path {training}")
@@ -4600,15 +5019,18 @@ def main() -> int:
     check(serving["plane_scan"] > 0 and training["plane_scan"] > 0, "the dt path ran its chunk prefixes without a plane scan")
     records = phase_times(card, model, queries, counts)
     phase_profile(card, f"Matern52 N={N_FULL}", model, queries[0])
+    lap("Matern52 serving and training paths")
     del model, data
     torch.cuda.empty_cache()
     records.append(phase_prefix(card, counts["plane_scan"]))
+    lap("chunk prefix")
     rbf, rbf_queries, rbf_counts = phase_rbf_slice()
     print(f"launches: RBF dt path {rbf_counts}")
     for name in SPECTRAL_KERNELS:
         check(rbf_counts[name] > 0, f"{name} was never launched on the RBF dt path")
     records += phase_rbf_times(card, rbf, rbf_queries, rbf_counts)
     phase_profile(card, f"RBF(order=6) N={N_STRIP}", rbf, rbf_queries)
+    lap("RBF(order=6) dt path and routes")
     del rbf
     torch.cuda.empty_cache()
     qp_prefix_precision(card)
@@ -4618,6 +5040,7 @@ def main() -> int:
         check(qp_counts[name] > 0, f"{name} was never launched on the QP dt path")
     records += phase_qp_times(card, qp, qp_queries, qp_counts)
     phase_profile(card, f"QP d=8 N={N_QP}", qp, qp_queries)
+    lap("quasi-periodic path")
     del qp
     torch.cuda.empty_cache()
     rbf, _, planes, strip_counts = phase_strip_slice()
@@ -4625,9 +5048,11 @@ def main() -> int:
     for name in STRIP_KERNELS:
         check(strip_counts[name] > 0, f"{name} was never launched on the strip path")
     records += phase_strip_times(card, rbf, planes, strip_counts)
+    lap("strip path")
     del planes, rbf
     torch.cuda.empty_cache()
     phase_sequential_time(card)
+    lap("sequential engine")
     chains, batched_counts = phase_batched_slice()
     for name in BATCHED_KERNELS + ("dt_fisher",):
         check(batched_counts[name] > 0, f"{name} was never launched on the batched path")
@@ -4638,8 +5063,23 @@ def main() -> int:
             next(r for r in records if r["name"] == "dt_fisher")["batched"] = record
     del chains
     torch.cuda.empty_cache()
+    lap("batched Matern52 path")
+    model_rows, model_launches = phase_batched_models(card)
+    for what, counts in model_launches.items():
+        family = BATCHED_MODELS[what][0]
+        for name in BATCHED_KERNELS + (f"dt_fisher_{family}",):
+            check(counts[name] > 0, f"{name} was never launched on the batched {what} path")
+    for row in model_rows:
+        # The batched path's launch shapes of the kernels: fields of their rows.
+        target = next(r for r in records if r["name"] == row["name"])
+        target.setdefault("batched_models", {})[row["model"]] = {k: v for k, v in row.items() if k not in ("name", "model")}
+    lap("batched RBF(order=6) and QP paths")
+    experiment_counts = phase_experiments(card)
+    lap("experiments")
+    print(f"launches: experiments {experiment_counts}")
     phase_probe_kernels()
     records += phase_probes(card)
+    lap("probes")
     phase_plane_kernels()
     plane_counts, plane_inputs = phase_plane_slice()
     print(f"launches: plane path {plane_counts}")
@@ -4648,6 +5088,7 @@ def main() -> int:
     records += phase_plane_times(card, plane_counts, plane_inputs)
     del plane_inputs
     plane.check_overruns()
+    lap("time-first plane path")
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({

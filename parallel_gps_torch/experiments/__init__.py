@@ -1,2 +1,11 @@
-"""Experiment entry points (counterpart: parallel_gps_tpu/experiments; so far the
-MCMC runner of ``common.py`` only)."""
+"""Experiment entry points (counterpart: parallel_gps_tpu/experiments).
+
+Run as modules, on the card by default, e.g.::
+
+    python -m parallel_gps_torch.experiments.toy_models.speed_and_stability \
+        --model pssgp --cov Matern32 --n-seeds 3
+    python -m parallel_gps_torch.experiments.sunspot.map --data-dir data/
+    python -m parallel_gps_torch.experiments.sunspot.mcmc --platform cpu
+
+The CO2 studies and the figures (``plots.py``) are not ported yet.
+"""

@@ -1,23 +1,145 @@
-"""Shared experiment machinery (counterpart:
-parallel_gps_tpu/experiments/common.py; so far ``run_one_mcmc`` and
-``MCMCEnum`` only — the model and covariance factories and the command-line
-parsers are not ported yet).
+"""Shared experiment machinery: the model and covariance factories, the MCMC
+runner, the command-line parser and results persistence (counterpart:
+parallel_gps_tpu/experiments/common.py).
+
+The port's differences: ``--platform`` names a torch device, ``cuda`` (the
+default) or ``cpu``, and ``--dtype`` the default float; float64 runs on the
+card like float32 — the H100 computes in f64 natively, so the JAX rule that
+sends f64 to the CPU is not carried over.  The samplers are the port's
+batch-first ones (``inference.mcmc``).
 """
 from __future__ import annotations
 
+import argparse
 import enum
+import os
 import time
 
+import numpy as np
 import torch
 
+from parallel_gps_torch import config
 from parallel_gps_torch.inference.mcmc import dual_averaging_warmup, make_kernel, ravel_positions, sample_chains
 from parallel_gps_torch.inference.optim import make_log_posterior
+from parallel_gps_torch.models.params import as_arrays, constrain, tree_order, unconstrain
+
+PLATFORMS = ("default", "cuda", "cpu")
+# The device of the models, set by ``set_dtype`` from ``--platform``.
+_DEVICE: list = [None]
+
+
+def progress(iterable, desc: str | None = None, total: int | None = None):
+    """A tqdm progress bar over an iterable, or the iterable itself where
+    tqdm is not installed."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable, desc=desc, total=total)
+
+
+class ModelEnum(enum.Enum):
+    GP = "gp"  # the dense GP (models/gpr.py::DenseGP)
+    SSGP = "ssgp"  # the sequential state-space engine
+    PSSGP = "pssgp"  # the parallel engines
+
+
+class CovarianceEnum(enum.Enum):
+    Matern12 = "Matern12"
+    Matern32 = "Matern32"
+    Matern52 = "Matern52"
+    RBF = "RBF"
+    QP = "QP"
 
 
 class MCMCEnum(enum.Enum):
     HMC = "hmc"
     MALA = "mala"
     NUTS = "nuts"
+
+
+def platform_device(platform: str | None = None) -> torch.device:
+    """The device ``--platform`` names: ``cpu``, or the card for ``cuda`` and
+    ``default`` (``config.resolve_device``: it raises without one)."""
+    if platform not in (None,) + PLATFORMS:
+        raise ValueError(f"--platform must be one of {PLATFORMS}, got {platform!r}")
+    return torch.device("cpu") if platform == "cpu" else config.resolve_device(None)
+
+
+def set_dtype(dtype: str, platform: str | None = None) -> torch.device:
+    """Set torch's default float to ``dtype`` ("float32" or "float64") and
+    the models' device to ``--platform``'s; returns that device.  float64
+    stays on the card."""
+    torch.set_default_dtype({"float32": torch.float32, "float64": torch.float64}[dtype])
+    _DEVICE[0] = platform_device(platform)
+    return _DEVICE[0]
+
+
+def default_device() -> torch.device:
+    """The models' device: ``set_dtype``'s, else the card."""
+    return _DEVICE[0] if _DEVICE[0] is not None else platform_device()
+
+
+def get_covariance_function(
+    kind: str,
+    variance: float = 1.0,
+    lengthscales: float = 1.0,
+    rbf_order: int = 6,
+    rbf_balance_iter: int = 10,
+    qp_order: int = 3,
+    period: float = 1.0,
+):
+    """The covariance factory (JAX common.py:77-113).  QP is the
+    quasi-periodic composite Periodic(order=``qp_order``) × Matern32 of the
+    CO2 and sunspot studies."""
+    from parallel_gps_torch import kernels
+
+    opts = dict(dtype=config.default_float(), device=default_device())
+    kind = CovarianceEnum(kind)
+    if kind in (CovarianceEnum.Matern12, CovarianceEnum.Matern32, CovarianceEnum.Matern52):
+        return getattr(kernels, kind.value)(variance, lengthscales, **opts)
+    if kind == CovarianceEnum.RBF:
+        return kernels.RBF(variance, lengthscales, order=rbf_order, balancing_iter=rbf_balance_iter, **opts)
+    if kind == CovarianceEnum.QP:
+        periodic = kernels.Periodic(variance, lengthscales, period, order=qp_order, **opts)
+        return periodic * kernels.Matern32(1.0, lengthscales, **opts)
+    raise ValueError(f"unknown covariance {kind}")
+
+
+def resolve_model_device(model: str, platform: str | None, dtype: str):
+    """The device of one kind of model inside one process, the reference's
+    study protocol (GP and PSSGP on the accelerator, SSGP on the host): the
+    sequential engine, a Python loop over time, goes to the CPU, the dense
+    GP and the parallel engines stay on the card.  ``None`` (the process's
+    device) under ``--platform cpu``.  ``dtype`` is accepted as the JAX
+    function takes it; float64 changes nothing here."""
+    del dtype
+    if platform == "cpu":
+        return None
+    return torch.device("cpu") if ModelEnum(model) == ModelEnum.SSGP else None
+
+
+def model_device_from_args(args):
+    """``--split-devices`` → the per-model device for ``get_model(device=…)``."""
+    if not getattr(args, "split_devices", False):
+        return None
+    return resolve_model_device(args.model, args.platform, args.dtype)
+
+
+def get_model(model: str, data, covariance, noise_variance: float, device=None, stable: bool = False):
+    """The model factory (JAX common.py:143-185): ``gp`` the dense GP,
+    ``ssgp`` the sequential engine, ``pssgp`` the parallel engines, on
+    ``device`` (``None``: the process's, ``set_dtype``).  ``stable``
+    (``--stable``, the square-root engine) is ROADMAP A10 and raises."""
+    from parallel_gps_torch.models import DenseGP, StateSpaceGP
+
+    if stable:
+        raise NotImplementedError("--stable (the square-root engine, kalman/sqrt.py) is ROADMAP A10")
+    device = device if device is not None else default_device()
+    model = ModelEnum(model)
+    if model == ModelEnum.GP:
+        return DenseGP.create(data, covariance, noise_variance, device=device)
+    return StateSpaceGP.create(data, covariance, noise_variance, parallel=model == ModelEnum.PSSGP, device=device)
 
 
 # What counts as a numerical failure of a chain (recorded as NaNs, the sweep
@@ -114,3 +236,73 @@ def run_one_mcmc(
         lead = (flat0.shape[0], n_samples) if batched else (n_samples,)
         nan_samples = {k: torch.full(lead + tuple(v.shape[1:]), float("nan"), dtype=v.dtype, device=v.device) for k, v in positions.items()}
         return nan_samples, float("nan"), time.time() - t0
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--model", default="pssgp", choices=[m.value for m in ModelEnum])
+    p.add_argument("--cov", default="Matern32", choices=[c.value for c in CovarianceEnum])
+    p.add_argument("--dtype", default="float64", choices=["float32", "float64"])
+    p.add_argument(
+        "--platform",
+        default="default",
+        choices=PLATFORMS,
+        help="torch device: cuda (the card; default) or cpu; float64 runs on the card too",
+    )
+    p.add_argument("--noise-variance", type=float, default=0.5)
+    p.add_argument(
+        "--stable",
+        action="store_true",
+        help="square-root (Cholesky-factor) engine for the state-space models: not ported (ROADMAP A10), raises",
+    )
+    p.add_argument("--rbf-order", type=int, default=6)
+    p.add_argument("--rbf-balance-iter", type=int, default=10)
+    p.add_argument("--qp-order", type=int, default=3)
+    p.add_argument("--out-dir", default="results")
+    p.add_argument("--progress", action="store_true", help="in-chain tqdm progress (segmented sampling)")
+    p.add_argument(
+        "--split-devices",
+        action="store_true",
+        help="reference-protocol per-model device split in one process: ssgp on the CPU, pssgp and gp on the card",
+    )
+    p.add_argument("--data-dir", default=None)
+    return p
+
+
+def block_until_ready(*tensors) -> None:
+    """Wait for the card's work on the tensors (a wall time's end)."""
+    for x in tensors:
+        if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+
+
+def require_plots(args) -> None:
+    """``--plot`` needs ``experiments/plots.py``, which is not ported."""
+    if getattr(args, "plot", False):
+        raise NotImplementedError("--plot: experiments/plots.py is not ported (ROADMAP A12b)")
+
+
+def model_values(model) -> dict:
+    """The model's hyperparameters as the JAX tree holds them: ``{dotted name:
+    constrained value}``."""
+    return constrain({name: p.detach() for name, p in model.named_parameters()})
+
+
+def load_samples(npz_path: str, model) -> dict:
+    """The unconstrained samples that the MCMC experiments saved (leaves
+    ``sample_{j}`` in the JAX package's tree order, ``tree_order``) as the
+    port's ``{parameter name: tensor}`` for a model with the same
+    hyperparameters — a file written by either package."""
+    hypers0 = tree_order(as_arrays(unconstrain(model_values(model)), device=model.ts.device))
+    with np.load(npz_path) as data:
+        saved = [data[f"sample_{j}"] for j in range(len(hypers0))]
+    return as_arrays(dict(zip(hypers0, saved)), dtype=next(iter(hypers0.values())).dtype, device=model.ts.device)
+
+
+def save_results(out_dir: str, name: str, **arrays) -> str:
+    """``out_dir/name.npz`` of the arrays (tensors copied to the host)."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name + ".npz")
+    np.savez(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in arrays.items()})
+    print(f"saved {path}")
+    return path

@@ -56,8 +56,11 @@ or (B, T) — the entry points take the single-pass batched engine
 ``build_planes_tl`` and one launch filters (or smooths) all B series, with no
 prefix step on the host; ``lml_dt`` then returns (B,) and its backward is the
 batched smoother and one launch of the Fisher tail for all series.  This is
-what ``jax.vmap`` of the single-series entry points does in the JAX package,
-for the exponential polynomial (a batch of RBF kernels is ROADMAP.md B7).
+what ``jax.vmap`` of the single-series entry points does in the JAX package
+(pallas_dt.py:426-460, :769-800), for every family: the spectral and
+composite coefficients (B, n) build their planes as the exponential
+polynomial's do, and the Fisher tail reads each series' row of the scalar
+table.
 
 ``LAUNCHES`` counts kernel launches by kernel name (the spectral family's
 kernels are ``<wrapper>_spectral``, the composite family's
@@ -217,8 +220,11 @@ def build_planes_tl(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor):
     P0p = P0s.permute(1, 2, 0) if P0s.dim() == 3 else P0s  # (d, d, *batch)
     eye = torch.eye(d, dtype=Am1.dtype, device=Am1.device)
     Fs = Am1 + eye.reshape((d, d) + (1,) * (Am1.dim() - 2)).expand(Am1.shape)
-    AP = (Am1[:, :, None] * P0p[None, ..., None]).sum(1)
-    APAt = (AP[:, :, None] * Am1[None].transpose(1, 2)).sum(1)
+    # AP = Am1·P0 and APAt = AP·Am1ᵀ a term of the inner index at a time:
+    # two planes in flight, not a (d, d, d, …, T) product (8.6 GB at d = 8,
+    # B = 64, T = 65,536 in float32).
+    AP = sum(Am1[:, j, None] * P0p[None, j, :, ..., None] for j in range(d))
+    APAt = sum(AP[:, j, None] * Am1[None, :, j] for j in range(d))
     Q = -(AP + AP.transpose(0, 1) + APAt)
     Qs = 0.5 * (Q + Q.transpose(0, 1))
     return Fs, Qs, P0s
@@ -566,7 +572,6 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
     a batch axis (g (d, B, T), L (d, d, B, T)) from one launch of the batched
     smoother."""
     if coeffs.dim() == 2:
-        _require_batched_family(family)
         Fs, Qs, _ = build_planes_tl(family, coeffs, P0, dts)
         return batched_strip_smoother(Fs, Qs, b_tl, C_tl, None, project=False)
     if dts.device.type == "cpu":
@@ -578,18 +583,9 @@ def strip_smoother_dt(family: str, coeffs: Tensor, P0: Tensor, dts: Tensor, b_tl
     return dt_smoother_apply(family, coeffs, P0, dts, b_tl, C_tl, prefix)
 
 
-def _require_batched_family(family) -> None:
-    if family != EXPPOLY:
-        raise NotImplementedError(
-            f"the batched dt path takes the exponential polynomial only; a batch of {family!r} kernels "
-            "(batched RBF or composite hyperparameters) is ROADMAP.md B7"
-        )
-
-
 def _batched_filter_dt(family, coeffs, P0, H, R, dts, observations):
     """The batched filter on planes built once from the coefficients; returns
     ((b, C, ell), (Fs, Qs)), the planes for a smoother that follows."""
-    _require_batched_family(family)
     Fs, Qs, P0s = build_planes_tl(family, coeffs, P0, dts)
     ys = series_observations(observations, Fs.shape[2:])
     return batched_strip_filter(Fs, Qs, P0s, H, R.reshape(-1, 1, 1), ys), (Fs, Qs)

@@ -17,7 +17,10 @@ unconstrained (softplus).  It provides
   - ``state_dim``.
 
 ``+`` and ``*`` build ``Sum`` and ``Product`` kernels: a block-diagonal and
-a Kronecker state space, balanced by a diagonal similarity.  Their
+a Kronecker state space, balanced by a diagonal similarity.  Children whose
+hyperparameters have shape (C,) (C chains of a sampler) give the composite's
+matrices, planes and coefficients a leading (planes: third) C axis, each
+chain balanced by its own similarity.  Their
 transitions fold their children's closed forms; their
 ``transition_coeffs()`` is the composite family (kernels/composite.py), or
 ``None`` where a child has none.
@@ -127,15 +130,53 @@ class VarianceLengthscaleKernel(SDEKernel):
 
 
 def _block_diag(mats) -> Tensor:
-    """Block-diagonal stack of possibly non-square matrices."""
-    return torch.block_diag(*mats)
+    """Block-diagonal stack of possibly non-square matrices over their
+    trailing two axes, with any leading batch axes broadcast."""
+    batch = torch.broadcast_shapes(*(m.shape[:-2] for m in mats))
+    if not batch:
+        return torch.block_diag(*mats)
+    out = mats[0].new_zeros(batch + (sum(m.shape[-2] for m in mats), sum(m.shape[-1] for m in mats)))
+    r = c = 0
+    for m in mats:
+        out[..., r : r + m.shape[-2], c : c + m.shape[-1]] = m
+        r, c = r + m.shape[-2], c + m.shape[-1]
+    return out
+
+
+def kron(a: Tensor, b: Tensor) -> Tensor:
+    """The Kronecker product of the trailing two axes, with any leading batch
+    axes broadcast (``torch.kron`` multiplies out every axis)."""
+    if a.dim() == 2 and b.dim() == 2:
+        return torch.kron(a, b)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    out = a[..., :, None, :, None] * b[..., None, :, None, :]
+    return out.reshape(batch + (a.shape[-2] * b.shape[-2], a.shape[-1] * b.shape[-1]))
 
 
 def _kron_F(F1: Tensor, F2: Tensor) -> Tensor:
     """F = F1 ⊗ I + I ⊗ F2 (base.py:287-292)."""
-    I1 = torch.eye(F1.shape[0], dtype=F1.dtype, device=F1.device)
-    I2 = torch.eye(F2.shape[0], dtype=F2.dtype, device=F2.device)
-    return torch.kron(F1, I2) + torch.kron(I1, F2)
+    I1 = torch.eye(F1.shape[-1], dtype=F1.dtype, device=F1.device)
+    I2 = torch.eye(F2.shape[-1], dtype=F2.dtype, device=F2.device)
+    return kron(F1, I2) + kron(I1, F2)
+
+
+def _similarity_tl(dvec: Tensor, like: Tensor) -> Tensor:
+    """The balancing similarity d_j / d_i as a time-last factor of ``like``'s
+    (d, d, …, T) planes: (d, d, 1) or, for B chains' scales (B, d),
+    (d, d, B, 1)."""
+    dvec = dvec.to(like.dtype)
+    return (dvec[..., None, :] / dvec[..., :, None]).movedim((-2, -1), (0, 1))[..., None]
+
+
+def _common_planes(planes: list) -> list:
+    """The children's (dk, dk, …, T) planes over one shared set of trailing
+    axes: a child without the batch axis of another is viewed with it."""
+    common = torch.broadcast_shapes(*(p.shape[2:] for p in planes))
+    out = []
+    for p in planes:
+        p = p.reshape(p.shape[:2] + (1,) * (len(common) + 2 - p.dim()) + p.shape[2:])
+        out.append(p.expand(p.shape[:2] + common))
+    return out
 
 
 def _child_m1_tl(k: SDEKernel, dts: Tensor) -> Tensor:
@@ -200,8 +241,9 @@ class Sum(_Composite):
         sdes = [k.get_sde() for k in self.kernels]
         F = _block_diag([s.F for s in sdes])
         L = _block_diag([s.L for s in sdes])
-        H = torch.cat([s.H for s in sdes], 1)
-        Q = _block_diag([s.Q.reshape(s.Q.shape[-2:]) for s in sdes])
+        batch = torch.broadcast_shapes(*(s.H.shape[:-2] for s in sdes))
+        H = torch.cat([s.H.expand(batch + s.H.shape[-2:]) for s in sdes], -1)
+        Q = _block_diag([s.Q for s in sdes])
         return self._balanced(F, L, H, Q)
 
     def dense(self, X: Tensor, X2: Tensor) -> Tensor:
@@ -211,16 +253,15 @@ class Sum(_Composite):
         """The children's (dk, dk, T) closed forms on the block diagonal,
         conjugated by the balancing similarity (a block-diagonal F
         exponentiates blockwise; subtracting I commutes with both)."""
-        children = [_child_m1_tl(k, dts) for k in self.kernels]
+        children = _common_planes([_child_m1_tl(k, dts) for k in self.kernels])
         d = self.state_dim
-        out = children[0].new_zeros((d, d, dts.numel()))
+        out = children[0].new_zeros((d, d) + children[0].shape[2:])
         r = 0
         for m1 in children:
             dk = m1.shape[0]
             out[r : r + dk, r : r + dk] = m1
             r += dk
-        dvec = balance_scale(self._unbalanced_F(), self._n_iter()).to(out.dtype)
-        return out * (dvec[None, :, None] / dvec[:, None, None])
+        return out * _similarity_tl(balance_scale(self._unbalanced_F(), self._n_iter()), out)
 
     def _fold(self, parts):
         from parallel_gps_torch.kernels.composite import sum_expansion
@@ -245,11 +286,11 @@ class Product(_Composite):
     def get_sde(self) -> ContinuousDiscreteModel:
         def fold(s1: ContinuousDiscreteModel, s2: ContinuousDiscreteModel) -> ContinuousDiscreteModel:
             F = _kron_F(s1.F, s2.F)
-            gamma1 = s1.L @ s1.Q @ s1.L.T
-            gamma2 = s2.L @ s2.Q @ s2.L.T
-            Q = torch.kron(gamma1, s2.P0) + torch.kron(s1.P0, gamma2)
-            L = torch.eye(F.shape[0], dtype=F.dtype, device=F.device)
-            return ContinuousDiscreteModel(torch.kron(s1.P0, s2.P0), F, L, torch.kron(s1.H, s2.H), Q)
+            gamma1 = s1.L @ s1.Q @ s1.L.transpose(-1, -2)
+            gamma2 = s2.L @ s2.Q @ s2.L.transpose(-1, -2)
+            Q = kron(gamma1, s2.P0) + kron(s1.P0, gamma2)
+            L = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device)
+            return ContinuousDiscreteModel(kron(s1.P0, s2.P0), F, L, kron(s1.H, s2.H), Q)
 
         s = reduce(fold, [k.get_sde() for k in self.kernels])
         return self._balanced(s.F, s.L, s.H, s.Q)
@@ -265,16 +306,16 @@ class Product(_Composite):
 
         def kron_tl(a, b):
             da, db = a.shape[0], b.shape[0]
-            return (a[:, None, :, None, :] * b[None, :, None, :, :]).reshape(da * db, da * db, -1)
+            out = a[:, None, :, None] * b[None, :, None, :]
+            return out.reshape((da * db, da * db) + out.shape[4:])
 
         def fold(am1, bm1):
             ia = torch.eye(am1.shape[0], dtype=am1.dtype, device=am1.device)[:, :, None].expand(am1.shape)
             ib = torch.eye(bm1.shape[0], dtype=bm1.dtype, device=bm1.device)[:, :, None].expand(bm1.shape)
             return kron_tl(am1, bm1) + kron_tl(am1, ib) + kron_tl(ia, bm1)
 
-        out = reduce(fold, [_child_m1_tl(k, dts) for k in self.kernels])
-        dvec = balance_scale(self._unbalanced_F(), self._n_iter()).to(out.dtype)
-        return out * (dvec[None, :, None] / dvec[:, None, None])
+        out = reduce(fold, _common_planes([_child_m1_tl(k, dts) for k in self.kernels]))
+        return out * _similarity_tl(balance_scale(self._unbalanced_F(), self._n_iter()), out)
 
     def _fold(self, parts):
         from parallel_gps_torch.kernels.composite import product_expansion

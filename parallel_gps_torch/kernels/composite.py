@@ -86,8 +86,11 @@ class CompositeFamily(str):
 
 @dataclass
 class Expansion:
-    """A closed form as weights and monomials: ``rates`` (one scalar tensor a
-    weight), ``matrices`` (K_μ, (d, d)) and ``patterns`` (bool (d, d))."""
+    """A closed form as weights and monomials: ``rates`` (one tensor a
+    weight, a scalar or (B,) for B chains), ``matrices`` (K_μ, (d, d) or
+    (B, d, d)) and ``patterns`` (bool (d, d)).  The patterns come from the
+    kernels' structure alone, never from values, so they are one plan for
+    every chain of a batch and hold each chain's nonzeros."""
 
     d: int
     weights: list
@@ -102,14 +105,17 @@ class Expansion:
             self.d, tuple(self.weights), tuple(self.monomials),
             tuple(tuple(bool(v) for v in P.reshape(-1).tolist()) for P in self.patterns),
         )
-        rates = [torch.stack(self.rates).reshape(-1)] if self.rates else []
-        coeffs = torch.cat(rates + [K.reshape(-1) for K in self.matrices] or [torch.zeros(0)])
+        batch = torch.broadcast_shapes(*(r.shape for r in self.rates), *(K.shape[:-2] for K in self.matrices))
+        d2 = self.d * self.d
+        rates = [torch.stack([r.expand(batch) for r in self.rates], -1)] if self.rates else []
+        mats = [K.expand(batch + K.shape[-2:]).reshape(batch + (d2,)) for K in self.matrices]
+        coeffs = torch.cat(rates + mats, -1) if rates or mats else torch.zeros(0)
         return CompositeFamily(plan), coeffs
 
     def scaled(self, dvec: Tensor) -> "Expansion":
         """Conjugated by the diagonal similarity ``dvec`` (detached): entry
         [i, j] times d_j / d_i."""
-        scale = dvec.detach()[None, :] / dvec.detach()[:, None]
+        scale = dvec.detach()[..., None, :] / dvec.detach()[..., :, None]
         return Expansion(self.d, self.weights, self.rates, self.monomials, [K * scale for K in self.matrices], self.patterns)
 
 
@@ -122,32 +128,35 @@ def expansion(family, coeffs: Tensor, d: int) -> Expansion:
     from parallel_gps_torch.kernels.matern import EXPPOLY
     from parallel_gps_torch.kernels.rbf import SPECTRAL, spectral_blocks
 
-    if coeffs.dim() != 1:
-        raise NotImplementedError("a composite of kernels whose hyperparameters carry a batch axis is ROADMAP.md B7")
-    dtype, device = coeffs.dtype, coeffs.device
+    dtype, device, batch = coeffs.dtype, coeffs.device, tuple(coeffs.shape[:-1])
+    d2 = d * d
+
+    def matrix(off):
+        return coeffs[..., off : off + d2].reshape(batch + (d, d))
+
     full = torch.ones((d, d), dtype=torch.bool, device=device)
     if family == EXPPOLY:
-        degree = (coeffs.shape[0] - 1) // (d * d)
+        degree = (coeffs.shape[-1] - 1) // d2
         eye = torch.eye(d, dtype=dtype, device=device)
-        Ns = [coeffs[1 + p * d * d : 1 + (p + 1) * d * d].reshape(d, d) for p in range(degree)]
+        Ns = [matrix(1 + p * d2) for p in range(degree)]
         weights = [(EXPM1, 0.0, 0.0)] + [(TAU, float(p), 0.0) for p in range(1, degree + 1)]
-        return _leaf(d, weights, [coeffs[0]] * (1 + degree), [eye] + Ns, [eye.bool()] + [full] * degree)
+        return _leaf(d, weights, [coeffs[..., 0]] * (1 + degree), [eye] + Ns, [eye.bool()] + [full] * degree)
     if family == SPECTRAL:
         weights, matrices, off = [], [], 1
         for a, beta in spectral_blocks(d):
             kinds = (SPEC_EM1,) if beta == 0.0 else (SPEC_EM1, SPEC_ES)
             for kind in kinds:
                 weights.append((kind, float(a), float(beta)))
-                matrices.append(coeffs[off : off + d * d].reshape(d, d))
-                off += d * d
-        return _leaf(d, weights, [coeffs[0]] * len(weights), matrices, [full] * len(weights))
+                matrices.append(matrix(off))
+                off += d2
+        return _leaf(d, weights, [coeffs[..., 0]] * len(weights), matrices, [full] * len(weights))
     if family != COMPOSITE:
         raise ValueError(f"unknown transition family {family!r}")
     plan = family.plan
     n_w = len(plan.weights)
     return Expansion(
-        d, list(plan.weights), list(coeffs[:n_w]), list(plan.monomials),
-        [coeffs[n_w + i * d * d : n_w + (i + 1) * d * d].reshape(d, d) for i in range(len(plan.monomials))],
+        d, list(plan.weights), list(coeffs[..., :n_w].unbind(-1)), list(plan.monomials),
+        [matrix(n_w + i * d2) for i in range(len(plan.monomials))],
         [torch.tensor(p, device=device).reshape(d, d) for p in plan.patterns],
     )
 
@@ -191,9 +200,9 @@ def sum_expansion(parts: list) -> Expansion:
     starts = [sum(dims[:i]) for i in range(len(dims))]
 
     def place(i, K):
-        out = K.new_zeros((d, d))
+        out = K.new_zeros(K.shape[:-2] + (d, d))
         r = starts[i]
-        out[r : r + dims[i], r : r + dims[i]] = K
+        out[..., r : r + dims[i], r : r + dims[i]] = K
         return out
 
     return _merge(parts, d, place)
@@ -219,18 +228,22 @@ def _eye_like(K: Tensor, n: int) -> Tensor:
 
 
 def _kron(a: Tensor, b: Tensor) -> Tensor:
-    """``torch.kron``, also of two patterns (bool)."""
+    """The Kronecker product of the trailing two axes over any leading batch
+    axes (``kernels.base.kron``), also of two patterns (bool)."""
+    from parallel_gps_torch.kernels.base import kron
+
     if a.dtype == torch.bool:
-        return torch.kron(a.int(), b.int()).bool()
-    return torch.kron(a, b)
+        return kron(a.int(), b.int()).bool()
+    return kron(a, b)
 
 
 def weights(plan: Plan, rates: Tensor, dts: Tensor) -> list:
-    """The plan's weights at each step, a (T,) tensor each (the kernels'
-    csrc/dt_elements.cuh: composite_weight), differentiable in the rates
-    and dts."""
+    """The plan's weights at each step, a (T,) tensor each — (B, T) for
+    ``rates`` (B, n_w) — (the kernels' csrc/dt_elements.cuh:
+    composite_weight), differentiable in the rates and dts."""
     out = []
-    for (kind, p, q), rho in zip(plan.weights, rates):
+    for (kind, p, q), rho in zip(plan.weights, rates.unbind(-1)):
+        rho = rho[..., None] if rho.dim() else rho
         if kind == EXPM1:
             out.append(torch.expm1(-rho * dts))
         elif kind == TAU:
@@ -253,21 +266,24 @@ def weights(plan: Plan, rates: Tensor, dts: Tensor) -> list:
 
 def composite_transitions_m1(family: CompositeFamily, coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
     """(d, d, T) ``expm(dt·F) − I`` of the composite family, Σ_μ W_μ·K_μ in
-    the plan's order; differentiable in ``coeffs`` and ``dts``."""
+    the plan's order; (d, d, B, T) for ``coeffs`` (B, n), with ``dts`` (T,)
+    or (B, T).  Differentiable in ``coeffs`` and ``dts``."""
     plan = family.plan
-    if coeffs.dim() != 1:
-        raise NotImplementedError("the composite transitions of a batch of kernels are ROADMAP.md B7")
-    if plan.d != d or coeffs.shape[0] != plan.n_coeffs:
-        raise ValueError(f"composite coefficients of length {coeffs.shape[0]} do not fit the d={d} plan")
-    dts = dts.reshape(-1)
+    batch = tuple(coeffs.shape[:-1])
+    if plan.d != d or coeffs.shape[-1] != plan.n_coeffs:
+        raise ValueError(f"composite coefficients of length {coeffs.shape[-1]} do not fit the d={d} plan")
+    if not batch:
+        dts = dts.reshape(-1)
     n_w = len(plan.weights)
-    w = weights(plan, coeffs[:n_w], dts)
-    out = torch.zeros((d, d, dts.shape[0]), dtype=dts.dtype, device=dts.device)
+    w = weights(plan, coeffs[..., :n_w], dts)
+    steps = torch.broadcast_shapes(batch + (1,), dts.shape)
+    out = torch.zeros((d, d) + steps, dtype=dts.dtype, device=dts.device)
     for i, mono in enumerate(plan.monomials):
         W = w[mono[0]]
         for m in mono[1:]:
             W = W * w[m]
-        K = coeffs[n_w + i * d * d : n_w + (i + 1) * d * d].reshape(d, d, 1)
+        off = n_w + i * d * d
+        K = coeffs[..., off : off + d * d].reshape(batch + (d, d)).movedim((-2, -1), (0, 1))[..., None]
         out = out + K * W
     return out
 

@@ -13,6 +13,7 @@ Transitions: F is a direct sum of plane-rotation generators j·ω₀·[[0, −1]
 cos θ − 1]], θ_j = j·ω₀·dt, the diagonal as the half-angle −2 sin²(θ/2),
 cancellation-free at tiny dt.  ``transition_coeffs()`` gives them as the
 composite family (kernels/composite.py), a composite of one leaf.
+Hyperparameters of shape (C,) give every matrix a leading C axis.
 """
 from __future__ import annotations
 
@@ -81,29 +82,39 @@ class Periodic(SDEKernel):
     def _w0(self) -> Tensor:
         return 2.0 * math.pi / self.period
 
+    def _hypers(self):
+        """(variance, lengthscale, period) broadcast over their batch shape."""
+        return torch.broadcast_tensors(self.variance, self.lengthscales, self.period)
+
     def get_sde(self) -> ContinuousDiscreteModel:
         N, dim = self.order, self.state_dim
-        var = self.variance
-        dtype, device = var.dtype, var.device
-        ell = 2.0 * self.lengthscales  # the GPflow-convention shim
+        var, ell, period = self._hypers()
+        dtype, device, batch = var.dtype, var.device, tuple(var.shape)
+        ell = 2.0 * ell[..., None, None]  # the GPflow-convention shim
         b, K, div_facto_K = (torch.as_tensor(x, dtype=dtype, device=device) for x in _offline_coeffs(N))
         rot = torch.tensor([[0.0, -1.0], [1.0, 0.0]], dtype=dtype, device=device)
-        F = torch.kron(torch.diag(torch.arange(N + 1, dtype=dtype, device=device)), self._w0() * rot)
-        q2 = (b * ell ** (-2.0 * K) * div_facto_K * torch.exp(-(ell**-2.0)) * 2.0 ** (-K) * var).sum(0)
-        Pinf = torch.kron(torch.diag(q2), torch.eye(2, dtype=dtype, device=device))
+        w0 = 2.0 * math.pi / period
+        F = torch.kron(torch.diag(torch.arange(N + 1, dtype=dtype, device=device)), rot) * w0[..., None, None]
+        q2 = (b * ell ** (-2.0 * K) * div_facto_K * torch.exp(-(ell**-2.0)) * 2.0 ** (-K) * var[..., None, None]).sum(-2)
+        Pinf = torch.diag_embed(q2.repeat_interleave(2, -1))
         H = torch.kron(torch.ones((1, N + 1), dtype=dtype, device=device), torch.tensor([[1.0, 0.0]], dtype=dtype, device=device))
         L = torch.eye(dim, dtype=dtype, device=device)
-        return ContinuousDiscreteModel(Pinf, F, L, H, torch.zeros((dim, dim), dtype=dtype, device=device))
+        return ContinuousDiscreteModel(Pinf, F, L, H, torch.zeros(batch + (dim, dim), dtype=dtype, device=device))
 
     def transitions_m1_tl(self, dts: Tensor) -> Tensor:
-        """The rotation planes (d, d, T), each entry a (T,) plane."""
+        """The rotation planes (d, d, T), each entry a (T,) plane; (d, d, B,
+        T) for B chains."""
         N, dim = self.order, self.state_dim
         j = torch.arange(N + 1, dtype=dts.dtype, device=dts.device)
-        theta = (self._w0().to(dts.dtype) * j)[:, None] * dts.reshape(1, -1)  # (N+1, T)
+        w0 = self._w0().to(dts.dtype)
+        if w0.dim():
+            theta = (w0[..., None] * j).movedim(-1, 0)[..., None] * dts  # (N+1, B, T)
+        else:
+            theta = (w0 * j)[:, None] * dts.reshape(1, -1)  # (N+1, T)
         cm1 = -2.0 * torch.sin(0.5 * theta) ** 2
         s = torch.sin(theta)
         ev = torch.arange(N + 1, device=dts.device) * 2
-        out = torch.zeros((dim, dim, dts.numel()), dtype=dts.dtype, device=dts.device)
+        out = torch.zeros((dim, dim) + tuple(theta.shape[1:]), dtype=dts.dtype, device=dts.device)
         out[ev, ev] = cm1
         out[ev, ev + 1] = -s
         out[ev + 1, ev] = s
@@ -112,8 +123,9 @@ class Periodic(SDEKernel):
 
     def transition_coeffs(self):
         """The composite family of one rotation leaf: one rate, ω₀, for each
-        harmonic's two weights (the JAX build's single coefficient)."""
-        w0 = self._w0().reshape(())
+        harmonic's two weights (the JAX build's single coefficient); (B, n)
+        for B chains."""
+        w0 = self._w0()
         family, coeffs = rotation_expansion(self.order, w0).encode()
         return family, coeffs.to(w0)  # order 0: no weights, no coefficients
 

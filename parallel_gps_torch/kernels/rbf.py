@@ -16,6 +16,10 @@ mapped to ``get_sde``'s balanced basis by the diagonal similarity κ
 carried with the family and derived from d alone, the block table
 (``spectral_blocks``).  RBF models with ``parallel=True`` take the dt engine
 (kalman/dt.py), as the reference does.
+
+Hyperparameters of shape (C,) (C chains of a sampler) give every matrix and
+the coefficients a leading C axis, as the Matérn kernels do; each chain's
+balancing and κ are its own (``balance_scale`` over the batch).
 """
 from __future__ import annotations
 
@@ -131,20 +135,23 @@ def spectral_transitions_m1(coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
     coefficients (what the JAX ``build`` closure of rbf.py:267-288 computes):
     with u = dt·c[0], a real block adds expm1(−a·u)·κG and a conjugate pair
     (expm1(−a·u)·cos(βu) − 2 sin²(βu/2))·κG + e^{−a·u} sin(βu)·κS.
-    Differentiable in ``coeffs`` and ``dts``; scalar hyperparameters only
-    (``coeffs`` 1-D)."""
-    if coeffs.dim() != 1:
-        raise NotImplementedError("the spectral transitions of a batch of RBF kernels are ROADMAP.md B7")
-    u = dts.reshape(-1) * coeffs[0]
-    out = torch.zeros((d, d, u.shape[0]), dtype=dts.dtype, device=dts.device)
+    Differentiable in ``coeffs`` and ``dts``; (d, d, B, T) for ``coeffs``
+    (B, n), with ``dts`` (T,) or (B, T)."""
+    batch = tuple(coeffs.shape[:-1])
+    u = dts * coeffs[..., 0:1] if batch else dts.reshape(-1) * coeffs[0]
+    out = torch.zeros((d, d) + tuple(u.shape), dtype=dts.dtype, device=dts.device)
+
+    def matrix(off):
+        return coeffs[..., off : off + d * d].reshape(batch + (d, d)).movedim((-2, -1), (0, 1))[..., None]
+
     off = 1
     for a, beta in spectral_blocks(d):
-        G = coeffs[off : off + d * d].reshape(d, d, 1)
+        G = matrix(off)
         off += d * d
         if beta == 0.0:
             out = out + torch.expm1(-a * u) * G
             continue
-        S = coeffs[off : off + d * d].reshape(d, d, 1)
+        S = matrix(off)
         off += d * d
         bu = beta * u
         em1 = torch.expm1(-a * u) * torch.cos(bu) - 2.0 * torch.sin(0.5 * bu) ** 2
@@ -169,49 +176,53 @@ class RBF(VarianceLengthscaleKernel):
         ell = self.lengthscales
         return torch.as_tensor(x, dtype=ell.dtype, device=ell.device)
 
+    def _ell(self) -> Tensor:
+        """The lengthscale over the hyperparameters' batch shape."""
+        return torch.broadcast_tensors(self.lengthscales, self.variance)[0]
+
     def _scaled_F(self) -> Tensor:
         """The lengthscale-scaled companion F(ℓ): the last row of F(1)
-        divided by ℓ^{d−j}."""
-        if self.variance.dim() or self.lengthscales.dim():
-            raise NotImplementedError(
-                "an RBF kernel whose hyperparameters carry a batch axis (chains of a sampler) is not ported: "
-                "its SDE build and spectral transitions are written for scalars (ROADMAP.md, B7)"
-            )
+        divided by ℓ^{d−j}; (…, d, d) over the hyperparameters' batch axes."""
         F = self._const(_unscaled_rbf_sde(self.order)[0])
         dim = F.shape[0]
-        ell_vec = self.lengthscales ** self._const(np.arange(dim, 0, -1.0))
-        return torch.cat([F[: dim - 1], (F[dim - 1] / ell_vec)[None]], 0)
+        ell = self._ell()
+        ell_vec = ell[..., None] ** self._const(np.arange(dim, 0, -1.0))
+        return torch.cat([F[: dim - 1].expand(ell.shape + (dim - 1, dim)), (F[dim - 1] / ell_vec)[..., None, :]], -2)
 
     def get_sde(self) -> ContinuousDiscreteModel:
         _, L_, H_, q_ = _unscaled_rbf_sde(self.order)
         F = self._scaled_F()
-        ell = self.lengthscales
-        H = self._const(H_) / ell**self.order
-        Q = (self.variance * ell * q_).reshape(1, 1)
+        ell = self._ell()
+        batch = tuple(ell.shape)
+        H = self._const(H_) / (ell**self.order)[..., None, None]
+        Q = (self.variance * ell * q_).reshape(batch + (1, 1))
         Fb, Lb, Hb, Qb = balance_ss(F, self._const(L_), H, Q, self._n_iter())
         Pinf = solve_lyap_vec(Fb, Lb, Qb)
-        return ContinuousDiscreteModel(Pinf, Fb, Lb, Hb, Qb.reshape(1, 1))
+        return ContinuousDiscreteModel(Pinf, Fb, Lb, Hb, Qb.reshape(batch + (1, 1)))
 
     def _kappa(self) -> Tensor:
         """Entry scale κ[i, j] = ℓ^{j−i}·db_j / db_i mapping the
         unit-companion basis to ``get_sde``'s balanced basis:
         Am1_balanced[i, j] = κ[i, j]·(expm(u·F(1)) − I)[i, j], u = dt/ℓ, where
         F(ℓ) = D F(1) D⁻¹ / ℓ with D = diag(ℓ⁻ⁱ) and db is ``get_sde``'s
-        balancing scale, a constant under autograd (ops/balance.py)."""
-        ell_pow = self.lengthscales ** self._const(np.arange(self.order, dtype=np.float64))
+        balancing scale, a constant under autograd (ops/balance.py), computed
+        for each chain of a batch on its own."""
+        ell_pow = self._ell()[..., None] ** self._const(np.arange(self.order, dtype=np.float64))
         scale = ell_pow * balance_scale(self._scaled_F(), self._n_iter())
-        return scale[None, :] / scale[:, None]
+        return scale[..., None, :] / scale[..., :, None]
 
     def transition_coeffs(self):
         """``(SPECTRAL, coeffs)``: the spectral closed form with κ folded into
         each block's projector matrices, laid out
         ``[1/ℓ | per block: κ·G (d²) and, for a conjugate pair, κ·S (d²)]``
-        (1 + d³ values); the block table is ``spectral_blocks(d)``."""
+        (1 + d³ values, (B, 1 + d³) for B chains); the block table is
+        ``spectral_blocks(d)``."""
         kap = self._kappa()
-        parts = [(1.0 / self.lengthscales).reshape(1)]
+        batch = tuple(kap.shape[:-2])
+        parts = [(1.0 / self._ell()).reshape(batch + (1,))]
         for _, _, G, S in _rbf_spectral(self.order):
-            parts += [(kap * self._const(M)).reshape(-1) for M in (G, S) if M is not None]
-        return SPECTRAL, torch.cat(parts)
+            parts += [(kap * self._const(M)).reshape(batch + (-1,)) for M in (G, S) if M is not None]
+        return SPECTRAL, torch.cat(parts, -1)
 
     def dense(self, X: Tensor, X2: Tensor) -> Tensor:
         r = scaled_dist(X, X2, self.lengthscales)

@@ -1,5 +1,5 @@
 from parallel_gps_torch.models import params
-from parallel_gps_torch.models.gpr import GPR
+from parallel_gps_torch.models.gpr import GPR, DenseGP
 from parallel_gps_torch.models.ssgp import StateSpaceGP, merge_sorted
 
-__all__ = ["GPR", "StateSpaceGP", "merge_sorted", "params"]
+__all__ = ["DenseGP", "GPR", "StateSpaceGP", "merge_sorted", "params"]

@@ -17,10 +17,12 @@ device.
 
 Hyperparameters of shape (C,) — given to ``from_numpy``, or substituted by
 ``torch.func.functional_call`` — are C chains of a sampler (or C models) over
-the one data set: the LML is then (C,), one launch of the batched kernels for
-all chains (kalman/dt.py, kalman/batched.py).  It is the port's
-``jax.vmap(log_post)``, for the Matérn kernels; prediction stays
-single-series.
+the one data set, for every kernel: the LML is then (C,), one launch of the
+batched kernels for all chains on the dt and strip engines (kalman/dt.py,
+kalman/batched.py) and the plain time-last engine with a batch axis above
+d = 8, and ``predict_f`` gives (C, M, 1).  It is the port's
+``jax.vmap(log_post)`` and ``jax.vmap(lambda m: m.predict_f(X))``.  The
+sequential engine takes no batch axis (ROADMAP.md A14).
 
 Prediction merges the training and (sorted) query times with a
 searchsorted merge, puts NaN observations at the queries, smooths the
@@ -34,8 +36,9 @@ from torch import Tensor, nn
 
 from parallel_gps_torch import config
 from parallel_gps_torch.kalman import dt, strip
+from parallel_gps_torch.kalman.batched import batched_strip_smoother, batched_strip_smoother_plain
 from parallel_gps_torch.kalman.sequential import kf, kfs
-from parallel_gps_torch.kalman.timelast import lml_tl, pkfs_from_tl
+from parallel_gps_torch.kalman.timelast import lml_tl, pkf_from_tl, pkfs_from_tl
 from parallel_gps_torch.kernels.base import Product, SDEKernel, Sum
 from parallel_gps_torch.kernels.matern import Matern12, Matern32, Matern52
 from parallel_gps_torch.kernels.periodic import Periodic
@@ -205,18 +208,27 @@ class StateSpaceGP(nn.Module):
         engine the entry points run, and the kernel's ``transition_coeffs()``
         where the dt-engine takes them."""
         d = self.kernel.state_dim
-        matern = isinstance(self.kernel, (Matern12, Matern32, Matern52))
-        if any(p.dim() for p in self.parameters()) and not (self.parallel and matern):
-            raise NotImplementedError(
-                "hyperparameters with a batch axis (chains) run on the dt engine only, for the Matérn kernels with "
-                "parallel=True; a batched RBF, Periodic or composite model is still to be ported (ROADMAP.md, B7)"
-            )
         if not self.parallel:
+            if self.batched:
+                raise NotImplementedError(
+                    "hyperparameters with a batch axis (chains) run on the parallel engines (parallel=True); chains "
+                    "on the sequential engine are ROADMAP.md A14"
+                )
             return "sequential", None
         transition = self.kernel.transition_coeffs()
         if transition is not None and dt.fits(transition[0], d):
             return "dt", transition
         return ("strip" if d <= strip.MAX_KERNEL_D else "timelast"), None
+
+    @property
+    def batched(self) -> bool:
+        """Whether the hyperparameters carry a batch axis (C chains)."""
+        return any(p.dim() for p in self.parameters())
+
+    def _R(self) -> Tensor:
+        """The noise variance as R: (1, 1), or (C, 1, 1) for C chains."""
+        nv = self.noise_variance
+        return nv.reshape(-1, 1, 1) if nv.dim() else nv.reshape(1, 1)
 
     def log_marginal_likelihood(self) -> Tensor:
         """LML of the data, differentiable in the hyperparameters.  On the dt
@@ -226,7 +238,7 @@ class StateSpaceGP(nn.Module):
         engine, transition = self.engine()
         if engine == "dt":
             return dt.lml_dt(self.kernel, self.ts, self.noise_variance, self.ys, transition)
-        R = self.noise_variance.reshape(1, 1)
+        R = self._R()
         if engine == "sequential":
             return kf(self.kernel.get_ssm(self.ts, R), self.ys, return_loglikelihood=True)[2]
         return lml_tl(self.kernel.get_ssm_tl(self.ts, R), self.ys, strip=engine == "strip")
@@ -244,21 +256,24 @@ class StateSpaceGP(nn.Module):
     @torch.no_grad()
     def predict_f(self, Xnew, full_cov: bool = False):
         """Posterior mean and marginal variance of f at ``Xnew`` (any order,
-        inside or outside the data range), each (M, 1).  ``full_cov`` is
-        accepted and ignored, as in the reference."""
+        inside or outside the data range), each (M, 1), or (C, M, 1) for C
+        chains.  ``full_cov`` is accepted and ignored, as in the reference."""
         del full_cov
-        if any(p.dim() for p in self.parameters()):
-            raise NotImplementedError("predict_f of a model with batched hyperparameters is not ported (ROADMAP.md, B7)")
         X = _as_tensor(Xnew, self.ts.dtype, self.ts.device).reshape(-1)
         m = X.shape[0]
+        lead = tuple(torch.broadcast_shapes(*(p.shape for p in self.parameters())))
         if m == 0:
-            empty = torch.zeros((0, 1), dtype=self.ts.dtype, device=self.ts.device)
+            empty = torch.zeros(lead + (0, 1), dtype=self.ts.dtype, device=self.ts.device)
             return empty, empty.clone()
         order = torch.argsort(X)
         nan_ys = torch.full((m,), float("nan"), dtype=self.ys.dtype, device=self.ys.device)
         all_ts, (all_ys,), q_idx = merge_sorted(self.ts, X[order], (self.ys,), (nan_ys,))
         engine, transition = self.engine()
-        R = self.noise_variance.reshape(1, 1)
+        inv_order = torch.argsort(order)
+        if self.batched:
+            mean, var = self._predict_batched(engine, transition, all_ts, all_ys)
+            return mean[:, q_idx][:, inv_order, None], var[:, q_idx][:, inv_order, None]
+        R = self._R()
         if engine == "dt":
             g_tl, L_tl = dt.pkfs_dt(self.kernel, all_ts, R, all_ys, transition)
             h = self.kernel.get_sde().H[0]
@@ -272,5 +287,20 @@ class StateSpaceGP(nn.Module):
             h = ssm.H[0]
         mean = h @ g_tl[:, q_idx]  # (M,)
         var = torch.einsum("i,ijm,j->m", h, L_tl[:, :, q_idx], h)
-        inv_order = torch.argsort(order)
         return mean[inv_order][:, None], var[inv_order][:, None]
+
+    def _predict_batched(self, engine: str, transition, all_ts: Tensor, all_ys: Tensor):
+        """The C chains' H-projections of the smoothed moments over the merged
+        series, each (C, T): one filter and one smoother with its fused
+        projection for all chains — the batched kernels on the dt engine's
+        planes or on the strip engine's, the plain time-last engine with
+        the batch axis above d = 8."""
+        if engine == "dt":
+            family, coeffs, sde, dts = dt._model_inputs(self.kernel, all_ts, transition)
+            coeffs, P0, H, R, _ = dt.series_inputs(coeffs, sde, self.noise_variance)
+            (b, C, _), (Fs, Qs) = dt._batched_filter_dt(family, coeffs, P0, H, R, dts, all_ys)
+            return batched_strip_smoother(Fs, Qs, b, C, H, project=True)[2:]
+        ssm = self.kernel.get_ssm_tl(all_ts, self._R())
+        b, C = pkf_from_tl(ssm, all_ys, strip=engine == "strip")
+        smoother = batched_strip_smoother if engine == "strip" else batched_strip_smoother_plain
+        return smoother(ssm.Fs, ssm.Qs, b, C, ssm.H, project=True)[2:]

@@ -29,19 +29,35 @@ def discretize_tl(
 ) -> LGSSMTL:
     """(d, d, T) transition/noise stacks from the SDE and the time stamps.
     ``transitions_m1_tl``: callable ``dts -> (d, d, T)`` giving
-    ``expm(dt_k F) − I`` time-last."""
+    ``expm(dt_k F) − I`` time-last.
+
+    A batch of C models (hyperparameters of shape (C,): an SDE with (C, d, d)
+    leaves, (d, d, C, T) transitions, or an ``R`` of shape (C, 1, 1)) gives
+    the batched layout of kalman/timelast.py: planes (d, d, C, T), ``P0``
+    (C, d, d), ``H`` (C, 1, d) and ``R`` (C, 1, 1), every leaf expanded to
+    the batch."""
     dts = _dts(ts, t0)
     Am1 = transitions_m1_tl(dts)
-    d = sde.F.shape[0]
+    d = sde.F.shape[-1]
     T = dts.shape[0]
     P0 = symmetrize(sde.P0)
-    eye_tl = torch.eye(d, dtype=Am1.dtype, device=Am1.device)[:, :, None].expand(d, d, T)
+    R = torch.as_tensor(R)
+    batch = torch.broadcast_shapes(Am1.shape[2:-1], P0.shape[:-2], sde.H.shape[:-2], R.shape[:-2])
+    if len(batch) > 1:
+        raise ValueError(f"a model may carry one leading batch axis, got batch shape {tuple(batch)}")
+    if batch:
+        Am1 = (Am1[:, :, None] if Am1.dim() == 3 else Am1).expand((d, d) + batch + (T,))
+        P0 = P0.expand(batch + (d, d))
+    P0p = P0.movedim((-2, -1), (0, 1))  # (d, d, *batch)
+    eye_tl = torch.eye(d, dtype=Am1.dtype, device=Am1.device).reshape((d, d) + (1,) * (Am1.dim() - 2)).expand(Am1.shape)
     Fs = Am1 + eye_tl
-    AP = (Am1[:, :, None, :] * P0[None, :, :, None]).sum(1)
-    APAt = (AP[:, :, None, :] * Am1[None, :, :, :].transpose(1, 2)).sum(1)
+    AP = (Am1[:, :, None] * P0p[None, ..., None]).sum(1)
+    APAt = (AP[:, :, None] * Am1[None].transpose(1, 2)).sum(1)
     Q = -(AP + AP.transpose(0, 1) + APAt)
     Qs = 0.5 * (Q + Q.transpose(0, 1))
-    return LGSSMTL(P0, Fs, Qs, sde.H, torch.as_tensor(R).reshape(1, 1))
+    if not batch:
+        return LGSSMTL(P0, Fs, Qs, sde.H, R.reshape(1, 1))
+    return LGSSMTL(P0, Fs, Qs, sde.H.expand(batch + (1, d)), R.reshape(-1, 1, 1).expand(batch + (1, 1)))
 
 
 def discretize(sde: ContinuousDiscreteModel, ts: Tensor, R: Tensor, t0=0.0, transitions_m1=None) -> LGSSM:

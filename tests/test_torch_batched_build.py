@@ -85,15 +85,28 @@ def test_position_trees_round_trip():
 
 
 def test_what_the_batched_path_does_not_cover_raises():
+    """RBF chains and a batched Matérn ``predict_f`` are covered now: their
+    LML, SDE and predictions equal those of C scalar models.  Chains on the
+    sequential engine (``parallel=False``) still raise and name the ROADMAP
+    item that holds them."""
     t, y = _data(20, 0)
+    X = np.array([0.5, -0.2, 0.1])
     rbf = StateSpaceGP.from_numpy(t, y, "RBF", VAR, ELL, NOISE, dtype=torch.float64, device="cpu", order=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbf.log_marginal_likelihood()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rbf.kernel.get_sde()
+    lml = rbf.log_marginal_likelihood().detach()
+    with torch.no_grad():
+        sde = rbf.kernel.get_sde()
+    assert lml.shape == (C_CHAINS,) and sde.P0.shape == (C_CHAINS, 4, 4)
     mb = StateSpaceGP.from_numpy(t, y, "Matern32", VAR, ELL, NOISE, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mb.predict_f(np.array([0.5]))
+    mean, var = mb.predict_f(X)
+    assert mean.shape == var.shape == (C_CHAINS, X.size, 1)
+    for c in range(C_CHAINS):
+        one = StateSpaceGP.from_numpy(t, y, "RBF", VAR[c], ELL[c], NOISE[c], dtype=torch.float64, device="cpu", order=4)
+        npt.assert_allclose(float(lml[c]), float(one.log_marginal_likelihood().detach()), rtol=1e-9)
+        with torch.no_grad():
+            npt.assert_allclose(sde.P0[c].numpy(), one.kernel.get_sde().P0.numpy(), rtol=1e-12, atol=1e-14)
+        m_c, v_c = StateSpaceGP.from_numpy(t, y, "Matern32", VAR[c], ELL[c], NOISE[c], dtype=torch.float64, device="cpu").predict_f(X)
+        npt.assert_allclose(mean[c].numpy(), m_c.numpy(), rtol=1e-9, atol=1e-12)
+        npt.assert_allclose(var[c].numpy(), v_c.numpy(), rtol=1e-9, atol=1e-12)
     seq = StateSpaceGP.from_numpy(t, y, "Matern32", VAR, ELL, NOISE, dtype=torch.float64, device="cpu", parallel=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         seq.log_marginal_likelihood()

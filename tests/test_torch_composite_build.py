@@ -92,7 +92,7 @@ def test_engine_routes_composites_and_specs_round_trip():
     """A composite of closed-form leaves takes the dt engine with the
     composite family up to d = 8 and the plain time-last engine above (the
     d = 14 Periodic(order=6), the d = 18 CO2 composite); with a batch axis
-    its hyperparameters raise and name B7; to_numpy returns the spec that
+    it gives one LML a chain, each the scalar model's; to_numpy returns the spec that
     from_numpy takes, and the JAX kernel tree's spec builds the same
     kernel."""
     t, y = data(40, 0)
@@ -110,5 +110,7 @@ def test_engine_routes_composites_and_specs_round_trip():
     assert StateSpaceGP.from_numpy(t, y, jax_spec(CO2), noise_variance=0.1, **CPU64).kernel.state_dim == 18
     k = tk.Periodic(np.full(3, 1.0), 0.5, 1.0, order=1, **CPU64) * tk.Matern32(1.0, 0.5, **CPU64)
     chains = StateSpaceGP.create((t, y), k, 0.1, **CPU64)
-    with pytest.raises(NotImplementedError, match="B7"):
-        chains.log_marginal_likelihood()
+    one = StateSpaceGP.create((t, y), tk.Periodic(1.0, 0.5, 1.0, order=1, **CPU64) * tk.Matern32(1.0, 0.5, **CPU64), 0.1, **CPU64)
+    lml = chains.log_marginal_likelihood().detach()
+    assert chains.engine()[0] == "dt" and lml.shape == (3,)
+    npt.assert_allclose(lml.numpy(), np.full(3, float(one.log_marginal_likelihood().detach())), rtol=1e-12)

@@ -43,8 +43,9 @@ def test_transition_coeffs_and_build_match_jax(order):
 
 def test_engine_choice_layout_and_refusals():
     """RBF of every order ≤ 8 with ``parallel=True`` takes the dt engine, the
-    Matérn kernels keep it, and a batch of RBF hyperparameters still raises
-    and names B7; the kernels' layout holds every coefficient at its
+    Matérn kernels keep it, and a batch of RBF hyperparameters takes it too,
+    each chain's coefficients and kernel layout the scalar kernel's; the
+    kernels' layout holds every coefficient at its
     position, a real root's S as zeros, and the block table after; the
     family checks state each family's own limits."""
     t, y = _data(40, 0)
@@ -66,10 +67,13 @@ def test_engine_choice_layout_and_refusals():
     for name in ("Matern12", "Matern32", "Matern52"):
         assert StateSpaceGP.from_numpy(t, y, name, 1.0, 0.3, 0.1, **opts).engine()[0] == "dt"
     chains = StateSpaceGP.from_numpy(t, y, "RBF", np.full(3, 1.0), np.full(3, 0.3), 0.1, order=4, **opts)
-    with pytest.raises(NotImplementedError, match="B7"):
-        chains.engine()
-    with pytest.raises(NotImplementedError, match="B7"):
-        tdt._require_batched_family(SPECTRAL)
+    engine, (family, coeffs) = chains.engine()
+    single = StateSpaceGP.from_numpy(t, y, "RBF", 1.0, 0.3, 0.1, order=4, **opts).engine()[1][1].detach()
+    assert (engine, family) == ("dt", SPECTRAL) and coeffs.shape == (3, 1 + 4**3)
+    kc = tdt.kernel_coeffs(family, coeffs.detach(), 4)
+    for c in range(3):
+        assert torch.equal(coeffs[c].detach(), single)
+        assert torch.equal(kc[c], tdt.kernel_coeffs(family, single, 4))
     with pytest.raises(ValueError, match=r"outside 1\.\.8"):
         tdt._check_family(SPECTRAL, 9, 1 + 9**3)
     with pytest.raises(ValueError, match=r"outside 1\.\.3"):
