@@ -101,7 +101,17 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      study at its defaults in float64 (its loss falling at n = 1200, 2200,
      3200, predictions on 30× grids), the sunspot MCMC study at n = 3000, the
      toy speed sweep of pssgp and gp (equal RMSEs) and the toy MCMC study,
-     cut in depth, each on the exponential polynomial's dt units;
+     cut in depth, each on the exponential polynomial's dt units, and the
+     CO2 MCMC study at its defaults cut in depth (d = 18: the plain
+     time-last engine, no hand-written kernel); then the stable path at
+     d = 12 (phase_stable): RBF(order=12) on the f32 envelope of
+     scripts/bench_envelope_d12.py for the standard engine (the plain
+     time-last engine on Padé transitions) and the square-root engine, each
+     LML against the f64 sqrt truth on the card, the sqrt engine finite with
+     variances ≥ 0 at every length and within 1e-4 of the truth at
+     T = 4,096; the stable f32 training step beside the f64 standard one;
+     predict_f at T = 131,072; the LML bit for bit whatever the caller's
+     float32 matmul precision;
  10. the probe programs (parallel_gps_torch/probes, kernels in
      csrc/probes.cu): each probe kernel against its plain version at
      T = 65,537 in float32 and float64, bit for bit; then the three command
@@ -185,6 +195,7 @@ from parallel_gps_torch.inference import (  # noqa: E402
 from parallel_gps_torch.kalman import _cuda  # noqa: E402
 from parallel_gps_torch.kalman import batched, dt, plane, strip, timelast  # noqa: E402
 from parallel_gps_torch.kalman.parallel import pkf, pkfs, pks  # noqa: E402
+from parallel_gps_torch.kalman.sqrt import sqrt_pkfs_kernel  # noqa: E402
 from parallel_gps_torch.models.ssgp import merge_sorted  # noqa: E402
 from parallel_gps_torch.kernels import RBF, Matern12, Matern32, Matern52, Periodic  # noqa: E402
 from parallel_gps_torch.kernels.composite import COMPOSITE  # noqa: E402
@@ -194,6 +205,7 @@ from parallel_gps_torch.probes import attrib as probe_attrib  # noqa: E402
 from parallel_gps_torch.probes import common as probe_common  # noqa: E402
 from parallel_gps_torch.probes import dma as probe_dma  # noqa: E402
 from parallel_gps_torch.probes import grid as probe_grid  # noqa: E402
+from parallel_gps_torch.toymodels import obs_noise, sinu  # noqa: E402
 from parallel_gps_torch.types import LGSSM, LGSSMTL  # noqa: E402
 
 N_FULL = 10_000_000
@@ -2482,21 +2494,27 @@ def phase_batched_models(card: str) -> tuple:
 # L-BFGS iterations, 30× prediction grids); the sunspot MCMC study at size
 # 3000 with 100 HMC draws after 20 (its default: 1,000 after 100); the toy
 # speed sweep of pssgp and gp at sizes 2^12..2^15 with 3 seeds (default 21);
-# the toy MCMC study at 2^14 with 50 draws after 20.
+# the toy MCMC study at 2^14 with 50 draws after 20; the CO2 MCMC study at its
+# defaults (n = 3192, the d = 18 quasi-periodic sum on the plain time-last
+# engine, which launches no hand-written kernel) with 50 draws after 20.
 EXPERIMENT_RUNS = (
     ("sunspot.map", []),
     ("sunspot.mcmc", ["--sizes", "3000", "--n-samples", "100", "--burnin", "20"]),
     ("toy_models.speed_and_stability", ["--model", "pssgp", "--log2-sizes", "12", "13", "14", "15", "--n-seeds", "3"]),
     ("toy_models.speed_and_stability", ["--model", "gp", "--log2-sizes", "12", "13", "14", "15", "--n-seeds", "3"]),
     ("toy_models.mcmc", ["--log2-sizes", "14", "--n-samples", "50", "--burnin", "20"]),
+    ("co2.mcmc", ["--n-samples", "50", "--burnin", "20"]),
 )
+PLAIN_EXPERIMENTS = ("co2.mcmc",)  # runs on the plain time-last engine (d > 8)
 
 
 def phase_experiments(card: str) -> dict:
     """Each run of EXPERIMENT_RUNS through its module's ``run(args)``, the
     results written to a temporary directory: its wall time and the dt
-    kernels it launched (every model is Matern32, d = 2, float64: the
-    exponential polynomial's f64 d = 2 units), none of the plain prefix.
+    kernels it launched (every model but CO2's is Matern32, d = 2, float64:
+    the exponential polynomial's f64 d = 2 units; CO2's d = 18 model takes
+    the plain time-last engine and launches none), none of the plain
+    prefix.
     The checks: the MAP loss falls at every size and its predictions are
     finite with positive variances; the MCMC draws are finite with an
     acceptance in [0, 1]; the sweep's RMSEs are finite and the state-space
@@ -2527,7 +2545,9 @@ def phase_experiments(card: str) -> dict:
             print(f"experiment {module} {' '.join(argv) or '(defaults)'} [{card}]: wall {wall:.1f} s; launches {ran}; plain prefixes {PREFIX_CALLS[0]}")
             check(PREFIX_CALLS[0] == 0, f"experiment {module}: {PREFIX_CALLS[0]} plain prefixes")
             check(set(ran) <= set(DT_KERNELS) | {"plane_scan"}, f"experiment {module} left the exponential polynomial's dt units: {ran}")
-            if args.model != "gp":
+            if module in PLAIN_EXPERIMENTS:
+                check(not ran, f"experiment {module}: the d = 18 model launched kernels: {ran}")
+            elif args.model != "gp":
                 check(counts["dt_filter_scan"] > 0 and counts["dt_filter_apply"] > 0, f"experiment {module}: no dt filter launched")
             for k in DT_KERNELS:
                 total[k] += counts[k]
@@ -2539,10 +2559,10 @@ def phase_experiments(card: str) -> dict:
             check(out["mean"].shape == (30 * n, 1) and np.isfinite(out["mean"]).all() and bool((var > 0).all()), f"sunspot MAP n={n}: predictions")
             print(f"  sunspot MAP n={n}: loss {loss[0]:.2f} -> {loss[-1]:.2f} in {loss.size} L-BFGS iterations, fit {float(out['wall']):.2f} s, "
                   f"predict_f of {30 * n} points {float(out['wall_pred']):.3f} s")
-        for name in ("sunspot_mcmc_pssgp_hmc_n3000.npz", "mcmc_pssgp_Matern32_hmc_float64.npz"):
+        for name, leaves in (("sunspot_mcmc_pssgp_hmc_n3000.npz", 3), ("mcmc_pssgp_Matern32_hmc_float64.npz", 3), ("co2_mcmc_pssgp_hmc.npz", 8)):
             out = files[name]
             draws = [out[k] for k in out.files if k.startswith(("sample_", "n16384_"))]
-            check(len(draws) == 3 and all(np.isfinite(x).all() and x.shape == draws[0].shape for x in draws), f"{name}: draws")
+            check(len(draws) == leaves and all(np.isfinite(x).all() and x.shape == draws[0].shape for x in draws), f"{name}: draws")
             check(np.isfinite(out["accepts"]).all() and 0.0 <= out["accepts"].min() and out["accepts"].max() <= 1.0, f"{name}: acceptance")
             print(f"  {name}: {draws[0].shape[0]} draws, acceptance {out['accepts']}, walls {out['walls']} s")
         ssgp, gp = (files[f"speed_stability_{m}_Matern32_float64.npz"] for m in ("pssgp", "gp"))
@@ -2559,6 +2579,167 @@ def phase_experiments(card: str) -> dict:
         experiments_common._DEVICE[0] = None
     check(all(total[k] > 0 for k in DT_KERNELS), f"the experiments did not launch every exp. dt unit: {total}")
     return total
+
+
+# The stable path (kalman/sqrt.py) on the d = 12 envelope protocol of
+# scripts/bench_envelope_d12.py:45-52: RBF(1.0, 0.25, order=12), float32
+# times t = sort(U[0, 1))·4 with seed 0, y = obs_noise(sinu(t), 0.1, 0),
+# R = 0.1.  STABLE_T_LARGE is the sqrt engine's extra length, kept where its
+# peak memory fits (PERF.md §5).
+STABLE_KERNEL = dict(kernel="RBF", variance=1.0, lengthscales=0.25, noise_variance=0.1, order=12)
+STABLE_T = (4_096, 16_384, 32_768, 131_072)
+STABLE_T_LARGE = (1_048_576,)
+STABLE_T_TRAIN = 32_768
+STABLE_T_PREDICT = 131_072
+STABLE_RTOL_F64 = 1e-8  # the f64 standard engine against the f64 truth at T = 4,096
+STABLE_RTOL_F32 = 1e-4  # the f32 sqrt LML against the f64 truth at T = 4,096
+
+
+def stable_data(T: int):
+    """The envelope protocol's float32 data (the f64 runs take the same
+    values)."""
+    rng = np.random.RandomState(0)
+    t = np.sort(rng.rand(T)).astype(np.float32) * 4.0
+    return t, obs_noise(sinu(t), 0.1, 0).astype(np.float32)
+
+
+def stable_model(T: int, dtype, stable: bool):
+    t, y = stable_data(T)
+    return StateSpaceGP.from_numpy(t.astype(np.float64), y.astype(np.float64), dtype=dtype, device=DEV, stable=stable, **STABLE_KERNEL)
+
+
+def smoothed_variances(model) -> tuple:
+    """(means finite, the smallest posterior variance h P hᵀ over the
+    series) of the model's engine: the sqrt smoother's ‖Nᵀhᵀ‖², or the
+    plain time-last engine's h P hᵀ."""
+    R = model._R()
+    with torch.no_grad():
+        h = model.kernel.get_sde().H[0]
+        if model.stable:
+            ms, Ns = sqrt_pkfs_kernel(model.kernel, model.ts, R, model.ys)
+            var = ((Ns.transpose(-1, -2) @ h[:, None])[..., 0] ** 2).sum(-1)
+        else:
+            g, L = timelast.pkfs_from_tl(model.kernel.get_ssm_tl(model.ts, R), model.ys, time_first_out=False)
+            ms, var = g, torch.einsum("i,ijt,j->t", h, L, h)
+    return bool(torch.isfinite(ms).all()) and bool(torch.isfinite(var).all()), float(var.min())
+
+
+def stable_lml(model) -> float:
+    with torch.no_grad():
+        return float(model.log_marginal_likelihood())
+
+
+def phase_stable(card: str) -> dict:
+    """The stable path at d = 12 (RBF order 12: the Padé transitions):
+
+    1. the envelope: at each T of STABLE_T (and STABLE_T_LARGE for the sqrt
+       engine), in float32, the standard engine (the plain time-last engine)
+       and the sqrt engine: the LML and whether it is finite, whether the
+       smoothed moments are finite, the smallest posterior variance, CUDA
+       events and peak memory; the float64 truth from the sqrt engine in
+       float64.  Checks: the sqrt engine's f32 LML finite and its variances
+       ≥ 0 at every T; at T = 4,096 its relative LML error ≤ STABLE_RTOL_F32
+       and the f64 standard engine within STABLE_RTOL_F64 of the truth;
+    2. one value and gradient at T = STABLE_T_TRAIN on the stable path in
+       float32 against the float64 standard engine, both timed, and the f32
+       gradient's relative error;
+    3. predict_f of 1,000 unsorted queries at T = STABLE_T_PREDICT on the
+       stable path in float32;
+    4. the precision guard: the T = 4,096 f32 sqrt LML with
+       ``torch.set_float32_matmul_precision("high")`` around the call equal
+       bit for bit to the one at "highest".
+
+    The sqrt engine launches none of the hand-written kernels (its
+    operations are torch.linalg's and matmuls), nor does the d = 12
+    standard engine: both are counted.  Returns a summary."""
+    out = {"envelope": []}
+    saved_precision = torch.get_float32_matmul_precision()
+    reset_all_launches()
+    for T in STABLE_T + STABLE_T_LARGE:
+        truth = stable_lml(stable_model(T, torch.float64, True))
+        row = {"T": T, "truth_lml": truth}
+        engines = (("sqrt", True),) if T in STABLE_T_LARGE else (("standard", False), ("sqrt", True))
+        for name, stable in engines:
+            model = stable_model(T, torch.float32, stable)
+            lml = stable_lml(model)
+            finite, var_min = smoothed_variances(model)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: stable_lml(model), 2)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rel = abs(lml - truth) / abs(truth)
+            row[name] = {"lml": lml, "lml_finite": bool(np.isfinite(lml)), "moments_finite": finite, "var_min": var_min,
+                         "rel_err": rel, "ms": ms, "peak_gib": peak}
+            print(f"stable envelope T={T} {name} f32 [{card}]: LML {lml:.6f} (f64 truth {truth:.6f}, rel {rel:.3e}), "
+                  f"finite {np.isfinite(lml)}, moments finite {finite}, smallest variance {var_min:.3e}, "
+                  f"{ms:.2f} ms, peak {peak:.2f} GiB", flush=True)
+            if stable:
+                check(np.isfinite(lml) and finite, f"sqrt engine f32 T={T}: LML {lml}, moments finite {finite}")
+                check(var_min >= 0.0, f"sqrt engine f32 T={T}: a negative posterior variance {var_min}")
+            del model
+        if T == STABLE_T[0]:
+            std64 = stable_lml(stable_model(T, torch.float64, False))
+            rel64 = abs(std64 - truth) / abs(truth)
+            print(f"stable envelope T={T}: f64 standard engine LML {std64:.10f} against the f64 sqrt truth, rel {rel64:.3e}")
+            check(rel64 <= STABLE_RTOL_F64, f"T={T}: the f64 standard engine is {rel64:.3e} from the f64 sqrt truth")
+            check(row["sqrt"]["rel_err"] <= STABLE_RTOL_F32, f"T={T}: the f32 sqrt LML is {row['sqrt']['rel_err']:.3e} from f64 truth")
+        out["envelope"].append(row)
+        torch.cuda.empty_cache()
+
+    # 2. The training step: value and gradient, f32 stable against f64 standard.
+    def step(model):
+        model.zero_grad()
+        model.training_loss().backward()
+        return [p.grad.detach().double().clone() for p in model.parameters()]
+
+    grads, walls, ms = {}, {}, {}
+    for what, dtype, stable in (("stable f32", torch.float32, True), ("standard f64", torch.float64, False)):
+        model = stable_model(STABLE_T_TRAIN, dtype, stable)
+        step(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads[what] = step(model)
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        ms[what] = cuda_ms(lambda: step(model), 3)
+        del model
+    g32, g64 = torch.stack([g.reshape(()) for g in grads["stable f32"]]), torch.stack([g.reshape(()) for g in grads["standard f64"]])
+    grad_rel = float((g32 - g64).abs().max() / g64.abs().max())
+    print(f"stable training step T={STABLE_T_TRAIN} [{card}]: stable f32 {ms['stable f32']:.2f} ms (wall {walls['stable f32']:.3f} s), "
+          f"standard f64 {ms['standard f64']:.2f} ms (wall {walls['standard f64']:.3f} s); f32 gradient {g32.tolist()} "
+          f"against f64 {g64.tolist()}, rel {grad_rel:.3e}", flush=True)
+    check(bool(torch.isfinite(g32).all()), "the stable f32 gradient is not finite")
+    out["training"] = {"ms": ms, "wall_s": walls, "grad_rel": grad_rel}
+
+    # 3. predict_f on the stable path.
+    model = stable_model(STABLE_T_PREDICT, torch.float32, True)
+    queries = np.random.RandomState(SEED + 1).rand(N_CHAIN_QUERIES).astype(np.float32) * 4.0
+    mean, var = model.predict_f(queries)
+    check(tuple(mean.shape) == (N_CHAIN_QUERIES, 1) and bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()),
+          "stable predict_f: shapes or finiteness")
+    check(float(var.min()) >= 0.0, f"stable predict_f: a negative variance {float(var.min())}")
+    predict_ms = cuda_ms(lambda: model.predict_f(queries), 3)
+    print(f"stable predict_f T={STABLE_T_PREDICT}, {N_CHAIN_QUERIES} unsorted queries, f32 [{card}]: {predict_ms:.2f} ms, "
+          f"smallest variance {float(var.min()):.3e}", flush=True)
+    out["predict_ms"] = predict_ms
+    del model
+
+    # 4. The precision guard.
+    model = stable_model(STABLE_T[0], torch.float32, True)
+    torch.set_float32_matmul_precision("highest")
+    with torch.no_grad():
+        highest = model.log_marginal_likelihood()
+        torch.set_float32_matmul_precision("high")
+        try:
+            high = model.log_marginal_likelihood()
+            check(torch.get_float32_matmul_precision() == "high", "the sqrt engine did not restore the caller's precision")
+        finally:
+            torch.set_float32_matmul_precision(saved_precision)
+    print(f"stable precision guard T={STABLE_T[0]}: LML at 'highest' {float(highest)!r}, at 'high' {float(high)!r}")
+    check(torch.equal(highest, high), "the sqrt engine's LML changed with the caller's float32 matmul precision")
+    counts = {k: v for k, v in all_launches().items() if v}
+    check(not counts, f"the stable path launched hand-written kernels: {counts}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_slice():
@@ -3547,6 +3728,11 @@ def qp_prefix_precision(card: str) -> None:
             print(f"QP chunk prefix {kind} N={N_QP} ({tot.shape[1]} chunks) [{card}], moments vs the f64 scan of the same f32 "
                   "totals: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
             check(errs["kernel f32"] <= F32_FACTOR * max(errs["plain f32"], F32_FLOOR), f"QP chunk prefix {kind}: {errs}")
+            # The prefix between two passes (the kernel's scan and a shift)
+            # beside its plain Kogge–Stone version: row 12's QP figures.
+            ms = cuda_ms(lambda: strip.exclusive_chunk_prefixes(tot, d, rev), reps=5)
+            plain_ms = cuda_ms(lambda: strip.exclusive_chunk_prefixes_plain(tot, d, rev), reps=3)
+            print(f"QP chunk prefix {kind} f32 [{card}]: {ms:.3f} ms, plain {plain_ms:.3f} ms (events)")
             del truth, scans
     del m, tot_f, tot_s
     torch.cuda.empty_cache()
@@ -5076,6 +5262,8 @@ def main() -> int:
     lap("batched RBF(order=6) and QP paths")
     experiment_counts = phase_experiments(card)
     lap("experiments")
+    phase_stable(card)
+    lap("stable path (d = 12)")
     print(f"launches: experiments {experiment_counts}")
     phase_probe_kernels()
     records += phase_probes(card)

@@ -18,6 +18,14 @@ import torch
 NUMBER_OF_BALANCING_STEPS: int = 10
 
 
+def set_number_balancing_steps(n: int) -> None:
+    """Set the default number of balancing iterations (reference:
+    pssgp/config.py:9-16): every kernel whose ``balancing_iter`` is
+    negative reads it when it builds its SDE."""
+    global NUMBER_OF_BALANCING_STEPS
+    NUMBER_OF_BALANCING_STEPS = int(n)
+
+
 def default_float() -> torch.dtype:
     """Default floating dtype: PyTorch's default dtype (float32 unless the
     caller has set ``torch.set_default_dtype(torch.float64)``)."""

@@ -6,6 +6,7 @@ Run as modules, on the card by default, e.g.::
         --model pssgp --cov Matern32 --n-seeds 3
     python -m parallel_gps_torch.experiments.sunspot.map --data-dir data/
     python -m parallel_gps_torch.experiments.sunspot.mcmc --platform cpu
+    python -m parallel_gps_torch.experiments.co2.mcmc --n-samples 50
 
-The CO2 studies and the figures (``plots.py``) are not ported yet.
+The figures (``plots.py``) are not ported yet (ROADMAP A12b).
 """

@@ -130,16 +130,17 @@ def get_model(model: str, data, covariance, noise_variance: float, device=None, 
     """The model factory (JAX common.py:143-185): ``gp`` the dense GP,
     ``ssgp`` the sequential engine, ``pssgp`` the parallel engines, on
     ``device`` (``None``: the process's, ``set_dtype``).  ``stable``
-    (``--stable``, the square-root engine) is ROADMAP A10 and raises."""
+    (``--stable``) routes the parallel state-space model through the
+    square-root engine (kalman/sqrt.py); the other models ignore it, as in
+    the JAX package."""
     from parallel_gps_torch.models import DenseGP, StateSpaceGP
 
-    if stable:
-        raise NotImplementedError("--stable (the square-root engine, kalman/sqrt.py) is ROADMAP A10")
     device = device if device is not None else default_device()
     model = ModelEnum(model)
     if model == ModelEnum.GP:
         return DenseGP.create(data, covariance, noise_variance, device=device)
-    return StateSpaceGP.create(data, covariance, noise_variance, parallel=model == ModelEnum.PSSGP, device=device)
+    parallel = model == ModelEnum.PSSGP
+    return StateSpaceGP.create(data, covariance, noise_variance, parallel=parallel, device=device, stable=stable and parallel)
 
 
 # What counts as a numerical failure of a chain (recorded as NaNs, the sweep
@@ -253,7 +254,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument(
         "--stable",
         action="store_true",
-        help="square-root (Cholesky-factor) engine for the state-space models: not ported (ROADMAP A10), raises",
+        help="square-root (Cholesky-factor) engine for the state-space models: PSD covariances at any conditioning "
+        "(the f32 answer to the reference's float64 stability switch); ~2-3x the flops",
     )
     p.add_argument("--rbf-order", type=int, default=6)
     p.add_argument("--rbf-balance-iter", type=int, default=10)

@@ -1,4 +1,4 @@
-from parallel_gps_torch.kalman import batched, dt, parallel, sequential, strip, timelast
+from parallel_gps_torch.kalman import batched, dt, parallel, sequential, sqrt, strip, timelast
 from parallel_gps_torch.kalman.batched import (
     batched_strip_filter,
     batched_strip_filter_plain,
@@ -19,6 +19,7 @@ from parallel_gps_torch.kalman.dt import (
 )
 from parallel_gps_torch.kalman.parallel import pkf, pkfs, pks
 from parallel_gps_torch.kalman.sequential import kf, kfs, ks
+from parallel_gps_torch.kalman.sqrt import sqrt_lml, sqrt_lml_kernel, sqrt_pkf, sqrt_pkfs, sqrt_pkfs_kernel, sqrt_pks
 from parallel_gps_torch.kalman.strip import strip_filter, strip_filter_plain, strip_smoother, strip_smoother_plain
 from parallel_gps_torch.kalman.timelast import lml_tl, pkf_from_tl, pkfs_from_tl, pks_from_tl
 
@@ -31,6 +32,7 @@ __all__ = [
     "dt",
     "parallel",
     "sequential",
+    "sqrt",
     "strip",
     "timelast",
     "LAUNCHES",
@@ -49,6 +51,12 @@ __all__ = [
     "pkfs_from_tl",
     "pks",
     "pks_from_tl",
+    "sqrt_lml",
+    "sqrt_lml_kernel",
+    "sqrt_pkf",
+    "sqrt_pkfs",
+    "sqrt_pkfs_kernel",
+    "sqrt_pks",
     "strip_filter",
     "strip_filter_dt",
     "strip_filter_dt_plain",

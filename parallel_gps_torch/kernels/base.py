@@ -36,6 +36,7 @@ from parallel_gps_torch import config
 from parallel_gps_torch.models.params import inv_softplus, softplus
 from parallel_gps_torch.ops.balance import balance_scale, balance_ss
 from parallel_gps_torch.ops.disc import discretize, discretize_tl
+from parallel_gps_torch.ops.expm import expm1_dt_tl
 from parallel_gps_torch.ops.lyapunov import solve_lyap_vec
 from parallel_gps_torch.types import LGSSM, LGSSMTL, ContinuousDiscreteModel
 
@@ -62,18 +63,23 @@ class SDEKernel(nn.Module):
         raise NotImplementedError
 
     def transitions_m1_tl(self, dts: Tensor) -> Tensor:
-        """Time-last ``expm(dt_k · F) − I`` as (d, d, T)."""
+        """Time-last ``expm(dt_k · F) − I`` as (d, d, T), or (d, d, C, T) for
+        C chains: the closed form of ``transition_coeffs()``, or for a kernel
+        without one the Padé exponential of ``get_sde().F``
+        (ops/expm.py)."""
         from parallel_gps_torch.kernels.matern import build_transitions_m1
 
         transition = self.transition_coeffs()
         if transition is None:
-            raise NotImplementedError(f"{type(self).__name__} has no transition coefficients: override transitions_m1_tl")
+            return expm1_dt_tl(self.get_sde().F, dts)
         family, coeffs = transition
         return build_transitions_m1(family, coeffs.to(dts.dtype), dts, self.state_dim)
 
     def transitions_m1(self, dts: Tensor) -> Tensor:
-        """``expm(dt_k · F) − I`` as (T, d, d)."""
-        return self.transitions_m1_tl(dts).movedim(-1, 0)
+        """``expm(dt_k · F) − I`` as (T, d, d), or (C, T, d, d) for C chains:
+        a time-first view of ``transitions_m1_tl`` (the Padé path computes
+        time-first and returns a time-last view, so nothing moves)."""
+        return self.transitions_m1_tl(dts).movedim((0, 1), (-2, -1))
 
     def get_ssm(self, ts: Tensor, R: Tensor, t0=0.0) -> LGSSM:
         """Discretised model in the reference (time-first) layout."""
@@ -179,17 +185,6 @@ def _common_planes(planes: list) -> list:
     return out
 
 
-def _child_m1_tl(k: SDEKernel, dts: Tensor) -> Tensor:
-    """A child's closed-form transitions; a child without one needs the Padé
-    matrix exponential, which the port does not have yet."""
-    if type(k).transitions_m1_tl is SDEKernel.transitions_m1_tl and k.transition_coeffs() is None:
-        raise NotImplementedError(
-            f"{type(k).__name__} has no closed-form transitions: a composite of it needs the Padé matrix "
-            "exponential (ops/expm.py), ROADMAP A9"
-        )
-    return k.transitions_m1_tl(dts)
-
-
 class _Composite(SDEKernel):
     """Children in an ``nn.ModuleList``; ``balancing_iter`` < 0 takes
     ``config.NUMBER_OF_BALANCING_STEPS``."""
@@ -253,7 +248,7 @@ class Sum(_Composite):
         """The children's (dk, dk, T) closed forms on the block diagonal,
         conjugated by the balancing similarity (a block-diagonal F
         exponentiates blockwise; subtracting I commutes with both)."""
-        children = _common_planes([_child_m1_tl(k, dts) for k in self.kernels])
+        children = _common_planes([k.transitions_m1_tl(dts) for k in self.kernels])
         d = self.state_dim
         out = children[0].new_zeros((d, d) + children[0].shape[2:])
         r = 0
@@ -314,7 +309,7 @@ class Product(_Composite):
             ib = torch.eye(bm1.shape[0], dtype=bm1.dtype, device=bm1.device)[:, :, None].expand(bm1.shape)
             return kron_tl(am1, bm1) + kron_tl(am1, ib) + kron_tl(ia, bm1)
 
-        out = reduce(fold, _common_planes([_child_m1_tl(k, dts) for k in self.kernels]))
+        out = reduce(fold, _common_planes([k.transitions_m1_tl(dts) for k in self.kernels]))
         return out * _similarity_tl(balance_scale(self._unbalanced_F(), self._n_iter()), out)
 
     def _fold(self, parts):

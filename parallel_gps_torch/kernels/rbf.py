@@ -15,7 +15,9 @@ mapped to ``get_sde``'s balanced basis by the diagonal similarity κ
 ``[1/ℓ | per block: κ·G (d²) and, for a conjugate pair, κ·S (d²)]`` and,
 carried with the family and derived from d alone, the block table
 (``spectral_blocks``).  RBF models with ``parallel=True`` take the dt engine
-(kalman/dt.py), as the reference does.
+(kalman/dt.py), as the reference does.  Above order 8 the transitions are
+the Padé exponential of F (ops/expm.py) and the models take the plain
+time-last engine (d > 8), as the JAX package's XLA route does.
 
 Hyperparameters of shape (C,) (C chains of a sampler) give every matrix and
 the coefficients a leading C axis, as the Matérn kernels do; each chain's
@@ -161,10 +163,6 @@ def spectral_transitions_m1(coeffs: Tensor, dts: Tensor, d: int) -> Tensor:
 
 class RBF(VarianceLengthscaleKernel):
     def __init__(self, variance=1.0, lengthscales=1.0, order: int = 3, balancing_iter: int = -1, *, dtype=None, device=None):
-        if order > SPECTRAL_MAX_ORDER:
-            raise NotImplementedError(
-                f"RBF order {order} > {SPECTRAL_MAX_ORDER} needs the Padé matrix exponential (ops/expm.py): ROADMAP A9"
-            )
         super().__init__(variance, lengthscales, dtype=dtype, device=device)
         self.order = int(order)
         self.balancing_iter = balancing_iter
@@ -216,7 +214,12 @@ class RBF(VarianceLengthscaleKernel):
         each block's projector matrices, laid out
         ``[1/ℓ | per block: κ·G (d²) and, for a conjugate pair, κ·S (d²)]``
         (1 + d³ values, (B, 1 + d³) for B chains); the block table is
-        ``spectral_blocks(d)``."""
+        ``spectral_blocks(d)``.  ``None`` above ``SPECTRAL_MAX_ORDER``: the
+        transitions are then the Padé exponential of ``get_sde().F``
+        (``SDEKernel.transitions_m1_tl``) and the models take the plain
+        time-last engine, as the JAX package routes them (rbf.py:193-199)."""
+        if self.order > SPECTRAL_MAX_ORDER:
+            return None
         kap = self._kappa()
         batch = tuple(kap.shape[:-2])
         parts = [(1.0 / self._ell()).reshape(batch + (1,))]

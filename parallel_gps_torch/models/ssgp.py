@@ -10,17 +10,20 @@ closed-form transition family within its kernels' range (the Matérn kernels,
 d ≤ 3; RBF of order ≤ 8; Periodic, Sum and Product of such kernels up to
 d = 8, as the reference's ``lml_dt`` / ``pkfs_dt`` route); the
 plane-streaming strip engine (kalman/strip.py) for any other
-kernel with d ≤ 8; the plain time-last engine above that.  The dt and strip engines run hand-written CUDA kernels
-when the model lives on a CUDA device and their plain PyTorch versions on
-the CPU.  A model is built on the card unless the caller names another
-device.
+kernel with d ≤ 8; the plain time-last engine above that (RBF above order
+8 through the Padé exponential).  ``stable=True`` takes the square-root
+engine (kalman/sqrt.py) for every kernel.  The dt and strip engines run
+hand-written CUDA kernels when the model lives on a CUDA device and their
+plain PyTorch versions on the CPU.  A model is built on the card unless the
+caller names another device.
 
 Hyperparameters of shape (C,) — given to ``from_numpy``, or substituted by
 ``torch.func.functional_call`` — are C chains of a sampler (or C models) over
 the one data set, for every kernel: the LML is then (C,), one launch of the
 batched kernels for all chains on the dt and strip engines (kalman/dt.py,
-kalman/batched.py) and the plain time-last engine with a batch axis above
-d = 8, and ``predict_f`` gives (C, M, 1).  It is the port's
+kalman/batched.py), the plain time-last engine with a batch axis above
+d = 8 and the square-root engine's leading batch axis, and ``predict_f``
+gives (C, M, 1).  It is the port's
 ``jax.vmap(log_post)`` and ``jax.vmap(lambda m: m.predict_f(X))``.  The
 sequential engine takes no batch axis (ROADMAP.md A14).
 
@@ -38,6 +41,7 @@ from parallel_gps_torch import config
 from parallel_gps_torch.kalman import dt, strip
 from parallel_gps_torch.kalman.batched import batched_strip_smoother, batched_strip_smoother_plain
 from parallel_gps_torch.kalman.sequential import kf, kfs
+from parallel_gps_torch.kalman.sqrt import sqrt_lml_kernel, sqrt_pkfs_kernel
 from parallel_gps_torch.kalman.timelast import lml_tl, pkf_from_tl, pkfs_from_tl
 from parallel_gps_torch.kernels.base import Product, SDEKernel, Sum
 from parallel_gps_torch.kernels.matern import Matern12, Matern32, Matern52
@@ -105,7 +109,10 @@ def _as_tensor(x, dtype, device) -> Tensor:
 
 
 class StateSpaceGP(nn.Module):
-    def __init__(self, ts: Tensor, ys: Tensor, kernel: SDEKernel, raw_noise_variance: Tensor, parallel: bool = True):
+    def __init__(
+        self, ts: Tensor, ys: Tensor, kernel: SDEKernel, raw_noise_variance: Tensor, parallel: bool = True,
+        stable: bool = False,
+    ):
         """``raw_noise_variance``: softplus⁻¹ of the noise variance (use
         ``create`` or ``from_numpy`` to build from constrained values)."""
         super().__init__()
@@ -114,6 +121,7 @@ class StateSpaceGP(nn.Module):
         self.kernel = kernel
         self.raw_noise_variance = nn.Parameter(raw_noise_variance)
         self.parallel = parallel
+        self.stable = stable
 
     @property
     def noise_variance(self) -> Tensor:
@@ -135,17 +143,25 @@ class StateSpaceGP(nn.Module):
         tensors, NaN = missing).  ``device=None`` is the card
         (``config.default_device()``); the CPU must be asked for.
         ``parallel=False`` runs the sequential Kalman filter and smoother, a
-        Python loop over time (the oracle; kalman/sequential.py)."""
+        Python loop over time (the oracle; kalman/sequential.py).
+        ``stable=True`` runs the square-root engine (kalman/sqrt.py):
+        covariances carried as triangular factors, PSD by construction at
+        any conditioning, for d ≳ 8 in float32 at large T (the JAX package's
+        replacement for the reference's float64-only d ≥ 12 sweeps); it
+        needs ``parallel=True`` and no ``mesh``."""
+        if stable:
+            if not parallel:
+                raise ValueError("stable=True requires parallel=True")
+            if mesh is not None:
+                raise ValueError("stable=True is single-device (the sqrt engine has no sharded variant); drop mesh or stable")
         if mesh is not None:
             raise NotImplementedError("mesh= (time-sharded engines) is ROADMAP A13")
-        if stable:
-            raise NotImplementedError("stable=True (the square-root engine) is ROADMAP A10")
         dtype = dtype or config.default_float()
         device = config.resolve_device(device)
         ts, ys = (_as_tensor(x, dtype, device) for x in data)
         kernel = kernel.to(dtype=dtype, device=device)
         nv = torch.as_tensor(np.asarray(noise_variance, dtype=np.float64))
-        return cls(ts, ys, kernel, inv_softplus(nv).to(dtype=dtype, device=device), parallel=parallel)
+        return cls(ts, ys, kernel, inv_softplus(nv).to(dtype=dtype, device=device), parallel=parallel, stable=stable)
 
     @classmethod
     def from_numpy(
@@ -159,6 +175,7 @@ class StateSpaceGP(nn.Module):
         dtype=None,
         device=None,
         parallel: bool = True,
+        stable: bool = False,
         **kernel_options,
     ) -> "StateSpaceGP":
         """Model from numpy arrays of constrained values: the same
@@ -173,7 +190,7 @@ class StateSpaceGP(nn.Module):
         ``jax.vmap``-stacked leaves: C chains over the one data set (module
         docstring).  ``kernel_options``: the kernel's static fields
         (``order`` and ``balancing_iter`` of "RBF", ``balancing_iter`` of
-        "Matern52")."""
+        "Matern52").  ``parallel`` and ``stable`` as in ``create``."""
         dtype = dtype or config.default_float()
         device = config.resolve_device(device)
         variance, lengthscales, noise_variance = (
@@ -183,7 +200,7 @@ class StateSpaceGP(nn.Module):
             k = KERNELS[kernel](variance, lengthscales, dtype=dtype, device=device, **kernel_options)
         else:
             k = kernel_from_spec(kernel, dtype, device)
-        return cls.create((ts, ys), k, noise_variance, parallel=parallel, dtype=dtype, device=device)
+        return cls.create((ts, ys), k, noise_variance, parallel=parallel, dtype=dtype, device=device, stable=stable)
 
     def to_numpy(self) -> dict:
         """The constrained hyperparameters as numpy arrays and, for an RBF
@@ -204,9 +221,11 @@ class StateSpaceGP(nn.Module):
         return out
 
     def engine(self):
-        """("sequential" | "dt" | "strip" | "timelast", transition): the
-        engine the entry points run, and the kernel's ``transition_coeffs()``
-        where the dt-engine takes them."""
+        """("sequential" | "sqrt" | "dt" | "strip" | "timelast", transition):
+        the engine the entry points run, and the kernel's
+        ``transition_coeffs()`` where the dt-engine takes them."""
+        if self.stable:
+            return "sqrt", None
         d = self.kernel.state_dim
         if not self.parallel:
             if self.batched:
@@ -239,6 +258,8 @@ class StateSpaceGP(nn.Module):
         if engine == "dt":
             return dt.lml_dt(self.kernel, self.ts, self.noise_variance, self.ys, transition)
         R = self._R()
+        if engine == "sqrt":
+            return sqrt_lml_kernel(self.kernel, self.ts, R, self.ys)
         if engine == "sequential":
             return kf(self.kernel.get_ssm(self.ts, R), self.ys, return_loglikelihood=True)[2]
         return lml_tl(self.kernel.get_ssm_tl(self.ts, R), self.ys, strip=engine == "strip")
@@ -270,6 +291,14 @@ class StateSpaceGP(nn.Module):
         all_ts, (all_ys,), q_idx = merge_sorted(self.ts, X[order], (self.ys,), (nan_ys,))
         engine, transition = self.engine()
         inv_order = torch.argsort(order)
+        if engine == "sqrt":
+            # The square-root smoother over the merged series: the variance
+            # ‖Nᵀhᵀ‖² ≥ 0 read off the factor, for every chain at once.
+            sms, sNs = sqrt_pkfs_kernel(self.kernel, all_ts, self._R(), all_ys)
+            h = self.kernel.get_sde().H[..., 0, :]  # (…, d)
+            mean = (sms[..., q_idx, :] * h[..., None, :]).sum(-1)
+            var = ((sNs[..., q_idx, :, :].transpose(-1, -2) @ h[..., None, :, None])[..., 0] ** 2).sum(-1)
+            return mean[..., inv_order, None], var[..., inv_order, None]
         if self.batched:
             mean, var = self._predict_batched(engine, transition, all_ts, all_ys)
             return mean[:, q_idx][:, inv_order, None], var[:, q_idx][:, inv_order, None]

@@ -4,9 +4,10 @@ Parlett–Reinsch diagonal similarity scaling.  The scale vector is a constant
 with respect to gradients (the JAX package wraps it in ``stop_gradient``,
 the reference computes it in a host callback), so it is computed here from a
 detached float64 copy of F on the host, with the iteration of
-balance.py:46-61, and returned as a plain tensor.  A batch of matrices
-(…, d, d) — one per chain of a sampler — makes one copy to the host, runs the
-iteration on all of them at once in numpy, and makes one copy back.
+balance.py:46-61, and returned as a plain tensor: for one (d, d) matrix by
+the compiled routine of ops/native.py where it loads, else — and for a
+batch (…, d, d), one matrix per chain of a sampler — by one numpy loop over
+all of them at once.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from torch import Tensor
 
 from parallel_gps_torch import config
+from parallel_gps_torch.ops import native
 
 
 def balance_scale(F: Tensor, n_iter: int) -> Tensor:
@@ -23,6 +25,11 @@ def balance_scale(F: Tensor, n_iter: int) -> Tensor:
     ``F``: (…, d, d); returns (…, d) in F's dtype and device, without
     autograd history."""
     A = F.detach().to("cpu", torch.float64).numpy().copy()
+    if A.ndim == 2 and native.load() is not None:
+        # One matrix: the compiled routine, as the JAX package's host route
+        # (balance.py:36-43 there); where it cannot be built, the loop below,
+        # whose bits it has at d ≤ 8 (ops/native.py).
+        return torch.as_tensor(native.balance_scale_host(A, int(n_iter)), dtype=F.dtype, device=F.device)
     dim = A.shape[-1]
     d = np.ones(A.shape[:-1])
     # A sampler may propose hyperparameters that overflow: the scale is then

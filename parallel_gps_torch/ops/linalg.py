@@ -44,6 +44,12 @@ def solve_small(M: Tensor, B: Tensor) -> Tensor:
     return torch.linalg.solve(M, B)
 
 
+def solve_right(M: Tensor, A: Tensor) -> Tensor:
+    """``A @ inv(M)`` by a transposed solve, batched over leading axes (the
+    reference's ``tf.linalg.solve(M, Aᵀ, adjoint=True)ᵀ``)."""
+    return torch.linalg.solve(M.transpose(-1, -2), A.transpose(-1, -2)).transpose(-1, -2)
+
+
 def cho_solve_psd(S: Tensor, B: Tensor) -> Tensor:
     """Solve ``S X = B`` for symmetric positive-definite S via Cholesky."""
     if S.shape[-1] == 1:  # scalar innovation: the usual one-row observation

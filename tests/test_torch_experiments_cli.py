@@ -2,8 +2,8 @@
 each writes the file names and array names that the JAX CLI writes (its
 ``main`` run with the model work stubbed out, so that nothing compiles);
 the JAX package's ``load_samples`` reads a sample file the port wrote, and
-the port's one that the JAX CLI wrote; ``--plot`` names ROADMAP A12b,
-``--stable`` A10."""
+the port's one that the JAX CLI wrote; ``--plot`` names ROADMAP A12b;
+``--stable`` runs the sweep on the square-root engine."""
 import sys
 
 import jax.numpy as jnp
@@ -157,11 +157,21 @@ def test_toy_speed_writes_the_jax_clis_arrays(tmp_path, monkeypatch, model):
 
 
 def test_plot_names_a12b_stable_names_a10_and_no_run_returns(tmp_path, monkeypatch):
-    out = ["--platform", "cpu", "--out-dir", str(tmp_path)]
+    """``--plot`` raises naming A12b and ``--no-run`` writes nothing; since
+    the square-root engine was ported (it raised naming A10 before),
+    ``--stable`` runs the sweep on it, RMSEs within 1e-6 of the standard
+    engine's in float64."""
+    out = ["--platform", "cpu", "--out-dir", str(tmp_path / "none")]
     for module, argv in ((tmap, ["--sizes", "30"]), (tmcmc, ["--sizes", "30"]), (ttoy_speed, ["--log2-sizes", "5"])):
         with pytest.raises(NotImplementedError, match="A12b"):
             _main(module, argv + out + ["--plot"], monkeypatch)
         _main(module, argv + out + ["--no-run"], monkeypatch)
-        with pytest.raises(NotImplementedError, match="A10"):
-            _main(module, argv + out + ["--stable", "--n-seeds", "1"] if module is ttoy_speed else argv + out + ["--stable"], monkeypatch)
-    assert not list(tmp_path.iterdir())
+    assert not (tmp_path / "none").exists()
+    rmses = {}
+    for flags in ([], ["--stable"]):
+        where = tmp_path / ("stable" if flags else "standard")
+        _main(ttoy_speed, ["--platform", "cpu", "--log2-sizes", "5", "6", "--n-seeds", "1", "--out-dir", str(where)] + flags, monkeypatch)
+        with np.load(where / "speed_stability_pssgp_Matern32_float64.npz") as f:
+            rmses[bool(flags)] = f["rmses"]
+    assert np.isfinite(rmses[True]).all()
+    npt.assert_allclose(rmses[True], rmses[False], rtol=1e-6)

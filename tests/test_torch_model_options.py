@@ -12,11 +12,14 @@ torch.set_num_threads(1)
 
 
 def test_unported_options_raise():
+    """``mesh`` (the time-sharded engines) raises naming A13; ``stable=True``
+    builds a model on the square-root engine."""
     t, y = _data(10, 0)
     k = Matern32(1.0, 0.5, dtype=torch.float64, device="cpu")
-    for kwargs, item in (({"mesh": object()}, "A13"), ({"stable": True}, "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            StateSpaceGP.create((t, y), k, 0.1, dtype=torch.float64, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="A13"):
+        StateSpaceGP.create((t, y), k, 0.1, dtype=torch.float64, device="cpu", mesh=object())
+    model = StateSpaceGP.create((t, y), k, 0.1, dtype=torch.float64, device="cpu", stable=True)
+    assert model.engine() == ("sqrt", None) and model.stable
 
 
 @pytest.mark.parametrize("build", ["from_numpy", "create", "kernel", "rbf"])

@@ -79,5 +79,11 @@ def test_balancing_scale_is_constant_under_autograd():
 
 
 def test_order_above_the_spectral_range_raises():
-    with pytest.raises(NotImplementedError, match="A9"):
-        RBF(1.0, 0.5, order=12, dtype=torch.float64, device="cpu")
+    """Above the spectral range (order 8) the kernel builds, takes no
+    transition family (its transitions are the Padé exponential,
+    test_torch_expm.py) and its SDE is the JAX one's."""
+    jkern, tkern = _pair(12)
+    assert tkern.transition_coeffs() is None
+    want = jit_o0(jkern.get_sde)()
+    for got, ref in zip(tkern.get_sde(), want):
+        _close(got, ref, rtol=1e-9)
